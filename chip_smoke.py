@@ -4,31 +4,55 @@ NVIDIA card.  Run from the repo root: ``python3 chip_smoke.py``.
 
 Phases, each fatal on failure:
 
-1. build   — compile the paged-attention kernel (CUDA C++, sm_90a) from
-             ``mxnet_tpu_torch/csrc`` into ``build/``;
-2. kernel  — hold the kernel against its plain PyTorch version on the
-             card at the test shapes and at the Llama-3-8B serving shapes
-             (k1 in {1, 5}; f32, bf16 and int8 pages; a null page and a
-             lane with no pages), then time it at the 8-lane decode shape
-             beside its byte bound, the plain version and one
-             ``scaled_dot_product_attention`` call (a yardstick only);
-3. serve   — the main path: ``LlamaServer.from_parts(TorchRunner, arena)``
+1. build   — compile the port's kernels (CUDA C++, sm_90a) from
+             ``mxnet_tpu_torch/csrc`` into ``build/``, one nvcc per
+             source, all started together;
+2. kernel  — hold the paged-attention kernel (K4) against its plain
+             PyTorch version on the card at the test shapes and at the
+             Llama-3-8B serving shapes (k1 in {1, 5}; f32, bf16 and int8
+             pages; a null page and a lane with no pages), then time it
+             at the 8-lane decode shape beside its byte bound, the plain
+             version and one ``scaled_dot_product_attention`` call (a
+             yardstick only);
+3. flash   — hold the flash-attention kernels (K1 out and lse, K2 dq, K3
+             dk and dv) against their plain versions on the card (the CPU
+             test shapes, ragged T, causal Tq != Tkv, D 8..128, f32 and
+             bf16 on the tensor-core and, through misaligned buffers, the
+             CUDA-core kernels, and the Llama-3-8B train shape), show that
+             the bf16 check fails planted one-tile faults, check that two
+             backward runs are bitwise equal and that a T = 8192 forward +
+             backward allocates far less than one (T, T) score matrix per
+             head, then time each kernel at the train shape beside its
+             bound, its plain version and
+             ``scaled_dot_product_attention`` (a yardstick only);
+4. serve   — a main path: ``LlamaServer.from_parts(TorchRunner, arena)``
              at Llama-3-8B's full width and depth in bf16 (random weights
              made on the card from a seed) answers greedy requests; every
              request must complete with finite logits, the arena must be
-             quiescent after, and the kernel's launch count must cover
-             every layer of every decode step;
-4. parity  — same widths, 2 layers, f32 with TF32 off: paged greedy
+             quiescent after, and K4's launch count must cover every
+             layer of every decode step;
+5. parity  — same widths, 2 layers, f32 with TF32 off: paged greedy
              tokens must equal greedy by recompute (the port's own
              prefill over prompt + tokens so far), and a port bundle
              round trip (save → ``LlamaServer(path)`` → generate) must
-             serve the same tokens as the server it was saved from.
+             serve the same tokens as the server it was saved from;
+6. train   — a main path: ``JitTrainStep`` with ``adamw`` trains
+             Llama-3-8B at full width, 8 of its 32 layers, weights Xavier
+             from a seeded generator and cast to bf16, on a fixed batch
+             of 2 x 2048 random tokens; every loss must be finite, the
+             last below the first, and K1, K2 and K3 must each have
+             launched at least once per layer per step;
+7. train parity — full width, 1 layer, vocab 2048, f32 with TF32 off:
+             one step's loss and every gradient, and the losses of 3
+             adamw steps, on the card's kernel path must agree with the
+             port's plain path on the host's CPU.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit from nvidia-smi, and before that a
 ``{"kernels": [...]}`` line.  Exits non-zero without that line when CUDA
 is unavailable or any phase fails.
 """
+import gc
 import json
 import math
 import os
@@ -250,7 +274,297 @@ def kernel_timing(pa, dev):
             "max_abs_err": err}
 
 
-# -- phase 3: the main path -----------------------------------------------
+# -- phase 3: the flash-attention kernels against their plain versions ----
+
+TRAIN_B, TRAIN_T, TRAIN_LAYERS = 2, 2048, 8
+
+
+def flash_case(rng, dev, bh, t_q, t_kv, d, dtype, misalign=False):
+    """q, k (x0.5), v and dO, standard normal from ``rng``.  ``misalign``
+    starts each buffer 2 bytes past a 16-byte boundary (contiguous all
+    the same), which keeps bf16 at head dims 64 and 128 off the
+    tensor-core kernels: they need aligned buffers."""
+    import torch
+
+    def make(t, s):
+        x = torch.from_numpy((rng.standard_normal((bh, t, d)) * s)
+                             .astype(np.float32)).to(dev, dtype)
+        if not misalign:
+            return x
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+        return buf[1:].view(x.shape).copy_(x)
+
+    return make(t_q, 0.5), make(t_kv, 0.5), make(t_kv, 1.0), make(t_q, 1.0)
+
+
+# bf16 tolerance, per head and per tile of TILE_ROWS rows of each output
+# (the rows a kernel block owns): the tile's L2 error at most BF16_L2 of
+# the tile's L2 norm, and its largest error at most BF16_MAX of its
+# largest value, each plus a floor of 1e-3 of the tensor's mean tile
+# (for tiles that are all but zero).  Outputs are rounded to bf16 (2^-9
+# relative) and the tensor-core products round p and ds to bf16 as well.
+TILE_ROWS, BF16_L2, BF16_MAX = 64, 1e-2, 2 ** -5
+
+
+def tile_reading(g, w):
+    """The bf16 check's readings for one output, each <= 1 to pass: the
+    worst tile's L2 error and its worst largest error, each against its
+    tolerance."""
+    import torch
+
+    bh, t, d = w.shape
+    pad = -t % TILE_ROWS
+    e, x = ((torch.nn.functional.pad(a.float(), (0, 0, 0, pad))
+             .reshape(bh, -1, TILE_ROWS * d)) for a in (g - w.float(), w))
+    n_tiles = e.shape[0] * e.shape[1]
+    l2_floor = 1e-3 * x.norm() / n_tiles ** 0.5
+    max_floor = 1e-3 * x.abs().amax(-1).mean()
+    l2 = e.norm(dim=-1) / (BF16_L2 * x.norm(dim=-1) + l2_floor)
+    mx = e.abs().amax(-1) / (BF16_MAX * x.abs().amax(-1) + max_floor)
+    return l2.max().item(), mx.max().item()
+
+
+def flash_compare(fa, args, scale, causal):
+    """Run K1, K2 and K3 and their plain versions on ``args``.  Returns
+    ``{tensor: (reading, max_abs_err)}`` for out, lse, dq, dk and dv (a
+    reading <= 1 passes), the kernels' outputs and the plain versions'
+    (in that order), and the bf16 readings' parts.  f32 and lse:
+    |err| <= 2e-4 + 2e-4 |want| elementwise (sums in another order);
+    bf16 outputs: ``tile_reading``."""
+    import torch
+
+    q, k, v, do = args
+    out, lse = fa._fwd_kernel(q, k, v, scale, causal)
+    out_r, lse_r = fa._flash_fwd_ref(q, k, v, scale, causal)
+    delta = (do.float() * out.float()).sum(-1)
+    got = (out, lse) + fa._bwd_kernels(q, k, v, do, lse, delta, scale,
+                                       causal)
+    want = (out_r, lse_r) + fa._flash_bwd_ref(q, k, v, do, lse, delta,
+                                              scale, causal)
+    torch.cuda.synchronize()
+    res, parts = {}, {}
+    for name, g, w in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        fin = torch.isfinite(w)
+        if not torch.equal(fin, torch.isfinite(g)):
+            fail("%s: the kernel's finite entries differ from its plain "
+                 "version's" % name)
+        e = (g.float() - w.float())[fin].abs()
+        err = e.max().item() if e.numel() else 0.0
+        if g.dtype == torch.bfloat16:
+            parts[name] = tile_reading(g, w)
+            res[name] = (max(parts[name]), err)
+        else:
+            res[name] = ((e / (2e-4 + 2e-4 * w.float()[fin].abs())).max()
+                         .item() if e.numel() else 0.0, err)
+    return res, got, want, parts
+
+
+def kernel_errors(res):
+    """Each kernel's own max_abs_err: K1 out and lse, K2 dq, K3 dk, dv."""
+    return {"K1": max(res["out"][1], res["lse"][1]), "K2": res["dq"][1],
+            "K3": max(res["dk"][1], res["dv"][1])}
+
+
+def planted_faults(args, got, want, scale):
+    """The bf16 check must see a fault confined to one tile of one head:
+    a K3 block that wrote nothing, and one loop step (a tile of 64 keys or
+    queries) left out of K1's, K2's or K3's sum, planted in head 0 at
+    rows 1024..1087 of the train-shape outputs, and held against the
+    plain versions.  Returns the readings."""
+    import torch
+
+    q, k, v, do = (x[0].float() for x in args)
+    out, lse, dq, dk, dv = got
+    tile = slice(1024, 1024 + TILE_ROWS)
+    s = (q @ k.T) * scale
+    s = s.masked_fill(torch.ones_like(s, dtype=torch.bool).triu(1),
+                      float("-inf"))
+    p = torch.exp(s - lse[0][:, None])
+    ds = p * (do @ v.T - (do * out[0].float()).sum(-1)[:, None])
+    faults = {
+        "K3 block dropped (dk)": ("dk", lambda x: x[tile].zero_()),
+        "K3 block dropped (dv)": ("dv", lambda x: x[tile].zero_()),
+        "K1 key step dropped (out)": ("out", lambda x: x.sub_(
+            p[:, tile] @ v[tile])),
+        "K2 key step dropped (dq)": ("dq", lambda x: x.sub_(
+            scale * ds[:, tile] @ k[tile])),
+        "K3 query step dropped (dk)": ("dk", lambda x: x.sub_(
+            scale * ds[tile].T @ q[tile])),
+        "K3 query step dropped (dv)": ("dv", lambda x: x.sub_(
+            p[tile].T @ do[tile])),
+    }
+    names = ("out", "lse", "dq", "dk", "dv")
+    readings = {}
+    for label, (name, plant) in faults.items():
+        sound = got[names.index(name)]
+        bad = sound.clone()
+        h0 = bad[0].float()
+        plant(h0)
+        bad[0] = h0.to(bad.dtype)
+        readings[label] = max(tile_reading(bad, want[names.index(name)]))
+    return readings
+
+
+def flash_checks(fa, dev):
+    """K1/K2/K3 against the plain versions over the shapes the CPU tests
+    use, ragged and cross-length cases, and the Llama-3-8B train shape."""
+    import torch
+
+    rng = np.random.default_rng(0)
+    # (label, bh, t_q, t_kv, d, causal)
+    shapes = [("test", 2, 32, 32, 16, False), ("test", 2, 64, 64, 32, True),
+              ("test", 2, 64, 64, 8, True), ("test", 2, 128, 128, 64, False),
+              ("ragged", 3, 100, 100, 64, True),
+              ("ragged", 3, 7, 7, 8, False),
+              ("tq<tkv", 3, 64, 200, 32, True),
+              ("tq>tkv", 3, 200, 64, 16, True),
+              ("tq<tkv", 3, 64, 200, 64, True),
+              ("tq>tkv", 3, 200, 70, 128, True),
+              ("d128", 4, 300, 300, 128, True)]
+    # bf16 at head dims 64 and 128 runs on the tensor-core kernels when
+    # the buffers are 16-byte aligned; misaligned, on the CUDA-core ones
+    for dtype, misalign in ((torch.float32, False), (torch.bfloat16, False),
+                            (torch.bfloat16, True)):
+        for label, bh, t_q, t_kv, d, causal in shapes:
+            if misalign and d not in (64, 128):
+                continue
+            args = flash_case(rng, dev, bh, t_q, t_kv, d, dtype, misalign)
+            res = flash_compare(fa, args, d ** -0.5, causal)[0]
+            worst = max(r for r, _ in res.values())
+            log("flash check %-7s BH=%d Tq=%d Tkv=%d D=%d causal=%d %-8s "
+                "%s %s (reading, max_abs_err) %s"
+                % (label, bh, t_q, t_kv, d, causal, str(dtype)[6:],
+                   "tensor cores" if dtype == torch.bfloat16 and
+                   d in (64, 128) and not misalign else "CUDA cores  ",
+                   " ".join("%s %.2f %.3g" % (n, r, e)
+                            for n, (r, e) in res.items()),
+                   "ok" if worst <= 1 else "FAIL"))
+            if worst > 1:
+                fail("flash kernels disagree with their plain versions")
+    args = flash_case(rng, dev, TRAIN_B * 32, TRAIN_T, TRAIN_T, 128,
+                      torch.bfloat16)
+    res, got, want, parts = flash_compare(fa, args, 128 ** -0.5, True)
+    worst = max(r for r, _ in res.values())
+    log("flash check train   B*H=64 T=2048 D=128 causal bf16 (reading, "
+        "max_abs_err): %s %s; bf16 readings' parts (tile L2, tile max): %s"
+        % (" ".join("%s %.2f %.3g" % (n, r, e) for n, (r, e) in res.items()),
+           "ok" if worst <= 1 else "FAIL",
+           " ".join("%s %.3f %.3f" % ((n,) + pr) for n, pr in parts.items())))
+    if worst > 1:
+        fail("flash kernels disagree with their plain versions at the "
+             "train shape")
+    planted = planted_faults(args, got, want, 128 ** -0.5)
+    log("flash check: planted faults read %s (each must be > 1)"
+        % ", ".join("%s %.2f" % kv for kv in planted.items()))
+    if min(planted.values()) <= 1:
+        fail("the bf16 check passes a planted fault")
+
+    # two backward runs are bitwise equal (no atomics)
+    q, k, v, do = args
+    out, lse = got[:2]
+    delta = (do.float() * out.float()).sum(-1)
+    runs = [fa._bwd_kernels(q, k, v, do, lse, delta, 128 ** -0.5, True)
+            for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        fail("two backward runs differ")
+    log("flash check: two backward runs at the train shape are bitwise "
+        "equal")
+
+    # no (T, T) buffer: the growth of the peak over a forward + backward
+    del args, q, k, v, do, out, lse, delta, runs, got, want
+    torch.cuda.empty_cache()
+    bh, t, d = 32, 8192, 128
+    q, k, v, do = flash_case(rng, dev, bh, t, t, d, torch.bfloat16)
+    q.requires_grad_()
+    k.requires_grad_()
+    v.requires_grad_()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention(q, k, v, causal=True).backward(do)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    one_tt = bh * t * t * 4
+    log("flash check: forward + backward at B*H=32 T=8192 D=128 bf16 grew "
+        "the peak by %.3f GiB; one f32 (T, T) score matrix per head is "
+        "%.1f GiB" % (grown / 2 ** 30, one_tt / 2 ** 30))
+    if grown >= 2 ** 30:
+        fail("flash attention allocated %d bytes at T=8192" % grown)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+
+def flash_timing(fa, dev):
+    """K1, K2 and K3 at the Llama-3-8B train shape (B=2, H=32, T=2048,
+    D=128, causal, bf16) beside their bounds, the plain versions and
+    ``scaled_dot_product_attention`` (forward; backward for K2 + K3,
+    timed together)."""
+    import torch
+    import torch.nn.functional as F
+
+    b, h, t, d = TRAIN_B, 32, TRAIN_T, 128
+    bh, scale = b * h, d ** -0.5
+    rng = np.random.default_rng(3)
+    q, k, v, do = flash_case(rng, dev, bh, t, t, d, torch.bfloat16)
+    out, lse = fa._fwd_kernel(q, k, v, scale, True)
+    delta = (do.float() * out.float()).sum(-1)
+    err = kernel_errors(flash_compare(fa, (q, k, v, do), scale, True)[0])
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    ms = {"K1": cuda_ms(lambda i: fa._fwd_kernel(q, k, v, scale, True), 20),
+          "K2": cuda_ms(lambda i: fa._run(
+              "mxtt_flash_bwd_dq", "dq_launches", q, k, v, do, lse, delta,
+              dq, bh, t, t, d, scale, 1, 1), 20),
+          "K3": cuda_ms(lambda i: fa._run(
+              "mxtt_flash_bwd_dkv", "dkv_launches", q, k, v, do, lse, delta,
+              dk, dv, bh, t, t, d, scale, 1, 1), 20)}
+    plain_fwd = cuda_ms(lambda i: fa._flash_fwd_ref(q, k, v, scale, True),
+                        3, warmup=1)
+    plain_bwd = cuda_ms(lambda i: fa._flash_bwd_ref(
+        q, k, v, do, lse, delta, scale, True), 3, warmup=1)
+    q4, k4, v4 = (x.reshape(b, h, t, d).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_fwd = cuda_ms(lambda i: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), 20)
+    lib_out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.reshape(b, h, t, d)
+    lib_bwd = cuda_ms(lambda i: torch.autograd.grad(
+        lib_out, (q4, k4, v4), do4, retain_graph=True), 20)
+    lib_err = (lib_out.detach().reshape(bh, t, d).float()
+               - out.float()).abs().max().item()
+    # bound: the products' operations on the unmasked (row, col) pairs at
+    # the bf16 tensor-core rate, or each input read once and each output
+    # written once at the HBM rate, whichever is longer
+    pairs = bh * t * (t + 1) // 2
+    tile = bh * t * d * 2                       # one bf16 (BH, T, D)
+    rows = bh * t * 4                           # one f32 (BH, T)
+    work = {"K1": (2, 4 * tile + rows), "K2": (3, 5 * tile + 2 * rows),
+            "K3": (4, 6 * tile + 2 * rows)}
+    plain = {"K1": plain_fwd, "K2": plain_bwd, "K3": plain_bwd}
+    library = {"K1": lib_fwd, "K2": lib_bwd, "K3": lib_bwd}
+    rows_out = {}
+    for name in ("K1", "K2", "K3"):
+        products, n_bytes = work[name]
+        flops = products * 2 * pairs * d
+        t_ops = flops / BF16_FLOPS * 1e3
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        rows_out[name] = {
+            "ms": ms[name], "plain_ms": plain[name],
+            "library_ms": library[name], "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": err[name]}
+        log("flash timing %s B=2 H=32 T=2048 D=128 causal bf16: kernel %.4f "
+            "ms, plain %.4f ms, sdpa %.4f ms, bound %.4f ms (%d flops, %d "
+            "bytes) -> %.1f%% of bound; max_abs_err %.3g"
+            % (name, ms[name], plain[name], library[name], bound, flops,
+               n_bytes, 100.0 * bound / ms[name], err[name]))
+    log("flash timing: sdpa forward vs K1 max_abs_err %.3g; K2 and K3 share "
+        "one plain_ms and one library_ms: the plain backward and the sdpa "
+        "backward compute dq, dk and dv together" % lib_err)
+    return rows_out
+
+
+# -- phase 4: the serve main path -----------------------------------
 
 def timed_runner(serve, weights, arena):
     """A TorchRunner that checks every logits row is finite and records
@@ -376,7 +690,7 @@ def serve_main_path(serve, pa, dev):
     return launches
 
 
-# -- phase 4: f32 parity and the bundle round trip ------------------------
+# -- phase 5: f32 parity and the bundle round trip ------------------------
 
 def recompute_greedy(serve, g, weights, prompt, n, dev):
     """Greedy by recompute: the port's prefill over prompt + tokens so
@@ -459,6 +773,172 @@ def parity(serve, dev):
         fail("bundle round trip served different tokens")
 
 
+# -- phase 6: the train main path -----------------------------------------
+
+def lm_wrapper(gluon, vocab):
+    """The JAX bench's LM wrapper: logits flattened to (B*T, V)."""
+    class LM(gluon.HybridBlock):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, toks):
+            return self.inner(toks).reshape(-1, vocab)
+
+    return LM
+
+
+def log_train_profile(events, wall):
+    rows = [(e.self_device_time_total, e.count, e.key) for e in events]
+    rows = [r for r in rows if r[0] > 0]
+    busy_us = sum(r[0] for r in rows)
+    flash_us = sum(r[0] for r in rows if "flash_" in r[2])
+    log("train: profiled step: wall %.3f ms, device busy %.3f ms (%.1f%%), "
+        "%d kernel launches, flash kernels %.3f ms (%.1f%% of busy)"
+        % (wall * 1e3, busy_us / 1e3, 100 * busy_us / 1e3 / (wall * 1e3),
+           sum(r[1] for r in rows), flash_us / 1e3,
+           100 * flash_us / max(busy_us, 1e-9)))
+    for us, count, key in sorted(rows, reverse=True)[:10]:
+        log("train:   %9.3f ms  x%-5d %s" % (us / 1e3, count, key[:90]))
+    return busy_us / 1e3
+
+
+def train_main_path(fa, dev):
+    """Llama-3-8B width, 8 layers, bf16, adamw through ``JitTrainStep``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch import gluon, initializer, parallel
+    from mxnet_tpu_torch.gluon.model_zoo import llama
+
+    cfg = dict(LLAMA3_8B, num_layers=TRAIN_LAYERS)
+    vocab = cfg.pop("vocab_size")
+    cfg.pop("head_dim")
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    net = llama.LlamaModel(vocab, device=dev, **cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    net.initialize(initializer.Xavier(), generator=gen)
+    net.cast("bfloat16")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in net.parameters())
+    matmul_params = sum(p.numel() for n, p in net.named_parameters()
+                        if p.dim() == 2 and n != "embed.weight")
+    tokens = TRAIN_B * TRAIN_T
+    # forward + backward = 3 x the forward's two products over the
+    # unmasked (row, col) pairs of every head
+    attn_flops = 3 * TRAIN_LAYERS * 4 * (TRAIN_T * (TRAIN_T + 1) // 2) \
+        * cfg["units"] * TRAIN_B
+    step_flops = 6 * matmul_params * tokens + attn_flops
+    log("train: Llama-3-8B width, %d layers, %.3f G params bf16 (%.3f G in "
+        "matmuls), B=%d T=%d, set-up %.1f s"
+        % (TRAIN_LAYERS, n_params / 1e9, matmul_params / 1e9, TRAIN_B,
+           TRAIN_T, time.perf_counter() - t0))
+    step = parallel.JitTrainStep(lm_wrapper(gluon, vocab)(net),
+                                 gluon.loss.SoftmaxCrossEntropyLoss(),
+                                 "adamw", {"learning_rate": 1e-4})
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, vocab, (TRAIN_B, TRAIN_T)).astype(np.int32)
+    labels = rng.randint(0, vocab, TRAIN_B * TRAIN_T).astype(np.float32)
+    for name in ("fwd_launches", "dq_launches", "dkv_launches"):
+        setattr(fa.flash_attention, name, 0)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    n_warm, n_timed = 2, 8
+    for i in range(n_warm + n_timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step.step(toks, labels)
+        losses.append(loss.item())       # syncs
+        if i >= n_warm:
+            times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        losses.append(step.step(toks, labels).item())
+    wall = time.perf_counter() - t0
+    steps = len(losses)
+    launches = {name: getattr(fa.flash_attention, name)
+                for name in ("fwd_launches", "dq_launches", "dkv_launches")}
+    peak = torch.cuda.max_memory_allocated()
+    log("train: losses %s" % ["%.4f" % x for x in losses])
+    if not all(math.isfinite(x) for x in losses):
+        fail("a train loss is not finite")
+    if not losses[-1] < losses[0]:
+        fail("the loss did not fall on the fixed batch")
+    for name, n in launches.items():
+        if n < TRAIN_LAYERS * steps:
+            fail("flash %s = %d over %d steps of %d layers"
+                 % (name, n, steps, TRAIN_LAYERS))
+    times.sort()
+    p50 = times[len(times) // 2]
+    log("train: %d steps, flash launches %s (%d layers x steps = %d)"
+        % (steps, launches, TRAIN_LAYERS, TRAIN_LAYERS * steps))
+    log("train: step ms p50 %.3f (min %.3f max %.3f over %d timed steps), "
+        "%.1f tokens/s, peak device memory %.2f GB (%.2f GB held before the "
+        "phase)" % (1e3 * p50, 1e3 * times[0], 1e3 * times[-1], len(times),
+                    tokens / p50, peak / 1e9, held / 1e9))
+    log("train: model FLOPs per step %.4g (6 x %.4g matmul params x %d "
+        "tokens + %.4g causal attention) -> %.1f%% of 989 TFLOP/s bf16 at "
+        "p50" % (step_flops, matmul_params, tokens, attn_flops,
+                 100 * step_flops / p50 / BF16_FLOPS))
+    busy_ms = log_train_profile(prof.key_averages(), wall)
+    log("train: device busy %.3f ms of the p50 step's %.3f ms"
+        % (busy_ms, 1e3 * p50))
+    del step, net
+    return launches
+
+
+# -- phase 7: the kernel path against the plain path ----------------------
+
+def train_parity(dev):
+    """Full width, 1 layer, vocab 2048, f32, TF32 off, B=1, T=256: the
+    card's kernel path against the port's plain path on the host."""
+    import torch
+
+    from mxnet_tpu_torch import gluon, initializer, parallel
+    from mxnet_tpu_torch.gluon.model_zoo import llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dict(LLAMA3_8B, num_layers=1)
+    del cfg["vocab_size"], cfg["head_dim"]
+    vocab = 2048
+    host = llama.LlamaModel(vocab, device="cpu", **cfg)
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    host.initialize(initializer.Xavier(), generator=gen)
+    card = llama.LlamaModel(vocab, device=dev, **cfg)
+    card.load_state_dict(host.state_dict())
+    rng = np.random.RandomState(2)
+    toks = rng.randint(0, vocab, (1, 256)).astype(np.int32)
+    labels = rng.randint(0, vocab, (1, 256)).astype(np.float32)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    res = []
+    for net in (card, host):
+        where = next(net.parameters()).device
+        x, y = (torch.from_numpy(a).to(where) for a in (toks, labels))
+        loss = loss_fn(net(x), y).mean()
+        grads = torch.autograd.grad(loss, list(net.parameters()))
+        res.append((loss.item(), [g.cpu() for g in grads]))
+    (l_card, g_card), (l_host, g_host) = res
+    worst = max(((a - b).abs().max() / (b.abs().max() + 1e-12)).item()
+                for a, b in zip(g_card, g_host))
+    log("train parity: loss card %.6f host %.6f; worst gradient error %.3g "
+        "of the gradient's max (tolerance 1e-3)" % (l_card, l_host, worst))
+    if abs(l_card - l_host) > 1e-4 * abs(l_host) or worst > 1e-3:
+        fail("the card's train step disagrees with the plain path")
+    traj = []
+    for net in (card, host):
+        step = parallel.JitTrainStep(net, loss_fn, "adamw",
+                                     {"learning_rate": 1e-4})
+        traj.append([step.step(toks, labels).item() for _ in range(3)])
+    log("train parity: 3 adamw steps, losses card %s host %s" % tuple(traj))
+    if max(abs(a - b) for a, b in zip(*traj)) > 1e-3:
+        fail("the card's adamw trajectory disagrees with the plain path")
+
+
 def nvidia_smi_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -468,7 +948,22 @@ def nvidia_smi_line():
     return r.stdout.strip().splitlines()[0]
 
 
-def main():
+PHASES = ("kernel", "flash", "serve", "parity", "train", "train_parity")
+
+
+def kernel_entry(name, source, replaces, launches, timing):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
+            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"],
+            "library_ms": timing["library_ms"]}
+
+
+def main(argv):
+    """``argv[0]``, when given, is a comma-separated subset of PHASES to
+    run (for work on one phase); the result lines print only when every
+    phase ran."""
     import torch
 
     if not torch.cuda.is_available():
@@ -476,8 +971,15 @@ def main():
               "smoke needs an NVIDIA card", file=sys.stderr)
         return 2
     from mxnet_tpu_torch import serve
+    from mxnet_tpu_torch.ops import _build
+    from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.ops import paged_attention as pa
 
+    phases = argv[0].split(",") if argv else list(PHASES)
+    if set(phases) - set(PHASES):
+        print("chip_smoke: unknown phase in %s (phases: %s)"
+              % (phases, ",".join(PHASES)), file=sys.stderr)
+        return 2
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
     log("card: %s | torch %s, CUDA %s, python %s"
@@ -485,34 +987,54 @@ def main():
            sys.version.split()[0]))
     t_all = time.perf_counter()
 
-    t0 = time.perf_counter()
-    lib = pa.build(verbose=True)
-    log("build: %s in %.1f s" % (os.path.relpath(lib, REPO),
-                                 time.perf_counter() - t0))
+    built = _build.build_all([fa._SOURCE, pa._SOURCE], verbose=True)
+    for lib, seconds in built.values():
+        log("build: %s ready after %.1f s" % (os.path.relpath(lib, REPO),
+                                              seconds))
 
-    t0 = time.perf_counter()
-    kernel_checks(pa, dev)
-    timing = kernel_timing(pa, dev)
-    log("kernel phase: %.1f s" % (time.perf_counter() - t0))
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args) if name in phases else None
+        if name in phases:
+            gc.collect()
+            torch.cuda.empty_cache()
+            log("%s phase: %.1f s" % (name, time.perf_counter() - t0))
+        return out
 
-    t0 = time.perf_counter()
-    launches = serve_main_path(serve, pa, dev)
-    torch.cuda.empty_cache()
-    log("serve phase: %.1f s" % (time.perf_counter() - t0))
+    def kernel_phase():
+        kernel_checks(pa, dev)
+        return kernel_timing(pa, dev)
 
-    t0 = time.perf_counter()
-    parity(serve, dev)
-    log("parity phase: %.1f s" % (time.perf_counter() - t0))
+    def flash_phase():
+        flash_checks(fa, dev)
+        return flash_timing(fa, dev)
+
+    k4 = timed("kernel", kernel_phase)
+    flash = timed("flash", flash_phase)
+    k4_launches = timed("serve", serve_main_path, serve, pa, dev)
+    timed("parity", parity, serve, dev)
+    flash_launches = timed("train", train_main_path, fa, dev)
+    timed("train_parity", train_parity, dev)
     log("total: %.1f s" % (time.perf_counter() - t_all))
+    if list(phases) != list(PHASES):
+        log("ran phases %s only: no result lines" % ",".join(phases))
+        return 0
 
-    print(json.dumps({"kernels": [{
-        "name": "K4 paged_attention", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "mxnet_tpu/ops/paged_attention.py:80",
-        "launches": launches, "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]}))
+    src = "mxnet_tpu_torch/csrc/flash_attention.cu"
+    print(json.dumps({"kernels": [
+        kernel_entry("K1 flash_fwd", src,
+                     "mxnet_tpu/ops/pallas_kernels.py:83",
+                     flash_launches["fwd_launches"], flash["K1"]),
+        kernel_entry("K2 flash_bwd_dq", src,
+                     "mxnet_tpu/ops/pallas_kernels.py:166",
+                     flash_launches["dq_launches"], flash["K2"]),
+        kernel_entry("K3 flash_bwd_dkv", src,
+                     "mxnet_tpu/ops/pallas_kernels.py:208",
+                     flash_launches["dkv_launches"], flash["K3"]),
+        kernel_entry("K4 paged_attention",
+                     "mxnet_tpu_torch/csrc/paged_attention.cu",
+                     "mxnet_tpu/ops/paged_attention.py:80", k4_launches,
+                     k4)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -521,4 +1043,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

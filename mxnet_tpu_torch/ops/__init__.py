@@ -1,2 +1,2 @@
 """Operators with hand-written CUDA kernels, each beside its plain
-PyTorch version (``paged_attention``)."""
+PyTorch version (``paged_attention``, ``flash_attention``)."""

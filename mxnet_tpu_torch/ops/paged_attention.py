@@ -14,36 +14,26 @@ tensors go to the plain PyTorch version :func:`_paged_ref`; CUDA tensors
 go to the hand-written Hopper kernel in ``csrc/paged_attention.cu``
 (which replaces the JAX package's Pallas ``_paged_kernel``) or the call
 raises.  The kernel is compiled with ``nvcc`` for ``sm_90a`` into
-``build/`` at the repo root on first use and bound with ``ctypes``.
+``build/`` at the repo root on first use (``ops/_build.py``) and bound
+with ``ctypes``.
 ``paged_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
 from ..base import MXNetError
+from . import _build
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "paged_attention.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+_SOURCE = _build.source_path("paged_attention.cu")
 MAX_HEAD_DIM = 256
 MAX_TABLE_WIDTH = 16384   # a block keeps its lane's table row in smem
 
 # dtype codes of the C interface
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-
-_lib = None
-_lib_lock = threading.Lock()
 
 
 def _paged_ref(q, k_pages, v_pages, block_table, positions, *scales,
@@ -86,65 +76,29 @@ def _paged_ref(q, k_pages, v_pages, block_table, positions, *scales,
     return att.reshape(b, k1, h, d).to(q.dtype)
 
 
-def _nvcc():
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    cand = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise MXNetError("nvcc not found (looked in %s/bin and on PATH): "
-                         "the paged-attention kernel is built from "
-                         "mxnet_tpu_torch/csrc at first use" % cuda_home)
-    return found
-
-
 def library_path():
     """Where the built kernel library lives: ``build/`` at the repo root,
     named by a hash of the source and flags so an edit rebuilds."""
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, "paged_attention-%s.so"
-                        % digest.hexdigest()[:12])
+    return _build.library_path(_SOURCE)
 
 
 def build(verbose=False):
     """Compile ``csrc/paged_attention.cu`` with nvcc (when the library
     for this source is not built yet) and return its path."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.tmp.%d" % (out, os.getpid())
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, _SOURCE]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise MXNetError("nvcc failed building %s:\n%s%s"
-                         % (_SOURCE, r.stdout, r.stderr))
-    if verbose and (r.stdout or r.stderr):
-        print(r.stdout + r.stderr, end="")
-    os.replace(tmp, out)
-    return out
+    return _build.build(_SOURCE, verbose=verbose)
+
+
+def _bind(lib):
+    fn = lib.mxtt_paged_attention
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.mxtt_error_string.argtypes = [ctypes.c_int]
+    lib.mxtt_error_string.restype = ctypes.c_char_p
 
 
 def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.mxtt_paged_attention
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
-                + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            lib.mxtt_error_string.argtypes = [ctypes.c_int]
-            lib.mxtt_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+    return _build.load(_SOURCE, _bind)
 
 
 def _check_cuda_args(q, k_pages, v_pages, block_table, positions, scales):

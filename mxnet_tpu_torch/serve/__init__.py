@@ -26,8 +26,8 @@ Quick start (``device`` defaults to ``cuda:0``)::
 from .arena import PagedKVArena
 from .model import (KVGeometry, build_decode_fn, build_prefill_fn,
                     build_step_fn, build_verify_fn, check_geometry,
-                    convert_weights, default_buckets, init_weights,
-                    load_serving_bundle, save_serving_bundle)
+                    convert_weights, default_buckets, extract_weights,
+                    init_weights, load_serving_bundle, save_serving_bundle)
 from .prefix import PrefixCache
 from .scheduler import (Request, Scheduler, ServeCancelled,
                         ServeDeadlineExceeded, ServeDraining,
@@ -46,7 +46,7 @@ __all__ = [
     "ServeShutdown", "TorchRunner", "build_decode_fn", "build_prefill_fn",
     "build_step_fn", "build_verify_fn", "check_geometry",
     "clamp_retry_after", "convert_weights", "default_buckets",
-    "drive_workload", "greedy_sampler", "init_weights",
+    "drive_workload", "extract_weights", "greedy_sampler", "init_weights",
     "load_serving_bundle", "poisson_workload", "propose_ngram",
     "save_serving_bundle",
 ]

@@ -294,6 +294,31 @@ def convert_weights(raw, dtype="float32", device=None):
             put(norm), None if head is None else put(head))
 
 
+def extract_weights(net):
+    """The port's ``LlamaModel`` as the ``(embed, layers, norm, head)``
+    numpy tuple that :func:`convert_weights` takes, as the JAX package's
+    ``extract_weights`` gives it for its own model: dense weights in
+    (out, in) layout, ``head`` None for tied embeddings, every array f32
+    (numpy has no bf16).  A model trained in the port can then be
+    served by the port."""
+    def pull(p):
+        return p.detach().float().cpu().numpy()
+
+    layers = [{
+        "attn_norm": pull(blk.attn_norm.weight),
+        "q": pull(blk.attn.q_proj.weight),
+        "k": pull(blk.attn.k_proj.weight),
+        "v": pull(blk.attn.v_proj.weight),
+        "o": pull(blk.attn.o_proj.weight),
+        "ffn_norm": pull(blk.ffn_norm.weight),
+        "gate": pull(blk.ffn.gate.weight),
+        "up": pull(blk.ffn.up.weight),
+        "down": pull(blk.ffn.down.weight),
+    } for blk in net.blocks]
+    head = None if net._tie else pull(net.lm_head.weight)
+    return pull(net.embed.weight), layers, pull(net.norm.weight), head
+
+
 _LAYER_KEYS = ("attn_norm", "q", "k", "v", "o", "ffn_norm", "gate", "up",
                "down")
 

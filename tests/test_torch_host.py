@@ -263,6 +263,39 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     assert context.cpu() == torch.device("cpu")
 
 
+def test_train_entry_points_default_to_cuda_and_raise_without_it():
+    from mxnet_tpu_torch import gluon, parallel
+    from mxnet_tpu_torch.gluon.model_zoo import llama
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    if torch.cuda.is_available():
+        net = llama.llama_small()
+        assert next(net.parameters()).device == torch.device("cuda", 0)
+        return
+    # the model, its layers and so every JitTrainStep over them are
+    # made on cuda:0 unless asked otherwise
+    for make in (llama.llama3_8b, llama.llama_small,
+                 lambda: llama.LlamaModel(32, units=8, hidden_size=16,
+                                          num_layers=1, num_heads=2),
+                 lambda: gluon.nn.Dense(4, in_units=4),
+                 lambda: gluon.nn.Embedding(4, 4)):
+        with pytest.raises(MXNetError, match="CUDA is not available"):
+            make()
+    net = llama.llama_small(num_layers=1, device="cpu")
+    step = parallel.JitTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                                 "adamw")
+    step.step(np.zeros((1, 4), np.int32), np.zeros((1, 4), np.float32))
+    assert step._params[0].device == torch.device("cpu")
+    # the flash op runs its kernels on CUDA tensors, its plain versions
+    # on CPU tensors, and nothing else
+    meta = torch.empty((1, 1, 4, 8), device="meta")
+    with pytest.raises(MXNetError, match="cuda or cpu"):
+        fa.flash_attention(meta, meta, meta)
+    with pytest.raises(MXNetError):
+        fa._fwd_kernel(*(torch.zeros(1, 4, 8, dtype=torch.float16),) * 3,
+                       0.5, True)
+
+
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 
@@ -281,7 +314,8 @@ sys.meta_path.insert(0, Block())
 import mxnet_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__,
                                                "mxnet_tpu_torch.")]
-names += ["chip_smoke", "tools.torch_paged_attention_sweep"]
+names += ["chip_smoke", "tools.torch_paged_attention_sweep",
+          "tools.torch_flash_attention_sweep"]
 for name in names:
     importlib.import_module(name)
 bad = sorted(n for n in sys.modules if n.split(".")[0] in
@@ -296,13 +330,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert r.returncode == 0, r.stderr
     line = r.stdout.strip().splitlines()[-1]
     assert line.endswith("BAD []"), line
-    assert int(line.split()[1]) >= 17, line
+    assert int(line.split()[1]) >= 30, line
     # imports inside functions run only on the card: check them by source
     files = [os.path.join(d, f) for d, _, fs in
              os.walk(os.path.join(REPO, "mxnet_tpu_torch")) for f in fs
              if f.endswith(".py")]
     files += [os.path.join(REPO, "chip_smoke.py"),
-              os.path.join(REPO, "tools", "torch_paged_attention_sweep.py")]
+              os.path.join(REPO, "tools", "torch_paged_attention_sweep.py"),
+              os.path.join(REPO, "tools", "torch_flash_attention_sweep.py")]
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -132,9 +132,11 @@ def test_kernel_source_and_build_location():
     # repo root, for sm_90a
     import os
 
+    from mxnet_tpu_torch.ops import _build
+
     assert os.path.isfile(pa_mod._SOURCE)
     assert pa_mod._SOURCE.endswith(os.path.join("csrc",
                                                 "paged_attention.cu"))
-    assert os.path.basename(pa_mod.BUILD_DIR) == "build"
-    assert "arch=compute_90a,code=sm_90a" in pa_mod.NVCC_FLAGS
-    assert pa_mod.library_path().startswith(pa_mod.BUILD_DIR)
+    assert os.path.basename(_build.BUILD_DIR) == "build"
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert pa_mod.library_path().startswith(_build.BUILD_DIR)
