@@ -45,7 +45,26 @@ Phases, each fatal on failure:
 7. train parity — full width, 1 layer, vocab 2048, f32 with TF32 off:
              one step's loss and every gradient, and the losses of 3
              adamw steps, on the card's kernel path must agree with the
-             port's plain path on the host's CPU.
+             port's plain path on the host's CPU;
+8. rtc     — K5, ``mx.rtc.CudaModule``: user CUDA C++ compiled by NVRTC
+             and launched on NDArrays: scale_add equal to x*2 + y, the
+             SwiGLU forward and backward kernels (bf16, f32 arithmetic)
+             within 1 bf16 ulp of their plain versions at Llama-3-8B's MLP
+             shape (4096 x 14336), a planted fault (a block that writes
+             nothing) caught, a compile error raising with NVRTC's log,
+             then each kernel timed beside its byte bound, its plain
+             version and torch's eager ``F.silu(a) * b``;
+9. imperative — a main path: MXNet-style training steps of one
+             Llama-3-8B MLP block at full width, bf16, written on ``mx.nd``
+             with ``ctx=mx.gpu()`` (``autograd.record()``, a SwiGLU
+             ``autograd.Function`` launching the rtc kernels,
+             ``backward()``, in-place SGD); every loss finite and the last
+             below the first, each rtc kernel launched once per step (an
+             engine hook counts); then the imperative dispatch rate and a
+             check that the engine enqueues without waiting;
+10. imperative parity — the same step in f32 with TF32 off at width
+             256 / 512: the card (rtc kernels) against the host
+             (``PallasKernel`` bodies over the plain SwiGLU).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit from nvidia-smi, and before that a
@@ -939,6 +958,657 @@ def train_parity(dev):
         fail("the card's adamw trajectory disagrees with the plain path")
 
 
+# -- phases 8-10: mx.rtc (K5) and the imperative NDArray path -------------
+
+# The user kernels of the rtc and imperative phases: CUDA C++ that
+# ``mx.rtc.CudaModule`` compiles with NVRTC at first use.  The SwiGLU
+# kernels are templates (f32 and bf16), named through ``exports``; each
+# thread takes 16 bytes of every operand, in f32 arithmetic, and rounds
+# once.  ``-DMXTT_SKIP_BLOCK=<b>`` plants a fault: block b writes nothing.
+SCALE_ADD_SOURCE = r"""
+extern "C" __global__ void scale_add(const float *x, const float *y,
+                                     float *out, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = x[i] * 2.0f + y[i];
+}
+"""
+SCALE_ADD_SIGNATURE = "const float *x, const float *y, float *out, int n"
+
+SWIGLU_SOURCE = r"""
+#include <cuda_bf16.h>
+
+__device__ __forceinline__ float mxtt_f32(float x) { return x; }
+__device__ __forceinline__ float mxtt_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T mxtt_from(float x);
+template <> __device__ __forceinline__ float mxtt_from<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+mxtt_from<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
+
+__device__ __forceinline__ float mxtt_sigmoid(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// h = a * sigmoid(a) * b
+template <typename T>
+__device__ __forceinline__ void mxtt_fwd1(const T *a, const T *b, T *h,
+                                          long long i) {
+  float x = mxtt_f32(a[i]), y = mxtt_f32(b[i]);
+  h[i] = mxtt_from<T>(x * mxtt_sigmoid(x) * y);
+}
+
+// da = dh * b * s * (1 + a (1 - s)),  db = dh * a * s,  s = sigmoid(a)
+template <typename T>
+__device__ __forceinline__ void mxtt_bwd1(const T *a, const T *b,
+                                          const T *dh, T *da, T *db,
+                                          long long i) {
+  float x = mxtt_f32(a[i]), y = mxtt_f32(b[i]), g = mxtt_f32(dh[i]);
+  float s = mxtt_sigmoid(x), gs = g * s;
+  da[i] = mxtt_from<T>(gs * y * (1.0f + x * (1.0f - s)));
+  db[i] = mxtt_from<T>(gs * x);
+}
+
+__device__ __forceinline__ bool mxtt_aligned(const void *p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+mxtt_swiglu_fwd(const T *__restrict__ a, const T *__restrict__ b,
+                T *__restrict__ h, long long n) {
+#ifdef MXTT_SKIP_BLOCK
+  if (blockIdx.x == MXTT_SKIP_BLOCK) return;
+#endif
+  constexpr int V = 16 / sizeof(T);
+  long long i0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
+  if (i0 >= n) return;
+  if (i0 + V <= n && mxtt_aligned(a) && mxtt_aligned(b) && mxtt_aligned(h)) {
+    uint4 ra = *reinterpret_cast<const uint4 *>(a + i0);
+    uint4 rb = *reinterpret_cast<const uint4 *>(b + i0);
+    uint4 rh;
+    const T *va = reinterpret_cast<const T *>(&ra);
+    const T *vb = reinterpret_cast<const T *>(&rb);
+    T *vh = reinterpret_cast<T *>(&rh);
+#pragma unroll
+    for (int j = 0; j < V; ++j) mxtt_fwd1(va, vb, vh, j);
+    *reinterpret_cast<uint4 *>(h + i0) = rh;
+  } else {
+    for (long long i = i0; i < n && i < i0 + V; ++i) mxtt_fwd1(a, b, h, i);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+mxtt_swiglu_bwd(const T *__restrict__ a, const T *__restrict__ b,
+                const T *__restrict__ dh, T *__restrict__ da,
+                T *__restrict__ db, long long n) {
+#ifdef MXTT_SKIP_BLOCK
+  if (blockIdx.x == MXTT_SKIP_BLOCK) return;
+#endif
+  constexpr int V = 16 / sizeof(T);
+  long long i0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
+  if (i0 >= n) return;
+  if (i0 + V <= n && mxtt_aligned(a) && mxtt_aligned(b) &&
+      mxtt_aligned(dh) && mxtt_aligned(da) && mxtt_aligned(db)) {
+    uint4 ra = *reinterpret_cast<const uint4 *>(a + i0);
+    uint4 rb = *reinterpret_cast<const uint4 *>(b + i0);
+    uint4 rg = *reinterpret_cast<const uint4 *>(dh + i0);
+    uint4 rda, rdb;
+    T *vda = reinterpret_cast<T *>(&rda), *vdb = reinterpret_cast<T *>(&rdb);
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      mxtt_bwd1(reinterpret_cast<const T *>(&ra),
+                reinterpret_cast<const T *>(&rb),
+                reinterpret_cast<const T *>(&rg), vda, vdb, j);
+    *reinterpret_cast<uint4 *>(da + i0) = rda;
+    *reinterpret_cast<uint4 *>(db + i0) = rdb;
+  } else {
+    for (long long i = i0; i < n && i < i0 + V; ++i)
+      mxtt_bwd1(a, b, dh, da, db, i);
+  }
+}
+"""
+SWIGLU_EXPORTS = ("mxtt_swiglu_fwd<float>", "mxtt_swiglu_fwd<__nv_bfloat16>",
+                  "mxtt_swiglu_bwd<float>", "mxtt_swiglu_bwd<__nv_bfloat16>")
+SWIGLU_THREADS = 256
+_C_TYPES = {"torch.float32": "float", "torch.bfloat16": "__nv_bfloat16"}
+FP32_FLOPS = 67e12                 # H100 SXM data sheet, outside tensor cores
+
+
+def swiglu_fwd_ref(a, b):
+    """Plain SwiGLU forward on tensors: ``a·σ(a)·b`` in f32, rounded once
+    to a's dtype."""
+    import torch
+
+    x, y = a.float(), b.float()
+    return (x * torch.sigmoid(x) * y).to(a.dtype)
+
+
+def swiglu_bwd_ref(a, b, dh):
+    """Plain SwiGLU backward: ``(dh·b·σ(a)(1 + a(1−σ(a))), dh·a·σ(a))``
+    in f32, each rounded once."""
+    import torch
+
+    x, y, g = a.float(), b.float(), dh.float()
+    s = torch.sigmoid(x)
+    gs = g * s
+    return (gs * y * (1 + x * (1 - s))).to(a.dtype), (gs * x).to(b.dtype)
+
+
+def _swiglu_fwd_body(a_ref, b_ref, h_ref):
+    h_ref[...] = swiglu_fwd_ref(a_ref[...], b_ref[...])
+
+
+def _swiglu_bwd_body(a_ref, b_ref, dh_ref, da_ref, db_ref):
+    da_ref[...], db_ref[...] = swiglu_bwd_ref(a_ref[...], b_ref[...],
+                                              dh_ref[...])
+
+
+class SwigluKernels:
+    """SwiGLU forward and backward as user kernels of ``mx.rtc``: on a
+    gpu context the CUDA kernels of ``SWIGLU_SOURCE`` (one NVRTC compile,
+    f32 and bf16), on the host ``PallasKernel`` bodies over the plain
+    versions.  ``options`` go to NVRTC."""
+
+    def __init__(self, mx, options=()):
+        self.mx = mx
+        self.options = tuple(options)
+        self.module = None
+        self._kernels = {}
+
+    def kernel(self, which, dtype):
+        """The ``CudaKernel`` for ``which`` ("fwd" or "bwd") and a torch
+        dtype (float32 or bfloat16)."""
+        key = (which, str(dtype))
+        k = self._kernels.get(key)
+        if k is None:
+            if self.module is None:
+                self.module = self.mx.rtc.CudaModule(
+                    SWIGLU_SOURCE, options=self.options,
+                    exports=SWIGLU_EXPORTS)
+            t = _C_TYPES[str(dtype)]
+            sig = ("const {t} *a, const {t} *b, {t} *h, long long n"
+                   if which == "fwd" else
+                   "const {t} *a, const {t} *b, const {t} *dh, {t} *da, "
+                   "{t} *db, long long n").format(t=t)
+            k = self.module.get_kernel("mxtt_swiglu_%s<%s>" % (which, t),
+                                       sig)
+            self._kernels[key] = k
+        return k
+
+    @staticmethod
+    def grid(a):
+        per_block = SWIGLU_THREADS * (16 // a.data().element_size())
+        return (-(-a.size // per_block), 1, 1)
+
+    def _launch(self, which, arrays, outs):
+        a = arrays[0]
+        self.kernel(which, a.data().dtype).launch(
+            list(arrays) + list(outs) + [a.size], a.context, self.grid(a),
+            (SWIGLU_THREADS, 1, 1))
+        return outs
+
+    def _new(self, a):
+        return self.mx.nd.empty(a.shape, ctx=a.context, dtype=a.data().dtype)
+
+    def fwd(self, a, b, out=None):
+        if a.context.device_type == "gpu":
+            return self._launch("fwd", (a, b),
+                                [out if out is not None else self._new(a)])[0]
+        rtc = self.mx.rtc
+        spec = rtc.ShapeDtypeStruct(a.shape, a.data().dtype)
+        return rtc.PallasKernel(_swiglu_fwd_body, out_shape=spec,
+                                name="swiglu_fwd")(a, b)
+
+    def bwd(self, a, b, dh, out=None):
+        if a.context.device_type == "gpu":
+            return self._launch("bwd", (a, b, dh), out if out is not None
+                                else [self._new(a), self._new(b)])
+        rtc = self.mx.rtc
+        spec = rtc.ShapeDtypeStruct(a.shape, a.data().dtype)
+        return rtc.PallasKernel(_swiglu_bwd_body, out_shape=(spec, spec),
+                                name="swiglu_bwd")(a, b, dh)
+
+
+def swiglu_function(mx, kernels):
+    """An ``mx.autograd.Function`` class for ``h = a·σ(a)·b`` whose
+    forward and backward launch ``kernels.fwd`` and ``kernels.bwd``."""
+
+    class SwiGLU(mx.autograd.Function):
+        def forward(self, a, b):
+            self.save_for_backward(a, b)
+            return kernels.fwd(a, b)
+
+        def backward(self, dh):
+            a, b = self.saved_tensors
+            return tuple(kernels.bwd(a, b, dh))
+
+    return SwiGLU
+
+
+def mlp_step(mx, params, x, target, swiglu, lr):
+    """One MXNet-style training step of a Llama MLP block, written as user
+    code on ``mx.nd``: ``y = (SwiGLU(x·Wg, x·Wu))·Wd``, a mean-square loss
+    against ``target`` (f32), ``backward`` and an in-place SGD update.
+    ``swiglu(a, b)`` applies the SwiGLU Function.  Works with either
+    package.  Returns the loss NDArray (before the update)."""
+    nd, autograd = mx.nd, mx.autograd
+    wg, wu, wd = params
+    with autograd.record():
+        a = nd.dot(x, wg)
+        b = nd.dot(x, wu)
+        h = swiglu(a, b)
+        y = nd.dot(h, wd)
+        diff = y.astype("float32") - target
+        loss = (diff * diff).mean()
+    loss.backward()
+    for w in params:
+        w -= lr * w.grad
+    return loss
+
+
+def mlp_numpy(units, hidden, tokens, seed):
+    """Seeded numpy inputs of ``mlp_step``: Wg, Wu, Wd (std 1/sqrt(fan-in)),
+    x and target (standard normal)."""
+    rng = np.random.default_rng(seed)
+
+    def rand(shape, std):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    return ([rand((units, hidden), units ** -0.5),
+             rand((units, hidden), units ** -0.5),
+             rand((hidden, units), hidden ** -0.5)],
+            rand((tokens, units), 1.0), rand((tokens, units), 1.0))
+
+
+def mlp_arrays(mx, arrays, ctx=None):
+    """``mlp_numpy``'s arrays as NDArrays of ``mx`` (weights marked)."""
+    weights, x, target = arrays
+    params = [mx.nd.array(w, ctx=ctx) for w in weights]
+    for w in params:
+        w.attach_grad()
+    return params, mx.nd.array(x, ctx=ctx), mx.nd.array(target, ctx=ctx)
+
+
+def bf16_ulps(got, want):
+    """Per-element distance in bf16 ulps between two bf16 tensors."""
+    import torch
+
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+def _ulp_reading(got, want):
+    u = bf16_ulps(got, want)
+    return (u.max().item(), int((u > 1).sum().item()),
+            (got.float() - want.float()).abs().max().item())
+
+
+IMP_TOKENS = TRAIN_B * TRAIN_T      # 2 x 2048 tokens, the train batch
+IMP_LR = 100.0
+
+
+def rtc_checks(mx, dev):
+    """K5 on the card: (a) scale_add exact, (b) the SwiGLU kernels within
+    1 bf16 ulp of their plain versions at Llama-3-8B's MLP shape, a
+    planted fault caught, (c) a compile error raising with NVRTC's log.
+    Returns the SwiGLU kernels and operands for the timing."""
+    import torch
+
+    from mxnet_tpu_torch.ops import _nvrtc
+
+    rtc, nd, ctx = mx.rtc, mx.nd, mx.gpu(0)
+    t0 = time.perf_counter()
+    mod = rtc.CudaModule(SCALE_ADD_SOURCE)
+    log("rtc: NVRTC %d.%d compiled scale_add for sm_90a in %.2f s "
+        "(options %s)" % (_nvrtc.version() + (time.perf_counter() - t0,
+                                                " ".join(mod.options))))
+    k = mod.get_kernel("scale_add", SCALE_ADD_SIGNATURE)
+    rs = np.random.RandomState(4)
+    x = rs.randn(8, 128).astype(np.float32)
+    y = rs.randn(8, 128).astype(np.float32)
+    xa, ya = nd.array(x, ctx=ctx), nd.array(y, ctx=ctx)
+    out = nd.empty((8, 128), ctx=ctx)
+    k.launch([xa, ya, out, x.size], ctx, (4, 1, 1), (256, 1, 1))
+    got = out.asnumpy()
+    plain = (xa.data() * 2 + ya.data()).cpu().numpy()
+    exact = np.array_equal(got, x * 2 + y) and np.array_equal(got, plain)
+    log("rtc check (a) scale_add (8, 128) f32: equal to x*2 + y (numpy and "
+        "torch on the card): %s" % ("ok" if exact else "FAIL"))
+    if not exact:
+        fail("scale_add differs from x*2 + y")
+
+    # (b) SwiGLU forward and backward at Llama-3-8B's MLP shape, bf16
+    t0 = time.perf_counter()
+    kern = SwigluKernels(mx)
+    for which in ("fwd", "bwd"):
+        for dt in (torch.bfloat16, torch.float32):
+            kern.kernel(which, dt)
+    log("rtc: NVRTC compiled the SwiGLU templates (%s) in %.2f s"
+        % (", ".join(SWIGLU_EXPORTS), time.perf_counter() - t0))
+    shape = (IMP_TOKENS, LLAMA3_8B["hidden_size"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    a, b, dh = (torch.randn(shape, generator=gen, device=dev).mul_(s)
+                .to(torch.bfloat16) for s in (2.0, 1.0, 0.05))
+    A, B, DH = (nd.array(t, ctx=ctx) for t in (a, b, dh))
+    h = kern.fwd(A, B)
+    da, db = kern.bwd(A, B, DH)
+    want = (swiglu_fwd_ref(a, b),) + swiglu_bwd_ref(a, b, dh)
+    readings = {}
+    for name, g, w in zip(("h", "da", "db"), (h, da, db), want):
+        readings[name] = _ulp_reading(g.data(), w)
+    log("rtc check (b) SwiGLU (%d, %d) bf16 against the plain versions (f32, "
+        "rounded once): %s (max ulps, elements over 1 ulp, max_abs_err)"
+        % (shape + (" ".join("%s %d %d %.3g" % ((n,) + r)
+                             for n, r in readings.items()),)))
+    if any(r[0] > 1 for r in readings.values()):
+        fail("a SwiGLU kernel is more than 1 bf16 ulp off its plain version")
+    # a planted fault: block 7 of each kernel writes nothing
+    bad = SwigluKernels(mx, options=("-DMXTT_SKIP_BLOCK=7",))
+    hb = bad.fwd(A, B, out=nd.zeros(shape, ctx=ctx, dtype="bfloat16"))
+    dab, dbb = bad.bwd(A, B, DH, out=[nd.zeros(shape, ctx=ctx,
+                                                 dtype="bfloat16")
+                                        for _ in range(2)])
+    planted = {n: _ulp_reading(g.data(), w) for n, g, w in
+               zip(("h", "da", "db"), (hb, dab, dbb), want)}
+    log("rtc check (b): block 7 planted to write nothing reads %s (max ulps, "
+        "elements over 1 ulp: each must fail)"
+        % " ".join("%s %d %d" % (n, r[0], r[1]) for n, r in planted.items()))
+    if min(r[0] for r in planted.values()) <= 1:
+        fail("the 1-ulp check passes a planted fault")
+
+    # (c) a compile error raises with NVRTC's log
+    try:
+        rtc.CudaModule('extern "C" __global__ void broken(float *x) '
+                       '{ x[0] = mxtt_not_declared; }')
+    except mx.MXNetError as e:
+        msg = str(e)
+    else:
+        fail("NVRTC compiled a broken source")
+    if "mxtt_not_declared" not in msg or "error" not in msg:
+        fail("the compile error lacks NVRTC's log: %s" % msg)
+    log("rtc check (c) compile error raised MXNetError with NVRTC's log: %s"
+        % " | ".join(line.strip() for line in msg.splitlines()[:3]))
+    errs = {"fwd": readings["h"][2],
+            "bwd": max(readings["da"][2], readings["db"][2])}
+    return kern, (a, b, dh), (A, B, DH), errs
+
+
+def rtc_timing(mx, kern, tensors, arrays, errs):
+    """(d) Each SwiGLU kernel at the MLP shape beside its byte bound, its
+    plain version and torch's eager ``F.silu(a) * b`` (forward) and that
+    expression's autograd backward; and the host cost of one launch."""
+    import torch
+    import torch.nn.functional as F
+
+    a, b, dh = tensors
+    A, B, DH = arrays
+    ctx, n = A.context, a.numel()
+    fwd_k, bwd_k = (kern.kernel(w, torch.bfloat16) for w in ("fwd", "bwd"))
+    h = kern._new(A)
+    dab = [kern._new(A), kern._new(B)]
+    ms = {"fwd": cuda_ms(lambda i: kern.fwd(A, B, out=h), 50),
+          "bwd": cuda_ms(lambda i: kern.bwd(A, B, DH, out=dab), 50)}
+    plain = {"fwd": cuda_ms(lambda i: swiglu_fwd_ref(a, b), 10),
+             "bwd": cuda_ms(lambda i: swiglu_bwd_ref(a, b, dh), 10)}
+    la, lb = (t.detach().requires_grad_() for t in (a, b))
+    lib_h = F.silu(la) * lb
+    library = {"fwd": cuda_ms(lambda i: F.silu(a) * b, 50),
+               "bwd": cuda_ms(lambda i: torch.autograd.grad(
+                   lib_h, (la, lb), dh, retain_graph=True), 50)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        fwd_k.launch([A, B, h, n], ctx, kern.grid(A), (SWIGLU_THREADS, 1, 1))
+    host_us = (time.perf_counter() - t0) / 100 * 1e6
+    torch.cuda.synchronize()
+    # bound: each operand read once, each output written once (bf16), or
+    # the f32 arithmetic at the CUDA-core rate, whichever is longer
+    work = {"fwd": (3 * n * 2, 7 * n), "bwd": (5 * n * 2, 13 * n)}
+    rows = {}
+    for w in ("fwd", "bwd"):
+        n_bytes, flops = work[w]
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        rows[w] = {"ms": ms[w], "plain_ms": plain[w],
+                   "library_ms": library[w], "bound_ms": bound,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "max_abs_err": errs[w]}
+        log("rtc timing (d) SwiGLU %s (%d, %d) bf16: kernel %.4f ms, plain "
+            "%.4f ms, torch eager %.4f ms, bound %.4f ms (%d bytes at 3.35 "
+            "TB/s) -> %.1f%% of bound" % (
+                w, IMP_TOKENS, LLAMA3_8B["hidden_size"], ms[w], plain[w],
+                library[w], bound, n_bytes, 100.0 * bound / ms[w]))
+    log("rtc timing (d): host enqueue %.1f us per CudaKernel.launch (engine "
+        "push, argument checks, cuLaunchKernel)" % host_us)
+    return rows
+
+
+def rtc_phase(mx, dev):
+    kern, tensors, arrays, errs = rtc_checks(mx, dev)
+    return rtc_timing(mx, kern, tensors, arrays, errs)
+
+
+def dispatch_rate(mx, ctx, record, chain_len=20, n_iters=30, windows=5):
+    """Imperative ops/s through a ``chain_len``-op elementwise chain on a
+    (64, 64) array (the JAX package's ``bench.py`` ``_dispatch_rate``):
+    plain, or under ``record()`` with ``backward()``; the median of
+    ``windows`` windows.  Host-bound by design."""
+    nd, autograd = mx.nd, mx.autograd
+    x = nd.ones((64, 64), ctx=ctx)
+    if record:
+        x.attach_grad()
+
+    def run_iter():
+        if record:
+            with autograd.record():
+                a = x
+                for i in range(chain_len):
+                    a = (a + 1.0) if i % 2 else (a * 1.0009765625)
+                loss = a.sum()
+            loss.backward()
+            x.grad.wait_to_read()
+        else:
+            a = x
+            for i in range(chain_len):
+                a = (a + 1.0) if i % 2 else (a * 1.0009765625)
+            a.wait_to_read()
+
+    for _ in range(3):
+        run_iter()
+    rates = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(n_iters):
+            run_iter()
+        rates.append(chain_len * n_iters / (time.perf_counter() - t0))
+    return sorted(rates)[len(rates) // 2]
+
+
+def imperative_main_path(mx, dev):
+    """A main path: MXNet-style training steps of one Llama-3-8B MLP block
+    at full width (4096 / 14336, bf16 weights from a seeded card
+    generator) on a 2 x 2048-token batch, written on ``mx.nd`` with
+    ``ctx=mx.gpu()``; SwiGLU is an ``autograd.Function`` whose forward and
+    backward launch the rtc kernels.  Then the engine's dispatch rate and
+    its asynchrony."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ctx = mx.gpu(0)
+    units, hidden = LLAMA3_8B["units"], LLAMA3_8B["hidden_size"]
+    held = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def rand(shape, std, dtype=torch.bfloat16):
+        return mx.nd.array(torch.randn(shape, generator=gen, device=dev)
+                           .mul_(std).to(dtype), ctx=ctx)
+
+    params = [rand((units, hidden), units ** -0.5),
+              rand((units, hidden), units ** -0.5),
+              rand((hidden, units), hidden ** -0.5)]
+    for w in params:
+        w.attach_grad()
+    x = rand((IMP_TOKENS, units), 1.0)
+    target = rand((IMP_TOKENS, units), 1.0, torch.float32)
+    kern = SwigluKernels(mx)
+    kernels = [kern.kernel(w, torch.bfloat16) for w in ("fwd", "bwd")]
+    SwiGLU = swiglu_function(mx, kern)
+    names = [k.name for k in kernels]
+    counts = dict.fromkeys(names, 0)
+
+    def hook(name, t0, t1):
+        if name in counts:
+            counts[name] += 1
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.zeros(1, device=dev)      # the first profile starts CUPTI, slowly
+    eng = mx.engine.Engine.get()
+    for k in kernels:
+        k.launches = 0
+    losses, times, per_step = [], [], []
+    n_warm, n_timed = 2, 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng.add_hook(hook)
+    try:
+        for i in range(n_warm + n_timed + 1):
+            before = dict(counts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == n_warm + n_timed:       # one profiled step, untimed
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    loss = mlp_step(mx, params, x, target,
+                                    lambda a, b: SwiGLU()(a, b), IMP_LR)
+                    losses.append(float(loss.asscalar()))
+                wall = time.perf_counter() - t0
+            else:
+                loss = mlp_step(mx, params, x, target,
+                                lambda a, b: SwiGLU()(a, b), IMP_LR)
+                losses.append(float(loss.asscalar()))     # syncs
+                if i >= n_warm:
+                    times.append(time.perf_counter() - t0)
+            per_step.append([counts[n] - before[n] for n in names])
+    finally:
+        eng.remove_hook(hook)
+    launches = {n: k.launches for n, k in zip(names, kernels)}
+    peak = torch.cuda.max_memory_allocated()
+    log("imperative: Llama-3-8B MLP block (%d / %d, bf16), %d tokens, SGD "
+        "lr %g; losses %s" % (units, hidden, IMP_TOKENS, IMP_LR,
+                              ["%.5f" % v for v in losses]))
+    if not all(math.isfinite(v) for v in losses):
+        fail("an imperative loss is not finite")
+    if not losses[-1] < losses[0]:
+        fail("the imperative loss did not fall")
+    if any(c != [1, 1] for c in per_step) or \
+            any(v != len(losses) for v in launches.values()):
+        fail("the rtc kernels did not launch once per step: engine hook "
+             "counts %s, kernel counts %s" % (per_step, launches))
+    times.sort()
+    p50 = times[len(times) // 2]
+    # model FLOPs: 3 products forward, twice that backward; x is not
+    # differentiated, so the step runs 7 of those 9 products
+    flops = 3 * 3 * 2 * IMP_TOKENS * units * hidden
+    run_flops = 7 * 2 * IMP_TOKENS * units * hidden
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()]
+    rows = [r for r in rows if r[0] > 0]
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    rtc_ms = sum(r[0] for r in rows if "mxtt_swiglu" in r[2]) / 1e3
+    log("imperative: %d steps, each rtc kernel once per step (engine hook: "
+        "%s; kernel counts %s)" % (len(losses), per_step[0], launches))
+    log("imperative: step ms p50 %.3f (min %.3f max %.3f over %d timed "
+        "steps), %.4g model FLOP per step -> %.1f TFLOP/s (%.1f%% of 989 "
+        "bf16; %.1f TFLOP/s over the %.4g FLOP the step runs), peak device "
+        "memory %.3f GB (%.3f GB held before the phase)"
+        % (1e3 * p50, 1e3 * times[0], 1e3 * times[-1], len(times), flops,
+           flops / p50 / 1e12, 100 * flops / p50 / BF16_FLOPS,
+           run_flops / p50 / 1e12, run_flops, peak / 1e9, held / 1e9))
+    log("imperative: profiled step: wall %.3f ms, device busy %.3f ms "
+        "(%.1f%% of that wall, %.1f%% of the unprofiled p50 step), %d kernel "
+        "launches, rtc SwiGLU kernels %.3f ms"
+        % (wall * 1e3, busy_ms, 100 * busy_ms / (wall * 1e3),
+           100 * busy_ms / (p50 * 1e3), sum(r[1] for r in rows), rtc_ms))
+    for us, count, key in sorted(rows, reverse=True)[:6]:
+        log("imperative:   %8.3f ms  x%-3d %s" % (us / 1e3, count, key[:90]))
+    del params, x, target, loss
+
+    plain = dispatch_rate(mx, ctx, record=False)
+    recorded = dispatch_rate(mx, ctx, record=True)
+    log("imperative: dispatch over a 20-op chain on (64, 64) f32: %.0f ops/s "
+        "plain, %.0f ops/s under record() with backward()"
+        % (plain, recorded))
+    big = mx.nd.ones((8192, 8192), ctx=ctx)
+
+    def chain():
+        a = big
+        for i in range(20):
+            a = (a + 1.0) if i % 2 else (a * 1.0009765625)
+        return a
+
+    chain()
+    mx.waitall()
+    t0 = time.perf_counter()
+    out = chain()
+    t_enqueue = time.perf_counter() - t0
+    mx.waitall()
+    t_all = time.perf_counter() - t0
+    value = float(out[0, 0].asscalar())
+    log("imperative: a 20-op chain on (8192, 8192) f32 was enqueued in %.3f "
+        "ms; waitall() returned after %.3f ms (value %.6f)"
+        % (1e3 * t_enqueue, 1e3 * t_all, value))
+    if not t_enqueue < 0.5 * t_all or not math.isfinite(value):
+        fail("the engine is not asynchronous: enqueue %.3f ms of %.3f ms"
+             % (1e3 * t_enqueue, 1e3 * t_all))
+    return {w: (n, launches[n]) for w, n in zip(("fwd", "bwd"), names)}
+
+
+def imperative_parity(mx, dev):
+    """The imperative step in f32 with TF32 off at width 256 / 512 and 64
+    tokens, once on the card (the rtc kernels) and once on the host
+    (PallasKernel bodies over the plain SwiGLU): the loss and every
+    gradient and updated weight must agree."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arrays = mlp_numpy(256, 512, 64, seed=3)
+    res = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        kern = SwigluKernels(mx)
+        SwiGLU = swiglu_function(mx, kern)
+        params, x, target = mlp_arrays(mx, arrays, ctx)
+        loss = mlp_step(mx, params, x, target, lambda a, b: SwiGLU()(a, b),
+                        0.5)
+        if ctx.device_type == "gpu" and [
+                kern.kernel(w, torch.float32).launches
+                for w in ("fwd", "bwd")] != [1, 1]:
+            fail("the card's f32 step did not launch the rtc kernels")
+        res.append((float(loss.asscalar()),
+                    [w.grad.asnumpy() for w in params],
+                    [w.asnumpy() for w in params]))
+    (l_card, g_card, w_card), (l_host, g_host, w_host) = res
+    worst_g = max(np.abs(a - b).max() / np.abs(b).max()
+                  for a, b in zip(g_card, g_host))
+    worst_w = max(np.abs(a - b).max() / np.abs(b).max()
+                  for a, b in zip(w_card, w_host))
+    log("imperative parity: f32 loss card %.7f host %.7f; worst gradient "
+        "error %.3g and worst updated-weight error %.3g of the tensor's max "
+        "(tolerance 1e-4)" % (l_card, l_host, worst_g, worst_w))
+    if abs(l_card - l_host) > 1e-5 * abs(l_host) or worst_g > 1e-4 or \
+            worst_w > 1e-4:
+        fail("the card's imperative step disagrees with the host's")
+
+
 def nvidia_smi_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -948,7 +1618,8 @@ def nvidia_smi_line():
     return r.stdout.strip().splitlines()[0]
 
 
-PHASES = ("kernel", "flash", "serve", "parity", "train", "train_parity")
+PHASES = ("kernel", "flash", "serve", "parity", "train", "train_parity",
+          "rtc", "imperative", "imperative_parity")
 
 
 def kernel_entry(name, source, replaces, launches, timing):
@@ -970,6 +1641,7 @@ def main(argv):
         print("chip_smoke: torch.cuda.is_available() is false — this "
               "smoke needs an NVIDIA card", file=sys.stderr)
         return 2
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import serve
     from mxnet_tpu_torch.ops import _build
     from mxnet_tpu_torch.ops import flash_attention as fa
@@ -987,10 +1659,11 @@ def main(argv):
            sys.version.split()[0]))
     t_all = time.perf_counter()
 
-    built = _build.build_all([fa._SOURCE, pa._SOURCE], verbose=True)
-    for lib, seconds in built.values():
-        log("build: %s ready after %.1f s" % (os.path.relpath(lib, REPO),
-                                              seconds))
+    if set(phases) & set(PHASES[:6]):   # the phases of K1-K4
+        built = _build.build_all([fa._SOURCE, pa._SOURCE], verbose=True)
+        for lib, seconds in built.values():
+            log("build: %s ready after %.1f s"
+                % (os.path.relpath(lib, REPO), seconds))
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -1015,6 +1688,9 @@ def main(argv):
     timed("parity", parity, serve, dev)
     flash_launches = timed("train", train_main_path, fa, dev)
     timed("train_parity", train_parity, dev)
+    k5 = timed("rtc", rtc_phase, mx, dev)
+    k5_launches = timed("imperative", imperative_main_path, mx, dev)
+    timed("imperative_parity", imperative_parity, mx, dev)
     log("total: %.1f s" % (time.perf_counter() - t_all))
     if list(phases) != list(PHASES):
         log("ran phases %s only: no result lines" % ",".join(phases))
@@ -1034,7 +1710,11 @@ def main(argv):
         kernel_entry("K4 paged_attention",
                      "mxnet_tpu_torch/csrc/paged_attention.cu",
                      "mxnet_tpu/ops/paged_attention.py:80", k4_launches,
-                     k4)]}))
+                     k4)] + [
+        kernel_entry("K5 rtc %s (user kernel, NVRTC)" % k5_launches[w][0],
+                     "chip_smoke.py", "mxnet_tpu/rtc.py:43",
+                     k5_launches[w][1], k5[w])
+        for w in ("fwd", "bwd")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,19 +2,32 @@
 
 The JAX package stays the reference; this package mirrors its paths and
 public names and imports neither JAX nor anything of ``mxnet_tpu``.
-Ported so far: the Llama serving tier (``serve``) with the paged
-attention kernel (``ops.paged_attention``), Llama training (``gluon``,
-``initializer``, ``optimizer``, ``parallel.JitTrainStep``) with the
-flash-attention forward and backward kernels (``ops.flash_attention``),
-all kernels CUDA C++ for sm_90a in ``csrc/``, and the telemetry and
-testing modules the serving tier uses.
+Ported so far:
 
-Entry points run on ``cuda:0`` unless given ``device="cpu"``.
+* the Llama serving tier (``serve``) with the paged-attention kernel
+  (``ops.paged_attention``, K4);
+* Llama training (``gluon``, ``initializer``, ``optimizer``,
+  ``parallel.JitTrainStep``) with the flash-attention forward and
+  backward kernels (``ops.flash_attention``, K1–K3);
+* MXNet's imperative frontend: ``nd`` (NDArray on a ``Context`` and the
+  ops of ``ops/tensor.py``), the dependency ``engine`` over CUDA
+  streams, the ``autograd`` tape over torch's autograd, and ``rtc``
+  (K5: user CUDA C++ compiled by NVRTC and launched on NDArrays, and
+  the interpreted ``PallasKernel``);
+* the telemetry and testing modules these tiers use.
+
+The port's own kernels are CUDA C++ for sm_90a in ``csrc/``.  Entry
+points run on the card (``cuda:0``, ``gpu(0)``) unless asked for the
+host with ``device="cpu"``, ``ctx=mx.cpu()`` or ``with mx.cpu():``.
 """
 from . import base, context, ops, serve, telemetry, testing  # noqa: F401
 from . import gluon, initializer, optimizer, parallel  # noqa: F401
+from . import autograd, engine, ndarray, rtc  # noqa: F401
 from . import initializer as init  # noqa: F401
+from . import ndarray as nd  # noqa: F401
 from .base import MXNetError  # noqa: F401
-from .context import cpu, gpu  # noqa: F401
+from .context import (Context, cpu, current_context, gpu,  # noqa: F401
+                      num_gpus)
+from .engine import waitall  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,0 +1,16 @@
+"""``mx.nd`` — the imperative tensor namespace.
+
+Op functions are generated at import from the port's registry
+(``ops/tensor.py``), as the JAX package's ``ndarray/__init__.py`` does
+from its own.
+"""
+from __future__ import annotations
+
+from ..ops import tensor as _t  # noqa: F401  (registers the ops)
+from .ndarray import (  # noqa: F401
+    NDArray, arange, array, concatenate, empty, full, moveaxis, ones,
+    ones_like, shard, waitall, zeros, zeros_like,
+)
+from .register import populate as _populate
+
+_populate(globals())

@@ -1,0 +1,742 @@
+"""NDArray: MXNet's imperative tensor, over one torch tensor.
+
+The port's counterpart of the JAX package's ``ndarray/ndarray.py``
+(reference: ``include/mxnet/ndarray.h`` and
+``python/mxnet/ndarray/ndarray.py``).  An NDArray holds one tensor on
+its context's device, an engine ``Var`` whose version each write bumps,
+and its autograd state.  Every op goes through ``ops.registry.invoke``,
+so on the card it enqueues on torch's current stream and returns;
+``wait_to_read``, ``asnumpy`` and ``waitall`` are the sync points.
+
+Where the port differs from the JAX package, deliberately:
+
+* writes are in place: ``a += b``, ``a[1:3] = x``, ``copyto`` and
+  ``out=`` write into the array's own tensor (MXNet's semantics; the JAX
+  package swaps immutable buffers).  ``detach()`` shares the tensor, as
+  in MXNet.  Reads by indexing return copies, as in the JAX package.
+* ``dtype`` is a numpy dtype, except ``bfloat16``, which numpy lacks:
+  there it is ``torch.bfloat16``, and ``asnumpy`` returns float32.
+* without a context, arrays go to the current context, which is
+  ``gpu(0)`` unless a ``with mx.cpu():`` scope says otherwise.
+
+Not ported yet (a call raises ``MXNetError`` naming the slice in
+``ROADMAP.md``): sharding (``reshard``, ``with_sharding_constraint``,
+``shard``, S8), sparse storage (``tostype``, S7), dlpack (S7), and the
+methods over ops this slice leaves out (``softmax``/``log_softmax``,
+``one_hot``, ``sort``/``argsort``/``topk``, S7).
+"""
+from __future__ import annotations
+
+import numpy as _np
+import torch
+
+from .. import autograd
+from ..base import MXNetError
+from ..context import Context, as_context
+from ..engine import Engine, Var
+from ..ops import registry as _reg
+from ..ops.tensor import to_torch_dtype
+
+
+def _not_ported(what, slice_):
+    raise MXNetError("%s is not ported to mxnet_tpu_torch yet (%s in "
+                     "ROADMAP.md)" % (what, slice_))
+
+
+def _numpy_dtype(dt):
+    return dt if dt == torch.bfloat16 else \
+        _np.dtype(str(dt).replace("torch.", ""))
+
+
+def _host_tensor(source, dtype):
+    """A fresh host tensor from numpy data, lists or scalars, with the
+    JAX package's defaults: float64 → float32 and int64 → int32 when no
+    dtype is asked for."""
+    tdt = to_torch_dtype(dtype)
+    if isinstance(source, torch.Tensor):
+        t = source.detach()
+    else:
+        arr = _np.array(source, copy=True)
+        if tdt is None and arr.dtype == _np.float64:
+            arr = arr.astype(_np.float32)
+        elif tdt is None and arr.dtype == _np.int64:
+            arr = arr.astype(_np.int32)
+        t = torch.from_numpy(arr) if arr.dtype != _np.bool_ \
+            else torch.from_numpy(arr.astype(_np.uint8)).bool()
+    return t if tdt is None else t.to(tdt)
+
+
+class NDArray:
+    """A mutable tensor on a context, with engine and autograd state."""
+
+    __slots__ = ("_data", "_ctx", "_var", "_marked", "_grad", "_grad_req",
+                 "_leaf", "__weakref__")
+
+    def __init__(self, data, ctx=None, dtype=None):
+        if isinstance(data, NDArray):
+            data = data._data.detach()
+        if isinstance(data, torch.Tensor) and ctx is None:
+            ctx = Context.from_device(data.device)
+        ctx = as_context(ctx)
+        t = _host_tensor(data, dtype) if not isinstance(
+            data, torch.Tensor) or dtype is not None else data
+        dev = ctx.torch_device
+        if t.device != dev:
+            t = t.to(dev)
+        self._data = t
+        self._ctx = ctx
+        self._init_rest()
+
+    def _init_rest(self):
+        self._var = Var()
+        self._marked = False
+        self._grad = None
+        self._grad_req = "write"
+        self._leaf = None
+
+    @classmethod
+    def _wrap(cls, tensor, ctx):
+        """An NDArray over an op's output tensor (no copy, no checks)."""
+        arr = cls.__new__(cls)
+        arr._data = tensor
+        arr._ctx = ctx
+        arr._init_rest()
+        return arr
+
+    # ------------------------------------------------------------------
+    # core accessors
+    # ------------------------------------------------------------------
+    def data(self):
+        """The backing torch tensor (framework-internal)."""
+        return self._data
+
+    def _op_input(self, recording):
+        """The tensor an op reads: inside ``record()``, a marked array
+        feeds its leaf view so torch records the op."""
+        if recording and self._marked and self._data.grad_fn is None:
+            return self._leaf_view()
+        return self._data
+
+    def _leaf_view(self):
+        if self._leaf is None:
+            self._leaf = self._data.detach().requires_grad_()
+        return self._leaf
+
+    def _graph_input(self):
+        """What ``autograd.grad`` differentiates with respect to."""
+        if self._marked and self._data.grad_fn is None:
+            return self._leaf_view()
+        return self._data
+
+    def _set_data(self, new):
+        """Swap in a new tensor: bump the version, drop the leaf view."""
+        self._data = new
+        self._leaf = None
+        self._var.on_write()
+
+    @property
+    def shape(self):
+        return tuple(self._data.shape)
+
+    @property
+    def dtype(self):
+        return _numpy_dtype(self._data.dtype)
+
+    @property
+    def size(self):
+        return self._data.numel()
+
+    @property
+    def ndim(self):
+        return self._data.dim()
+
+    @property
+    def context(self):
+        return self._ctx
+
+    ctx = context
+
+    @property
+    def stype(self):
+        return "default"
+
+    @property
+    def _in_graph(self):
+        return self._marked or self._data.requires_grad
+
+    # ------------------------------------------------------------------
+    # sync / host transfer
+    # ------------------------------------------------------------------
+    def wait_to_read(self):
+        """Wait for the op that wrote this array (rethrowing its error)."""
+        Engine.get().wait_for_var(self._var, self._data.device,
+                                  origin="wait_to_read")
+        return self
+
+    def asnumpy(self):
+        self._var.rethrow()
+        Engine.get().notify_sync("asnumpy")
+        t = self._data.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy().copy() if t.device.type == "cpu" \
+            else t.cpu().numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.asnumpy()
+        return a.astype(dtype) if dtype is not None else a
+
+    def asscalar(self):
+        if self.size != 1:
+            raise ValueError("the array is not scalar-sized")
+        return self.asnumpy().reshape(())[()]
+
+    def item(self):
+        return self.asscalar()
+
+    def __float__(self):
+        return float(self.asscalar())
+
+    def __int__(self):
+        return int(self.asscalar())
+
+    def __bool__(self):
+        if self.size == 1:
+            return bool(self.asscalar())
+        raise ValueError("ambiguous truth value of multi-element NDArray")
+
+    def __len__(self):
+        if self.ndim == 0:
+            raise TypeError("len() of unsized object")
+        return self.shape[0]
+
+    def __repr__(self):
+        return "\n%s\n<NDArray %s @%s>" % (
+            self.asnumpy(), "x".join(map(str, self.shape)), self._ctx)
+
+    # ------------------------------------------------------------------
+    # autograd
+    # ------------------------------------------------------------------
+    def attach_grad(self, grad_req="write", stype=None):
+        """Mark for gradient collection (parity: ndarray.py attach_grad):
+        a zero gradient buffer, filled by each ``backward``."""
+        self._mark(grad_req, torch.zeros_like(self._data))
+
+    def _mark(self, grad_req, grad_buf):
+        if grad_req not in ("write", "add", "null"):
+            raise MXNetError("grad_req %r (write, add or null)" % grad_req)
+        if self._data.requires_grad:
+            self._data = self._data.detach()
+        self._marked = True
+        self._grad_req = grad_req
+        self._grad = None if grad_req == "null" else grad_buf
+        self._leaf = None
+        autograd._marked[id(self)] = self
+
+    def _write_grad(self, g):
+        """One backward's gradient, written by ``grad_req``."""
+        if self._grad_req == "null":
+            return
+        g = g.to(self._data.dtype)
+        if self._grad is None or self._grad.shape != g.shape:
+            self._grad = g.clone()
+        elif self._grad_req == "add":
+            self._grad.add_(g)
+        else:
+            self._grad.copy_(g)
+
+    @property
+    def grad(self):
+        if self._grad is None:
+            return None
+        return NDArray._wrap(self._grad, self._ctx)
+
+    def zero_grad(self):
+        if self._grad is not None:
+            self._grad.zero_()
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        autograd.backward([self], [out_grad] if out_grad is not None
+                          else None, retain_graph=retain_graph,
+                          train_mode=train_mode)
+
+    def detach(self):
+        """A new array over the same tensor, outside any graph."""
+        return NDArray._wrap(self._data.detach(), self._ctx)
+
+    # ------------------------------------------------------------------
+    # conversion / copies
+    # ------------------------------------------------------------------
+    def astype(self, dtype, copy=True):
+        tdt = to_torch_dtype(dtype)
+        if not copy and self._data.dtype == tdt:
+            return self
+        return _reg.invoke("cast", [self], {"dtype": tdt})
+
+    def copy(self):
+        return _reg.invoke("identity", [self])
+
+    def copyto(self, other):
+        """Copy into ``other`` (an NDArray, in place) or onto a context."""
+        if isinstance(other, NDArray):
+            if other.shape != self.shape:
+                raise ValueError("copyto shape mismatch")
+            src = self._data.detach()
+            Engine.get().push(
+                lambda: other._data.copy_(src), (self._var,),
+                (other._var,), op_name="copyto", device=other._data.device)
+            return other
+        if isinstance(other, (Context, torch.device, str)):
+            return self.as_in_context(other)
+        raise TypeError("copyto target must be NDArray or Context")
+
+    def as_in_context(self, context):
+        ctx = as_context(context)
+        if ctx == self._ctx:
+            return self
+        dev = ctx.torch_device
+        (out,) = _reg.invoke_fn(lambda d: (d.to(dev),), [self],
+                                op_name="_copyto", ctx=ctx)
+        return out
+
+    as_in_ctx = as_in_context
+
+    def tostype(self, stype):
+        if stype != "default":
+            _not_ported("sparse storage (tostype %r)" % stype, "S7")
+        return self
+
+    def reshard(self, spec=None, mesh=None):
+        _not_ported("NDArray.reshard", "S8")
+
+    def with_sharding_constraint(self, spec=None, mesh=None):
+        _not_ported("NDArray.with_sharding_constraint", "S8")
+
+    def to_dlpack_for_read(self):
+        _not_ported("dlpack", "S7")
+
+    to_dlpack_for_write = to_dlpack_for_read
+
+    # ------------------------------------------------------------------
+    # shape ops (method forms)
+    # ------------------------------------------------------------------
+    def reshape(self, *shape, **kwargs):
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        if not shape and "shape" in kwargs:
+            shape = tuple(kwargs["shape"])
+        return _reg.invoke("reshape", [self], {"shape": tuple(shape)})
+
+    def reshape_like(self, other):
+        return _reg.invoke("reshape_like", [self, other])
+
+    def flatten(self):
+        return _reg.invoke("flatten", [self])
+
+    def expand_dims(self, axis):
+        return _reg.invoke("expand_dims", [self], {"axis": axis})
+
+    def squeeze(self, axis=None):
+        return _reg.invoke("squeeze", [self], {"axis": axis})
+
+    def transpose(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (tuple, list)):
+            axes = tuple(axes[0])
+        return _reg.invoke("transpose", [self], {"axes": axes or None})
+
+    @property
+    def T(self):
+        return self.transpose()
+
+    def swapaxes(self, dim1, dim2):
+        return _reg.invoke("swapaxes", [self], {"dim1": dim1, "dim2": dim2})
+
+    def broadcast_to(self, shape):
+        return _reg.invoke("broadcast_to", [self], {"shape": tuple(shape)})
+
+    def broadcast_like(self, other):
+        return _reg.invoke("broadcast_like", [self, other])
+
+    def tile(self, reps):
+        return _reg.invoke("tile", [self], {"reps": tuple(reps)})
+
+    def slice(self, begin, end, step=None):
+        return _reg.invoke("slice", [self],
+                           {"begin": tuple(begin), "end": tuple(end),
+                            "step": tuple(step) if step else ()})
+
+    def slice_axis(self, axis, begin, end):
+        return _reg.invoke("slice_axis", [self],
+                           {"axis": axis, "begin": begin, "end": end})
+
+    def take(self, indices, axis=0, mode="clip"):
+        return _reg.invoke("take", [self, _as_nd(indices, self._ctx)],
+                           {"axis": axis, "mode": mode})
+
+    def flip(self, axis):
+        return _reg.invoke("reverse", [self], {"axis": axis})
+
+    def pad(self, mode, pad_width, constant_value=0.0):
+        return _reg.invoke("pad", [self],
+                           {"mode": mode, "pad_width": tuple(pad_width),
+                            "constant_value": constant_value})
+
+    def split(self, num_outputs, axis=1, squeeze_axis=False):
+        return _reg.invoke("split", [self],
+                           {"num_outputs": num_outputs, "axis": axis,
+                            "squeeze_axis": squeeze_axis})
+
+    # reductions and elementwise functions as methods
+    def _reduce(self, op, axis, keepdims):
+        return _reg.invoke(op, [self], {"axis": axis, "keepdims": keepdims})
+
+    def sum(self, axis=None, keepdims=False):
+        return self._reduce("sum", axis, keepdims)
+
+    def mean(self, axis=None, keepdims=False):
+        return self._reduce("mean", axis, keepdims)
+
+    def max(self, axis=None, keepdims=False):
+        return self._reduce("max", axis, keepdims)
+
+    def min(self, axis=None, keepdims=False):
+        return self._reduce("min", axis, keepdims)
+
+    def prod(self, axis=None, keepdims=False):
+        return self._reduce("prod", axis, keepdims)
+
+    def argmax(self, axis=None, keepdims=False):
+        return self._reduce("argmax", axis, keepdims)
+
+    def argmin(self, axis=None, keepdims=False):
+        return self._reduce("argmin", axis, keepdims)
+
+    def norm(self, ord=2, axis=None, keepdims=False):
+        return _reg.invoke("norm", [self],
+                           {"ord": ord, "axis": axis, "keepdims": keepdims})
+
+    def clip(self, a_min, a_max):
+        return _reg.invoke("clip", [self], {"a_min": a_min, "a_max": a_max})
+
+    def abs(self):
+        return _reg.invoke("abs", [self])
+
+    def sign(self):
+        return _reg.invoke("sign", [self])
+
+    def sqrt(self):
+        return _reg.invoke("sqrt", [self])
+
+    def square(self):
+        return _reg.invoke("square", [self])
+
+    def exp(self):
+        return _reg.invoke("exp", [self])
+
+    def log(self):
+        return _reg.invoke("log", [self])
+
+    def relu(self):
+        return _reg.invoke("relu", [self])
+
+    def sigmoid(self):
+        return _reg.invoke("sigmoid", [self])
+
+    def tanh(self):
+        return _reg.invoke("tanh", [self])
+
+    def dot(self, other, transpose_a=False, transpose_b=False):
+        return _reg.invoke("dot", [self, other],
+                           {"transpose_a": transpose_a,
+                            "transpose_b": transpose_b})
+
+    def softmax(self, axis=-1):
+        _not_ported("softmax (ops/nn.py)", "S6")
+
+    log_softmax = softmax
+
+    def one_hot(self, depth, **kwargs):
+        _not_ported("one_hot", "S7")
+
+    def topk(self, axis=-1, k=1, ret_typ="indices", is_ascend=False):
+        _not_ported("topk", "S7")
+
+    def sort(self, axis=-1, is_ascend=True):
+        _not_ported("sort", "S7")
+
+    argsort = sort
+
+    # ------------------------------------------------------------------
+    # arithmetic operators
+    # ------------------------------------------------------------------
+    def _binary(self, other, op, scalar_op, rscalar_op=None, reverse=False):
+        if isinstance(other, NDArray):
+            a, b = (other, self) if reverse else (self, other)
+            return _reg.invoke(op, [a, b])
+        if isinstance(other, (int, float, bool, _np.number)):
+            name = (rscalar_op or scalar_op) if reverse else scalar_op
+            return _reg.invoke(name, [self], {"scalar": float(other)})
+        if isinstance(other, (_np.ndarray, list, tuple)):
+            return self._binary(NDArray(other, ctx=self._ctx), op, scalar_op,
+                                rscalar_op, reverse)
+        return NotImplemented
+
+    def __add__(self, o):
+        return self._binary(o, "broadcast_add", "_plus_scalar")
+
+    def __radd__(self, o):
+        return self._binary(o, "broadcast_add", "_plus_scalar", reverse=True)
+
+    def __sub__(self, o):
+        return self._binary(o, "broadcast_sub", "_minus_scalar",
+                            "_rminus_scalar")
+
+    def __rsub__(self, o):
+        return self._binary(o, "broadcast_sub", "_minus_scalar",
+                            "_rminus_scalar", reverse=True)
+
+    def __mul__(self, o):
+        return self._binary(o, "broadcast_mul", "_mul_scalar")
+
+    def __rmul__(self, o):
+        return self._binary(o, "broadcast_mul", "_mul_scalar", reverse=True)
+
+    def __truediv__(self, o):
+        return self._binary(o, "broadcast_div", "_div_scalar",
+                            "_rdiv_scalar")
+
+    def __rtruediv__(self, o):
+        return self._binary(o, "broadcast_div", "_div_scalar",
+                            "_rdiv_scalar", reverse=True)
+
+    def __mod__(self, o):
+        return self._binary(o, "broadcast_mod", "_mod_scalar",
+                            "_rmod_scalar")
+
+    def __rmod__(self, o):
+        return self._binary(o, "broadcast_mod", "_mod_scalar",
+                            "_rmod_scalar", reverse=True)
+
+    def __pow__(self, o):
+        return self._binary(o, "broadcast_power", "_power_scalar",
+                            "_rpower_scalar")
+
+    def __rpow__(self, o):
+        return self._binary(o, "broadcast_power", "_power_scalar",
+                            "_rpower_scalar", reverse=True)
+
+    def __neg__(self):
+        return _reg.invoke("negative", [self])
+
+    def __abs__(self):
+        return _reg.invoke("abs", [self])
+
+    def __eq__(self, o):
+        if o is None:
+            return False
+        return self._binary(o, "broadcast_equal", "_equal_scalar")
+
+    def __ne__(self, o):
+        if o is None:
+            return True
+        return self._binary(o, "broadcast_not_equal", "_not_equal_scalar")
+
+    def __gt__(self, o):
+        return self._binary(o, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, o):
+        return self._binary(o, "broadcast_greater_equal",
+                            "_greater_equal_scalar")
+
+    def __lt__(self, o):
+        return self._binary(o, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, o):
+        return self._binary(o, "broadcast_lesser_equal",
+                            "_lesser_equal_scalar")
+
+    __hash__ = None  # mutable; matches reference NDArray unhashability
+
+    # in-place: into this array's own tensor; inside record() an array in
+    # the graph takes the recorded result instead (as MXNet's += does)
+    def _inplace(self, o, method, dunder):
+        if autograd.is_recording() and (
+                self._in_graph or getattr(o, "_in_graph", False)):
+            self._adopt(dunder(self, o))
+            return self
+        other = o._data if isinstance(o, NDArray) else o
+        if isinstance(other, (_np.ndarray, list, tuple)):
+            other = _host_tensor(other, None).to(self._data.device)
+        try:
+            ok = torch.result_type(self._data, other) == self._data.dtype \
+                and torch.broadcast_shapes(
+                    getattr(other, "shape", ()), self.shape) == self.shape
+        except RuntimeError:      # shapes that do not broadcast
+            ok = False
+        if not ok:
+            self._adopt(dunder(self, o))
+            return self
+        reads = (self._var, o._var) if isinstance(o, NDArray) else \
+            (self._var,)
+        with torch.no_grad():
+            Engine.get().push(lambda: getattr(self._data, method)(other),
+                              reads, (self._var,), op_name=method,
+                              device=self._data.device)
+        return self
+
+    def __iadd__(self, o):
+        return self._inplace(o, "add_", NDArray.__add__)
+
+    def __isub__(self, o):
+        return self._inplace(o, "sub_", NDArray.__sub__)
+
+    def __imul__(self, o):
+        return self._inplace(o, "mul_", NDArray.__mul__)
+
+    def __itruediv__(self, o):
+        return self._inplace(o, "div_", NDArray.__truediv__)
+
+    def _adopt(self, res):
+        """Take ``res``'s value: copied into this array's tensor when
+        neither carries a graph and the shapes and types agree, else by
+        taking ``res``'s tensor (and graph)."""
+        if not res._data.requires_grad and not self._data.requires_grad \
+                and res._data.shape == self._data.shape \
+                and res._data.dtype == self._data.dtype \
+                and res._data.device == self._data.device:
+            with torch.no_grad():
+                self._data.copy_(res._data)
+            self._var.on_write()
+        else:
+            self._set_data(res._data)
+
+    # ------------------------------------------------------------------
+    # indexing
+    # ------------------------------------------------------------------
+    def _conv_index(self, key):
+        if isinstance(key, NDArray):
+            return self._index_tensor(key)
+        if isinstance(key, tuple):
+            return tuple(self._index_tensor(k) if isinstance(k, NDArray)
+                         else k for k in key)
+        return key
+
+    @staticmethod
+    def _index_tensor(k):
+        d = k._data
+        return d.long() if d.is_floating_point() or d.dtype == torch.int32 \
+            else d
+
+    def __getitem__(self, key):
+        """A copy of the indexed part (recorded inside ``record()``)."""
+        key = self._conv_index(key)
+        (out,) = _reg.invoke_fn(lambda d: (d[key].clone(),), [self],
+                                op_name="_index")
+        return out
+
+    def __setitem__(self, key, value):
+        if autograd.is_recording() and self._in_graph:
+            raise MXNetError("in-place assignment on a taped array")
+        key = self._conv_index(key)
+        reads = (self._var,)
+        if isinstance(value, NDArray):
+            reads += (value._var,)
+            value = value._data.detach()
+        elif not isinstance(value, (int, float, bool)):
+            value = _host_tensor(value, None)
+        if isinstance(value, torch.Tensor):
+            value = value.to(self._data.device, self._data.dtype)
+
+        def write():
+            with torch.no_grad():
+                self._data[key] = value
+
+        Engine.get().push(write, reads, (self._var,), op_name="_setitem",
+                          device=self._data.device)
+
+
+def _as_nd(x, ctx=None):
+    if isinstance(x, NDArray):
+        return x
+    return NDArray(x, ctx=ctx)
+
+
+def shard(arr, spec=None, mesh=None):
+    _not_ported("nd.shard", "S8")
+
+
+# ----------------------------------------------------------------------------
+# creation helpers (parity: python/mxnet/ndarray/utils.py + ndarray.py)
+# ----------------------------------------------------------------------------
+
+
+def array(source_array, ctx=None, dtype=None):
+    """A new array holding a copy of ``source_array`` (numpy data, a list,
+    a scalar, a tensor or an NDArray), as MXNet's ``nd.array`` does: a
+    later in-place write to either leaves the other alone."""
+    out = NDArray(source_array, ctx=ctx, dtype=dtype)
+    src = source_array._data if isinstance(source_array, NDArray) \
+        else source_array
+    if isinstance(src, torch.Tensor) and \
+            out._data.data_ptr() == src.data_ptr():
+        out._data = out._data.clone()
+    return out
+
+
+def _create(op, shape, ctx, dtype, **attrs):
+    if isinstance(shape, int):
+        shape = (shape,)
+    return _reg.invoke(op, [], dict(attrs, shape=tuple(shape),
+                                    dtype=dtype or "float32", ctx=ctx))
+
+
+def empty(shape, ctx=None, dtype=None):
+    """An uninitialized array (MXNet's semantics; the JAX package returns
+    zeros): for outputs that a kernel writes in full."""
+    if isinstance(shape, int):
+        shape = (shape,)
+    ctx = as_context(ctx)
+    return NDArray._wrap(torch.empty(
+        tuple(shape), dtype=to_torch_dtype(dtype or "float32"),
+        device=ctx.torch_device), ctx)
+
+
+def zeros(shape, ctx=None, dtype=None, **kwargs):
+    return _create("_zeros", shape, ctx, dtype)
+
+
+def ones(shape, ctx=None, dtype=None, **kwargs):
+    return _create("_ones", shape, ctx, dtype)
+
+
+def full(shape, val, ctx=None, dtype=None):
+    return _create("_full", shape, ctx, dtype, value=val)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
+    return _reg.invoke("_arange", [], {
+        "start": start, "stop": stop, "step": step, "repeat": repeat,
+        "dtype": dtype or "float32", "ctx": ctx})
+
+
+def zeros_like(a):
+    return _reg.invoke("zeros_like", [a])
+
+
+def ones_like(a):
+    return _reg.invoke("ones_like", [a])
+
+
+def concatenate(arrays, axis=0, always_copy=True):
+    return _reg.invoke("concat", list(arrays), {"dim": axis})
+
+
+def moveaxis(tensor, source, destination):
+    axes = list(range(tensor.ndim))
+    axes.remove(source % tensor.ndim)
+    axes.insert(destination % tensor.ndim, source % tensor.ndim)
+    return tensor.transpose(axes)
+
+
+def waitall():
+    Engine.get().wait_for_all()

@@ -34,17 +34,23 @@ def source_path(name):
     return os.path.join(CSRC_DIR, name)
 
 
-def _nvcc():
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+def cuda_home():
+    """``$CUDA_HOME``, else ``$CUDA_PATH``, else ``/usr/local/cuda``: where
+    ``nvcc``, and NVRTC for ``mx.rtc``, are looked for first."""
+    return os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
         or "/usr/local/cuda"
-    cand = os.path.join(cuda_home, "bin", "nvcc")
+
+
+def _nvcc():
+    home = cuda_home()
+    cand = os.path.join(home, "bin", "nvcc")
     if os.path.exists(cand):
         return cand
     found = shutil.which("nvcc")
     if found is None:
         raise MXNetError("nvcc not found (looked in %s/bin and on PATH): "
                          "the port's kernels are built from "
-                         "mxnet_tpu_torch/csrc at first use" % cuda_home)
+                         "mxnet_tpu_torch/csrc at first use" % home)
     return found
 
 

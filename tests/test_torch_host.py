@@ -312,12 +312,26 @@ sys.modules["jax"] = None
 sys.modules["mxnet_tpu"] = None
 sys.meta_path.insert(0, Block())
 import mxnet_tpu_torch
+
+def mapped(stem):
+    with open("/proc/self/maps") as f:
+        return stem in f.read()
+
+# importing the package loads neither NVRTC nor the CUDA driver
+print("LIBS", mapped("libnvrtc"), mapped("libcuda.so"))
 names = [m.name for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__,
                                                "mxnet_tpu_torch.")]
+names += ["mxnet_tpu_torch.nd", "mxnet_tpu_torch.ndarray.ndarray",
+          "mxnet_tpu_torch.autograd", "mxnet_tpu_torch.engine",
+          "mxnet_tpu_torch.rtc", "mxnet_tpu_torch.ops._nvrtc"]
 names += ["chip_smoke", "tools.torch_paged_attention_sweep",
           "tools.torch_flash_attention_sweep"]
 for name in names:
-    importlib.import_module(name)
+    importlib.import_module(name) if name != "mxnet_tpu_torch.nd" \
+        else mxnet_tpu_torch.nd
+from mxnet_tpu_torch.ops import _nvrtc
+print("LIBS", mapped("libnvrtc"), mapped("libcuda.so"),
+      _nvrtc._nvrtc is None and _nvrtc._cuda is None)
 bad = sorted(n for n in sys.modules if n.split(".")[0] in
              ("jax", "jaxlib", "mxnet_tpu") and sys.modules[n] is not None)
 print("IMPORTED", len(names), "BAD", bad)
@@ -328,7 +342,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     r = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    line = r.stdout.strip().splitlines()[-1]
+    lines = r.stdout.strip().splitlines()
+    assert lines[0] == "LIBS False False", lines
+    assert lines[-2] == "LIBS False False True", lines
+    line = lines[-1]
     assert line.endswith("BAD []"), line
     assert int(line.split()[1]) >= 30, line
     # imports inside functions run only on the card: check them by source

@@ -112,3 +112,171 @@ def test_flash_counts_launches_and_backward_is_bitwise_repeatable(card):
             fa.flash_attention.dkv_launches) == tuple(c + 2 for c in counts)
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+# -- mx.rtc (K5): user CUDA C++ compiled by NVRTC ---------------------------
+
+def _rtc():
+    import mxnet_tpu_torch as mx
+    return mx
+
+
+@pytest.mark.cuda
+def test_rtc_scale_add_is_exact(card):
+    mx = _rtc()
+    ctx = mx.gpu(0)
+    rng = np.random.default_rng(4)
+    x, y = (rng.standard_normal((8, 128)).astype(np.float32)
+            for _ in range(2))
+    k = mx.rtc.CudaModule(chip_smoke.SCALE_ADD_SOURCE).get_kernel(
+        "scale_add", chip_smoke.SCALE_ADD_SIGNATURE)
+    out = mx.nd.empty((8, 128), ctx=ctx)
+    k.launch([mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx), out,
+              x.size], ctx, (4, 1, 1), (256, 1, 1))
+    assert k.launches == 1
+    np.testing.assert_array_equal(out.asnumpy(), x * 2 + y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n,offset", [(4096 * 96, 0), (1000003, 0),
+                                      (4096 * 96, 1)])
+def test_rtc_swiglu_kernels_match_plain(card, dtype, n, offset):
+    """Forward and backward against the plain versions (f32 arithmetic,
+    rounded once): within 1 ulp in bf16, 2e-6 relative in f32; a ragged
+    tail and buffers off 16-byte alignment take the scalar path."""
+    mx = _rtc()
+    ctx, dt = mx.gpu(0), getattr(torch, dtype)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(n + offset)
+    a, b, dh = (torch.randn(n + offset, generator=gen, device=card)
+                .mul_(s).to(dt)[offset:] for s in (2.0, 1.0, 0.05))
+    A, B, DH = (mx.nd.NDArray(t, ctx=ctx) for t in (a, b, dh))
+    kern = chip_smoke.SwigluKernels(mx)
+    h = kern.fwd(A, B)
+    da, db = kern.bwd(A, B, DH)
+    want = (chip_smoke.swiglu_fwd_ref(a, b),) + \
+        chip_smoke.swiglu_bwd_ref(a, b, dh)
+    torch.cuda.synchronize()
+    for got, w in zip((h, da, db), want):
+        if dt == torch.bfloat16:
+            assert chip_smoke.bf16_ulps(got.data(), w).max().item() <= 1
+        else:
+            torch.testing.assert_close(got.data(), w, rtol=2e-6, atol=1e-7)
+
+
+_TEMPLATE_SOURCE = r"""
+template <typename T, int K>
+__global__ void add_k(T *x, long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) x[i] += T(K);
+}
+"""
+
+
+@pytest.mark.cuda
+def test_rtc_exports_resolve_mangled_template_names(card):
+    mx = _rtc()
+    ctx = mx.gpu(0)
+    mod = mx.rtc.CudaModule(_TEMPLATE_SOURCE,
+                            exports=("add_k<float, 3>", "add_k<int, 5>"))
+    kf = mod.get_kernel("add_k<float, 3>", "float *x, long long n")
+    ki = mod.get_kernel("add_k<int, 5>", "int *x, long long n")
+    assert kf.lowered.startswith("_Z") and kf.lowered != ki.lowered
+    xf = mx.nd.zeros((1000,), ctx=ctx)
+    xi = mx.nd.zeros((1000,), ctx=ctx, dtype="int32")
+    kf.launch([xf, 1000], ctx, (4,), (256,))
+    ki.launch([xi, 1000], ctx, (4,), (256,))
+    kf.launch([xf, 1000], ctx, (4,), (256,))
+    np.testing.assert_array_equal(xf.asnumpy(), 6.0)
+    np.testing.assert_array_equal(xi.asnumpy(), 5)
+    with pytest.raises(mx.MXNetError, match="needs torch.int32"):
+        ki.launch([xf, 1000], ctx, (4,), (256,))
+
+
+_SMEM_SOURCE = r"""
+extern "C" __global__ void reverse_block(const float *x, float *y, int n) {
+  extern __shared__ float buf[];
+  const float *src = x + (long long)blockIdx.x * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) buf[i] = src[i];
+  __syncthreads();
+  float *dst = y + (long long)blockIdx.x * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = buf[n - 1 - i];
+}
+"""
+
+
+@pytest.mark.cuda
+def test_rtc_dynamic_shared_memory_over_48k(card):
+    """Each block reverses a 24,576-float row through 96 KB of dynamic
+    shared memory: the launch must raise the kernel's limit first."""
+    mx = _rtc()
+    ctx, n, rows = mx.gpu(0), 24576, 6
+    k = mx.rtc.CudaModule(_SMEM_SOURCE).get_kernel(
+        "reverse_block", "const float *x, float *y, int n")
+    x = np.arange(rows * n, dtype=np.float32).reshape(rows, n)
+    y = mx.nd.empty((rows, n), ctx=ctx)
+    k.launch([mx.nd.array(x, ctx=ctx), y, n], ctx, (rows,), (512,),
+             shared_mem=4 * n)
+    np.testing.assert_array_equal(y.asnumpy(), x[:, ::-1])
+
+
+@pytest.mark.cuda
+def test_rtc_compile_error_and_bad_launch_raise(card):
+    mx = _rtc()
+    ctx = mx.gpu(0)
+    with pytest.raises(mx.MXNetError, match="mxtt_undeclared") as ei:
+        mx.rtc.CudaModule('extern "C" __global__ void k(float *x) '
+                          '{ x[0] = mxtt_undeclared; }')
+    assert "error" in str(ei.value)
+    k = mx.rtc.CudaModule(chip_smoke.SCALE_ADD_SOURCE).get_kernel(
+        "scale_add", chip_smoke.SCALE_ADD_SIGNATURE)
+    x = mx.nd.ones((64,), ctx=ctx)
+    out = mx.nd.zeros((64,), ctx=ctx)
+    # 4096 threads a block is more than the card takes: cuLaunchKernel
+    # refuses it, names the error, and the write var is poisoned
+    with pytest.raises(mx.MXNetError, match="cuLaunchKernel failed"):
+        k.launch([x, x, out, 64], ctx, (1,), (4096,))
+    assert k.launches == 0
+    with pytest.raises(mx.MXNetError, match="cuLaunchKernel failed"):
+        out.wait_to_read()
+    k.launch([x, x, out, 64], ctx, (1,), (64,))
+    np.testing.assert_array_equal(out.asnumpy(), 3.0)
+
+
+_SLOW_SOURCE = r"""
+extern "C" __global__ void slow_fill(float *y, int n, long long cycles) {
+  long long t0 = clock64();
+  while (clock64() - t0 < cycles) { }
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = 7.0f;
+}
+"""
+
+
+@pytest.mark.cuda
+def test_rtc_write_is_ordered_before_a_torch_read_on_its_stream(card):
+    """A slow RTC write, then a torch reduction of its output, on a side
+    stream: the host returns before either runs (no sync per launch), and
+    the reduction sees the kernel's values."""
+    mx = _rtc()
+    ctx, n = mx.gpu(0), 1 << 16
+    k = mx.rtc.CudaModule(_SLOW_SOURCE).get_kernel(
+        "slow_fill", "float *y, int n, long long cycles")
+    y = mx.nd.zeros((n,), ctx=ctx)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        # load both kernels first: a module's first (lazy) load may wait
+        # for the work in flight
+        k.launch([y, n, 0], ctx, (n // 256,), (256,))
+        y.data().sum()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        k.launch([y, n, 200_000_000], ctx, (n // 256,), (256,))
+        total = y.data().sum()
+        done = torch.cuda.Event()
+        done.record()
+    assert not done.query(), "the launch waited for the kernel"
+    y.wait_to_read()          # waits on the side stream the write went to
+    assert done.query()
+    assert total.item() == 7.0 * n
