@@ -14,11 +14,14 @@ Phases, each fatal on failure:
              at the 8-lane decode shape beside its byte bound, the plain
              version and one ``scaled_dot_product_attention`` call (a
              yardstick only);
-3. flash   — hold the flash-attention kernels (K1 out and lse, K2 dq, K3
-             dk and dv) against their plain versions on the card (the CPU
-             test shapes, ragged T, causal Tq != Tkv, D 8..128, f32 and
-             bf16 on the tensor-core and, through misaligned buffers, the
-             CUDA-core kernels, and the Llama-3-8B train shape), show that
+3. flash   — count the HGMMA instructions of K1's and K3's wgmma
+             kernels in the built library (cuobjdump); hold the
+             flash-attention kernels (K1 out and lse, K2 dq, K3 dk and dv)
+             against their plain versions on the card (the CPU test
+             shapes, ragged T, causal Tq != Tkv, D 8..128, f32 and bf16 on
+             the tensor-core and, through misaligned buffers, the
+             CUDA-core kernels, bf16 at the wgmma kernels' tile edges, and
+             the Llama-3-8B train shape), show that
              the bf16 check fails planted one-tile faults, check that two
              backward runs are bitwise equal and that a T = 8192 forward +
              backward allocates far less than one (T, T) score matrix per
@@ -349,10 +352,17 @@ def flash_compare(fa, args, scale, causal):
     reading <= 1 passes), the kernels' outputs and the plain versions'
     (in that order), and the bf16 readings' parts.  f32 and lse:
     |err| <= 2e-4 + 2e-4 |want| elementwise (sums in another order);
-    bf16 outputs: ``tile_reading``."""
+    bf16 outputs: ``tile_reading``, except dq and dk where every row sees
+    one key (Tkv = 1, or causal with Tq = 1): they are 0 exactly, and the
+    kernel's must stay below 2^-10 of the largest dv."""
     import torch
 
     q, k, v, do = args
+    t_q, t_kv = q.shape[1], k.shape[1]
+    # every row sees exactly one key: p = 1 there, so ds, dq and dk are 0
+    # and both sides hold only rounding noise, which a per-tile reading
+    # would compare with itself
+    one_key = t_kv == 1 or (causal and t_q == 1)
     out, lse = fa._fwd_kernel(q, k, v, scale, causal)
     out_r, lse_r = fa._flash_fwd_ref(q, k, v, scale, causal)
     delta = (do.float() * out.float()).sum(-1)
@@ -369,7 +379,11 @@ def flash_compare(fa, args, scale, causal):
                  "version's" % name)
         e = (g.float() - w.float())[fin].abs()
         err = e.max().item() if e.numel() else 0.0
-        if g.dtype == torch.bfloat16:
+        if g.dtype == torch.bfloat16 and one_key and name in ("dq", "dk"):
+            # the kernel's gradient must stay below 2^-10 of the largest dv
+            bound = 2 ** -10 * want[4].float().abs().max().item()
+            res[name] = (g.float().abs().max().item() / bound, err)
+        elif g.dtype == torch.bfloat16:
             parts[name] = tile_reading(g, w)
             res[name] = (max(parts[name]), err)
         else:
@@ -424,11 +438,81 @@ def planted_faults(args, got, want, scale):
     return readings
 
 
+# the wgmma kernels' tile edges: K1 owns 128 query rows a block (64 per
+# consumer warpgroup) and streams 128 keys a step; K3 owns 128 keys and
+# streams 64 queries a step
+EDGE_T = (1, 63, 65, 127, 128, 129, 255, 257)
+EDGE_CROSS = ((129, 300), (300, 129), (1, 128), (128, 1))
+
+
+def edge_shapes():
+    """(bh, t_q, t_kv, d, causal) of the tile-edge checks, bf16 at head
+    dims 64 and 128: T in EDGE_T causal and not, the causal cross lengths
+    EDGE_CROSS, and B*H = 4096 at T = 64."""
+    out = []
+    for d in (64, 128):
+        out += [(3, t, t, d, c) for t in EDGE_T for c in (False, True)]
+        out += [(3, tq, tk, d, True) for tq, tk in EDGE_CROSS]
+        out += [(4096, 64, 64, d, c) for c in (False, True)]
+    return out
+
+
+def edge_checks(fa, dev, rng):
+    """K1/K2/K3 in bf16 against the plain versions at the tile edges."""
+    import torch
+
+    for bh, t_q, t_kv, d, causal in edge_shapes():
+        args = flash_case(rng, dev, bh, t_q, t_kv, d, torch.bfloat16)
+        res = flash_compare(fa, args, d ** -0.5, causal)[0]
+        worst = max(r for r, _ in res.values())
+        log("flash edge  BH=%d Tq=%d Tkv=%d D=%d causal=%d (reading) %s %s"
+            % (bh, t_q, t_kv, d, causal,
+               " ".join("%s %.2f" % (n, r) for n, (r, _) in res.items()),
+               "ok" if worst <= 1 else "FAIL"))
+        if worst > 1:
+            fail("flash kernels disagree with their plain versions at a "
+                 "tile edge")
+
+
+def hgmma_counts(lib):
+    """{kernel: number of HGMMA (wgmma) instructions in its SASS} for
+    every kernel of the built library ``lib``, read with cuobjdump."""
+    from mxnet_tpu_torch.ops import _build
+
+    tool = os.path.join(_build.cuda_home(), "bin", "cuobjdump")
+    sass = subprocess.run([tool if os.path.exists(tool) else "cuobjdump",
+                           "-sass", lib], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def check_hgmma(fa):
+    """K1 and K3's bf16 kernels must run on wgmma: print each kernel's
+    HGMMA count and fail if a wgmma kernel has none."""
+    counts = hgmma_counts(fa.build())
+    wg = {fn: n for fn, n in counts.items() if "wgmma_kernel" in fn}
+    for fn, n in sorted(wg.items()):
+        log("flash sass: %d HGMMA in %s" % (n, fn))
+    kinds = {("fwd" if "flash_fwd" in fn else "dkv") + str(
+        64 if "ILi64E" in fn else 128) for fn in wg if wg[fn] > 0}
+    if kinds != {"fwd64", "fwd128", "dkv64", "dkv128"}:
+        fail("the wgmma kernels of K1 and K3 are missing or have no HGMMA "
+             "instruction: %s" % wg)
+
+
 def flash_checks(fa, dev):
     """K1/K2/K3 against the plain versions over the shapes the CPU tests
     use, ragged and cross-length cases, and the Llama-3-8B train shape."""
     import torch
 
+    check_hgmma(fa)
     rng = np.random.default_rng(0)
     # (label, bh, t_q, t_kv, d, causal)
     shapes = [("test", 2, 32, 32, 16, False), ("test", 2, 64, 64, 32, True),
@@ -440,8 +524,9 @@ def flash_checks(fa, dev):
               ("tq<tkv", 3, 64, 200, 64, True),
               ("tq>tkv", 3, 200, 70, 128, True),
               ("d128", 4, 300, 300, 128, True)]
-    # bf16 at head dims 64 and 128 runs on the tensor-core kernels when
-    # the buffers are 16-byte aligned; misaligned, on the CUDA-core ones
+    # bf16 at head dims 64 and 128 runs on the tensor-core kernels (K1
+    # and K3 on wgmma, K2 on mma.sync) when the buffers are 16-byte
+    # aligned; misaligned, on the CUDA-core ones
     for dtype, misalign in ((torch.float32, False), (torch.bfloat16, False),
                             (torch.bfloat16, True)):
         for label, bh, t_q, t_kv, d, causal in shapes:
@@ -460,6 +545,7 @@ def flash_checks(fa, dev):
                    "ok" if worst <= 1 else "FAIL"))
             if worst > 1:
                 fail("flash kernels disagree with their plain versions")
+    edge_checks(fa, dev, rng)
     args = flash_case(rng, dev, TRAIN_B * 32, TRAIN_T, TRAIN_T, 128,
                       torch.bfloat16)
     res, got, want, parts = flash_compare(fa, args, 128 ** -0.5, True)

@@ -19,41 +19,74 @@
 //
 // Design.  The TPU ran its grid in order and held whole K/V rows in
 // VMEM.  Here blocks run in parallel, in no order, and a block loops
-// over tiles itself:
-//   K1, K2: one block per (bh, tile of 64 query rows), looping over keys
-//           (only up to the diagonal when causal);
-//   K3:     one block per (bh, tile of 64 keys), looping over queries
-//           (only from the diagonal down when causal).
-// The backward stays two-pass, as on the TPU: dq sums over key tiles in
-// K2, dk and dv over query tiles in K3.  No atomics, so the gradients
-// are deterministic and two runs are bitwise equal.  Causal tiles are
-// started heaviest first.  Each kernel comes in two versions:
-//   - bf16 at head dims 64 and 128 (the Llama path): bf16 tensor cores
-//     through mma.sync m16n8k16 with f32 accumulation, 4 warps of 16
-//     rows each; the probabilities and ds go from the accumulator
-//     fragments straight into the next product's operand fragments, in
-//     registers, rounded to bf16 as FlashAttention-2 does (below);
-//   - f32, and bf16 at other head dims up to 256: f32 FMA on the CUDA
-//     cores, 8 warps of 8 rows, lane = key (K1, K2) or query (K3) of a
-//     32-wide step, tiles staged as f32 (below, first).
+// over tiles itself; the backward stays two-pass, as on the TPU: dq sums
+// over key tiles in K2, dk and dv over query tiles in K3.  No atomics and
+// no split of a sum across blocks, so the gradients are deterministic and
+// two runs are bitwise equal.  Causal tiles are started heaviest first.
+//
+// bf16 at head dims 64 and 128 with 16-byte aligned buffers (the Llama
+// path) runs these kernels:
+//   K1 flash_fwd_wgmma_kernel (replaces pallas_kernels.py:83) and
+//   K3 flash_bwd_dkv_wgmma_kernel (replaces pallas_kernels.py:208), for
+//      Hopper: two consumer warpgroups of 64 rows each (wgmma's M), 256
+//      threads.  Thread 0 brings the tiles in with TMA (3-D tensor maps
+//      (D, T, BH), so a tile past T reads zeros within its own head;
+//      128-byte swizzle, 64-column panels) into a ring of shared-memory
+//      stages: the first stages at the start, each later tile into the
+//      stage both warpgroups have released.  A "full" mbarrier per stage
+//      counts the bytes in, an "empty" one the 8 consumer warps out.  No
+//      producer warps: with 8 warps a block each of the SM's four register
+//      partitions holds 2 warps, so a thread may keep 255 registers; a
+//      ninth warp caps every thread at 168, and a producer warpgroup with
+//      setmaxnreg left ptxas spilling (PERF.md).  Products are wgmma
+//      with f32 accumulators:
+//        K1: one block per (bh, 128 query rows); Q loaded once, K and V
+//            tiles of 128 keys stream through the ring.  S = Q K^T with
+//            both operands in shared memory (K stored [key][d] is K-major
+//            for B); O += P V with P repacked in place from the S
+//            accumulator to bf16 A fragments in registers and V read as
+//            an MN-major B operand through the descriptor's transpose bit,
+//            so no transposed copy of V exists.  Online softmax in exp2
+//            with scale * log2(e) folded in; the mask is applied only on
+//            tiles that cross the diagonal or Tk, and tiles past the
+//            diagonal are never loaded.
+//        K3: one block per (bh, 128 keys); K and V resident; Q and dO
+//            tiles of 64 queries with their lse and delta slices stream
+//            through 3 stages, each loaded once, never transposed.
+//            S^T = K Q^T and dP^T = V dO^T put the accumulators in keys x
+//            queries layout, so P^T and dS^T feed dV += P^T dO and
+//            dK += dS^T Q straight from registers, with dO and Q as
+//            MN-major B operands.  Causal blocks start at the first query
+//            tile that sees their keys; a warpgroup skips the products of
+//            a tile all of whose pairs are masked.
+//   K2 flash_bwd_dq_tc_kernel: mma.sync m16n8k16 on tiles staged through
+//      registers (tc_rows / tc_cols), 4 warps of 16 rows.
+// p and ds are rounded to bf16 before their products, as FlashAttention
+// does.  Everything else (f32, other head dims up to 256, misaligned
+// buffers) runs f32 FMA on the CUDA cores, 8 warps of 8 rows, lane = key
+// (K1, K2) or query (K3) of a 32-wide step, tiles staged as f32.
 //
 // Bound.  At the Llama-3-8B train shape (B*H = 64, T = 2048, D = 128,
 // causal, bf16) each kernel is bound by operations: about 69 GFLOP (K1),
 // 103 GFLOP (K2) and 137 GFLOP (K3) of products on the unmasked half,
 // against 989 TFLOP/s of bf16 tensor cores, 70-140 us, while its bytes
-// take 40-60 us at 3.35 TB/s.  The tensor-core version moves the
-// products onto the tensor cores but still stages every tile with plain
-// loads between two barriers, so loads and products do not overlap, and
-// mma.sync reaches only part of the wgmma rate; TMA, a pipelined ring of
-// tiles and wgmma are the later work that closes the gap.
+// take 40-60 us at 3.35 TB/s.  So the tensor cores must be kept busy:
+// wgmma is the only way to their full rate, the TMA ring overlaps the
+// next tile's loads with this tile's products and costs the consumers no
+// instructions, and two consumer warpgroups let one's softmax run beside
+// the other's products.  A wait on an mbarrier that lasts seconds (a
+// broken phase or byte count) traps, so the launch fails instead of
+// hanging.
 //
 // Plain C interface, bound from Python with ctypes.  Every launch goes
 // on the caller's stream; each entry point returns cudaGetLastError().
 
+#include <cuda.h>            // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <math.h>
+#include <string.h>
 
 namespace {
 
@@ -490,14 +523,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core versions (head dims 64 and 128): mma.sync m16n8k16
+// K2 on bf16 tensor cores (head dims 64 and 128): mma.sync m16n8k16
 // with f32 accumulation.  4 warps; each warp owns 16 rows of the block's
 // 64-row tile.  Tiles are staged in shared memory as bf16 with a padded
 // row stride (8 elements), row-major where the tile is an mma A operand
 // or the n-major B operand, and transposed where it is the k-major B
-// operand (V in K1, K in K2, Q and dO in K3).  The probabilities and ds
-// go from the f32 accumulator fragments straight into A fragments in
-// registers, rounded to bf16, as FlashAttention-2 does.
+// operand (K).  ds goes from the f32 accumulator fragments straight into
+// A fragments in registers, rounded to bf16.
 // ---------------------------------------------------------------------------
 
 typedef __nv_bfloat16 bf16;
@@ -581,131 +613,6 @@ __device__ __forceinline__ void tc_cols(bf16* dst, const bf16* __restrict__ src,
     for (int j = 0; j < 8; ++j)
       dst[(c + j) * ST + r] = __ushort_as_bfloat16(static_cast<unsigned short>(
           j & 1 ? w[j >> 1] >> 16 : w[j >> 1] & 0xffffu));
-  }
-}
-
-template <int HD>
-struct TcFwd {
-  static constexpr int BR = 64, BC = 64, SX = HD + 8, ST = BC + 8;
-  static constexpr size_t smem =
-      sizeof(bf16) * ((size_t)(BR + BC) * SX + (size_t)HD * ST);
-};
-
-template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ out,
-                    float* __restrict__ lse, int Tq, int Tk, float scale,
-                    int causal) {
-  using C = TcFwd<HD>;
-  constexpr int BR = C::BR, BC = C::BC, SX = C::SX, ST = C::ST;
-  const int tile = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int q0 = tile * BR;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int rw = warp * 16;
-  const int row0 = q0 + rw + g, row1 = row0 + 8;
-
-  extern __shared__ uint4 smem_tc[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_tc);   // [BR][SX]
-  bf16* ks = qs + BR * SX;                        // [BC][SX]
-  bf16* vt = ks + BC * SX;                        // [HD][ST]
-  const bf16* kb = k + (size_t)bh * Tk * HD;
-  const bf16* vb = v + (size_t)bh * Tk * HD;
-  tc_rows<HD, SX>(qs, q + (size_t)bh * Tq * HD, q0, BR, Tq);
-
-  float o[HD / 8][4];
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const int kend = causal ? min(Tk, q0 + BR) : Tk;
-  for (int c0 = 0; c0 < kend; c0 += BC) {
-    __syncthreads();
-    tc_rows<HD, SX>(ks, kb, c0, BC, Tk);
-    tc_cols<HD, ST>(vt, vb, c0, BC, Tk);
-    __syncthreads();
-    float s[BC / 8][4];
-#pragma unroll
-    for (int n = 0; n < BC / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < HD / 16; ++kc) {
-      uint32_t a[4];
-      frag_a(a, qs, SX, rw, kc * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < BC / 8; ++n) {
-        uint32_t b[2];
-        frag_b(b, ks, SX, n * 8, kc * 16, g, t);
-        mma_bf16(s[n], a, b);
-      }
-    }
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < BC / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = c0 + n * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? row0 : row1;
-        const bool ok = col < Tk && (!causal || col <= row);
-        s[n][e] = ok ? s[n][e] * scale : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    float safe[2], alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      safe[r] = m_new == -INFINITY ? 0.f : m_new;
-      alpha[r] = expf(m[r] - safe[r]);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < BC / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - safe[e >> 1]);
-        rs[e >> 1] += s[n][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l[r] = l[r] * alpha[r] + rs[r];
-    }
-#pragma unroll
-    for (int d = 0; d < HD / 8; ++d) {
-      o[d][0] *= alpha[0];
-      o[d][1] *= alpha[0];
-      o[d][2] *= alpha[1];
-      o[d][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kc = 0; kc < BC / 16; ++kc) {
-      uint32_t a[4];
-      frag_a_from_c(a, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int d = 0; d < HD / 8; ++d) {
-        uint32_t b[2];
-        frag_b(b, vt, ST, d * 8, kc * 16, g, t);
-        mma_bf16(o[d], a, b);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r ? row1 : row0;
-    if (row >= Tq) continue;
-    const float safe_l = l[r] == 0.f ? 1.f : l[r];
-    bf16* orow = out + ((size_t)bh * Tq + row) * HD;
-#pragma unroll
-    for (int d = 0; d < HD / 8; ++d)
-      *reinterpret_cast<uint32_t*>(orow + d * 8 + 2 * t) =
-          pack_bf16(o[d][2 * r] / safe_l, o[d][2 * r + 1] / safe_l);
-    if (t == 0)
-      lse[(size_t)bh * Tq + row] =
-          l[r] == 0.f ? -INFINITY : m[r] + logf(safe_l);
   }
 }
 
@@ -821,125 +728,631 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Hopper building blocks: mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+// two consumer warpgroups and no producer warps: with 8 warps a block,
+// each of the SM's four register partitions holds 2 warps, so a thread
+// may keep up to 255 registers (a ninth warp would cap it at 168)
+constexpr int kHopThreads = 256;
+constexpr int kConsumerWarps = 8;
+constexpr uint32_t kRowBytes = 128;   // one swizzled panel row: 64 bf16
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// a wait on an mbarrier gives up (traps) after this many nanoseconds or
+// this many polls, whichever comes first
+constexpr uint64_t kWaitNs = 4000000000ull;
+constexpr uint32_t kWaitPolls = 1u << 28;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// the loading thread's arrival, announcing `bytes` of TMA traffic to come
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// wait until the phase of parity `parity` has completed; a barrier that
+// never completes (a wrong phase or byte count) traps instead of hanging
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  for (uint32_t i = 1; !mbar_try(bar, parity); ++i)
+    if (i == kWaitPolls || ((i & 1023u) == 0 && global_ns() - t0 > kWaitNs))
+      __trap();
+}
+
+// one TMA tile load into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_1d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
+// shared-memory matrix descriptor of a 128-byte-swizzled operand (tiles
+// 1024-byte aligned, as TMA's 128-byte swizzle lays them out).  K-major:
+// sbo = 1024 (8 rows of 128 bytes), lbo unused.  MN-major: lbo = the
+// stride between 64-column panels, sbo = 1024 (8 rows along K).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// 2^x on the SFU (ex2.approx, flush to zero): exp2f without the guard
+// for results below 2^-126, which costs registers and instructions on
+// every element; 2^-inf is 0
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of wgmma's registers
+// across its asynchronous window
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(d[i][j])::"memory");
+}
+
+#define MXTT_F8(i)                                                  \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define MXTT_R16                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define MXTT_R32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define MXTT_R64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (64 x N, f32) = a b, plus d when acc; a and b bf16 in shared memory,
+// both K-major.  Accumulator register i of a thread (lane = 4 g + t, warp
+// w of the warpgroup) holds row 16 w + g + 8 ((i >> 1) & 1), column
+// 8 (i >> 2) + 2 t + (i & 1): the mma.sync C layout, one 16-row slice per
+// warp.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int acc);
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " MXTT_R16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : MXTT_F8(0), MXTT_F8(8)
+      : "l"(a), "l"(b), "r"(acc));
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MXTT_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : MXTT_F8(0), MXTT_F8(8), MXTT_F8(16), MXTT_F8(24)
+      : "l"(a), "l"(b), "r"(acc));
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " MXTT_R64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : MXTT_F8(0), MXTT_F8(8), MXTT_F8(16), MXTT_F8(24), MXTT_F8(32),
+        MXTT_F8(40), MXTT_F8(48), MXTT_F8(56)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x N, f32) += a b: a one bf16 16-column A fragment in registers
+// (the mma.sync A layout, one 16-row slice per warp), b bf16 in shared
+// memory, MN-major (the transpose bit set)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MXTT_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : MXTT_F8(0), MXTT_F8(8), MXTT_F8(16), MXTT_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " MXTT_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : MXTT_F8(0), MXTT_F8(8), MXTT_F8(16), MXTT_F8(24), MXTT_F8(32),
+        MXTT_F8(40), MXTT_F8(48), MXTT_F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef MXTT_F8
+#undef MXTT_R16
+#undef MXTT_R32
+#undef MXTT_R64
+
+// bf16 A fragments of an f32 accumulator, in place of the FA2 repack:
+// fragment kc takes columns 16 kc .. 16 kc + 15
+template <int KC, int N>
+__device__ __forceinline__ void acc_to_frags(const float (&c)[N],
+                                             uint32_t (&a)[KC][4]) {
+  static_assert(N == 8 * KC, "one fragment per 16 columns");
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a[kc][j] = pack_bf16(c[8 * kc + 2 * j], c[8 * kc + 2 * j + 1]);
+}
+
+// the descriptor of a K-major operand's 16-column step kk: panel kk / 4
+// (panels `panel` bytes apart), 32 bytes into the swizzled row per step
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, uint32_t panel,
+                                                int kk) {
+  return sw128_desc(tile + (kk / 4) * panel + (kk % 4) * 32, 16, 1024);
+}
+
+// the descriptor of an MN-major operand's 16-row step kc: 16 rows of 128
+// bytes per step, panels `panel` bytes apart
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, uint32_t panel,
+                                                 int kc) {
+  return sw128_desc(tile + kc * 16 * kRowBytes, panel, 1024);
+}
+
+// ---------------------------------------------------------------------------
+// K1 for Hopper: grid (ceil(Tq / 128), BH), 256 threads, HopFwd<HD>::smem
+// ---------------------------------------------------------------------------
+
 template <int HD>
-struct TcDkv {
-  static constexpr int BK = 64, BQ = 32, SX = HD + 8, SQ = BQ + 8;
-  static constexpr size_t smem =
-      sizeof(bf16) * ((size_t)(2 * BK + 2 * BQ) * SX + 2 * (size_t)HD * SQ) +
-      sizeof(float) * 2 * BQ;
+struct HopFwd {
+  static constexpr int BR = 128, BC = 128, kStages = HD == 128 ? 2 : 3;
+  static constexpr int kPanels = HD / 64;
+  static constexpr uint32_t q_bytes = BR * HD * 2;    // Q, panels of BR rows
+  static constexpr uint32_t kv_bytes = BC * HD * 2;   // one K or V tile
+  // Q | kStages x (K tile | V tile) | mbarriers
+  static constexpr uint32_t bar_off = q_bytes + 2 * kStages * kv_bytes;
+  static constexpr int n_bars = 1 + 3 * kStages;  // q, k full, v full, empty
+  static constexpr size_t smem = 1024 + bar_off + 8 * n_bars;
 };
 
 template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
-flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq,
-                        int Tk, float scale, int causal) {
-  using C = TcDkv<HD>;
-  constexpr int BK = C::BK, BQ = C::BQ, SX = C::SX, SQ = C::SQ;
+__global__ void __launch_bounds__(kHopThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       bf16* __restrict__ out, float* __restrict__ lse,
+                       int Tq, int Tk, float scale_log2, int causal) {
+  using C = HopFwd<HD>;
+  constexpr int BR = C::BR, BC = C::BC, S = C::kStages;
+  // causal tiles near the end of the sequence do the most work: start
+  // them first
+  const int tile = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const int q0 = tile * BR;
+  // rows below q0 + BR see no key past the tile's last row: later key
+  // tiles are never loaded
+  const int kend = causal ? min(Tk, q0 + BR) : Tk;
+  const int n_tiles = (kend + BC - 1) / BC;
+
+  extern __shared__ uint8_t smem_hop[];
+  const uint32_t base = (smem_u32(smem_hop) + 1023u) & ~1023u;
+  const uint32_t qs = base;
+  const uint32_t bars = base + C::bar_off;
+  const uint32_t q_full = bars;
+  auto k_tile = [&](int s) { return base + C::q_bytes + 2 * s * C::kv_bytes; };
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + S + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * S + s); };
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 issues every load: Q and the first S key tiles now, and
+  // each later tile into the stage that both warpgroups have released
+  const bool leader = threadIdx.x == 0;
+  auto load_kv = [&](int j) {
+    const int s = j % S;
+    const uint32_t kt = k_tile(s), vt = kt + C::kv_bytes;
+    mbar_expect_tx(k_full(s), C::kv_bytes);
+    for (int p = 0; p < C::kPanels; ++p)
+      tma_load_3d(kt + p * BC * kRowBytes, &k_map, k_full(s), 64 * p, j * BC,
+                  bh);
+    mbar_expect_tx(v_full(s), C::kv_bytes);
+    for (int p = 0; p < C::kPanels; ++p)
+      tma_load_3d(vt + p * BC * kRowBytes, &v_map, v_full(s), 64 * p, j * BC,
+                  bh);
+  };
+  if (leader) {
+    mbar_expect_tx(q_full, C::q_bytes);
+    for (int p = 0; p < C::kPanels; ++p)
+      tma_load_3d(qs + p * BR * kRowBytes, &q_map, q_full, 64 * p, q0, bh);
+    for (int j = 0; j < min(S, n_tiles); ++j) load_kv(j);
+  }
+
+  const int cw = threadIdx.x / 128;          // consumer warpgroup 0 or 1
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * cw;                // the warpgroup's first row
+  const int row0 = r0 + 16 * warp + g, row1 = row0 + 8;
+  const uint32_t qa = qs + cw * 64 * kRowBytes;
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  // running max (in units of log2, scale folded in) and this thread's
+  // part of the row sums, for rows row0 and row1
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    if (leader && j > 0 && j - 1 + S < n_tiles) {
+      mbar_wait(empty((j - 1) % S), ((j - 1) / S) & 1);
+      load_kv(j - 1 + S);
+    }
+    const int s = j % S;
+    const uint32_t parity = (j / S) & 1;
+    const uint32_t kt = k_tile(s), vt = kt + C::kv_bytes;
+    const int c0 = j * BC;
+    float sc[BC / 2];
+    mbar_wait(k_full(s), parity);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<BC>(sc, kmajor_desc(qa, BR * kRowBytes, kk),
+                   kmajor_desc(kt, BC * kRowBytes, kk), kk > 0);
+    wg_commit();
+    wg_wait_all();
+    reg_fence(sc);
+
+#pragma unroll
+    for (int i = 0; i < BC / 2; ++i) sc[i] *= scale_log2;
+    // only tiles that cross the diagonal or the end of the keys mask
+    if ((causal && c0 + BC - 1 > r0) || c0 + BC > Tk) {
+#pragma unroll
+      for (int i = 0; i < BC / 2; ++i) {
+        const int col = c0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        const int row = (i & 2) ? row1 : row0;
+        if (col >= Tk || (causal && col > row)) sc[i] = -INFINITY;
+      }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < BC / 2; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float safe[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // a row with no key yet keeps -inf: exponentiate against 0 so
+      // masked keys give exact zeros rather than nans
+      safe[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+      alpha[r] = fast_exp2(m[r] - safe[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < BC / 2; ++i) {
+      sc[i] = fast_exp2(sc[i] - safe[(i >> 1) & 1]);
+      l[(i >> 1) & 1] += sc[i];
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    uint32_t pa[BC / 16][4];
+    acc_to_frags(sc, pa);
+
+    mbar_wait(v_full(s), parity);
+    reg_fence(o);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < BC / 16; ++kc)
+      wgmma_rs<HD>(o, pa[kc], mnmajor_desc(vt, BC * kRowBytes, kc));
+    wg_commit();
+    wg_wait_all();
+    reg_fence(o);
+    reg_fence(pa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = r ? row1 : row0;
+    if (row >= Tq) continue;
+    const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
+    bf16* orow = out + ((size_t)bh * Tq + row) * HD;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t) =
+          pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+    if (t == 0)
+      lse[(size_t)bh * Tq + row] =
+          l[r] == 0.f ? -INFINITY : (m[r] + log2f(l[r])) * kLn2;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3 for Hopper: grid (ceil(Tk / 128), BH), 256 threads, HopDkv<HD>::smem
+// ---------------------------------------------------------------------------
+
+template <int HD>
+struct HopDkv {
+  static constexpr int BK = 128, BQ = 64, kStages = 3, kPanels = HD / 64;
+  static constexpr uint32_t kv_bytes = BK * HD * 2;   // K or V, resident
+  static constexpr uint32_t t_bytes = BQ * HD * 2;    // a Q or dO tile
+  // an lse or delta slice: TMA starts a box on a 16-byte boundary of the
+  // flat (BH * Tq) vector, so a box of BQ + 4 entries starts up to 3
+  // entries early; each slice sits 128-byte aligned
+  static constexpr int kRowBox = BQ + 4;
+  static constexpr uint32_t row_bytes = 384;
+  // K | V | kStages x (Q | dO) | kStages x (lse | delta) | mbarriers
+  static constexpr uint32_t ring_off = 2 * kv_bytes;
+  static constexpr uint32_t rows_off = ring_off + kStages * 2 * t_bytes;
+  static constexpr uint32_t bar_off = rows_off + kStages * 2 * row_bytes;
+  static constexpr int n_bars = 1 + 2 * kStages;     // k/v, full, empty
+  static constexpr size_t smem = 1024 + bar_off + 8 * n_bars;
+  static constexpr uint32_t stage_tx = 2 * t_bytes + 2 * kRowBox * 4;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kHopThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const __grid_constant__ CUtensorMap lse_map,
+                           const __grid_constant__ CUtensorMap delta_map,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int Tq, int Tk, float scale, float scale_log2,
+                           int causal) {
+  using C = HopDkv<HD>;
+  constexpr int BK = C::BK, BQ = C::BQ, S = C::kStages;
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * BK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int rw = warp * 16;                 // the warp's first key
-  const int key0 = k0 + rw + g, key1 = key0 + 8;
-
-  extern __shared__ uint4 smem_tc[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_tc);   // [BK][SX]
-  bf16* vs = ks + BK * SX;                        // [BK][SX]
-  bf16* qs = vs + BK * SX;                        // [BQ][SX]
-  bf16* dos = qs + BQ * SX;                       // [BQ][SX]
-  bf16* qt = dos + BQ * SX;                       // [HD][SQ]
-  bf16* dot = qt + HD * SQ;                       // [HD][SQ]
-  float* lse_s = reinterpret_cast<float*>(dot + HD * SQ);  // [BQ]
-  float* delta_s = lse_s + BQ;                              // [BQ]
-  const size_t qoff = (size_t)bh * Tq * HD, koff = (size_t)bh * Tk * HD;
-  tc_rows<HD, SX>(ks, k + koff, k0, BK, Tk);
-  tc_rows<HD, SX>(vs, v + koff, k0, BK, Tk);
-
-  float dka[HD / 8][4], dva[HD / 8][4];
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
-  // causal: rows before k0 see none of this tile's keys
+  // causal: rows before k0 see none of this block's keys
   const int qstart = causal ? k0 : 0;
-  for (int q0 = qstart; q0 < Tq; q0 += BQ) {
-    __syncthreads();
-    tc_rows<HD, SX>(qs, q + qoff, q0, BQ, Tq);
-    tc_rows<HD, SX>(dos, dout + qoff, q0, BQ, Tq);
-    tc_cols<HD, SQ>(qt, q + qoff, q0, BQ, Tq);
-    tc_cols<HD, SQ>(dot, dout + qoff, q0, BQ, Tq);
-    if (threadIdx.x < BQ) {
-      const int row = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < Tq ? lse[(size_t)bh * Tq + row] : -INFINITY;
-      delta_s[threadIdx.x] = row < Tq ? delta[(size_t)bh * Tq + row] : 0.f;
+  const int n_tiles = Tq > qstart ? (Tq - qstart + BQ - 1) / BQ : 0;
+
+  extern __shared__ uint8_t smem_hop[];
+  const uint32_t base = (smem_u32(smem_hop) + 1023u) & ~1023u;
+  const uint8_t* base_ptr = smem_hop + (base - smem_u32(smem_hop));
+  const uint32_t ks = base, vs = base + C::kv_bytes;
+  const uint32_t bars = base + C::bar_off;
+  const uint32_t kv_full = bars;
+  auto q_tile = [&](int s) { return base + C::ring_off + 2 * s * C::t_bytes; };
+  auto rows_at = [&](int s) { return C::rows_off + 2 * s * C::row_bytes; };
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + S + s); };
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumerWarps);
     }
-    __syncthreads();
-    float s[BQ / 8][4], dp[BQ / 8][4];
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 issues every load: K, V and the first S query tiles now,
+  // and each later tile into the stage that both warpgroups have released
+  const bool leader = threadIdx.x == 0;
+  auto load_q = [&](int j) {
+    const int s = j % S;
+    const int q0 = qstart + j * BQ;
+    const uint32_t qt = q_tile(s), dot = qt + C::t_bytes;
+    mbar_expect_tx(full(s), C::stage_tx);
+    for (int p = 0; p < C::kPanels; ++p) {
+      tma_load_3d(qt + p * BQ * kRowBytes, &q_map, full(s), 64 * p, q0, bh);
+      tma_load_3d(dot + p * BQ * kRowBytes, &do_map, full(s), 64 * p, q0, bh);
+    }
+    // lse and delta as flat (BH * Tq) vectors, from the 16-byte boundary
+    // at or before this tile's first query: entries past this head's Tq
+    // belong to the next head (or read zeros past the end), and the mask
+    // drops those queries
+    const int r0 = (bh * Tq + q0) & ~3;
+    tma_load_1d(base + rows_at(s), &lse_map, full(s), r0);
+    tma_load_1d(base + rows_at(s) + C::row_bytes, &delta_map, full(s), r0);
+  };
+  if (leader) {
+    mbar_expect_tx(kv_full, 2 * C::kv_bytes);
+    for (int p = 0; p < C::kPanels; ++p) {
+      tma_load_3d(ks + p * BK * kRowBytes, &k_map, kv_full, 64 * p, k0, bh);
+      tma_load_3d(vs + p * BK * kRowBytes, &v_map, kv_full, 64 * p, k0, bh);
+    }
+    for (int j = 0; j < min(S, n_tiles); ++j) load_q(j);
+  }
+
+  const int cw = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int kmin = k0 + 64 * cw;              // the warpgroup's first key
+  const int key0 = kmin + 16 * warp + g, key1 = key0 + 8;
+  const uint32_t ka = ks + cw * 64 * kRowBytes, va = vs + cw * 64 * kRowBytes;
+
+  float dka[HD / 2], dva[HD / 2];
 #pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
+  for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+  mbar_wait(kv_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    if (leader && j > 0 && j - 1 + S < n_tiles) {
+      mbar_wait(empty((j - 1) % S), ((j - 1) / S) & 1);
+      load_q(j - 1 + S);
+    }
+    const int s = j % S;
+    const int q0 = qstart + j * BQ;
+    const uint32_t qt = q_tile(s), dot = qt + C::t_bytes;
+    mbar_wait(full(s), (j / S) & 1);
+    // a tile whose queries all precede the warpgroup's keys adds nothing
+    if (!(causal && q0 + BQ - 1 < kmin)) {
+      float st[BQ / 2], dpt[BQ / 2];
+      wg_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss<BQ>(st, kmajor_desc(ka, BK * kRowBytes, kk),
+                     kmajor_desc(qt, BQ * kRowBytes, kk), kk > 0);
 #pragma unroll
-    for (int kc = 0; kc < HD / 16; ++kc) {
-      uint32_t a[4], a2[4];
-      frag_a(a, ks, SX, rw, kc * 16, g, t);
-      frag_a(a2, vs, SX, rw, kc * 16, g, t);
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss<BQ>(dpt, kmajor_desc(va, BK * kRowBytes, kk),
+                     kmajor_desc(dot, BQ * kRowBytes, kk), kk > 0);
+      wg_commit();
+      wg_wait_all();
+      reg_fence(st);
+      reg_fence(dpt);
+
+      const float* lse_s =
+          reinterpret_cast<const float*>(base_ptr + rows_at(s)) +
+          ((bh * Tq + q0) & 3);
+      const float* delta_s = lse_s + C::row_bytes / 4;
+      const bool masked = (causal && kmin + 63 > q0) || q0 + BQ > Tq ||
+                          kmin + 64 > Tk;
 #pragma unroll
       for (int n = 0; n < BQ / 8; ++n) {
-        uint32_t b[2];
-        frag_b(b, qs, SX, n * 8, kc * 16, g, t);
-        mma_bf16(s[n], a, b);                // s^T = k q^T
-        frag_b(b, dos, SX, n * 8, kc * 16, g, t);
-        mma_bf16(dp[n], a2, b);              // dp^T = v dO^T
+        const float L[2] = {lse_s[8 * n + 2 * t], lse_s[8 * n + 2 * t + 1]};
+        const float dl[2] = {delta_s[8 * n + 2 * t],
+                             delta_s[8 * n + 2 * t + 1]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * n + e;
+          const float lq = L[e & 1];
+          // p is the normalized probability (lse folds in the row sum);
+          // a row whose lse is -inf gets p = 0
+          const float l2 = lq == -INFINITY ? INFINITY : lq * kLog2e;
+          float p = fast_exp2(fmaf(st[i], scale_log2, -l2));
+          if (masked) {
+            const int query = q0 + 8 * n + 2 * t + (e & 1);
+            const int key = e & 2 ? key1 : key0;
+            if (query >= Tq || key >= Tk || (causal && key > query))
+              p = 0.f;
+          }
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - dl[e & 1]);   // ds^T
+        }
       }
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+      acc_to_frags(st, pa);
+      acc_to_frags(dpt, da);
+      reg_fence(dva);
+      reg_fence(dka);
+      wg_fence();
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc)
+        wgmma_rs<HD>(dva, pa[kc], mnmajor_desc(dot, BQ * kRowBytes, kc));
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc)
+        wgmma_rs<HD>(dka, da[kc], mnmajor_desc(qt, BQ * kRowBytes, kc));
+      wg_commit();
+      wg_wait_all();
+      reg_fence(dva);
+      reg_fence(dka);
+      reg_fence(pa);
+      reg_fence(da);
     }
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = n * 8 + 2 * t + (e & 1);
-        const int row = q0 + qi;
-        const int key = e < 2 ? key0 : key1;
-        const float L = lse_s[qi];
-        const bool ok = row < Tq && key < Tk && (!causal || key <= row) &&
-                        isfinite(L);
-        const float p = ok ? expf(s[n][e] * scale - L) : 0.f;
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - delta_s[qi]);   // ds^T
-      }
-#pragma unroll
-    for (int kc = 0; kc < BQ / 16; ++kc) {
-      uint32_t a[4], a2[4];
-      frag_a_from_c(a, s[2 * kc], s[2 * kc + 1]);
-      frag_a_from_c(a2, dp[2 * kc], dp[2 * kc + 1]);
-#pragma unroll
-      for (int d = 0; d < HD / 8; ++d) {
-        uint32_t b[2];
-        frag_b(b, dot, SQ, d * 8, kc * 16, g, t);
-        mma_bf16(dva[d], a, b);              // dv += p^T dO
-        frag_b(b, qt, SQ, d * 8, kc * 16, g, t);
-        mma_bf16(dka[d], a2, b);             // dk += ds^T q
-      }
-    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = r ? key1 : key0;
     if (key >= Tk) continue;
-    bf16* ok_row = dk + ((size_t)bh * Tk + key) * HD;
-    bf16* ov_row = dv + ((size_t)bh * Tk + key) * HD;
+    bf16* dk_row = dk + ((size_t)bh * Tk + key) * HD;
+    bf16* dv_row = dv + ((size_t)bh * Tk + key) * HD;
 #pragma unroll
-    for (int d = 0; d < HD / 8; ++d) {
-      *reinterpret_cast<uint32_t*>(ok_row + d * 8 + 2 * t) =
-          pack_bf16(dka[d][2 * r] * scale, dka[d][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(ov_row + d * 8 + 2 * t) =
-          pack_bf16(dva[d][2 * r], dva[d][2 * r + 1]);
+    for (int n = 0; n < HD / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(dk_row + 8 * n + 2 * t) = pack_bf16(
+          dka[4 * n + 2 * r] * scale, dka[4 * n + 2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv_row + 8 * n + 2 * t) =
+          pack_bf16(dva[4 * n + 2 * r], dva[4 * n + 2 * r + 1]);
     }
   }
 }
@@ -1053,28 +1466,14 @@ bool bad_shape(int BH, int Tq, int Tk, int D) {
   return BH <= 0 || BH > 65535 || Tq <= 0 || Tk < 0 || D <= 0 || D > kMaxD;
 }
 
-// the tensor-core kernels take bf16 at head dims 64 and 128, 16-byte
-// aligned; everything else runs on the f32 CUDA-core kernels
+// the tensor-core kernels (K1 and K3 on wgmma, K2 on mma.sync) take bf16
+// at head dims 64 and 128, 16-byte aligned; everything else runs on the
+// f32 CUDA-core kernels
 bool use_tc(int dtype, int D, const void* const* ptrs, int n) {
   if (dtype != kBF16 || (D != 64 && D != 128)) return false;
   for (int i = 0; i < n; ++i)
     if (!aligned16(ptrs[i])) return false;
   return true;
-}
-
-template <int HD>
-int fwd_tc(const void* q, const void* k, const void* v, void* out,
-           float* lse, int BH, int Tq, int Tk, float scale, int causal,
-           cudaStream_t st) {
-  auto kernel = flash_fwd_tc_kernel<HD>;
-  int e = prepare(kernel, TcFwd<HD>::smem);
-  if (e) return e;
-  dim3 grid((Tq + TcFwd<HD>::BR - 1) / TcFwd<HD>::BR, BH);
-  kernel<<<grid, kTcThreads, TcFwd<HD>::smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, Tq, Tk,
-      scale, causal);
-  return (int)cudaGetLastError();
 }
 
 template <int HD>
@@ -1092,19 +1491,113 @@ int dq_tc(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled of libcuda, found through the runtime so that
+// the library links no libcuda (<cuda.h> gives the types only)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// a (BH, T, D) bf16 tensor as the 3-D map (D, T, BH): boxes of 64 columns
+// x `rows` rows of one head, 128-byte swizzle; rows past T read zeros
+int tile_map(CUtensorMap* map, const void* ptr, int BH, int T, int D,
+             int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(ptr), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// a flat f32 vector of n entries, boxes of `len`; entries past n read zeros
+int row_map(CUtensorMap* map, const void* ptr, long long n, int len) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {0};   // rank 1: none is read
+  const cuuint32_t box[1] = {(cuuint32_t)len};
+  const cuuint32_t step[1] = {1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+                        const_cast<void*>(ptr), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 template <int HD>
-int dkv_tc(const void* q, const void* k, const void* v, const void* dout,
-           const float* lse, const float* delta, void* dk, void* dv, int BH,
-           int Tq, int Tk, float scale, int causal, cudaStream_t st) {
-  auto kernel = flash_bwd_dkv_tc_kernel<HD>;
-  int e = prepare(kernel, TcDkv<HD>::smem);
+int fwd_hopper(const void* q, const void* k, const void* v, void* out,
+               float* lse, int BH, int Tq, int Tk, float scale, int causal,
+               cudaStream_t st) {
+  using C = HopFwd<HD>;
+  auto kernel = flash_fwd_wgmma_kernel<HD>;
+  int e = prepare(kernel, C::smem);
   if (e) return e;
-  dim3 grid((Tk + TcDkv<HD>::BK - 1) / TcDkv<HD>::BK, BH);
-  kernel<<<grid, kTcThreads, TcDkv<HD>::smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-      delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq, Tk, scale,
-      causal);
+  CUtensorMap qm, km, vm;
+  memset(&km, 0, sizeof km);
+  memset(&vm, 0, sizeof vm);
+  if ((e = tile_map(&qm, q, BH, Tq, HD, C::BR))) return e;
+  // no key: no tile is loaded, and every row gets out 0 and lse -inf
+  if (Tk > 0 && ((e = tile_map(&km, k, BH, Tk, HD, C::BC)) ||
+                 (e = tile_map(&vm, v, BH, Tk, HD, C::BC))))
+    return e;
+  dim3 grid((Tq + C::BR - 1) / C::BR, BH);
+  kernel<<<grid, kHopThreads, C::smem, st>>>(qm, km, vm, static_cast<bf16*>(out),
+                                             lse, Tq, Tk, scale * kLog2e,
+                                             causal);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dk, void* dv,
+               int BH, int Tq, int Tk, float scale, int causal,
+               cudaStream_t st) {
+  using C = HopDkv<HD>;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<HD>;
+  int e = prepare(kernel, C::smem);
+  if (e) return e;
+  CUtensorMap qm, km, vm, dom, lm, dm;
+  if ((e = tile_map(&qm, q, BH, Tq, HD, C::BQ)) ||
+      (e = tile_map(&km, k, BH, Tk, HD, C::BK)) ||
+      (e = tile_map(&vm, v, BH, Tk, HD, C::BK)) ||
+      (e = tile_map(&dom, dout, BH, Tq, HD, C::BQ)) ||
+      (e = row_map(&lm, lse, (long long)BH * Tq, C::kRowBox)) ||
+      (e = row_map(&dm, delta, (long long)BH * Tq, C::kRowBox)))
+    return e;
+  dim3 grid((Tk + C::BK - 1) / C::BK, BH);
+  kernel<<<grid, kHopThreads, C::smem, st>>>(
+      qm, km, vm, dom, lm, dm, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      Tq, Tk, scale, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
@@ -1119,10 +1612,10 @@ extern "C" int mxtt_flash_fwd(const void* q, const void* k, const void* v,
   auto* lse_f = static_cast<float*>(lse);
   const void* ptrs[] = {q, k, v, out};
   if (use_tc(dtype, D, ptrs, 4))
-    return D == 64 ? fwd_tc<64>(q, k, v, out, lse_f, BH, Tq, Tk, scale,
-                                causal, st)
-                   : fwd_tc<128>(q, k, v, out, lse_f, BH, Tq, Tk, scale,
-                                 causal, st);
+    return D == 64 ? fwd_hopper<64>(q, k, v, out, lse_f, BH, Tq, Tk, scale,
+                                    causal, st)
+                   : fwd_hopper<128>(q, k, v, out, lse_f, BH, Tq, Tk, scale,
+                                     causal, st);
   MXTT_DISPATCH(fwd_nd, dtype, D, q, k, v, out, lse_f, BH, Tq, Tk, D, scale,
                 causal, st);
 }
@@ -1157,12 +1650,14 @@ extern "C" int mxtt_flash_bwd_dkv(const void* q, const void* k,
   auto st = static_cast<cudaStream_t>(stream);
   auto* lse_f = static_cast<const float*>(lse);
   auto* delta_f = static_cast<const float*>(delta);
-  const void* ptrs[] = {q, k, v, dout, dk, dv};
-  if (use_tc(dtype, D, ptrs, 6))
-    return D == 64 ? dkv_tc<64>(q, k, v, dout, lse_f, delta_f, dk, dv, BH,
-                                Tq, Tk, scale, causal, st)
-                   : dkv_tc<128>(q, k, v, dout, lse_f, delta_f, dk, dv, BH,
-                                 Tq, Tk, scale, causal, st);
+  // the Hopper kernel also reads lse and delta through TMA: 16-byte
+  // aligned as well
+  const void* ptrs[] = {q, k, v, dout, dk, dv, lse, delta};
+  if (use_tc(dtype, D, ptrs, 8))
+    return D == 64 ? dkv_hopper<64>(q, k, v, dout, lse_f, delta_f, dk, dv,
+                                    BH, Tq, Tk, scale, causal, st)
+                   : dkv_hopper<128>(q, k, v, dout, lse_f, delta_f, dk, dv,
+                                     BH, Tq, Tk, scale, causal, st);
   MXTT_DISPATCH(dkv_nd, dtype, D, q, k, v, dout, lse_f, delta_f, dk, dv, BH,
                 Tq, Tk, D, scale, causal, st);
 }

@@ -120,6 +120,33 @@ def test_ragged_and_cross_length_match_the_op(t_q, t_kv, blocks):
         np.testing.assert_allclose(g, w, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("t_q,t_kv,causal", [
+    (127, 127, False), (127, 127, True),
+    (129, 129, False), (129, 129, True),
+    (255, 255, False), (255, 255, True),
+    (257, 257, False), (257, 257, True),
+    (129, 300, True), (300, 129, True), (1, 128, True), (128, 1, True),
+])
+def test_tile_edges_match_pallas_kernels(t_q, t_kv, causal):
+    """The lengths around the card kernels' 64- and 128-row tile edges,
+    and causal cross lengths, at small BH and D: the port's plain K1-K3
+    (what the card holds its kernels against) against the JAX package's
+    Pallas kernels in the interpreter, each axis one block (the lengths
+    do not tile).  f32, tolerance 2e-4 as above."""
+    q, k, v, do = _inputs(6, (2, t_q, 16), (2, t_kv, 16))
+    scale = 1.0 / np.sqrt(16)
+    want_out, want = _jax_grads(
+        lambda a, b, c: pk._flash_attention(a, b, c, scale, causal, t_q,
+                                            t_kv),
+        q, k, v, do)
+    got_out, got = _port_grads(q, k, v, do, scale=scale, causal=causal)
+    np.testing.assert_allclose(got_out, want_out, rtol=2e-4, atol=2e-4)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g, w, rtol=2e-4, atol=2e-4,
+                                   err_msg="d%s (t_q=%d t_kv=%d causal=%s)"
+                                   % (name, t_q, t_kv, causal))
+
+
 def test_op_contract_shapes_and_scale():
     q, k, v, _ = _inputs(4, (2, 3, 16, 8), (2, 3, 16, 8))
     want4 = np.asarray(pk.flash_attention(*map(jnp.asarray, (q, k, v)),

@@ -95,6 +95,29 @@ def test_flash_kernels_match_plain_on_card(card, t_q, t_kv, d, causal, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bh,t_q,t_kv,d,causal", chip_smoke.edge_shapes())
+def test_flash_wgmma_tile_edges_match_plain_on_card(card, bh, t_q, t_kv, d,
+                                                    causal):
+    """bf16 at the wgmma kernels' tile edges (K1: 128 query rows a block,
+    128 keys a step; K3: 128 keys a block, 64 queries a step), held as the
+    smoke holds them (``chip_smoke.flash_compare``: each reading <= 1)."""
+    rng = np.random.default_rng(t_q * 1000 + t_kv + d)
+    args = chip_smoke.flash_case(rng, card, bh, t_q, t_kv, d, torch.bfloat16)
+    res = chip_smoke.flash_compare(fa, args, d ** -0.5, causal)[0]
+    for name, (reading, _) in res.items():
+        assert reading <= 1, (name, reading)
+
+
+@pytest.mark.cuda
+def test_flash_wgmma_kernels_have_hgmma(card):
+    counts = chip_smoke.hgmma_counts(fa.build())
+    for kind in ("flash_fwd_wgmma_kernelILi64E", "flash_fwd_wgmma_kernelILi128E",
+                 "flash_bwd_dkv_wgmma_kernelILi64E",
+                 "flash_bwd_dkv_wgmma_kernelILi128E"):
+        assert any(kind in fn and n > 0 for fn, n in counts.items()), kind
+
+
+@pytest.mark.cuda
 def test_flash_counts_launches_and_backward_is_bitwise_repeatable(card):
     rng = np.random.default_rng(5)
     q, k, v, do = (t.reshape(2, 4, 200, 128) for t in chip_smoke.flash_case(
