@@ -10,18 +10,24 @@ Phases, each fatal on failure:
 2. kernel  — hold the paged-attention kernel (K4) against its plain
              PyTorch version on the card at the test shapes and at the
              Llama-3-8B serving shapes (k1 in {1, 5}; f32, bf16 and int8
-             pages; a null page and a lane with no pages), then time it
-             at the 8-lane decode shape beside its byte bound, the plain
-             version and one ``scaled_dot_product_attention`` call (a
-             yardstick only);
-3. flash   — count the HGMMA instructions of K1's and K3's wgmma
-             kernels in the built library (cuobjdump); hold the
+             pages; a null page and a lane with no pages), and where the
+             host splits a lane's context over blocks (contexts of 1 to
+             1,500 tokens, a null page mid-table, k1 = 5, and a chunk
+             that is not split); check that two split runs are bitwise
+             equal and that a combine built to drop one split fails the
+             check; then time it at the 8-lane decode shape beside its
+             byte bound, the plain version and one
+             ``scaled_dot_product_attention`` call (a yardstick only);
+3. flash   — count the HGMMA instructions of K1's, K2's and K3's wgmma
+             kernels in the built library (cuobjdump) and check that no
+             HMMA (mma.sync) is left; hold the
              flash-attention kernels (K1 out and lse, K2 dq, K3 dk and dv)
              against their plain versions on the card (the CPU test
              shapes, ragged T, causal Tq != Tkv, D 8..128, f32 and bf16 on
              the tensor-core and, through misaligned buffers, the
-             CUDA-core kernels, bf16 at the wgmma kernels' tile edges, and
-             the Llama-3-8B train shape), show that
+             CUDA-core kernels, bf16 at the wgmma kernels' tile edges, K2
+             with misaligned lse and delta, and the Llama-3-8B train
+             shape), show that
              the bf16 check fails planted one-tile faults, check that two
              backward runs are bitwise equal and that a T = 8192 forward +
              backward allocates far less than one (T, T) score matrix per
@@ -122,6 +128,38 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters, warmup=3):
+    """Mean device time of ``fn(i)`` over ``iters`` calls queued behind a
+    sleep kernel (CUDA events around the calls only), so that a call
+    whose host enqueue outlasts its kernels is timed by its kernels and
+    not by the host's launch rate."""
+    import torch
+
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    torch.cuda.synchronize()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3   # at most this
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(1_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    ms_per_mcycle = start.elapsed_time(end)
+    # the sleep outlasts the host's enqueue of every call twice over
+    torch.cuda._sleep(int(2e6 * enqueue_ms / ms_per_mcycle) + 1_000_000)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 # -- phase 2: the kernel against its plain version ------------------------
 
 def make_case(rng, dev, b, k1, h, kv, d, s_page, pages, maxp, q_dtype,
@@ -155,6 +193,9 @@ def kernel_checks(pa, dev):
     rng = np.random.default_rng(0)
     # (label, b, k1, h, kv, d, s_page, pages, maxp, positions, tables)
     shapes = []
+    # rows of whole 16-byte vectors (D 16 and 128, any page size) take
+    # the cp.async ring; rows that are not (D 20 in bf16 or int8) the
+    # scalar loads
     for k1 in (1, 5):
         shapes.append(("test", 3, k1, 4, 2, 16, 4, 12, 4, [5, 9, 0],
                        [[1, 2, 0, 3], [4, 5, 6], []]))
@@ -162,6 +203,12 @@ def kernel_checks(pa, dev):
                        [100, 170, 0, 31],
                        [[1, 2, 3, 0, 4, 5, 6, 7],
                         list(range(8, 20)), [], [20, 21, 22]]))
+        shapes.append(("pages/12", 3, k1, 32, 8, 128, 12, 40, 20,
+                       [100, 170, 0],
+                       [[1, 2, 3, 0, 4, 5, 6, 7, 8, 9],
+                        list(range(10, 25)), []]))
+        shapes.append(("D=20", 3, k1, 4, 2, 20, 4, 12, 4, [5, 9, 0],
+                       [[1, 2, 0, 3], [4, 5, 6], []]))
     combos = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
               (torch.bfloat16, torch.bfloat16), (torch.float32, torch.int8),
               (torch.bfloat16, torch.int8)]
@@ -191,6 +238,113 @@ def kernel_checks(pa, dev):
                 fail("kernel disagrees with its plain version")
 
 
+def paged_reading(got, want, q_dtype):
+    """The K4 check's reading, <= 1 to pass: f32 queries
+    |err| / (1e-5 + 1e-4 |want|) elementwise (sums in another order),
+    bf16 queries the largest |err| over 2e-2."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    if q_dtype == torch.float32:
+        return (err / (1e-5 + 1e-4 * want.float().abs())).max().item()
+    return err.max().item() / 2e-2
+
+
+def split_cases():
+    """(label, b, k1, pages, maxp, positions, tables, q dtype, page dtype)
+    of the K4 checks where a lane's context is split over blocks, at
+    Llama-3-8B widths (32/8 heads, D 128, pages of 16): contexts of 1, 31,
+    32, 33 and 1,500 tokens (the short ones see fewer steps than there
+    are splits, so some splits see nothing), a null page in the middle of
+    the long lane's table, an all-null lane; k1 = 5; and a chunk-sized
+    k1 = 128 whose grid fills the card unsplit (n_split = 1)."""
+    import torch
+
+    long_tbl = list(range(1, 95))
+    long_tbl[40] = 0                       # a null page mid-table
+    lanes = ([0, 30, 31, 32, 1499, 77],
+             [[95], [96, 97], [98, 99], [100, 101, 102], long_tbl, []])
+    out = []
+    for q_dt, p_dt in ((torch.float32, torch.bfloat16),
+                       (torch.bfloat16, torch.bfloat16),
+                       (torch.float32, torch.float32),
+                       (torch.float32, torch.int8)):
+        out.append(("ctx 1..1500", 6, 1, 104, 96) + lanes + (q_dt, p_dt))
+    out.append(("k1=5", 6, 5, 104, 96, [0, 26, 27, 28, 1495, 77],
+                lanes[1], torch.float32, torch.bfloat16))
+    out.append(("chunk k1=128", 3, 128, 104, 96, [0, 200, 1371],
+                [[1], list(range(2, 22)), long_tbl], torch.float32,
+                torch.bfloat16))
+    return out
+
+
+def split_checks(pa, dev):
+    """K4 against its plain version where the host splits a lane's
+    context over blocks; two runs bitwise equal; returns [(name, (args,
+    want, q dtype))] of the 'ctx 1..1500' cases with f32 and with bf16
+    queries (the serve path's), for the planted fault."""
+    import torch
+
+    rng = np.random.default_rng(2)
+    h, kv, d, s_page = 32, 8, 128, 16
+    sms = pa.sm_count(dev.index)
+    keep = []
+    for (label, b, k1, pages, maxp, pos, tbls, q_dt, p_dt) in split_cases():
+        args = make_case(rng, dev, b, k1, h, kv, d, s_page, pages, maxp,
+                         q_dt, p_dt, pos, tbls)
+        splits = pa.n_split(b, k1, h, kv, s_page, maxp, sms)
+        combines = pa.paged_attention.combine_launches
+        got = pa.paged_attention(*args)
+        combined = pa.paged_attention.combine_launches - combines
+        want = pa._paged_ref(*args, scale=d ** -0.5)
+        torch.cuda.synchronize()
+        reading = paged_reading(got, want, q_dt)
+        ok = reading <= 1 and torch.isfinite(got).all().item()
+        log("kernel split %-12s n_split=%d (combine launched %d) q=%-8s "
+            "pages=%-8s reading %.3f %s"
+            % (label, splits, combined, str(q_dt)[6:], str(p_dt)[6:],
+               reading, "ok" if ok else "FAIL"))
+        if not ok:
+            fail("the split kernel disagrees with its plain version")
+        if (splits > 1) != (label != "chunk k1=128") or \
+                combined != (splits > 1):
+            fail("n_split %d and %d combine launches for %s" % (
+                splits, combined, label))
+        if any(len(t) == 0 for t in tbls) and \
+                got[[len(t) == 0 for t in tbls].index(True)].abs().max() != 0:
+            fail("a lane with no pages did not return 0 (%s)" % label)
+        if label == "ctx 1..1500" and p_dt == torch.bfloat16:
+            keep.append(("%s q=%s" % (label, str(q_dt)[6:]),
+                         (args, want, q_dt)))
+    args = keep[0][1][0]
+    runs = [pa.paged_attention(*args) for _ in range(2)]
+    if not torch.equal(*runs):
+        fail("two split K4 runs differ")
+    log("kernel split: two runs bitwise equal")
+    return keep
+
+
+def planted_split_fault(pa, lib_path, keep):
+    """A combine that leaves split 1 out (built with MXTT_DROP_SPLIT=1)
+    must fail the check; returns its reading."""
+    import ctypes
+
+    import torch
+    from mxnet_tpu_torch.ops import _build
+
+    args, want, q_dt = keep
+    lib = ctypes.CDLL(lib_path)
+    pa._bind(lib)
+    sound = _build._libs.get(pa._SOURCE)
+    _build._libs[pa._SOURCE] = lib
+    try:
+        got = pa.paged_attention(*args)
+        torch.cuda.synchronize()
+    finally:
+        _build._libs[pa._SOURCE] = sound
+    return paged_reading(got, want, q_dt)
+
+
 def launch_split(pa, sets, n=50):
     """Host enqueue time per wrapper call (no sync inside the window) and
     the kernel's device time per launch from torch.profiler, to tell a
@@ -208,11 +362,12 @@ def launch_split(pa, sets, n=50):
         for i in range(n):
             pa.paged_attention(*sets[i % len(sets)])
         torch.cuda.synchronize()
-    dev_us = [e.device_time_total for e in prof.key_averages()
-              if "paged_attention" in e.key]
-    if not dev_us:
+    dev_us = {k: sum(e.device_time_total for e in prof.key_averages()
+                     if k in e.key)
+              for k in ("paged_attention", "paged_combine")}
+    if not dev_us["paged_attention"]:
         fail("the profiler saw no paged_attention kernel")
-    return host_us, sum(dev_us) / n / 1e3
+    return host_us, {k: us / n / 1e3 for k, us in dev_us.items()}
 
 
 def kernel_timing(pa, dev):
@@ -265,13 +420,23 @@ def kernel_timing(pa, dev):
             return F.scaled_dot_product_attention(*gathered[i % n_rot])
     lib_out = sdpa(0).transpose(1, 2).float()
     lib_err = (lib_out - pa.paged_attention(*sets[0])).abs().max().item()
-    ms = cuda_ms(lambda i: pa.paged_attention(*sets[i % n_rot]), 200)
+    # the kernels of one call take less than its host enqueue: time them
+    # queued behind a sleep, and the back-to-back rate beside
+    ms = queued_ms(lambda i: pa.paged_attention(*sets[i % n_rot]), 200)
+    rate_ms = cuda_ms(lambda i: pa.paged_attention(*sets[i % n_rot]), 200)
     host_us, device_ms = launch_split(pa, sets)
-    log("kernel timing: host enqueue %.1f us per call; profiler device "
-        "time %.4f ms per launch" % (host_us, device_ms))
+    splits = pa.n_split(b, k1, h, kv, s_page, maxp, pa.sm_count(dev.index))
+    log("kernel timing: n_split %d (%d blocks: %d lanes x %d kv heads x 1 "
+        "row tile x %d, on %d SMs); host enqueue %.1f us per call; profiler "
+        "device time per call %.4f ms attention + %.4f ms combine; %.4f ms "
+        "per call back to back (the host's launch rate when above the "
+        "kernels')"
+        % (splits, b * kv * splits, b, kv, splits, pa.sm_count(dev.index),
+           host_us, device_ms["paged_attention"], device_ms["paged_combine"],
+           rate_ms))
     plain_ms = cuda_ms(lambda i: pa._paged_ref(*sets[i % n_rot],
                                                scale=scale), 20)
-    library_ms = cuda_ms(sdpa, 200)
+    library_ms = queued_ms(sdpa, 200)
     # bound: each input read once, each output written once — the live
     # K/V rows (pages up to each lane's position), q, table, positions,
     # out — against the bf16 rate for the two products
@@ -474,37 +639,93 @@ def edge_checks(fa, dev, rng):
                  "tile edge")
 
 
-def hgmma_counts(lib):
-    """{kernel: number of HGMMA (wgmma) instructions in its SASS} for
-    every kernel of the built library ``lib``, read with cuobjdump."""
+def sass_counts(lib, opcode):
+    """{kernel: number of ``opcode`` instructions in its SASS} for every
+    kernel of the built library ``lib``, read with cuobjdump."""
+    import re
+
     from mxnet_tpu_torch.ops import _build
 
     tool = os.path.join(_build.cuda_home(), "bin", "cuobjdump")
     sass = subprocess.run([tool if os.path.exists(tool) else "cuobjdump",
                            "-sass", lib], capture_output=True, text=True,
                           timeout=300, check=True).stdout
+    word = re.compile(r"\b%s\b" % opcode)
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
+        elif fn is not None and word.search(line):
             counts[fn] += 1
     return counts
 
 
+def hgmma_counts(lib):
+    """{kernel: number of HGMMA (wgmma) instructions in its SASS}."""
+    return sass_counts(lib, "HGMMA")
+
+
+# the wgmma kernels of K1, K2 and K3, by their mangled names' stems
+WGMMA_KERNELS = {"fwd": "flash_fwd_wgmma_kernel",
+                 "dq": "flash_bwd_dq_wgmma_kernel",
+                 "dkv": "flash_bwd_dkv_wgmma_kernel"}
+
+
 def check_hgmma(fa):
-    """K1 and K3's bf16 kernels must run on wgmma: print each kernel's
-    HGMMA count and fail if a wgmma kernel has none."""
-    counts = hgmma_counts(fa.build())
+    """K1, K2 and K3's bf16 kernels must run on wgmma: print each kernel's
+    HGMMA count, fail if one of the six (three kernels at head dims 64
+    and 128) has none, and fail if any HMMA (mma.sync) instruction is
+    left in the library."""
+    lib = fa.build()
+    counts = hgmma_counts(lib)
     wg = {fn: n for fn, n in counts.items() if "wgmma_kernel" in fn}
     for fn, n in sorted(wg.items()):
         log("flash sass: %d HGMMA in %s" % (n, fn))
-    kinds = {("fwd" if "flash_fwd" in fn else "dkv") + str(
-        64 if "ILi64E" in fn else 128) for fn in wg if wg[fn] > 0}
-    if kinds != {"fwd64", "fwd128", "dkv64", "dkv128"}:
-        fail("the wgmma kernels of K1 and K3 are missing or have no HGMMA "
-             "instruction: %s" % wg)
+    kinds = {kind + str(hd) for kind, stem in WGMMA_KERNELS.items()
+             for hd in (64, 128) for fn in wg
+             if stem + "ILi%dE" % hd in fn and wg[fn] > 0}
+    if kinds != {kind + str(hd) for kind in WGMMA_KERNELS
+                 for hd in (64, 128)}:
+        fail("the wgmma kernels of K1, K2 and K3 are missing or have no "
+             "HGMMA instruction: %s" % wg)
+    hmma = {fn: n for fn, n in sass_counts(lib, "HMMA").items() if n}
+    log("flash sass: %d HMMA (mma.sync) instructions in the library"
+        % sum(hmma.values()))
+    if hmma:
+        fail("mma.sync (HMMA) is left in the flash library: %s" % hmma)
+
+
+def misaligned_rows_check(fa, dev, rng):
+    """K2 with lse and delta 4 bytes off a 16-byte boundary (q, k, v, dO
+    and dq aligned) takes the CUDA-core kernel, and must agree with the
+    plain version as the wgmma kernel does."""
+    import torch
+
+    bh, t, d, scale = 3, 200, 128, 128 ** -0.5
+    q, k, v, do = flash_case(rng, dev, bh, t, t, d, torch.bfloat16)
+    out, lse = fa._fwd_kernel(q, k, v, scale, True)
+    delta = (do.float() * out.float()).sum(-1)
+    want = fa._flash_bwd_ref(q, k, v, do, lse, delta, scale, True)[0]
+
+    def off(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        return buf[1:].view(x.shape).copy_(x)
+
+    readings = {}
+    for label, rows in (("aligned (wgmma)", (lse, delta)),
+                        ("lse, delta misaligned (CUDA cores)",
+                         (off(lse), off(delta)))):
+        dq = torch.empty_like(q)
+        fa._run("mxtt_flash_bwd_dq", "dq_launches", q, k, v, do, *rows, dq,
+                bh, t, t, d, scale, 1, 1)
+        torch.cuda.synchronize()
+        readings[label] = max(tile_reading(dq, want))
+    log("flash check: K2 dq at BH=3 T=200 D=128 causal bf16, %s (reading "
+        "<= 1)" % ", ".join("%s %.2f" % kv for kv in readings.items()))
+    if max(readings.values()) > 1:
+        fail("K2 disagrees with its plain version when lse and delta are "
+             "misaligned")
 
 
 def flash_checks(fa, dev):
@@ -524,9 +745,8 @@ def flash_checks(fa, dev):
               ("tq<tkv", 3, 64, 200, 64, True),
               ("tq>tkv", 3, 200, 70, 128, True),
               ("d128", 4, 300, 300, 128, True)]
-    # bf16 at head dims 64 and 128 runs on the tensor-core kernels (K1
-    # and K3 on wgmma, K2 on mma.sync) when the buffers are 16-byte
-    # aligned; misaligned, on the CUDA-core ones
+    # bf16 at head dims 64 and 128 runs on the wgmma kernels when the
+    # buffers are 16-byte aligned; misaligned, on the CUDA-core ones
     for dtype, misalign in ((torch.float32, False), (torch.bfloat16, False),
                             (torch.bfloat16, True)):
         for label, bh, t_q, t_kv, d, causal in shapes:
@@ -546,6 +766,7 @@ def flash_checks(fa, dev):
             if worst > 1:
                 fail("flash kernels disagree with their plain versions")
     edge_checks(fa, dev, rng)
+    misaligned_rows_check(fa, dev, rng)
     args = flash_case(rng, dev, TRAIN_B * 32, TRAIN_T, TRAIN_T, 128,
                       torch.bfloat16)
     res, got, want, parts = flash_compare(fa, args, 128 ** -0.5, True)
@@ -722,10 +943,11 @@ def log_step_profile(step_profile, step):
     rows = [(e.self_device_time_total, e.count, e.key) for e in events]
     rows = [r for r in rows if r[0] > 0]
     busy_us = sum(r[0] for r in rows)
-    attn_us = sum(r[0] for r in rows if "paged_attention" in r[2])
+    attn_us = sum(r[0] for r in rows
+                  if "paged_attention" in r[2] or "paged_combine" in r[2])
     log("serve: decode step %d profiled: wall %.3f ms, device busy %.3f ms "
-        "(%.1f%%), %d kernel launches, paged attention %.3f ms (%.1f%% of "
-        "busy)" % (step, wall * 1e3, busy_us / 1e3,
+        "(%.1f%%), %d kernel launches, paged attention (K4 with its "
+        "combine) %.3f ms (%.1f%% of busy)" % (step, wall * 1e3, busy_us / 1e3,
                    100 * busy_us / 1e3 / (wall * 1e3),
                    sum(r[1] for r in rows), attn_us / 1e3,
                    100 * attn_us / max(busy_us, 1e-9)))
@@ -759,6 +981,7 @@ def serve_main_path(serve, pa, dev):
     lens = [32, 1500] + rng.integers(32, 1501, size=n_req - 2).tolist()
     prompts = [rng.integers(0, g.vocab_size, size=n).tolist() for n in lens]
     pa.paged_attention.launches = 0
+    pa.paged_attention.combine_launches = 0
     srv.start()
     t0 = time.perf_counter()
     reqs = [srv.submit(p, max_new_tokens=new) for p in prompts]
@@ -766,6 +989,7 @@ def serve_main_path(serve, pa, dev):
     wall = time.perf_counter() - t0
     srv.stop()
     launches = pa.paged_attention.launches
+    combines = pa.paged_attention.combine_launches
     stats = srv.stats()
     arena.assert_quiescent()
     steps = stats["decode_steps"]
@@ -781,9 +1005,13 @@ def serve_main_path(serve, pa, dev):
     pre = sorted(runner.times["prefill"])
     toks = sum(len(o) for o in outs)
     log("serve: %d/%d requests done, prompts %d..%d tokens, %d new each; "
-        "%d decode steps, %d kernel launches (%d layers x steps = %d)"
+        "%d decode steps, %d kernel launches (%d layers x steps = %d), "
+        "%d of them split (n_split %d at the decode shape) with a combine"
         % (len(outs), n_req, min(lens), max(lens), new, steps, launches,
-           g.num_layers, g.num_layers * steps))
+           g.num_layers, g.num_layers * steps, combines,
+           pa.n_split(g.max_batch, 1, g.num_heads, g.num_kv_heads,
+                      g.page_size, g.max_pages_per_seq,
+                      pa.sm_count(dev.index))))
     log("serve: TTFT p50 %.4f s (max %.4f s), prefill call p50 %.4f s, "
         "decode ms/step p50 %.3f (min %.3f max %.3f), %.1f tokens/s over "
         "%.2f s wall, peak device memory %.2f GB"
@@ -1745,8 +1973,11 @@ def main(argv):
            sys.version.split()[0]))
     t_all = time.perf_counter()
 
+    # K4 with split 1 left out of its combine: the planted fault
+    drop_split = (pa._SOURCE, ("MXTT_DROP_SPLIT=1",))
     if set(phases) & set(PHASES[:6]):   # the phases of K1-K4
-        built = _build.build_all([fa._SOURCE, pa._SOURCE], verbose=True)
+        built = _build.build_all([fa._SOURCE, pa._SOURCE, drop_split],
+                                 verbose=True)
         for lib, seconds in built.values():
             log("build: %s ready after %.1f s"
                 % (os.path.relpath(lib, REPO), seconds))
@@ -1762,6 +1993,14 @@ def main(argv):
 
     def kernel_phase():
         kernel_checks(pa, dev)
+        keep = split_checks(pa, dev)
+        for name, case in keep:
+            reading = planted_split_fault(pa, built[drop_split][0], case)
+            log("kernel split: a combine that drops split 1 reads %.2f on "
+                "%s (must be > 1)" % (reading, name))
+            if reading <= 1:
+                fail("the K4 check passes a combine that drops a split "
+                     "(%s)" % name)
         return kernel_timing(pa, dev)
 
     def flash_phase():

@@ -24,59 +24,69 @@
 // no split of a sum across blocks, so the gradients are deterministic and
 // two runs are bitwise equal.  Causal tiles are started heaviest first.
 //
-// bf16 at head dims 64 and 128 with 16-byte aligned buffers (the Llama
-// path) runs these kernels:
-//   K1 flash_fwd_wgmma_kernel (replaces pallas_kernels.py:83) and
-//   K3 flash_bwd_dkv_wgmma_kernel (replaces pallas_kernels.py:208), for
-//      Hopper: two consumer warpgroups of 64 rows each (wgmma's M), 256
-//      threads.  Thread 0 brings the tiles in with TMA (3-D tensor maps
-//      (D, T, BH), so a tile past T reads zeros within its own head;
-//      128-byte swizzle, 64-column panels) into a ring of shared-memory
-//      stages: the first stages at the start, each later tile into the
-//      stage both warpgroups have released.  A "full" mbarrier per stage
-//      counts the bytes in, an "empty" one the 8 consumer warps out.  No
-//      producer warps: with 8 warps a block each of the SM's four register
-//      partitions holds 2 warps, so a thread may keep 255 registers; a
-//      ninth warp caps every thread at 168, and a producer warpgroup with
-//      setmaxnreg left ptxas spilling (PERF.md).  Products are wgmma
-//      with f32 accumulators:
-//        K1: one block per (bh, 128 query rows); Q loaded once, K and V
-//            tiles of 128 keys stream through the ring.  S = Q K^T with
-//            both operands in shared memory (K stored [key][d] is K-major
-//            for B); O += P V with P repacked in place from the S
-//            accumulator to bf16 A fragments in registers and V read as
-//            an MN-major B operand through the descriptor's transpose bit,
-//            so no transposed copy of V exists.  Online softmax in exp2
-//            with scale * log2(e) folded in; the mask is applied only on
-//            tiles that cross the diagonal or Tk, and tiles past the
-//            diagonal are never loaded.
-//        K3: one block per (bh, 128 keys); K and V resident; Q and dO
-//            tiles of 64 queries with their lse and delta slices stream
-//            through 3 stages, each loaded once, never transposed.
-//            S^T = K Q^T and dP^T = V dO^T put the accumulators in keys x
-//            queries layout, so P^T and dS^T feed dV += P^T dO and
-//            dK += dS^T Q straight from registers, with dO and Q as
-//            MN-major B operands.  Causal blocks start at the first query
-//            tile that sees their keys; a warpgroup skips the products of
-//            a tile all of whose pairs are masked.
-//   K2 flash_bwd_dq_tc_kernel: mma.sync m16n8k16 on tiles staged through
-//      registers (tc_rows / tc_cols), 4 warps of 16 rows.
-// p and ds are rounded to bf16 before their products, as FlashAttention
-// does.  Everything else (f32, other head dims up to 256, misaligned
-// buffers) runs f32 FMA on the CUDA cores, 8 warps of 8 rows, lane = key
-// (K1, K2) or query (K3) of a 32-wide step, tiles staged as f32.
-//
 // Bound.  At the Llama-3-8B train shape (B*H = 64, T = 2048, D = 128,
-// causal, bf16) each kernel is bound by operations: about 69 GFLOP (K1),
-// 103 GFLOP (K2) and 137 GFLOP (K3) of products on the unmasked half,
-// against 989 TFLOP/s of bf16 tensor cores, 70-140 us, while its bytes
-// take 40-60 us at 3.35 TB/s.  So the tensor cores must be kept busy:
-// wgmma is the only way to their full rate, the TMA ring overlaps the
-// next tile's loads with this tile's products and costs the consumers no
-// instructions, and two consumer warpgroups let one's softmax run beside
-// the other's products.  A wait on an mbarrier that lasts seconds (a
-// broken phase or byte count) traps, so the launch fails instead of
-// hanging.
+// causal, bf16) each kernel is bound by operations: about 69 GFLOP (K1,
+// two products), 103 GFLOP (K2, three) and 137 GFLOP (K3, four) on the
+// unmasked half, against 989 TFLOP/s of bf16 tensor cores, 70-140 us,
+// while its bytes take 40-60 us at 3.35 TB/s.  So the tensor cores must
+// be kept busy, and all three bf16 kernels are built alike for that:
+//
+// Hopper kernels.  bf16 at head dims 64 and 128 with 16-byte aligned
+// buffers (the Llama path) runs
+//   K1 flash_fwd_wgmma_kernel      (replaces pallas_kernels.py:83),
+//   K2 flash_bwd_dq_wgmma_kernel   (replaces pallas_kernels.py:166),
+//   K3 flash_bwd_dkv_wgmma_kernel  (replaces pallas_kernels.py:208).
+// - wgmma, the only way to the tensor cores' full rate: two consumer
+//   warpgroups of 64 rows each (wgmma's M), 256 threads, f32
+//   accumulators in registers.  Operands the product reads transposed (V
+//   in K1, K in K2, dO and Q in K3) are read MN-major through the
+//   descriptor's transpose bit, so no transposed copy exists; P and dS go
+//   from their f32 accumulators to bf16 A fragments in registers.
+// - TMA into a ring of shared-memory stages: thread 0 brings the tiles
+//   in (3-D tensor maps (D, T, BH), so a tile past T reads zeros within
+//   its own head; 128-byte swizzle, 64-column panels), the first stages
+//   at the start and each later tile into the stage both warpgroups have
+//   released.  A "full" mbarrier per stage counts the bytes in, an
+//   "empty" one the 8 consumer warps out, so the next tiles' loads fly
+//   while this tile's products run, and the copy costs the consumers no
+//   instructions.  lse and delta come in as 1-D boxes from the 16-byte
+//   boundary at or before the block's first row (TMA needs it).
+// - No producer warps: with 8 warps a block each of the SM's four
+//   register partitions holds 2 warps, so a thread may keep 255
+//   registers; a ninth warp caps every thread at 168, and a producer
+//   warpgroup with setmaxnreg left ptxas spilling (PERF.md).
+// - Masks cost only where they bite: a tile is masked element by
+//   element only where it crosses the diagonal or Tk; tiles past the
+//   diagonal are never loaded, and a warpgroup skips the products of a
+//   tile all of whose pairs are masked.  While the two warpgroups take
+//   turns, one's exponentials run beside the other's products.
+//   K1: one block per (bh, 128 query rows); Q loaded once, K and V tiles
+//       of 128 keys stream through the ring.  S = Q K^T, online softmax in
+//       exp2 with scale * log2(e) folded in, O += P V.
+//   K2: one block per (bh, 128 query rows); Q, dO and the rows' lse and
+//       delta loaded once, K and V tiles of 128 keys stream through 2
+//       stages.  S = Q K^T and dP = dO V^T (both operands K-major),
+//       p = exp2(s scale log2(e) - lse log2(e)), ds = p (dp - delta), then
+//       dQ += dS K with K MN-major: one product more than K1 and no
+//       online rescale.  The S, dP and dQ accumulators take 64 + 64 + 64
+//       registers a thread at D = 128 (232 in all, no spills); 128-key
+//       steps beat 64-key ones with 2 or 3 stages (PERF.md).
+//   K3: one block per (bh, 128 keys); K and V resident; Q and dO tiles of
+//       64 queries with their lse and delta slices stream through 3
+//       stages.  S^T = K Q^T and dP^T = V dO^T put the accumulators in
+//       keys x queries layout, so P^T and dS^T feed dV += P^T dO and
+//       dK += dS^T Q straight from registers.  Causal blocks start at the
+//       first query tile that sees their keys.
+// K2 and K3 both recompute S and dP (the two-pass backward's price for
+// deterministic, atomic-free gradients).  p and ds are rounded to bf16
+// before their products, as FlashAttention does.  A wait on an mbarrier
+// that lasts seconds (a broken phase or byte count) traps, so the launch
+// fails instead of hanging.
+//
+// Everything else (f32, other head dims up to 256, misaligned buffers,
+// including lse and delta for K2 and K3) runs f32 FMA on the CUDA cores,
+// 8 warps of 8 rows, lane = key (K1, K2) or query (K3) of a 32-wide step,
+// tiles staged as f32.
 //
 // Plain C interface, bound from Python with ctypes.  Every launch goes
 // on the caller's stream; each entry point returns cudaGetLastError().
@@ -87,6 +97,8 @@
 #include <stdint.h>
 #include <math.h>
 #include <string.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -523,214 +535,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K2 on bf16 tensor cores (head dims 64 and 128): mma.sync m16n8k16
-// with f32 accumulation.  4 warps; each warp owns 16 rows of the block's
-// 64-row tile.  Tiles are staged in shared memory as bf16 with a padded
-// row stride (8 elements), row-major where the tile is an mma A operand
-// or the n-major B operand, and transposed where it is the k-major B
-// operand (K).  ds goes from the f32 accumulator fragments straight into
-// A fragments in registers, rounded to bf16.
+// Hopper building blocks: mbarriers, TMA, wgmma
 // ---------------------------------------------------------------------------
 
 typedef __nv_bfloat16 bf16;
-constexpr int kTcThreads = 128;
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
-
-// c += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 out
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A fragment of the 16x16 chunk at (r0, c0) of row-major X (stride sx);
-// g = lane / 4, t = lane % 4
-__device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* X, int sx,
-                                       int r0, int c0, int g, int t) {
-  const bf16* p = X + (r0 + g) * sx + c0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * sx);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * sx + 8);
-}
-
-// B fragment of the 16(k) x 8(n) chunk at (k0, n0), from Y stored [n][k]
-__device__ __forceinline__ void frag_b(uint32_t b[2], const bf16* Y, int sy,
-                                       int n0, int k0, int g, int t) {
-  const bf16* p = Y + (n0 + g) * sy + k0 + 2 * t;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
-// the A fragment of columns 16 kc.. of a 16 x N product from its two
-// accumulator fragments (n-tiles 2 kc and 2 kc + 1), rounded to bf16
-__device__ __forceinline__ void frag_a_from_c(uint32_t a[4], const float c0[4],
-                                              const float c1[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// rows [r0, r0 + n) of a (len, HD) bf16 matrix -> shared rows of stride
-// SX, 16 bytes at a time; rows at or past len stage zeros
-template <int HD, int SX>
-__device__ __forceinline__ void tc_rows(bf16* dst, const bf16* __restrict__ src,
-                                        int r0, int n, int len) {
-  constexpr int kChunks = HD / 8;
-  for (int i = threadIdx.x; i < n * kChunks; i += kTcThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < len)
-      u = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * HD + c));
-    *reinterpret_cast<uint4*>(dst + r * SX + c) = u;
-  }
-}
-
-// the same rows transposed: dst[d][r] (stride ST); neighbouring threads
-// take neighbouring rows, so the 2-byte stores hit distinct banks
-template <int HD, int ST>
-__device__ __forceinline__ void tc_cols(bf16* dst, const bf16* __restrict__ src,
-                                        int r0, int n, int len) {
-  for (int i = threadIdx.x; i < n * (HD / 8); i += kTcThreads) {
-    const int r = i % n, c = (i / n) * 8;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < len)
-      u = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * HD + c));
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      dst[(c + j) * ST + r] = __ushort_as_bfloat16(static_cast<unsigned short>(
-          j & 1 ? w[j >> 1] >> 16 : w[j >> 1] & 0xffffu));
-  }
-}
-
-template <int HD>
-struct TcDq {
-  static constexpr int BR = 64, BC = 64, SX = HD + 8, ST = BC + 8;
-  static constexpr size_t smem =
-      sizeof(bf16) * ((size_t)(2 * BR + 2 * BC) * SX + (size_t)HD * ST) +
-      sizeof(float) * 2 * BR;
-};
-
-template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
-flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta, bf16* __restrict__ dq,
-                       int Tq, int Tk, float scale, int causal) {
-  using C = TcDq<HD>;
-  constexpr int BR = C::BR, BC = C::BC, SX = C::SX, ST = C::ST;
-  const int tile = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int q0 = tile * BR;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int rw = warp * 16;
-  const int row0 = q0 + rw + g, row1 = row0 + 8;
-
-  extern __shared__ uint4 smem_tc[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_tc);   // [BR][SX]
-  bf16* dos = qs + BR * SX;                       // [BR][SX]
-  bf16* ks = dos + BR * SX;                       // [BC][SX]
-  bf16* vs = ks + BC * SX;                        // [BC][SX]
-  bf16* kt = vs + BC * SX;                        // [HD][ST]
-  float* lse_s = reinterpret_cast<float*>(kt + HD * ST);   // [BR]
-  float* delta_s = lse_s + BR;                              // [BR]
-  const size_t qoff = (size_t)bh * Tq * HD, koff = (size_t)bh * Tk * HD;
-  tc_rows<HD, SX>(qs, q + qoff, q0, BR, Tq);
-  tc_rows<HD, SX>(dos, dout + qoff, q0, BR, Tq);
-  if (threadIdx.x < BR) {
-    const int row = q0 + threadIdx.x;
-    lse_s[threadIdx.x] = row < Tq ? lse[(size_t)bh * Tq + row] : -INFINITY;
-    delta_s[threadIdx.x] = row < Tq ? delta[(size_t)bh * Tq + row] : 0.f;
-  }
-
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
-    acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  const int kend = causal ? min(Tk, q0 + BR) : Tk;
-  for (int c0 = 0; c0 < kend; c0 += BC) {
-    __syncthreads();
-    tc_rows<HD, SX>(ks, k + koff, c0, BC, Tk);
-    tc_rows<HD, SX>(vs, v + koff, c0, BC, Tk);
-    tc_cols<HD, ST>(kt, k + koff, c0, BC, Tk);
-    __syncthreads();
-    float s[BC / 8][4], dp[BC / 8][4];
-#pragma unroll
-    for (int n = 0; n < BC / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < HD / 16; ++kc) {
-      uint32_t a[4], a2[4];
-      frag_a(a, qs, SX, rw, kc * 16, g, t);
-      frag_a(a2, dos, SX, rw, kc * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < BC / 8; ++n) {
-        uint32_t b[2];
-        frag_b(b, ks, SX, n * 8, kc * 16, g, t);
-        mma_bf16(s[n], a, b);
-        frag_b(b, vs, SX, n * 8, kc * 16, g, t);
-        mma_bf16(dp[n], a2, b);
-      }
-    }
-    const float L[2] = {lse_s[rw + g], lse_s[rw + g + 8]};
-    const float dl[2] = {delta_s[rw + g], delta_s[rw + g + 8]};
-#pragma unroll
-    for (int n = 0; n < BC / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int col = c0 + n * 8 + 2 * t + (e & 1);
-        const int row = r ? row1 : row0;
-        const bool ok =
-            col < Tk && (!causal || col <= row) && isfinite(L[r]);
-        const float p = ok ? expf(s[n][e] * scale - L[r]) : 0.f;
-        s[n][e] = p * (dp[n][e] - dl[r]);      // ds
-      }
-#pragma unroll
-    for (int kc = 0; kc < BC / 16; ++kc) {
-      uint32_t a[4];
-      frag_a_from_c(a, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int d = 0; d < HD / 8; ++d) {
-        uint32_t b[2];
-        frag_b(b, kt, ST, d * 8, kc * 16, g, t);
-        mma_bf16(acc[d], a, b);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r ? row1 : row0;
-    if (row >= Tq) continue;
-    bf16* o = dq + ((size_t)bh * Tq + row) * HD;
-#pragma unroll
-    for (int d = 0; d < HD / 8; ++d)
-      *reinterpret_cast<uint32_t*>(o + d * 8 + 2 * t) =
-          pack_bf16(acc[d][2 * r] * scale, acc[d][2 * r + 1] * scale);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Hopper building blocks: mbarriers, TMA, wgmma
-// ---------------------------------------------------------------------------
 
 // two consumer warpgroups and no producer warps: with 8 warps a block,
 // each of the SM's four register partitions holds 2 warps, so a thread
@@ -738,63 +551,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 constexpr int kHopThreads = 256;
 constexpr int kConsumerWarps = 8;
 constexpr uint32_t kRowBytes = 128;   // one swizzled panel row: 64 bf16
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-// a wait on an mbarrier gives up (traps) after this many nanoseconds or
-// this many polls, whichever comes first
-constexpr uint64_t kWaitNs = 4000000000ull;
-constexpr uint32_t kWaitPolls = 1u << 28;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// the loading thread's arrival, announcing `bytes` of TMA traffic to come
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ uint32_t mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// wait until the phase of parity `parity` has completed; a barrier that
-// never completes (a wrong phase or byte count) traps instead of hanging
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  for (uint32_t i = 1; !mbar_try(bar, parity); ++i)
-    if (i == kWaitPolls || ((i & 1023u) == 0 && global_ns() - t0 > kWaitNs))
-      __trap();
-}
 
 // one TMA tile load into shared memory, completing on `bar`
 __device__ __forceinline__ void tma_load_3d(uint32_t dst,
@@ -827,15 +584,6 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// 2^x on the SFU (ex2.approx, flush to zero): exp2f without the guard
-// for results below 2^-126, which costs registers and instructions on
-// every element; 2^-inf is 0
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -882,8 +630,8 @@ __device__ __forceinline__ void reg_fence(uint32_t (&d)[N][4]) {
 // d (64 x N, f32) = a b, plus d when acc; a and b bf16 in shared memory,
 // both K-major.  Accumulator register i of a thread (lane = 4 g + t, warp
 // w of the warpgroup) holds row 16 w + g + 8 ((i >> 1) & 1), column
-// 8 (i >> 2) + 2 t + (i & 1): the mma.sync C layout, one 16-row slice per
-// warp.
+// 8 (i >> 2) + 2 t + (i & 1): one 16-row slice per warp, 8 columns per
+// group of 4 registers.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int acc);
@@ -920,8 +668,9 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
 }
 
 // d (64 x N, f32) += a b: a one bf16 16-column A fragment in registers
-// (the mma.sync A layout, one 16-row slice per warp), b bf16 in shared
-// memory, MN-major (the transpose bit set)
+// (register j of a thread holds row 16 w + g + 8 (j & 1), columns
+// 8 (j >> 1) + 2 t and + 1), b bf16 in shared memory, MN-major (the
+// transpose bit set)
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b);
@@ -1358,6 +1107,207 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------------
+// K2 for Hopper: grid (ceil(Tq / 128), BH), 256 threads, HopDq<HD>::smem
+// ---------------------------------------------------------------------------
+
+template <int HD>
+struct HopDq {
+  static constexpr int BR = 128, BC = 128, kStages = 2, kPanels = HD / 64;
+  static constexpr uint32_t t_bytes = BR * HD * 2;    // Q or dO, resident
+  static constexpr uint32_t kv_bytes = BC * HD * 2;   // one K or V tile
+  // the block's lse and delta slices, as in K3: a box of BR + 4 entries
+  // from the 16-byte boundary at or before bh * Tq + q0, 128-byte aligned
+  static constexpr int kRowBox = BR + 4;
+  static constexpr uint32_t row_bytes = 640;
+  static_assert(kRowBox * 4 <= row_bytes, "an lse slice overflows its slot");
+  // Q | dO | kStages x (K tile | V tile) | lse | delta | mbarriers
+  static constexpr uint32_t ring_off = 2 * t_bytes;
+  static constexpr uint32_t rows_off = ring_off + 2 * kStages * kv_bytes;
+  static constexpr uint32_t bar_off = rows_off + 2 * row_bytes;
+  // Q/dO/lse/delta, k full, v full, empty
+  static constexpr int n_bars = 1 + 3 * kStages;
+  static constexpr size_t smem = 1024 + bar_off + 8 * n_bars;
+  static constexpr uint32_t q_tx = 2 * t_bytes + 2 * kRowBox * 4;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kHopThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const __grid_constant__ CUtensorMap lse_map,
+                          const __grid_constant__ CUtensorMap delta_map,
+                          bf16* __restrict__ dq, int Tq, int Tk, float scale,
+                          float scale_log2, int causal) {
+  using C = HopDq<HD>;
+  constexpr int BR = C::BR, BC = C::BC, S = C::kStages;
+  // causal tiles near the end of the sequence do the most work: start
+  // them first
+  const int tile = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const int q0 = tile * BR;
+  // rows below q0 + BR see no key past the tile's last row: later key
+  // tiles are never loaded
+  const int kend = causal ? min(Tk, q0 + BR) : Tk;
+  const int n_tiles = (kend + BC - 1) / BC;
+  // the first lse/delta entry of the block in the flat (BH * Tq) vectors
+  const int rbase = bh * Tq + q0;
+
+  extern __shared__ uint8_t smem_hop[];
+  const uint32_t base = (smem_u32(smem_hop) + 1023u) & ~1023u;
+  const uint8_t* base_ptr = smem_hop + (base - smem_u32(smem_hop));
+  const uint32_t qs = base, dos = base + C::t_bytes;
+  const uint32_t bars = base + C::bar_off;
+  const uint32_t q_full = bars;
+  auto k_tile = [&](int s) {
+    return base + C::ring_off + 2 * s * C::kv_bytes;
+  };
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + S + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * S + s); };
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 issues every load: Q, dO, lse, delta and the first S key
+  // tiles now, and each later tile into the stage that both warpgroups
+  // have released
+  const bool leader = threadIdx.x == 0;
+  auto load_kv = [&](int j) {
+    const int s = j % S;
+    const uint32_t kt = k_tile(s), vt = kt + C::kv_bytes;
+    mbar_expect_tx(k_full(s), C::kv_bytes);
+    for (int p = 0; p < C::kPanels; ++p)
+      tma_load_3d(kt + p * BC * kRowBytes, &k_map, k_full(s), 64 * p, j * BC,
+                  bh);
+    mbar_expect_tx(v_full(s), C::kv_bytes);
+    for (int p = 0; p < C::kPanels; ++p)
+      tma_load_3d(vt + p * BC * kRowBytes, &v_map, v_full(s), 64 * p, j * BC,
+                  bh);
+  };
+  if (leader) {
+    mbar_expect_tx(q_full, C::q_tx);
+    for (int p = 0; p < C::kPanels; ++p) {
+      tma_load_3d(qs + p * BR * kRowBytes, &q_map, q_full, 64 * p, q0, bh);
+      tma_load_3d(dos + p * BR * kRowBytes, &do_map, q_full, 64 * p, q0, bh);
+    }
+    // entries past this head's Tq belong to the next head (or read zeros
+    // past the end); those rows are never written
+    tma_load_1d(base + C::rows_off, &lse_map, q_full, rbase & ~3);
+    tma_load_1d(base + C::rows_off + C::row_bytes, &delta_map, q_full,
+                rbase & ~3);
+    for (int j = 0; j < min(S, n_tiles); ++j) load_kv(j);
+  }
+
+  const int cw = threadIdx.x / 128;          // consumer warpgroup 0 or 1
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * cw;                // the warpgroup's first row
+  const int row0 = r0 + 16 * warp + g, row1 = row0 + 8;
+  const uint32_t qa = qs + cw * 64 * kRowBytes;
+  const uint32_t doa = dos + cw * 64 * kRowBytes;
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  mbar_wait(q_full, 0);
+  // lse in units of log2 (+inf where lse is -inf, so p = 0 there) and
+  // delta, for rows row0 and row1
+  float l2[2], dl[2];
+  {
+    const float* lse_s =
+        reinterpret_cast<const float*>(base_ptr + C::rows_off) + (rbase & 3);
+    const float* delta_s = lse_s + C::row_bytes / 4;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = 64 * cw + 16 * warp + g + 8 * r;
+      const float lq = lse_s[i];
+      l2[r] = lq == -INFINITY ? INFINITY : lq * kLog2e;
+      dl[r] = delta_s[i];
+    }
+  }
+  for (int j = 0; j < n_tiles; ++j) {
+    if (leader && j > 0 && j - 1 + S < n_tiles) {
+      mbar_wait(empty((j - 1) % S), ((j - 1) / S) & 1);
+      load_kv(j - 1 + S);
+    }
+    const int s = j % S;
+    const uint32_t parity = (j / S) & 1;
+    const uint32_t kt = k_tile(s), vt = kt + C::kv_bytes;
+    const int c0 = j * BC;
+    mbar_wait(k_full(s), parity);
+    mbar_wait(v_full(s), parity);
+    // a tile whose keys all follow the warpgroup's last row adds nothing
+    if (!(causal && c0 > r0 + 63)) {
+      // S = Q K^T and dP = dO V^T, both operands K-major in shared memory
+      float sc[BC / 2], dp[BC / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss<BC>(sc, kmajor_desc(qa, BR * kRowBytes, kk),
+                     kmajor_desc(kt, BC * kRowBytes, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss<BC>(dp, kmajor_desc(doa, BR * kRowBytes, kk),
+                     kmajor_desc(vt, BC * kRowBytes, kk), kk > 0);
+      wg_commit();
+      wg_wait_all();
+      reg_fence(sc);
+      reg_fence(dp);
+
+      // only tiles that cross the diagonal or the end of the keys mask
+      const bool masked = (causal && c0 + BC - 1 > r0) || c0 + BC > Tk;
+#pragma unroll
+      for (int i = 0; i < BC / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        // p is the normalized probability (lse folds in the row sum)
+        float p = fast_exp2(fmaf(sc[i], scale_log2, -l2[r]));
+        if (masked) {
+          const int col = c0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          if (col >= Tk || (causal && col > (r ? row1 : row0))) p = 0.f;
+        }
+        sc[i] = p * (dp[i] - dl[r]);   // ds
+      }
+      // dQ += dS K: dS repacked to bf16 A fragments in registers, K read
+      // as an MN-major B operand through the descriptor's transpose bit
+      uint32_t da[BC / 16][4];
+      acc_to_frags(sc, da);
+      reg_fence(acc);
+      wg_fence();
+#pragma unroll
+      for (int kc = 0; kc < BC / 16; ++kc)
+        wgmma_rs<HD>(acc, da[kc], mnmajor_desc(kt, BC * kRowBytes, kc));
+      wg_commit();
+      wg_wait_all();
+      reg_fence(acc);
+      reg_fence(da);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+  // rows past Tq (which read the next head's lse) are never written
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? row1 : row0;
+    if (row >= Tq) continue;
+    bf16* o = dq + ((size_t)bh * Tq + row) * HD;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<uint32_t*>(o + 8 * n + 2 * t) = pack_bf16(
+          acc[4 * n + 2 * r] * scale, acc[4 * n + 2 * r + 1] * scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1466,56 +1416,14 @@ bool bad_shape(int BH, int Tq, int Tk, int D) {
   return BH <= 0 || BH > 65535 || Tq <= 0 || Tk < 0 || D <= 0 || D > kMaxD;
 }
 
-// the tensor-core kernels (K1 and K3 on wgmma, K2 on mma.sync) take bf16
-// at head dims 64 and 128, 16-byte aligned; everything else runs on the
-// f32 CUDA-core kernels
+// the Hopper kernels (K1, K2 and K3 on wgmma) take bf16 at head dims 64
+// and 128, 16-byte aligned; everything else runs on the f32 CUDA-core
+// kernels
 bool use_tc(int dtype, int D, const void* const* ptrs, int n) {
   if (dtype != kBF16 || (D != 64 && D != 128)) return false;
   for (int i = 0; i < n; ++i)
     if (!aligned16(ptrs[i])) return false;
   return true;
-}
-
-template <int HD>
-int dq_tc(const void* q, const void* k, const void* v, const void* dout,
-          const float* lse, const float* delta, void* dq, int BH, int Tq,
-          int Tk, float scale, int causal, cudaStream_t st) {
-  auto kernel = flash_bwd_dq_tc_kernel<HD>;
-  int e = prepare(kernel, TcDq<HD>::smem);
-  if (e) return e;
-  dim3 grid((Tq + TcDq<HD>::BR - 1) / TcDq<HD>::BR, BH);
-  kernel<<<grid, kTcThreads, TcDq<HD>::smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-      delta, static_cast<bf16*>(dq), Tq, Tk, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled of libcuda, found through the runtime so that
-// the library links no libcuda (<cuda.h> gives the types only)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
 }
 
 // a (BH, T, D) bf16 tensor as the 3-D map (D, T, BH): boxes of 64 columns
@@ -1601,6 +1509,33 @@ int dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+template <int HD>
+int dq_hopper(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, void* dq, int BH, int Tq,
+              int Tk, float scale, int causal, cudaStream_t st) {
+  using C = HopDq<HD>;
+  auto kernel = flash_bwd_dq_wgmma_kernel<HD>;
+  int e = prepare(kernel, C::smem);
+  if (e) return e;
+  CUtensorMap qm, km, vm, dom, lm, dm;
+  memset(&km, 0, sizeof km);
+  memset(&vm, 0, sizeof vm);
+  if ((e = tile_map(&qm, q, BH, Tq, HD, C::BR)) ||
+      (e = tile_map(&dom, dout, BH, Tq, HD, C::BR)) ||
+      (e = row_map(&lm, lse, (long long)BH * Tq, C::kRowBox)) ||
+      (e = row_map(&dm, delta, (long long)BH * Tq, C::kRowBox)))
+    return e;
+  // no key: no tile is loaded, and dq is 0
+  if (Tk > 0 && ((e = tile_map(&km, k, BH, Tk, HD, C::BC)) ||
+                 (e = tile_map(&vm, v, BH, Tk, HD, C::BC))))
+    return e;
+  dim3 grid((Tq + C::BR - 1) / C::BR, BH);
+  kernel<<<grid, kHopThreads, C::smem, st>>>(
+      qm, km, vm, dom, lm, dm, static_cast<bf16*>(dq), Tq, Tk, scale,
+      scale * kLog2e, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int mxtt_flash_fwd(const void* q, const void* k, const void* v,
@@ -1630,12 +1565,14 @@ extern "C" int mxtt_flash_bwd_dq(const void* q, const void* k,
   auto st = static_cast<cudaStream_t>(stream);
   auto* lse_f = static_cast<const float*>(lse);
   auto* delta_f = static_cast<const float*>(delta);
-  const void* ptrs[] = {q, k, v, dout, dq};
-  if (use_tc(dtype, D, ptrs, 5))
-    return D == 64 ? dq_tc<64>(q, k, v, dout, lse_f, delta_f, dq, BH, Tq,
-                               Tk, scale, causal, st)
-                   : dq_tc<128>(q, k, v, dout, lse_f, delta_f, dq, BH, Tq,
-                                Tk, scale, causal, st);
+  // the Hopper kernel also reads lse and delta through TMA: 16-byte
+  // aligned as well
+  const void* ptrs[] = {q, k, v, dout, dq, lse, delta};
+  if (use_tc(dtype, D, ptrs, 7))
+    return D == 64 ? dq_hopper<64>(q, k, v, dout, lse_f, delta_f, dq, BH,
+                                   Tq, Tk, scale, causal, st)
+                   : dq_hopper<128>(q, k, v, dout, lse_f, delta_f, dq, BH,
+                                    Tq, Tk, scale, causal, st);
   MXTT_DISPATCH(dq_nd, dtype, D, q, k, v, dout, lse_f, delta_f, dq, BH, Tq,
                 Tk, D, scale, causal, st);
 }

@@ -54,23 +54,34 @@ def _nvcc():
     return found
 
 
-def library_path(source):
-    """Where the library built from ``source`` lives: ``build/`` at the
-    repo root, named by a hash of the source and flags."""
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+def _flags(defines):
+    return list(NVCC_FLAGS) + ["-D" + d for d in defines]
+
+
+def library_path(source, defines=()):
+    """Where the library built from ``source`` (with the macros
+    ``defines``, ``"NAME=value"`` each) lives: ``build/`` at the repo
+    root, named by a hash of the source, the shared headers of
+    ``csrc`` (``*.cuh``) and the flags."""
+    digest = hashlib.sha256()
+    for path in [source] + sorted(
+            os.path.join(CSRC_DIR, n) for n in os.listdir(CSRC_DIR)
+            if n.endswith(".cuh")):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(_flags(defines)).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR,
                         "%s-%s.so" % (stem, digest.hexdigest()[:12]))
 
 
-def _start(source, verbose):
-    out = library_path(source)
+def _start(source, verbose, defines=()):
+    out = library_path(source, defines)
     if os.path.exists(out):
         return out, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.tmp.%d" % (out, os.getpid())
-    cmd = [_nvcc(), *NVCC_FLAGS]
+    cmd = [_nvcc(), *_flags(defines)]
     if verbose:
         cmd += ["-Xptxas", "-v"]
     cmd += ["-o", tmp, source]
@@ -93,22 +104,26 @@ def _finish(source, out, pending, verbose):
     return out
 
 
-def build(source, verbose=False):
+def build(source, verbose=False, defines=()):
     """Compile ``source`` (when its library is not built yet) and return
     the library's path."""
-    out, pending = _start(source, verbose)
+    out, pending = _start(source, verbose, defines)
     return _finish(source, out, pending, verbose)
 
 
 def build_all(sources, verbose=False):
-    """Compile every source at once, one ``nvcc`` each; returns
-    ``{source: (library path, seconds until it was ready)}``."""
+    """Compile every source at once, one ``nvcc`` each; an entry is a
+    path or ``(path, defines)``.  Returns ``{entry: (library path,
+    seconds until it was ready)}``."""
     t0 = time.perf_counter()
-    started = [(s,) + _start(s, verbose) for s in sources]
+    started = [(s,) + _start(*((s, verbose) if isinstance(s, str)
+                               else (s[0], verbose, s[1])))
+               for s in sources]
     done = {}
     try:
         for source, out, pending in started:
-            done[source] = (_finish(source, out, pending, verbose),
+            path = source if isinstance(source, str) else source[0]
+            done[source] = (_finish(path, out, pending, verbose),
                             time.perf_counter() - t0)
     finally:
         for _, _, pending in started:

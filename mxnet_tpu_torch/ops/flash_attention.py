@@ -25,9 +25,9 @@ attention on the card, and a ragged T is masked inside the kernels
 rather than sent to plain attention.  ``block_q``/``block_k`` are
 accepted for the contract and ignored: the CUDA tiles are the kernels'
 own.  bf16 inputs at head dims 64 and 128 whose buffers are 16-byte
-aligned run on bf16 tensor cores with f32 accumulation (K1 and K3 on
-``wgmma`` fed by TMA, K2 on ``mma.sync``); every other case runs f32
-products on the CUDA cores.  The kernels choose by
+aligned (lse and delta too, for the backward) run on bf16 tensor cores
+with f32 accumulation (K1, K2 and K3 on ``wgmma`` fed by TMA); every
+other case runs f32 products on the CUDA cores.  The kernels choose by
 dtype, head dim and alignment; the caller has no switch.
 ``flash_attention.fwd_launches``, ``.dq_launches`` and ``.dkv_launches``
 count kernel launches.

@@ -16,11 +16,19 @@ go to the hand-written Hopper kernel in ``csrc/paged_attention.cu``
 raises.  The kernel is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/`` at the repo root on first use (``ops/_build.py``) and bound
 with ``ctypes``.
-``paged_attention.launches`` counts kernel launches.
+At decode only ``B * KV * row_tiles`` (lane, kv-head, row tile) blocks
+would run, fewer than the card's SMs, so the wrapper splits each lane's
+context over ``n_split`` blocks (:func:`n_split`, picked from the launch
+shape alone) and a second small kernel combines the splits' partial
+softmax states in a fixed order; the f32 scratch for them is allocated
+here.  ``paged_attention.launches`` counts calls that launched the
+kernel, ``paged_attention.combine_launches`` the combine launches among
+them.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,15 +43,44 @@ MAX_TABLE_WIDTH = 16384   # a block keeps its lane's table row in smem
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
+KEYS_PER_STEP = 32   # the kernel's step: one key per lane of a warp
+MAX_SPLIT = 16
+# the split aims at this many blocks per SM
+SPLIT_BLOCKS_PER_SM = 3
 
-def _paged_ref(q, k_pages, v_pages, block_table, positions, *scales,
-               scale):
-    """Plain PyTorch version: gather + (dequant) + grouped-GQA attention.
 
-    The same masking as the kernel (position AND null page); the softmax
-    is the two-pass form with fully masked rows guarded to zero output.
-    f32 arithmetic, output in ``q``'s dtype.
-    """
+def _row_tile(rows):
+    """The kernel's row tile for ``rows = k1 * G`` query rows of a
+    kv-head (mirrors ``launch`` in the .cu)."""
+    return 4 if rows <= 4 else 8 if rows <= 8 else 16
+
+
+def n_split(batch, k1, num_heads, num_kv_heads, page_size, table_width,
+            sms):
+    """Blocks each (lane, kv-head, row tile) is split over: enough for
+    about ``SPLIT_BLOCKS_PER_SM * sms`` blocks in all, at most
+    ``MAX_SPLIT`` and at most the 32-key steps of the table width; 1 (no
+    split, no combine) once the unsplit grid fills the card.  Three
+    blocks an SM was the fastest at the 8-lane decode shape
+    (``tools/torch_paged_variants.py``)."""
+    tiles = -(-k1 * (num_heads // num_kv_heads)
+              // _row_tile(k1 * (num_heads // num_kv_heads)))
+    blocks = batch * num_kv_heads * tiles
+    steps = -(-table_width * page_size // KEYS_PER_STEP)
+    want = -(-SPLIT_BLOCKS_PER_SM * sms // blocks)
+    return max(1, min(MAX_SPLIT, steps, want))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index):
+    """The SM count of CUDA device ``index`` (cached)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _paged_scores(q, k_pages, v_pages, block_table, positions, *scales,
+                  scale):
+    """Gather + (dequant) + grouped-GQA scores, masked (position AND null
+    page) to -inf: ``(s (B, k1, KV, G, ctx), values (B, ctx, KV, D))``."""
     b, k1, h, d = q.shape
     s_page, kv = k_pages.shape[1], k_pages.shape[2]
     maxp = block_table.shape[1]
@@ -67,13 +104,60 @@ def _paged_ref(q, k_pages, v_pages, block_table, positions, *scales,
         & torch.repeat_interleave(tbl != 0, s_page, dim=1)[:, None, :]
     s = torch.where(ok[:, :, None, None, :], s,
                     torch.tensor(float("-inf"), device=q.device))
+    return s, vals
+
+
+def _paged_ref(q, k_pages, v_pages, block_table, positions, *scales,
+               scale):
+    """Plain PyTorch version: gather + (dequant) + grouped-GQA attention.
+
+    The same masking as the kernel (position AND null page); the softmax
+    is the two-pass form with fully masked rows guarded to zero output.
+    f32 arithmetic, output in ``q``'s dtype.
+    """
+    s, vals = _paged_scores(q, k_pages, v_pages, block_table, positions,
+                            *scales, scale=scale)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     att = torch.einsum("bkvgc,bcvd->bkvgd",
                        p / torch.where(l == 0, torch.ones_like(l), l), vals)
-    return att.reshape(b, k1, h, d).to(q.dtype)
+    return att.reshape(q.shape).to(q.dtype)
+
+
+def _paged_split_ref(q, k_pages, v_pages, block_table, positions, *scales,
+                     scale, n_split):
+    """The split arithmetic of the kernel, in plain PyTorch (tests only):
+    split ``s`` takes the 32-key steps ``s, s + n_split, ...`` and keeps
+    its own ``(acc, m, l)``, unnormalized; the splits combine in order as
+    ``sum exp(m_s - M) acc_s / sum exp(m_s - M) l_s`` with ``M`` the
+    largest ``m_s``, and a row no split saw returns 0."""
+    s, vals = _paged_scores(q, k_pages, v_pages, block_table, positions,
+                            *scales, scale=scale)
+    ctx = s.shape[-1]
+    owner = torch.arange(ctx, device=q.device) // KEYS_PER_STEP % n_split
+    neg = torch.tensor(float("-inf"), device=q.device)
+    parts = []
+    for split in range(n_split):
+        ss = torch.where(owner == split, s, neg)
+        m = ss.amax(dim=-1, keepdim=True)        # -inf: the split saw none
+        p = torch.exp(ss - torch.where(torch.isfinite(m), m,
+                                       torch.zeros_like(m)))
+        parts.append((torch.einsum("bkvgc,bcvd->bkvgd", p, vals), m,
+                      p.sum(dim=-1, keepdim=True)))
+    big = torch.stack([m for _, m, _ in parts]).amax(dim=0)
+    seen = torch.isfinite(big)
+    big = torch.where(seen, big, torch.zeros_like(big))
+    num = torch.zeros_like(parts[0][0])
+    den = torch.zeros_like(parts[0][2])
+    for acc, m, l in parts:
+        w = torch.exp(m - big)                   # 0 for an empty split
+        num = num + w * acc
+        den = den + w * l
+    att = torch.where(seen, num / torch.where(seen, den, torch.ones_like(den)),
+                      torch.zeros_like(num))
+    return att.reshape(q.shape).to(q.dtype)
 
 
 def library_path():
@@ -90,8 +174,8 @@ def build(verbose=False):
 
 def _bind(lib):
     fn = lib.mxtt_paged_attention
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
+        + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.mxtt_error_string.argtypes = [ctypes.c_int]
     lib.mxtt_error_string.restype = ctypes.c_char_p
@@ -144,18 +228,30 @@ def _launch(q, k_pages, v_pages, block_table, positions, scales, scale):
     lib = _load()
     b, k1, h, d = q.shape
     s_page, kv = k_pages.shape[1], k_pages.shape[2]
+    maxp = block_table.shape[1]
+    splits = n_split(b, k1, h, kv, s_page, maxp, sm_count(q.device.index))
     out = torch.empty_like(q)
+    part_acc = part_ml = None
+    if splits > 1:
+        # one f32 scratch: (splits, rows, D) accumulators, then (splits,
+        # rows, 2) running max and sum
+        n_acc = splits * b * k1 * h * d
+        scratch = torch.empty(n_acc + splits * b * k1 * h * 2,
+                              dtype=torch.float32, device=q.device)
+        part_acc = scratch.data_ptr()
+        part_ml = part_acc + 4 * n_acc
     ks, vs = (scales[0].data_ptr(), scales[1].data_ptr()) if scales \
         else (None, None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         paged_attention.launches += 1
+        paged_attention.combine_launches += splits > 1
         err = lib.mxtt_paged_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), positions.data_ptr(), ks, vs,
-            out.data_ptr(), b, k1, h, kv, d, s_page, block_table.shape[1],
-            float(scale), _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype],
-            stream)
+            out.data_ptr(), part_acc, part_ml, b, k1, h, kv, d,
+            s_page, maxp, float(scale), _Q_CODES[q.dtype],
+            _KV_CODES[k_pages.dtype], splits, stream)
     if err != 0:
         raise MXNetError("paged_attention kernel launch failed: CUDA error "
                          "%d (%s)" % (err, lib.mxtt_error_string(err).decode()))
@@ -203,3 +299,4 @@ def paged_attention(query, k_pages, v_pages, block_table, positions,
 
 
 paged_attention.launches = 0
+paged_attention.combine_launches = 0

@@ -12,6 +12,7 @@ import torch
 
 import chip_smoke
 from mxnet_tpu_torch.ops import flash_attention as fa
+from mxnet_tpu_torch.ops import paged_attention as pa
 from mxnet_tpu_torch.ops.paged_attention import _paged_ref, paged_attention
 
 
@@ -53,6 +54,57 @@ def test_kernel_matches_plain_on_card(card, k1, page_dtype):
     want = _paged_ref(q, kp, vp, tbl, pos, *scales, scale=d ** -0.5)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+_SPLIT_CASES = chip_smoke.split_cases()
+
+
+def _split_args(card, case):
+    label, b, k1, pages, maxp, pos, tbls, q_dt, p_dt = case
+    rng = np.random.default_rng(len(label) + k1)
+    return chip_smoke.make_case(rng, card, b, k1, 32, 8, 128, 16, pages,
+                                maxp, q_dt, p_dt, pos, tbls)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _SPLIT_CASES,
+                         ids=["%s-%s-%s" % (c[0], str(c[7])[6:], str(c[8])[6:])
+                              for c in _SPLIT_CASES])
+def test_split_kernel_matches_plain_on_card(card, case):
+    """K4 where the host splits a lane's context over blocks (contexts
+    of 1..1,500 tokens, so some splits see nothing; a null page mid-table;
+    an all-null lane; k1 = 5), and a chunk-sized k1 it does not split:
+    held as the smoke holds it (``chip_smoke.paged_reading`` <= 1), with
+    one combine launch exactly when n_split > 1."""
+    args = _split_args(card, case)
+    b, k1 = case[1], case[2]
+    splits = pa.n_split(b, k1, 32, 8, 16, case[4], pa.sm_count(card.index))
+    assert (splits > 1) == (k1 != 128)
+    before = (paged_attention.launches, paged_attention.combine_launches)
+    got = paged_attention(*args)
+    assert (paged_attention.launches, paged_attention.combine_launches) \
+        == (before[0] + 1, before[1] + (splits > 1))
+    want = _paged_ref(*args, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert chip_smoke.paged_reading(got, want, case[7]) <= 1
+    assert torch.equal(got, paged_attention(*args)), "two runs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", [0, 1], ids=["f32-bf16", "bf16-bf16"])
+def test_split_check_catches_a_dropped_split(card, index):
+    """A combine built with MXTT_DROP_SPLIT=1 (split 1 left out) must
+    fail the check the split cases pass, with f32 queries and with the
+    serve path's bf16 queries (an absolute tolerance)."""
+    from mxnet_tpu_torch.ops import _build
+
+    case = _SPLIT_CASES[index]
+    assert case[0] == "ctx 1..1500" and case[8] == torch.bfloat16
+    args = _split_args(card, case)
+    want = _paged_ref(*args, scale=128 ** -0.5)
+    path = _build.build(pa._SOURCE, defines=("MXTT_DROP_SPLIT=1",))
+    reading = chip_smoke.planted_split_fault(pa, path, (args, want, case[7]))
+    assert reading > 1
 
 
 # -- flash attention (K1, K2, K3) -------------------------------------------
@@ -110,11 +162,22 @@ def test_flash_wgmma_tile_edges_match_plain_on_card(card, bh, t_q, t_kv, d,
 
 @pytest.mark.cuda
 def test_flash_wgmma_kernels_have_hgmma(card):
+    """K1, K2 and K3 at head dims 64 and 128 have HGMMA (wgmma) in their
+    SASS, and no HMMA (mma.sync) is left anywhere in the library."""
     counts = chip_smoke.hgmma_counts(fa.build())
-    for kind in ("flash_fwd_wgmma_kernelILi64E", "flash_fwd_wgmma_kernelILi128E",
-                 "flash_bwd_dkv_wgmma_kernelILi64E",
-                 "flash_bwd_dkv_wgmma_kernelILi128E"):
-        assert any(kind in fn and n > 0 for fn, n in counts.items()), kind
+    for stem in chip_smoke.WGMMA_KERNELS.values():
+        for hd in (64, 128):
+            kind = "%sILi%dE" % (stem, hd)
+            assert any(kind in fn and n > 0 for fn, n in counts.items()), \
+                kind
+    assert not any(chip_smoke.sass_counts(fa.build(), "HMMA").values())
+
+
+@pytest.mark.cuda
+def test_flash_dq_with_misaligned_rows_takes_cuda_cores(card):
+    """lse and delta 4 bytes off alignment send K2 to the CUDA-core
+    kernel, which must agree with the plain version too."""
+    chip_smoke.misaligned_rows_check(fa, card, np.random.default_rng(9))
 
 
 @pytest.mark.cuda

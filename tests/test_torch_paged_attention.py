@@ -5,7 +5,9 @@ On the CPU the port's wrapper runs its plain PyTorch version; the JAX
 side runs both its reference (``use_kernel=0``) and its Pallas kernel in
 interpret mode (``use_kernel=1``).  Inputs are made with numpy from a
 seed and handed to both.  Tolerance: rtol 1e-5, atol 1e-5 (f32 sums
-taken in another order).  The CUDA kernel itself is held against the
+taken in another order), also for the plain version of the kernel's
+split arithmetic (``_paged_split_ref``), whose partial softmax states
+combine in another order again.  The CUDA kernel itself is held against the
 plain version on the card by ``tests/test_torch_kernels_cuda.py``.
 """
 import numpy as np
@@ -17,7 +19,9 @@ import jax.numpy as jnp
 from mxnet_tpu.ops.paged_attention import paged_attention as jax_paged
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import paged_attention as pa_mod
-from mxnet_tpu_torch.ops.paged_attention import _paged_ref, paged_attention
+from mxnet_tpu_torch.ops.paged_attention import (_paged_ref,
+                                                  _paged_split_ref,
+                                                  paged_attention)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -120,11 +124,12 @@ def test_wrapper_validates_inputs():
 
 def test_cpu_dispatch_is_the_plain_version_and_launches_nothing():
     args = _torch(_case(seed=3, k1=3, h=4, kv=1, int8=True))
-    before = paged_attention.launches
+    before = (paged_attention.launches, paged_attention.combine_launches)
     got = paged_attention(*args)
     want = _paged_ref(*args, scale=1.0 / 2.0)
     assert torch.equal(got, want)
-    assert paged_attention.launches == before
+    assert (paged_attention.launches,
+            paged_attention.combine_launches) == before
 
 
 def test_kernel_source_and_build_location():
@@ -140,3 +145,63 @@ def test_kernel_source_and_build_location():
     assert os.path.basename(_build.BUILD_DIR) == "build"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert pa_mod.library_path().startswith(_build.BUILD_DIR)
+
+
+def _long_case(seed, int8):
+    """Four lanes over a 20-page table of 16-token pages (ten 32-key
+    steps): lane 0 at position 299 with a null page in the middle of its
+    table, lane 1 at 40 (two steps, so most splits see nothing), lane 2
+    fully masked (an all-null table), lane 3 at 5 (one partial step);
+    verify width 2, GQA 2x."""
+    rng = np.random.default_rng(seed)
+    b, k1, h, kv, d, s_page, pages, maxp = 4, 2, 4, 2, 8, 16, 24, 20
+    q = rng.standard_normal((b, k1, h, d)).astype(np.float32)
+    if int8:
+        kp, vp = (rng.integers(-127, 128, size=(pages, s_page, kv, d),
+                               dtype=np.int64).astype(np.int8)
+                  for _ in range(2))
+        scales = tuple(rng.uniform(0.01, 0.05, size=pages).astype(np.float32)
+                       for _ in range(2))
+    else:
+        kp, vp = (rng.standard_normal((pages, s_page, kv, d))
+                  .astype(np.float32) for _ in range(2))
+        scales = ()
+    tbl = np.zeros((b, maxp), np.int32)
+    tbl[0, :19] = rng.permutation(np.arange(1, pages))[:19]
+    tbl[0, 7] = 0
+    tbl[1, :3] = [5, 9, 2]
+    tbl[3, 0] = 11
+    pos = np.array([299, 40, 100, 5], np.int32)
+    return (q, kp, vp, tbl, pos) + scales
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 8])
+def test_split_arithmetic_matches_jax(n_split, int8):
+    """The kernel's split over interleaved 32-key steps and its ordered
+    combine, in plain PyTorch, against the JAX package's reference: empty
+    splits, a null page mid-table and a fully masked lane included."""
+    args = _long_case(seed=n_split * 10 + int8, int8=int8)
+    want = np.asarray(jax_paged(*(jnp.asarray(a) for a in args),
+                                use_kernel=0))
+    got = _paged_split_ref(*_torch(args), scale=8 ** -0.5, n_split=n_split)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert not got[2].any(), "a fully masked lane returns 0"
+
+
+def test_n_split_from_launch_shape():
+    """The host picks the split from the launch shape alone."""
+    sms = 132
+    assert pa_mod.SPLIT_BLOCKS_PER_SM == 3
+    # 8-lane Llama-3-8B decode: 64 (lane, kv-head) blocks -> 7 splits
+    assert pa_mod.n_split(8, 1, 32, 8, 16, 256, sms) == 7
+    # speculative verify (k1 = 5, 20 rows: two row tiles) -> 4
+    assert pa_mod.n_split(8, 5, 32, 8, 16, 256, sms) == 4
+    # a chunk of 128 queries fills the card unsplit: no combine
+    assert pa_mod.n_split(8, 128, 32, 8, 16, 256, sms) == 1
+    # a large batch fills it too
+    assert pa_mod.n_split(64, 1, 32, 8, 16, 256, sms) == 1
+    # one lane: capped at MAX_SPLIT, and at the table's 32-key steps
+    assert pa_mod.n_split(1, 1, 32, 8, 16, 256, sms) == pa_mod.MAX_SPLIT
+    assert pa_mod.n_split(1, 1, 32, 8, 16, 3, sms) == 2
+
