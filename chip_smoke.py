@@ -45,17 +45,30 @@ Phases, each fatal on failure:
              prefill over prompt + tokens so far), and a port bundle
              round trip (save → ``LlamaServer(path)`` → generate) must
              serve the same tokens as the server it was saved from;
-6. train   — a main path: ``JitTrainStep`` with ``adamw`` trains
+6. fleet   — a main path: two Llama-3-8B replicas (the serve phase's
+             geometry, each with its own weights and arena) behind a
+             ``FleetRouter`` answer 16 greedy requests at once; every
+             request completes, both replicas serve, the router's counters
+             agree, K4 covers every layer of every decode step of both,
+             and the fleet's HTTP front (generate, healthz, metrics, the
+             fleet trace) answers; then, at the parity phase's geometry,
+             greedy tokens through two replicas equal one server's and a
+             replica killed on its forward path is survived by a retry;
+             at the bundle geometry a rolling deploy with requests in
+             flight drops nothing and converges to one ``bundle_sha``, and
+             ``python -m mxnet_tpu_torch.serve --fleet 2`` serves and
+             exits 0 on SIGTERM;
+7. train   — a main path: ``JitTrainStep`` with ``adamw`` trains
              Llama-3-8B at full width, 8 of its 32 layers, weights Xavier
              from a seeded generator and cast to bf16, on a fixed batch
              of 2 x 2048 random tokens; every loss must be finite, the
              last below the first, and K1, K2 and K3 must each have
              launched at least once per layer per step;
-7. train parity — full width, 1 layer, vocab 2048, f32 with TF32 off:
+8. train parity — full width, 1 layer, vocab 2048, f32 with TF32 off:
              one step's loss and every gradient, and the losses of 3
              adamw steps, on the card's kernel path must agree with the
              port's plain path on the host's CPU;
-8. rtc     — K5, ``mx.rtc.CudaModule``: user CUDA C++ compiled by NVRTC
+9. rtc     — K5, ``mx.rtc.CudaModule``: user CUDA C++ compiled by NVRTC
              and launched on NDArrays: scale_add equal to x*2 + y, the
              SwiGLU forward and backward kernels (bf16, f32 arithmetic)
              within 1 bf16 ulp of their plain versions at Llama-3-8B's MLP
@@ -63,7 +76,7 @@ Phases, each fatal on failure:
              nothing) caught, a compile error raising with NVRTC's log,
              then each kernel timed beside its byte bound, its plain
              version and torch's eager ``F.silu(a) * b``;
-9. imperative — a main path: MXNet-style training steps of one
+10. imperative — a main path: MXNet-style training steps of one
              Llama-3-8B MLP block at full width, bf16, written on ``mx.nd``
              with ``ctx=mx.gpu()`` (``autograd.record()``, a SwiGLU
              ``autograd.Function`` launching the rtc kernels,
@@ -71,7 +84,7 @@ Phases, each fatal on failure:
              below the first, each rtc kernel launched once per step (an
              engine hook counts); then the imperative dispatch rate and a
              check that the engine enqueues without waiting;
-10. imperative parity — the same step in f32 with TF32 off at width
+11. imperative parity — the same step in f32 with TF32 off at width
              256 / 512: the card (rtc kernels) against the host
              (``PallasKernel`` bodies over the plain SwiGLU).
 
@@ -85,6 +98,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -892,9 +906,11 @@ def flash_timing(fa, dev):
 
 # -- phase 4: the serve main path -----------------------------------
 
-def timed_runner(serve, weights, arena):
+def timed_runner(serve, weights, arena, profile_step=True):
     """A TorchRunner that checks every logits row is finite and records
-    the wall time of each call (the runner syncs on its numpy logits)."""
+    the wall time of each call (the runner syncs on its numpy logits).
+    With ``profile_step`` it profiles one decode step; pass False where
+    several runners share the process (one profiler at a time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -907,7 +923,8 @@ def timed_runner(serve, weights, arena):
             self.step_profile = None
 
         def _timed(self, kind, fn, *args):
-            if kind == "decode" and self.step_profile is None and \
+            if kind == "decode" and profile_step and \
+                    self.step_profile is None and \
                     len(self.times["decode"]) == self.PROFILE_STEP:
                 # profiled, and kept out of the step times it lengthens
                 torch.cuda.synchronize()
@@ -1106,7 +1123,452 @@ def parity(serve, dev):
         fail("bundle round trip served different tokens")
 
 
-# -- phase 6: the train main path -----------------------------------------
+# -- phase 6: the fleet tier ----------------------------------------------
+
+FLEET_REQUESTS = 16
+
+
+def counter_sum(snap, family, **match):
+    """The sum of a snapshot family's series whose labels include
+    ``match``."""
+    return sum(s.get("value", 0)
+               for s in snap.get(family, {}).get("series", [])
+               if all(s["labels"].get(k) == v for k, v in match.items()))
+
+
+def http_json(url, doc=None, timeout=300):
+    """GET ``url`` (or POST ``doc`` as JSON) and decode the JSON answer;
+    an answer that is not JSON comes back as text."""
+    import urllib.request
+
+    data = None if doc is None else json.dumps(doc).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        body = r.read().decode()
+    try:
+        return json.loads(body)
+    except ValueError:
+        return body
+
+
+def stop_fleet(router, servers):
+    """Router first (a stopped replica is never waited on), then each
+    replica drained and stopped, its arena quiescent."""
+    router.stop()
+    for srv in servers:
+        srv.drain(timeout=300)
+        srv.stop()
+        srv.arena.assert_quiescent()
+
+
+def fleet_results(futs, timeout=900):
+    """Wait on every fleet future from a thread of its own, so each
+    resolves (and stamps its router time) as soon as its replica is
+    done; returns the token lists, failing on any error."""
+    import threading
+
+    outs, errs = [None] * len(futs), []
+
+    def wait(i):
+        try:
+            outs[i] = futs[i].result(timeout=timeout)
+        except Exception as e:  # noqa: BLE001 — reported below, fatal
+            errs.append("%s: %s" % (type(e).__name__, e))
+
+    threads = [threading.Thread(target=wait, args=(i,), daemon=True)
+               for i in range(len(futs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout + 60)
+    if errs or any(t.is_alive() for t in threads):
+        fail("fleet requests failed: %s" % (errs or "a waiter hung"))
+    return outs
+
+
+def router_overhead(router, fut):
+    """The router's wall time for one request minus its replica's own
+    (submit to finish, on the same monotonic clock)."""
+    tr = router.trace(fut.trace_id)
+    if tr is None or tr.get("replica_trace") is None:
+        fail("no fleet trace for %s" % fut.trace_id)
+    ev = {e["event"]: e["t"] for e in tr["replica_trace"]["events"]}
+    return tr["fleet"]["total_s"] - (ev["finish"] - ev["submit"])
+
+
+def fleet_full_width(serve, pa, dev):
+    """Two Llama-3-8B replicas (bf16, the serve phase's geometry), each
+    with its own weights and arena, behind a FleetRouter with its
+    prober running: 16 greedy requests at once, then the fleet's HTTP
+    front.  Both serve loops launch on the default stream, so their
+    steps serialise on the card: a replica's decode ms/step is not one
+    replica's alone."""
+    import torch
+    from mxnet_tpu_torch import telemetry
+
+    torch.cuda.synchronize()
+    log("fleet: %.2f GB allocated before the replicas"
+        % (torch.cuda.memory_allocated() / 1e9))
+    torch.cuda.reset_peak_memory_stats()
+    g = serve.KVGeometry(page_size=16, num_pages=2049, max_batch=8,
+                         max_pages_per_seq=256,
+                         prefill_buckets=(128, 512, 2048),
+                         dtype="bfloat16", paged_kernel="auto", **LLAMA3_8B)
+    t0 = time.perf_counter()
+    servers, runners = [], []
+    for _ in range(2):
+        weights = serve.init_weights(g, seed=0, std=0.02, device=dev)
+        arena = serve.PagedKVArena(g, device=dev)
+        runners.append(timed_runner(serve, weights, arena,
+                                    profile_step=False))
+        servers.append(serve.LlamaServer.from_parts(runners[-1], arena))
+    del weights, arena
+    for srv in servers:            # both loops up before the first submit
+        srv.start()
+    for srv in servers:            # and each warm before they meet
+        srv.generate([1, 2, 3], max_new_tokens=2, timeout=600)
+    torch.cuda.synchronize()
+    log("fleet: 2 replicas of Llama-3-8B (%s), set-up and warm-up %.1f s, "
+        "%.2f GB allocated" % (g.describe(), time.perf_counter() - t0,
+                               torch.cuda.memory_allocated() / 1e9))
+    router = serve.FleetRouter([serve.LocalReplica(s, name="r%d" % i)
+                                for i, s in enumerate(servers)]).start()
+    ok0 = counter_sum(telemetry.snapshot(), "mxnet_fleet_requests_total",
+                      status="ok")
+    rng = np.random.default_rng(7)
+    new = 32
+    lens = [32, 1500] + rng.integers(32, 1501,
+                                     size=FLEET_REQUESTS - 2).tolist()
+    prompts = [rng.integers(0, g.vocab_size, size=n).tolist() for n in lens]
+    t0 = time.perf_counter()
+    futs = [router.submit(p, max_new_tokens=new, timeout=900)
+            for p in prompts]
+    outs = fleet_results(futs)
+    wall = time.perf_counter() - t0
+    if any(len(o) != new for o in outs):
+        fail("a fleet request did not return %d tokens" % new)
+    served = {f.replica for f in futs}
+    if served != {"r0", "r1"}:
+        fail("the router used only replicas %s" % sorted(served))
+    router.probe_all(metrics=True)
+    ok = counter_sum(router.fleet_metrics_snapshot(),
+                     "mxnet_fleet_requests_total", status="ok") - ok0
+    if ok != FLEET_REQUESTS:
+        fail("mxnet_fleet_requests_total counts %d ok requests, not %d"
+             % (ok, FLEET_REQUESTS))
+    steps = sum(s.stats()["decode_steps"] for s in servers)
+    launches = pa.paged_attention.launches
+    if launches < g.num_layers * steps or steps == 0:
+        fail("paged-attention kernel launched %d times over %d decode "
+             "steps of %d layers on the two replicas"
+             % (launches, steps, g.num_layers))
+    over = sorted(router_overhead(router, f) for f in futs)
+    ttft = sorted(f.ttft for f in futs)
+    per = ["%s %d requests, %d decode steps, decode ms/step p50 %.3f"
+           % ("r%d" % i, sum(f.replica == "r%d" % i for f in futs),
+              srv.stats()["decode_steps"],
+              1e3 * sorted(r.times["decode"])[len(r.times["decode"]) // 2])
+           for i, (srv, r) in enumerate(zip(servers, runners))]
+    log("fleet: %d/%d requests done on 2 replicas, prompts %d..%d tokens, "
+        "%d new each; %s; %d K4 launches (%d layers x %d steps = %d)"
+        % (len(outs), FLEET_REQUESTS, min(lens), max(lens), new,
+           "; ".join(per), launches, g.num_layers, steps,
+           g.num_layers * steps))
+    log("fleet: %.1f tokens/s over %.2f s wall, TTFT p50 %.4f s (max "
+        "%.4f s), router overhead per request p50 %.3f ms (min %.3f max "
+        "%.3f), peak device memory %.2f GB (decode ms/step counts both "
+        "replicas' steps: they share the card's default stream)"
+        % (sum(map(len, outs)) / wall, wall, ttft[len(ttft) // 2], ttft[-1],
+           1e3 * over[len(over) // 2], 1e3 * over[0], 1e3 * over[-1],
+           torch.cuda.max_memory_allocated() / 1e9))
+
+    # the fleet's HTTP front at full width
+    host, port = router.serve_http(port=0)
+    base = "http://%s:%d" % (host, port)
+    out = http_json(base + "/v1/generate",
+                    {"prompt": prompts[0], "max_new_tokens": 8})
+    if len(out.get("tokens", ())) != 8 or not out.get("trace_id"):
+        fail("fleet POST /v1/generate answered %s" % out)
+    hz = http_json(base + "/healthz")
+    if sorted(hz["replicas"]) != ["r0", "r1"] or hz["replicas_healthy"] != 2:
+        fail("fleet /healthz shows %s" % hz["replicas"])
+    router.probe_all(metrics=True)
+    text = http_json(base + "/metrics")
+    if 'replica="r0"' not in text or 'replica="r1"' not in text:
+        fail("fleet /metrics carries no series of both replicas")
+    tr = http_json(base + "/v1/trace/" + out["trace_id"])
+    keys = list(tr)
+    if tr["fleet"]["status"] != "ok" or \
+            tr["replica_trace"]["trace_id"] != out["trace_id"] or \
+            tr["replica_trace"]["status"] != "completed" or \
+            keys.index("fleet") > keys.index("replica_trace"):
+        fail("fleet /v1/trace is not the routing breakdown ahead of the "
+             "replica's trace: %s" % json.dumps(tr)[:400])
+    log("fleet: HTTP front on %s: generate (replica %s, %d attempt(s)), "
+        "healthz, metrics and trace %s checked"
+        % (base, out["replica"], len(tr["fleet"]["attempts"]),
+           out["trace_id"]))
+
+    # the same requests through one replica alone, for its figures
+    router.stop()
+    mark = len(runners[0].times["decode"])
+    t0 = time.perf_counter()
+    reqs = [servers[0].submit(p, max_new_tokens=new) for p in prompts]
+    alone = [r.result(timeout=900) for r in reqs]
+    wall1 = time.perf_counter() - t0
+    dec = sorted(runners[0].times["decode"][mark:])
+    ttft1 = sorted(r.ttft for r in reqs)
+    log("fleet: one replica alone, the same %d requests: %.1f tokens/s over "
+        "%.2f s wall, TTFT p50 %.4f s (max %.4f s), decode ms/step p50 %.3f "
+        "over %d steps; %d of %d token lists equal the fleet's"
+        % (len(reqs), sum(map(len, alone)) / wall1, wall1,
+           ttft1[len(ttft1) // 2], ttft1[-1], 1e3 * dec[len(dec) // 2],
+           len(dec), sum(a == b for a, b in zip(alone, outs)), len(outs)))
+    stop_fleet(router, servers)
+    return launches
+
+
+def fleet_small(serve, dev):
+    """At the parity phase's geometry (2 layers at full width, f32, TF32
+    off): greedy tokens through a 2-replica router equal one server's,
+    a replica killed on its forward path is survived by a retry, the
+    command line's fleet serves and drains on SIGTERM, and a rolling
+    deploy of a port bundle drops nothing while a backlog waits on both
+    replicas."""
+    import torch
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.testing import faults
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = serve.KVGeometry(page_size=16, num_pages=257, max_batch=4,
+                         max_pages_per_seq=64, prefill_buckets=(128, 512),
+                         dtype="float32", paged_kernel="auto",
+                         **dict(LLAMA3_8B, num_layers=2))
+    weights = serve.init_weights(g, seed=1, std=0.02, device=dev)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, g.vocab_size, size=n).tolist()
+               for n in (5, 60, 300)]
+    n = 8
+
+    def server():
+        arena = serve.PagedKVArena(g, device=dev)
+        return serve.LlamaServer.from_parts(
+            serve.TorchRunner(weights, arena), arena)
+
+    with server() as srv:
+        reqs = [srv.submit(p, max_new_tokens=n) for p in prompts]
+        want = [r.result(timeout=600) for r in reqs]
+    srv.arena.assert_quiescent()
+    servers = [server().start() for _ in range(2)]
+    router = serve.FleetRouter([serve.LocalReplica(s, name="r%d" % i)
+                                for i, s in enumerate(servers)]).start()
+    got = fleet_results([router.submit(p, max_new_tokens=n, timeout=600)
+                         for p in prompts])
+    log("fleet parity: 2 replicas %s, one server %s" % (got, want))
+    if got != want:
+        fail("f32 greedy through the router differs from one server's")
+
+    retries0 = counter_sum(telemetry.snapshot(), "mxnet_fleet_retries_total")
+    plan = faults.install(faults.FaultPlan(seed=0, rules=[
+        {"site": "replica_kill", "action": "kill_loop",
+         "match": {"replica": "r0"}, "times": 1}]))
+    try:
+        done = 0
+        for i in range(12):       # sequential: r0 is picked within a few
+            p = prompts[i % len(prompts)]
+            if router.generate(p, max_new_tokens=n, timeout=600) \
+                    != want[i % len(prompts)]:
+                fail("a request under replica_kill returned other tokens")
+            done += 1
+            if plan.events and done >= 4:
+                break
+    finally:
+        faults.uninstall()
+    retries = counter_sum(telemetry.snapshot(),
+                          "mxnet_fleet_retries_total") - retries0
+    log("fleet chaos: replica_kill on r0 fired %d time(s); %d/%d greedy "
+        "requests completed with the same tokens; %d retries; r0 healthy "
+        "%s" % (len(plan.events), done, done, retries,
+                servers[0].healthy()))
+    if not plan.events or retries <= 0:
+        fail("replica_kill never fired or no request was retried")
+    stop_fleet(router, servers)
+    del servers, router, weights
+
+    # the command line and a rolling deploy, over a port bundle
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        fleet_deploy_and_cli(serve, dev, g, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def save_bundle(serve, g, weights, path):
+    """Write ``weights`` (on the card) as a port bundle at geometry
+    ``g``; returns the seconds it took."""
+    t0 = time.perf_counter()
+    raw = (weights[0].cpu().numpy(),
+           [{k: v.cpu().numpy() for k, v in lw.items()}
+            for lw in weights[1]],
+           weights[2].cpu().numpy(),
+           None if weights[3] is None else weights[3].cpu().numpy())
+    serve.save_serving_bundle(path, raw, g)
+    return time.perf_counter() - t0
+
+
+def fleet_cli(path, prompt, n, want):
+    """``python -m mxnet_tpu_torch.serve --bundle path --fleet 2``: its
+    banner, one POST answered with ``want``, exit 0 within the drain
+    timeout after SIGTERM, and no kernel library rebuilt.  Returns the
+    seconds from start to banner."""
+    import threading
+
+    before = sorted(os.listdir(os.path.join(REPO, "build")))
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "mxnet_tpu_torch.serve",
+         "--bundle", path, "--fleet", "2", "--port", "0",
+         "--drain-timeout", "30"],
+        cwd=REPO, stdout=subprocess.PIPE, text=True)
+    try:
+        banner = []
+        reader = threading.Thread(
+            target=lambda: banner.append(proc.stdout.readline()),
+            daemon=True)
+        t0 = time.perf_counter()
+        reader.start()
+        reader.join(300)
+        if not banner or "serving fleet n=2" not in banner[0]:
+            fail("the CLI printed no fleet banner: %r" % banner)
+        url = banner[0].split(" on ")[1].split()[0]
+        t_up = time.perf_counter() - t0
+        out = http_json(url + "/v1/generate",
+                        {"prompt": prompt, "max_new_tokens": n})
+        if out.get("tokens") != want:
+            fail("the CLI's fleet served %s, not %s"
+                 % (out.get("tokens"), want))
+        proc.send_signal(signal.SIGTERM)
+        t0 = time.perf_counter()
+        rc = proc.wait(timeout=90)
+        t_down = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log("fleet cli: %s up in %.1f s, served %d tokens equal to one "
+        "server's, exit %d %.1f s after SIGTERM"
+        % (banner[0].split("  [")[0].strip(), t_up, len(out["tokens"]), rc,
+           t_down))
+    if rc != 0 or t_down > 30:
+        fail("the CLI exited %d %.1f s after SIGTERM (drain timeout "
+             "30 s)" % (rc, t_down))
+    if sorted(os.listdir(os.path.join(REPO, "build"))) != before:
+        fail("the CLI rebuilt kernel libraries in build/")
+    return t_up
+
+
+def fleet_deploy_and_cli(serve, dev, g, tmp):
+    """Weights A and B at geometry ``g`` (seeds 2 and 3), B saved as a
+    port bundle.  The command line's fleet over B, drained by SIGTERM;
+    its start-up (two loads of B) times one load.  Then two replicas on
+    A take a backlog through the router, sized from that load time and
+    one replica's request rate so that it outlasts both reloads, and
+    ``rolling_deploy`` swaps B in: nothing is dropped, both replicas
+    report one ``bundle_sha``, and queued requests on each replica cross
+    its swap onto B's weights."""
+    import torch
+
+    n = 32
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(1, g.vocab_size, size=int(k)).tolist()
+               for k in rng.integers(4, 64, size=8)]
+    weights = [serve.init_weights(g, seed=seed, std=0.02, device=dev)
+               for seed in (2, 3)]
+
+    def server(w, queue_depth=None):
+        arena = serve.PagedKVArena(g, device=dev)
+        return serve.LlamaServer.from_parts(
+            serve.TorchRunner(w, arena), arena, queue_depth=queue_depth)
+
+    want, rates = [], []
+    for w in weights:
+        with server(w) as srv:
+            t0 = time.perf_counter()
+            reqs = [srv.submit(p, max_new_tokens=n) for p in prompts]
+            want.append([r.result(timeout=600) for r in reqs])
+            rates.append(len(prompts) / (time.perf_counter() - t0))
+        srv.arena.assert_quiescent()
+    if any(a == b for a, b in zip(*want)):
+        fail("weights A and B give some prompt the same greedy tokens")
+    path = os.path.join(tmp, "fleet_b.npz")
+    free = shutil.disk_usage(tmp).free
+    t_save = save_bundle(serve, g, weights.pop(), path)
+    torch.cuda.empty_cache()
+    log("fleet deploy: bundle B (%s) of %.2f GB saved in %.1f s (%.1f GB "
+        "free in %s before)" % (g.dtype, os.path.getsize(path) / 1e9,
+                                t_save, free / 1e9, tmp))
+    t_up = fleet_cli(path, prompts[0], n, want[1][0])
+
+    # each replica's backlog outlasts the first replica's reload and the
+    # second's load (one load is under t_up / 2); on the H100 the second
+    # replica served a third of such a backlog before its swap
+    per = int(min(1500, max(16, math.ceil(max(rates) * (0.5 * t_up + 5)))))
+    servers = [server(weights[0], queue_depth=2 * per + 16).start()
+               for _ in range(2)]
+    router = serve.FleetRouter([serve.LocalReplica(s, name="r%d" % i)
+                                for i, s in enumerate(servers)]).start()
+    backlog = [i % len(prompts) for i in range(2 * per)]
+    t0 = time.perf_counter()
+    futs = [router.submit(prompts[i], max_new_tokens=n, timeout=900)
+            for i in backlog]
+    report = router.rolling_deploy(path, timeout=600)
+    t_deploy = time.perf_counter() - t0
+    outs = [f.result(timeout=900) for f in futs]
+    t_all = time.perf_counter() - t0
+    shas = {st["bundle_sha"] for st in router.healthz()["replicas"]
+            .values()}
+    after = router.generate(prompts[0], max_new_tokens=n, timeout=600)
+    served = {}
+    for f, i, o in zip(futs, backlog, outs):
+        kind = "A" if o == want[0][i] else "B" if o == want[1][i] \
+            else "other"
+        served.setdefault(f.replica, {}).setdefault(kind, 0)
+        served[f.replica][kind] += 1
+    log("fleet deploy: %s requests/s per replica alone; a backlog of %d "
+        "requests (%d new tokens each) through the router; rolling_deploy "
+        "returned in %.1f s, the backlog done in %.1f s: converged %s, "
+        "dropped %d, bundle_sha %s; served per replica on weights A/B %s"
+        % (["%.1f" % r for r in rates], len(futs), n, t_deploy, t_all,
+           report["converged"], report["dropped"], sorted(shas),
+           json.dumps(served, sort_keys=True)))
+    if not report["converged"] or report["dropped"] or len(shas) != 1 \
+            or None in shas:
+        fail("rolling deploy did not converge with nothing dropped")
+    if any("other" in v for v in served.values()) or after != want[1][0]:
+        fail("a request during or after the deploy served other tokens")
+    if sorted(served) != ["r0", "r1"] or \
+            any(not v.get("B") for v in served.values()):
+        fail("no queued request crossed a replica's swap onto the new "
+             "weights on both replicas: %s" % served)
+    stop_fleet(router, servers)
+
+
+def fleet_phase(serve, pa, dev):
+    """The two-replica fleet at full width is this phase's main path:
+    K4's count is read right after it, before the check runs at the
+    parity geometry."""
+    pa.paged_attention.launches = 0
+    pa.paged_attention.combine_launches = 0
+    launches = fleet_full_width(serve, pa, dev)
+    gc.collect()
+    import torch
+    torch.cuda.empty_cache()
+    fleet_small(serve, dev)
+    return launches
+
+
+# -- phase 7: the train main path -----------------------------------------
 
 def lm_wrapper(gluon, vocab):
     """The JAX bench's LM wrapper: logits flattened to (B*T, V)."""
@@ -1223,7 +1685,7 @@ def train_main_path(fa, dev):
     return launches
 
 
-# -- phase 7: the kernel path against the plain path ----------------------
+# -- phase 8: the kernel path against the plain path ----------------------
 
 def train_parity(dev):
     """Full width, 1 layer, vocab 2048, f32, TF32 off, B=1, T=256: the
@@ -1272,7 +1734,7 @@ def train_parity(dev):
         fail("the card's adamw trajectory disagrees with the plain path")
 
 
-# -- phases 8-10: mx.rtc (K5) and the imperative NDArray path -------------
+# -- phases 9-11: mx.rtc (K5) and the imperative NDArray path ------------
 
 # The user kernels of the rtc and imperative phases: CUDA C++ that
 # ``mx.rtc.CudaModule`` compiles with NVRTC at first use.  The SwiGLU
@@ -1932,8 +2394,11 @@ def nvidia_smi_line():
     return r.stdout.strip().splitlines()[0]
 
 
-PHASES = ("kernel", "flash", "serve", "parity", "train", "train_parity",
-          "rtc", "imperative", "imperative_parity")
+PHASES = ("kernel", "flash", "serve", "parity", "fleet", "train",
+          "train_parity", "rtc", "imperative", "imperative_parity")
+# the phases that launch K1-K4, whose libraries the smoke builds first
+NVCC_PHASES = {"kernel", "flash", "serve", "parity", "fleet", "train",
+               "train_parity"}
 
 
 def kernel_entry(name, source, replaces, launches, timing):
@@ -1975,7 +2440,7 @@ def main(argv):
 
     # K4 with split 1 left out of its combine: the planted fault
     drop_split = (pa._SOURCE, ("MXTT_DROP_SPLIT=1",))
-    if set(phases) & set(PHASES[:6]):   # the phases of K1-K4
+    if set(phases) & NVCC_PHASES:
         built = _build.build_all([fa._SOURCE, pa._SOURCE, drop_split],
                                  verbose=True)
         for lib, seconds in built.values():
@@ -2011,6 +2476,7 @@ def main(argv):
     flash = timed("flash", flash_phase)
     k4_launches = timed("serve", serve_main_path, serve, pa, dev)
     timed("parity", parity, serve, dev)
+    fleet_launches = timed("fleet", fleet_phase, serve, pa, dev)
     flash_launches = timed("train", train_main_path, fa, dev)
     timed("train_parity", train_parity, dev)
     k5 = timed("rtc", rtc_phase, mx, dev)
@@ -2034,8 +2500,8 @@ def main(argv):
                      flash_launches["dkv_launches"], flash["K3"]),
         kernel_entry("K4 paged_attention",
                      "mxnet_tpu_torch/csrc/paged_attention.cu",
-                     "mxnet_tpu/ops/paged_attention.py:80", k4_launches,
-                     k4)] + [
+                     "mxnet_tpu/ops/paged_attention.py:80",
+                     k4_launches + fleet_launches, k4)] + [
         kernel_entry("K5 rtc %s (user kernel, NVRTC)" % k5_launches[w][0],
                      "chip_smoke.py", "mxnet_tpu/rtc.py:43",
                      k5_launches[w][1], k5[w])

@@ -135,6 +135,13 @@ def create(name, **kwargs):
     return Optimizer.create_optimizer(name, **kwargs)
 
 
+def _decayed(g, weight, wd):
+    """``g + wd * weight`` in at least f32, as the JAX rule forms it with
+    an f32 ``wd``: never rounded into the weight's narrower dtype."""
+    g = g.to(torch.promote_types(weight.dtype, torch.float32))
+    return torch.add(g, weight, alpha=wd) if wd else g
+
+
 @register
 class SGD(Optimizer):
     """SGD with momentum (parity: optimizer.SGD)."""
@@ -147,14 +154,16 @@ class SGD(Optimizer):
         return None if self.momentum == 0.0 else self._zeros(weight)
 
     def _update(self, weight, grad, state, lr, wd, t):
-        g = self._clip_rescale(grad)
-        if wd:
-            g = g + wd * weight
+        # the JAX rule gets an f32 ``wd``, so the decayed gradient, the
+        # step and the new weight are formed in f32 and rounded into the
+        # weight's dtype once; bf16 arithmetic here would round twice
+        g = _decayed(self._clip_rescale(grad), weight, wd)
         if state is None:
             weight.add_(g, alpha=-lr)
             return
-        state.mul_(self.momentum).add_(g, alpha=-lr)
-        weight.add_(state)
+        mom = torch.add(state * self.momentum, g, alpha=-lr)
+        state.copy_(mom)
+        weight.add_(mom)
 
 
 @register
@@ -179,8 +188,9 @@ class Adam(Optimizer):
         """``m = b1 m + (1-b1) g`` and ``v = b2 v + (1-b2) g^2``, in
         place, each rounded once into the state's dtype."""
         mean, var = state
-        mean.lerp_(g, 1 - self.beta1)
-        var.lerp_(g * g, 1 - self.beta2)
+        # an f32 ``g`` (decay folded in) is not rounded to the state first
+        torch.lerp(mean.to(g.dtype), g, 1 - self.beta1, out=mean)
+        torch.lerp(var.to(g.dtype), g * g, 1 - self.beta2, out=var)
         return mean, var
 
     def _adam_step(self, weight, mean, var, lr, t, decay=0.0):
@@ -201,7 +211,7 @@ class Adam(Optimizer):
     def _update(self, weight, grad, state, lr, wd, t):
         g = self._clip_rescale(grad)
         if wd:
-            g = g + wd * weight
+            g = _decayed(g, weight, wd)
         mean, var = self._moments(g, state)
         self._adam_step(weight, mean, var, lr, t)
 

@@ -7,7 +7,12 @@
 - :mod:`.model` — the prefill/decode/verify/chunk steps as torch
   functions, attending through the paged-attention kernel on CUDA;
 - :mod:`.server` — :class:`TorchRunner` and :class:`LlamaServer` with
-  its HTTP front.
+  its HTTP front;
+- :mod:`.fleet` — :class:`FleetRouter`, a queue-aware front over N
+  replicas (copied from the JAX package as it is): power-of-two-choices
+  routing, bounded retries and hedging, circuit-breaker ejection and
+  rolling deploys; ``python -m mxnet_tpu_torch.serve --fleet N`` starts
+  one from the command line.
 
 Quick start (``device`` defaults to ``cuda:0``)::
 
@@ -24,6 +29,8 @@ Quick start (``device`` defaults to ``cuda:0``)::
         tokens = srv.generate([1, 2, 3], max_new_tokens=16)
 """
 from .arena import PagedKVArena
+from .fleet import (FleetNoHealthyReplica, FleetRouter, HttpReplica,
+                    LocalReplica, fleet_drive_workload)
 from .model import (KVGeometry, build_decode_fn, build_prefill_fn,
                     build_step_fn, build_verify_fn, check_geometry,
                     convert_weights, default_buckets, extract_weights,
@@ -39,14 +46,16 @@ from .server import (LlamaServer, TorchRunner, drive_workload,
 from .spec import NgramProposer, propose_ngram
 
 __all__ = [
-    "KVGeometry", "LlamaServer", "NgramProposer", "PagedKVArena",
+    "FleetNoHealthyReplica", "FleetRouter", "HttpReplica", "KVGeometry",
+    "LlamaServer", "LocalReplica", "NgramProposer", "PagedKVArena",
     "PrefixCache", "Request", "Scheduler", "ServeCancelled",
     "ServeDeadlineExceeded", "ServeDraining", "ServeInternalError",
     "ServeQueueFull", "ServeSessionBusy", "ServeSessionUnknown",
     "ServeShutdown", "TorchRunner", "build_decode_fn", "build_prefill_fn",
     "build_step_fn", "build_verify_fn", "check_geometry",
     "clamp_retry_after", "convert_weights", "default_buckets",
-    "drive_workload", "extract_weights", "greedy_sampler", "init_weights",
+    "drive_workload", "extract_weights", "fleet_drive_workload",
+    "greedy_sampler", "init_weights",
     "load_serving_bundle", "poisson_workload", "propose_ngram",
     "save_serving_bundle",
 ]

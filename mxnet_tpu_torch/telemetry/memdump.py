@@ -46,8 +46,11 @@ _peak = 0
 
 
 def _on_free(key):
-    with _lock:
-        _tags.pop(key, None)
+    # A tensor's finalizer runs in whatever frees it, and that can be a
+    # garbage collection started by an allocation while this thread
+    # holds ``_lock`` (in ``_live_tags``): taking the lock here would
+    # wait on itself forever.  ``dict.pop`` is atomic on its own.
+    _tags.pop(key, None)
 
 
 def tag(buf, origin=None, label=None):

@@ -14,6 +14,7 @@ import subprocess
 import sys
 import urllib.error
 import urllib.request
+import weakref
 
 import numpy as np
 import pytest
@@ -217,6 +218,90 @@ def test_healthz_accounts_weights_and_arena_by_origin():
     assert memdump.refresh()[0]["kv_page"] < before
 
 
+_GC_IN_LOCKED_SECTION = r"""
+import gc
+import torch
+from mxnet_tpu_torch.telemetry import memdump
+
+class Node:
+    pass
+
+gc.disable()
+for _ in range(64):       # tagged tensors that only a collection frees
+    n = Node()
+    n.cycle, n.t = n, torch.zeros(4)
+    memdump.tag(n.t, origin="param")
+    del n
+gc.set_threshold(1)       # the next allocation collects ...
+gc.enable()
+live = memdump._live_tags()  # ... inside memdump's locked tag walk
+by, _ = memdump.refresh()
+print("REFRESHED", len(live), by["param"])
+"""
+
+
+def test_memdump_survives_a_collection_inside_its_lock():
+    """A tagged tensor's finalizer can run inside a garbage collection
+    that an allocation starts while memdump holds its lock; it must not
+    wait on that lock (the finalizer once did, and the process hung)."""
+    r = subprocess.run([sys.executable, "-c", _GC_IN_LOCKED_SECTION],
+                       cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["REFRESHED", "0", "0"], r.stdout
+
+
+@pytest.mark.cuda
+def test_two_servers_in_one_process_on_the_card():
+    """Two ``from_parts`` servers (a fleet's replicas) serve from their
+    own loop threads in one process on the card: each gives the tokens
+    it gives alone, K4 runs for both, and stopping them frees both
+    arenas and both sets of weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the serve path launches the "
+                    "CUDA paged-attention kernel, which has no CPU mode")
+    from mxnet_tpu_torch.ops.paged_attention import paged_attention
+
+    g = tiny_geometry(num_layers=2, num_heads=4, num_kv_heads=2,
+                      head_dim=16, units=64, hidden_size=128,
+                      vocab_size=64, num_pages=32, max_pages_per_seq=8,
+                      prefill_buckets=(8, 16))
+    prompts = [[3, 1, 4], [5, 9, 2, 6, 5], list(range(1, 12))]
+    servers, refs = [], []
+    for seed in (0, 1):
+        arena = PagedKVArena(g)
+        w = serve.init_weights(g, seed=seed, std=0.5)
+        refs += [weakref.ref(t) for t in arena.buffers()]
+        refs += [weakref.ref(t) for t in [w[0], w[2]]
+                 + [v for lw in w[1] for v in lw.values()]]
+        servers.append(LlamaServer.from_parts(TorchRunner(w, arena), arena))
+    del arena, w
+    alone = []
+    for srv in servers:
+        with srv:
+            alone.append([srv.generate(p, max_new_tokens=6, timeout=120)
+                          for p in prompts])
+    for srv in servers:
+        srv.start()
+    steps = -sum(srv.stats()["decode_steps"] for srv in servers)
+    before = paged_attention.launches
+    futs = [[srv.submit(p, max_new_tokens=6) for p in prompts]
+            for srv in servers]
+    both = [[f.result(timeout=120) for f in fs] for fs in futs]
+    steps += sum(srv.stats()["decode_steps"] for srv in servers)
+    assert paged_attention.launches - before >= steps * g.num_layers > 0
+    assert both == alone
+    for srv in servers:
+        srv.drain(timeout=60)
+        srv.stop()
+        srv.arena.assert_quiescent()
+    del servers, srv
+    gc.collect()
+    # every arena page and weight of both replicas is gone (the card's
+    # allocated total is no measure: each loop thread got its own cuBLAS
+    # workspace, which torch keeps)
+    assert refs and all(r() is None for r in refs)
+
+
 def test_bundle_round_trip_serves_identical_tokens(tmp_path):
     g = tiny_geometry(num_layers=2, num_pages=16, max_pages_per_seq=6,
                       spec_k=2)
@@ -311,26 +396,35 @@ for name in list(sys.modules):
 sys.modules["jax"] = None
 sys.modules["mxnet_tpu"] = None
 sys.meta_path.insert(0, Block())
-import mxnet_tpu_torch
 
 def mapped(stem):
     with open("/proc/self/maps") as f:
         return stem in f.read()
 
-# importing the package loads neither NVRTC nor the CUDA driver
-print("LIBS", mapped("libnvrtc"), mapped("libcuda.so"))
+# importing the package maps neither libnvrtc nor libcuda beyond what
+# importing torch maps (a CUDA build of torch maps both itself)
+import torch
+torch_libs = (mapped("libnvrtc"), mapped("libcuda.so"))
+import mxnet_tpu_torch
+print("LIBS", mapped("libnvrtc") and not torch_libs[0],
+      mapped("libcuda.so") and not torch_libs[1])
 names = [m.name for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__,
                                                "mxnet_tpu_torch.")]
 names += ["mxnet_tpu_torch.nd", "mxnet_tpu_torch.ndarray.ndarray",
           "mxnet_tpu_torch.autograd", "mxnet_tpu_torch.engine",
           "mxnet_tpu_torch.rtc", "mxnet_tpu_torch.ops._nvrtc"]
+names += ["mxnet_tpu_torch.serve.fleet", "mxnet_tpu_torch.serve.__main__",
+          "mxnet_tpu_torch.telemetry.aggregate",
+          "mxnet_tpu_torch.telemetry.slo", "mxnet_tpu_torch.telemetry.trace"]
 names += ["chip_smoke", "tools.torch_paged_attention_sweep",
-          "tools.torch_flash_attention_sweep"]
+          "tools.torch_flash_attention_sweep", "tools.torch_mxfleet",
+          "tools.torch_mxflight", "tools.torch_mxtrace"]
 for name in names:
     importlib.import_module(name) if name != "mxnet_tpu_torch.nd" \
         else mxnet_tpu_torch.nd
 from mxnet_tpu_torch.ops import _nvrtc
-print("LIBS", mapped("libnvrtc"), mapped("libcuda.so"),
+print("LIBS", mapped("libnvrtc") and not torch_libs[0],
+      mapped("libcuda.so") and not torch_libs[1],
       _nvrtc._nvrtc is None and _nvrtc._cuda is None)
 bad = sorted(n for n in sys.modules if n.split(".")[0] in
              ("jax", "jaxlib", "mxnet_tpu") and sys.modules[n] is not None)
@@ -352,9 +446,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = [os.path.join(d, f) for d, _, fs in
              os.walk(os.path.join(REPO, "mxnet_tpu_torch")) for f in fs
              if f.endswith(".py")]
-    files += [os.path.join(REPO, "chip_smoke.py"),
-              os.path.join(REPO, "tools", "torch_paged_attention_sweep.py"),
-              os.path.join(REPO, "tools", "torch_flash_attention_sweep.py")]
+    files += [os.path.join(REPO, "chip_smoke.py")]
+    files += [os.path.join(REPO, "tools", "torch_%s.py" % t)
+              for t in ("paged_attention_sweep", "flash_attention_sweep",
+                        "mxfleet", "mxflight", "mxtrace")]
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

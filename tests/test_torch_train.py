@@ -202,6 +202,32 @@ def test_bf16_adamw_weight_rule_with_small_decay_matches_jax(lr, wd):
         assert np.mean(got == want) >= 0.999
 
 
+@pytest.mark.parametrize("wd", [1e-4, 1e-2])
+def test_bf16_sgd_matches_jax_exactly(wd):
+    """bf16 plain SGD, 20 steps on 65,536 weights.  The JAX rule forms
+    ``w - lr * (g + wd * w)`` in f32 (its ``wd`` is an f32 scalar) and
+    rounds it into bf16 once; given the same bf16 gradients, the port's
+    weights must be EQUAL to the JAX package's after every step."""
+    rs = np.random.default_rng(0)
+    lr = 1e-2
+    w0 = rs.standard_normal(65536).astype(np.float32)
+    jo = jopt.create("sgd", learning_rate=lr, wd=wd)
+    to = optimizer.create("sgd", learning_rate=lr, wd=wd)
+    jw = jnp.asarray(w0).astype(jnp.bfloat16)
+    tw = torch.from_numpy(w0).to(torch.bfloat16)
+    step = jo._get_jit_step()
+    for t in range(1, 21):
+        g = rs.standard_normal(65536).astype(np.float32)
+        jw, _ = step(jw, jnp.asarray(g).astype(jnp.bfloat16), None,
+                     jnp.float32(lr), jnp.float32(wd), jnp.int32(t))
+        out, _ = to._step(tw, torch.from_numpy(g).to(torch.bfloat16), None,
+                          lr, wd, t)
+        assert out is tw and tw.dtype == torch.bfloat16
+        assert jw.dtype == jnp.bfloat16
+        np.testing.assert_array_equal(tw.float().numpy(),
+                                      np.asarray(jw.astype(jnp.float32)))
+
+
 @pytest.mark.parametrize("kw,label_kind", [
     ({}, "sparse"), (dict(from_logits=True), "sparse"),
     (dict(sparse_label=False), "dense"), (dict(axis=1), "sparse_axis1"),
