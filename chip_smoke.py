@@ -36,10 +36,15 @@ Phases, each fatal on failure:
              ``scaled_dot_product_attention`` (a yardstick only);
 4. serve   — a main path: ``LlamaServer.from_parts(TorchRunner, arena)``
              at Llama-3-8B's full width and depth in bf16 (random weights
-             made on the card from a seed) answers greedy requests; every
-             request must complete with finite logits, the arena must be
-             quiescent after, and K4's launch count must cover every
-             layer of every decode step;
+             made on the card from a seed) answers 12 greedy requests,
+             after two warm-up requests per prefill bucket, twice: every
+             step eager (``graphs=False``), then each step signature a
+             captured CUDA graph (the default); every request must
+             complete with finite logits, the arena must be quiescent
+             after, K4's launch count (replays included) must cover every
+             layer of every decode step, greedy tokens must be identical
+             in both runs, and the profiled graphed decode step must have
+             run K4's attention kernel once per layer at least;
 5. parity  — same widths, 2 layers, f32 with TF32 off: paged greedy
              tokens must equal greedy by recompute (the port's own
              prefill over prompt + tokens so far), and a port bundle
@@ -47,9 +52,10 @@ Phases, each fatal on failure:
              serve the same tokens as the server it was saved from;
 6. fleet   — a main path: two Llama-3-8B replicas (the serve phase's
              geometry, each with its own weights and arena) behind a
-             ``FleetRouter`` answer 16 greedy requests at once; every
-             request completes, both replicas serve, the router's counters
-             agree, K4 covers every layer of every decode step of both,
+             ``FleetRouter`` answer 16 greedy requests at once, each step a
+             captured CUDA graph; every request completes, both replicas
+             serve and capture, the router's counters agree, the fleet /
+             alone tokens/s ratio is logged, K4 covers every layer of every decode step of both,
              and the fleet's HTTP front (generate, healthz, metrics, the
              fleet trace) answers; then, at the parity phase's geometry,
              greedy tokens through two replicas equal one server's and a
@@ -68,7 +74,14 @@ Phases, each fatal on failure:
              one step's loss and every gradient, and the losses of 3
              adamw steps, on the card's kernel path must agree with the
              port's plain path on the host's CPU;
-9. rtc     — K5, ``mx.rtc.CudaModule``: user CUDA C++ compiled by NVRTC
+9. hybridize — ``HybridBlock.hybridize()`` as captured CUDA graphs:
+             f32, 2 layers at full width, TF32 off: the hybridized forward
+             (eager, then captured and replayed) within 1e-5 of the eager
+             one; then a main path: bf16, 8 layers at full width, forward
+             under ``no_grad`` at 1 x 128 and 2 x 2048 tokens, eager
+             against hybridized, with K1 launched once per layer per
+             forward (replays included);
+10. rtc    — K5, ``mx.rtc.CudaModule``: user CUDA C++ compiled by NVRTC
              and launched on NDArrays: scale_add equal to x*2 + y, the
              SwiGLU forward and backward kernels (bf16, f32 arithmetic)
              within 1 bf16 ulp of their plain versions at Llama-3-8B's MLP
@@ -76,7 +89,7 @@ Phases, each fatal on failure:
              nothing) caught, a compile error raising with NVRTC's log,
              then each kernel timed beside its byte bound, its plain
              version and torch's eager ``F.silu(a) * b``;
-10. imperative — a main path: MXNet-style training steps of one
+11. imperative — a main path: MXNet-style training steps of one
              Llama-3-8B MLP block at full width, bf16, written on ``mx.nd``
              with ``ctx=mx.gpu()`` (``autograd.record()``, a SwiGLU
              ``autograd.Function`` launching the rtc kernels,
@@ -84,7 +97,7 @@ Phases, each fatal on failure:
              below the first, each rtc kernel launched once per step (an
              engine hook counts); then the imperative dispatch rate and a
              check that the engine enqueues without waiting;
-11. imperative parity — the same step in f32 with TF32 off at width
+12. imperative parity — the same step in f32 with TF32 off at width
              256 / 512: the card (rtc kernels) against the host
              (``PallasKernel`` bodies over the plain SwiGLU).
 
@@ -906,11 +919,13 @@ def flash_timing(fa, dev):
 
 # -- phase 4: the serve main path -----------------------------------
 
-def timed_runner(serve, weights, arena, profile_step=True):
+def timed_runner(serve, weights, arena, profile_step=True, graphs=True):
     """A TorchRunner that checks every logits row is finite and records
     the wall time of each call (the runner syncs on its numpy logits).
     With ``profile_step`` it profiles one decode step; pass False where
-    several runners share the process (one profiler at a time)."""
+    several runners share the process (one profiler at a time).
+    ``graphs`` is the runner's own switch (captured CUDA graphs, or every
+    step eager)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -918,7 +933,7 @@ def timed_runner(serve, weights, arena, profile_step=True):
         PROFILE_STEP = 20     # a decode step at full batch, mid-run
 
         def __init__(self):
-            super().__init__(weights, arena)
+            super().__init__(weights, arena, graphs=graphs)
             self.times = {"prefill": [], "decode": []}
             self.step_profile = None
 
@@ -932,7 +947,7 @@ def timed_runner(serve, weights, arena, profile_step=True):
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     out = fn(*args)
                 self.step_profile = (time.perf_counter() - t0,
-                                     prof.key_averages())
+                                     prof.key_averages(), prof.events())
             else:
                 t0 = time.perf_counter()
                 out = fn(*args)
@@ -950,29 +965,153 @@ def timed_runner(serve, weights, arena, profile_step=True):
     return Runner()
 
 
-def log_step_profile(step_profile, step):
-    """Device time by kernel in one profiled decode step, and the step's
-    device-busy share (kernel time over the step's wall time, which the
-    profiler itself lengthens a little)."""
+def kernel_busy_ms(events):
+    """The union of the card's kernel intervals in a profile, in ms:
+    kernels that overlap (K4's combine, a programmatic dependent launch,
+    starts before its attention grid ends) count once, and copies not at
+    all."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset")))
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
+
+
+def step_profile_reading(step_profile, step):
+    """Device time by kernel in one profiled decode step: busy ms (the
+    union of kernel intervals), summed kernel ms, copy ms, kernel
+    launches, K4's attention kernel launches and K4's ms (attention with
+    its combine), and the top kernels and copies."""
     if step_profile is None:
         fail("the run had fewer than %d decode steps to profile" % step)
-    wall, events = step_profile
-    rows = [(e.self_device_time_total, e.count, e.key) for e in events]
+    wall, averages, events = step_profile
+    rows = [(e.self_device_time_total, e.count, e.key) for e in averages]
     rows = [r for r in rows if r[0] > 0]
-    busy_us = sum(r[0] for r in rows)
-    attn_us = sum(r[0] for r in rows
-                  if "paged_attention" in r[2] or "paged_combine" in r[2])
-    log("serve: decode step %d profiled: wall %.3f ms, device busy %.3f ms "
-        "(%.1f%%), %d kernel launches, paged attention (K4 with its "
-        "combine) %.3f ms (%.1f%% of busy)" % (step, wall * 1e3, busy_us / 1e3,
-                   100 * busy_us / 1e3 / (wall * 1e3),
-                   sum(r[1] for r in rows), attn_us / 1e3,
-                   100 * attn_us / max(busy_us, 1e-9)))
-    for us, count, key in sorted(rows, reverse=True)[:6]:
-        log("serve:   %8.3f ms  x%-4d %s" % (us / 1e3, count, key[:90]))
+    copies = [r for r in rows if r[2].startswith(("Memcpy", "Memset"))]
+    return {"wall_ms": wall * 1e3,
+            "busy_ms": kernel_busy_ms(events),
+            "summed_ms": sum(r[0] for r in rows if r not in copies) / 1e3,
+            "copy_ms": sum(r[0] for r in copies) / 1e3,
+            "kernels": sum(r[1] for r in rows if r not in copies),
+            "k4_attention": sum(r[1] for r in rows
+                                if "paged_attention_kernel" in r[2]),
+            "k4_ms": sum(r[0] for r in rows if "paged_attention" in r[2]
+                         or "paged_combine" in r[2]) / 1e3,
+            "top": sorted(rows, reverse=True)[:6]}
+
+
+def p50(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def warm_prompts(g, rng):
+    """Two prompts per prefill bucket, so that a graphed runner has
+    captured every step it serves before the timed requests."""
+    lo = 0
+    out = []
+    for b in g.prefill_buckets:
+        out += [rng.integers(0, g.vocab_size, size=(lo + b) // 2 + 1)
+                .tolist() for _ in range(2)]
+        lo = b
+    return out
+
+
+def serve_run(serve, pa, weights, arena, g, graphs, prompts, new):
+    """The 12 requests through a server over ``arena`` (reset first),
+    after two warm-up requests per prefill bucket; K4's counts are set to
+    0 before the warm-up and read after the requests."""
+    import torch
+
+    arena.reset()
+    runner = timed_runner(serve, weights, arena, graphs=graphs)
+    srv = serve.LlamaServer.from_parts(runner, arena)
+    pa.paged_attention.launches = 0
+    pa.paged_attention.combine_launches = 0
+    srv.start()
+    t0 = time.perf_counter()
+    for p in warm_prompts(g, np.random.default_rng(3)):
+        srv.generate(p, max_new_tokens=2, timeout=600)
+    warm_s = time.perf_counter() - t0
+    runner.times = {"prefill": [], "decode": []}
+    t0 = time.perf_counter()
+    reqs = [srv.submit(p, max_new_tokens=new) for p in prompts]
+    outs = [r.result(timeout=900) for r in reqs]
+    wall = time.perf_counter() - t0
+    srv.stop()
+    launches = pa.paged_attention.launches
+    combines = pa.paged_attention.combine_launches
+    steps = srv.stats()["decode_steps"]
+    arena.assert_quiescent()
+    if any(r.error is not None for r in reqs) or \
+            any(len(o) != new for o in outs):
+        fail("a request did not complete: %s"
+             % [str(r.error) for r in reqs if r.error is not None])
+    if launches < g.num_layers * steps or steps == 0:
+        fail("paged-attention kernel launched %d times over %d decode "
+             "steps of %d layers" % (launches, steps, g.num_layers))
+    prof = step_profile_reading(runner.step_profile, runner.PROFILE_STEP)
+    dec = runner.times["decode"]
+    res = {"graphs": graphs, "outs": outs, "launches": launches,
+           "combines": combines, "steps": steps, "wall_s": wall,
+           "warm_s": warm_s, "tokens_s": sum(map(len, outs)) / wall,
+           "ttft": p50([r.ttft for r in reqs]),
+           "ttft_max": max(r.ttft for r in reqs),
+           "prefill": p50(runner.times["prefill"]), "decode": p50(dec),
+           "decode_min": min(dec), "decode_max": max(dec), "prof": prof,
+           "graph": runner.graph_stats(),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    res["idle"] = 1 - prof["busy_ms"] / (1e3 * res["decode"])
+    del srv, runner
+    return res
+
+
+def log_serve_run(r, g):
+    mode = "graphs on" if r["graphs"] else "graphs off"
+    prof = r["prof"]
+    log("serve [%s]: %d decode steps (warm-up included), %d K4 launches "
+        "(%d layers x steps = %d), %d with a combine; warm-up %.2f s"
+        % (mode, r["steps"], r["launches"], g.num_layers,
+           g.num_layers * r["steps"], r["combines"], r["warm_s"]))
+    log("serve [%s]: decode ms/step p50 %.3f (min %.3f max %.3f), TTFT p50 "
+        "%.4f s (max %.4f s), prefill call p50 %.4f s, %.1f tokens/s over "
+        "%.2f s wall, peak device memory %.2f GB"
+        % (mode, 1e3 * r["decode"], 1e3 * r["decode_min"],
+           1e3 * r["decode_max"], r["ttft"], r["ttft_max"], r["prefill"],
+           r["tokens_s"], r["wall_s"], r["peak_gb"]))
+    log("serve [%s]: decode step profiled: wall %.3f ms (profiler on), "
+        "kernels busy %.3f ms (union; summed %.3f ms), copies %.3f ms, "
+        "idle %.1f%% of the p50 step, %d kernel launches, K4 attention "
+        "kernel x%d, K4 with its combine %.3f ms (summed)"
+        % (mode, prof["wall_ms"], prof["busy_ms"], prof["summed_ms"],
+           prof["copy_ms"], 100 * r["idle"], prof["kernels"],
+           prof["k4_attention"], prof["k4_ms"]))
+    for us, count, key in prof["top"]:
+        log("serve [%s]:   %8.3f ms  x%-4d %s"
+            % (mode, us / 1e3, count, key[:90]))
+    st = r["graph"]
+    if r["graphs"]:
+        log("serve [graphs on]: %d graphs, %d captures in %.3f s, %d replays "
+            "at %.1f us host time each outside the replay, graph pool "
+            "%.1f MB" % (st["graphs"], st["captures"], st["capture_s"],
+                         st["replays"],
+                         1e6 * st["host_s"] / max(st["replays"], 1),
+                         st["pool_bytes"] / 1e6))
 
 
 def serve_main_path(serve, pa, dev):
+    """The 12 requests at full Llama-3-8B size, first with every step
+    eager, then with each step signature a captured CUDA graph; greedy
+    tokens must be identical.  Returns K4's launches over both runs."""
     import torch
 
     g = serve.KVGeometry(page_size=16, num_pages=2049, max_batch=8,
@@ -991,53 +1130,46 @@ def serve_main_path(serve, pa, dev):
         % (g.num_layers, n_params / 1e9,
            sum(t.numel() * t.element_size() for t in arena.buffers()) / 1e9,
            g.describe(), time.perf_counter() - t0))
-    runner = timed_runner(serve, weights, arena)
-    srv = serve.LlamaServer.from_parts(runner, arena)
     rng = np.random.default_rng(7)
     n_req, new = 12, 32
     lens = [32, 1500] + rng.integers(32, 1501, size=n_req - 2).tolist()
     prompts = [rng.integers(0, g.vocab_size, size=n).tolist() for n in lens]
-    pa.paged_attention.launches = 0
-    pa.paged_attention.combine_launches = 0
-    srv.start()
-    t0 = time.perf_counter()
-    reqs = [srv.submit(p, max_new_tokens=new) for p in prompts]
-    outs = [r.result(timeout=900) for r in reqs]
-    wall = time.perf_counter() - t0
-    srv.stop()
-    launches = pa.paged_attention.launches
-    combines = pa.paged_attention.combine_launches
-    stats = srv.stats()
-    arena.assert_quiescent()
-    steps = stats["decode_steps"]
-    if any(r.error is not None for r in reqs) or \
-            any(len(o) != new for o in outs):
-        fail("a request did not complete: %s"
-             % [str(r.error) for r in reqs if r.error is not None])
-    if launches < g.num_layers * steps or steps == 0:
-        fail("paged-attention kernel launched %d times over %d decode "
-             "steps of %d layers" % (launches, steps, g.num_layers))
-    ttft = sorted(r.ttft for r in reqs)
-    dec = sorted(runner.times["decode"])
-    pre = sorted(runner.times["prefill"])
-    toks = sum(len(o) for o in outs)
-    log("serve: %d/%d requests done, prompts %d..%d tokens, %d new each; "
-        "%d decode steps, %d kernel launches (%d layers x steps = %d), "
-        "%d of them split (n_split %d at the decode shape) with a combine"
-        % (len(outs), n_req, min(lens), max(lens), new, steps, launches,
-           g.num_layers, g.num_layers * steps, combines,
-           pa.n_split(g.max_batch, 1, g.num_heads, g.num_kv_heads,
-                      g.page_size, g.max_pages_per_seq,
-                      pa.sm_count(dev.index))))
-    log("serve: TTFT p50 %.4f s (max %.4f s), prefill call p50 %.4f s, "
-        "decode ms/step p50 %.3f (min %.3f max %.3f), %.1f tokens/s over "
-        "%.2f s wall, peak device memory %.2f GB"
-        % (ttft[len(ttft) // 2], ttft[-1], pre[len(pre) // 2],
-           1e3 * dec[len(dec) // 2], 1e3 * dec[0], 1e3 * dec[-1],
-           toks / wall, wall, torch.cuda.max_memory_allocated() / 1e9))
-    log_step_profile(runner.step_profile, runner.PROFILE_STEP)
-    del srv, runner, weights, arena
-    return launches
+    log("serve: %d requests, prompts %d..%d tokens, %d new each; n_split %d "
+        "at the decode shape" % (n_req, min(lens), max(lens), new,
+                                 pa.n_split(g.max_batch, 1, g.num_heads,
+                                            g.num_kv_heads, g.page_size,
+                                            g.max_pages_per_seq,
+                                            pa.sm_count(dev.index))))
+    # the profiler's first use sets up its tracer (seconds on the
+    # card); take it here, outside both timed runs
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.zeros(1, device=dev).add_(1)
+    torch.cuda.synchronize()
+    runs = []
+    for graphs in (False, True):
+        runs.append(serve_run(serve, pa, weights, arena, g, graphs, prompts,
+                              new))
+        log_serve_run(runs[-1], g)
+    off, on = runs
+    same = sum(a == b for a, b in zip(off["outs"], on["outs"]))
+    log("serve: greedy tokens equal with graphs on and off in %d of %d "
+        "requests; graphs on / off: decode ms/step p50 %.3f / %.3f, TTFT "
+        "p50 %.4f / %.4f s, %.1f / %.1f tokens/s, idle %.1f%% / %.1f%%"
+        % (same, n_req, 1e3 * on["decode"], 1e3 * off["decode"], on["ttft"],
+           off["ttft"], on["tokens_s"], off["tokens_s"], 100 * on["idle"],
+           100 * off["idle"]))
+    if same != n_req:
+        fail("greedy tokens differ between graphed and eager serving")
+    if on["prof"]["k4_attention"] < g.num_layers:
+        fail("the profiled graphed decode step ran K4's attention kernel %d "
+             "times, fewer than its %d layers"
+             % (on["prof"]["k4_attention"], g.num_layers))
+    if on["graph"]["captures"] == 0 or on["graph"]["replays"] == 0:
+        fail("the graphed runner captured %d and replayed %d graphs"
+             % (on["graph"]["captures"], on["graph"]["replays"]))
+    del weights, arena
+    return off["launches"] + on["launches"]
 
 
 # -- phase 5: f32 parity and the bundle round trip ------------------------
@@ -1325,6 +1457,17 @@ def fleet_full_width(serve, pa, dev):
         % (len(reqs), sum(map(len, alone)) / wall1, wall1,
            ttft1[len(ttft1) // 2], ttft1[-1], 1e3 * dec[len(dec) // 2],
            len(dec), sum(a == b for a, b in zip(alone, outs)), len(outs)))
+    log("fleet: fleet / alone tokens/s %.2f"
+        % (sum(map(len, outs)) / wall / (sum(map(len, alone)) / wall1)))
+    for i, r in enumerate(runners):
+        st = r.graph_stats()
+        log("fleet: r%d %d graphs, %d captures in %.3f s, %d replays, graph "
+            "pool %.1f MB" % (i, st["graphs"], st["captures"],
+                              st["capture_s"], st["replays"],
+                              st["pool_bytes"] / 1e6))
+        if st["captures"] == 0 or st["replays"] == 0:
+            fail("fleet replica r%d captured %d and replayed %d graphs"
+                 % (i, st["captures"], st["replays"]))
     stop_fleet(router, servers)
     return launches
 
@@ -1734,7 +1877,145 @@ def train_parity(dev):
         fail("the card's adamw trajectory disagrees with the plain path")
 
 
-# -- phases 9-11: mx.rtc (K5) and the imperative NDArray path ------------
+
+# -- phase 9: hybridize() as captured CUDA graphs --------------------------
+
+HYBRID_SHAPES = ((1, 128), (2, 2048))
+
+
+def timed_forward(net, x, n):
+    """Wall ms of ``n`` forwards under ``no_grad``, each synchronised."""
+    import torch
+
+    times = []
+    with torch.no_grad():
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = net(x)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+    return times, out
+
+
+def hybrid_flash_checks(fa, dev, heads, d):
+    """K1 (and K2, K3) against the plain versions at the attention
+    shapes the main path below gives K1: B*H = batch x heads, causal,
+    bf16, for each of HYBRID_SHAPES."""
+    import torch
+
+    rng = np.random.default_rng(6)
+    for b, t in HYBRID_SHAPES:
+        args = flash_case(rng, dev, b * heads, t, t, d, torch.bfloat16)
+        res = flash_compare(fa, args, d ** -0.5, True)[0]
+        worst = max(r for r, _ in res.values())
+        log("hybridize: flash check at the %d x %d forward's shape, B*H=%d "
+            "T=%d D=%d causal bf16 (reading, max_abs_err): %s %s"
+            % (b, t, b * heads, t, d,
+               " ".join("%s %.2f %.3g" % (n, r, e)
+                        for n, (r, e) in res.items()),
+               "ok" if worst <= 1 else "FAIL"))
+        if worst > 1:
+            fail("flash kernels disagree with their plain versions at the "
+                 "hybridized forward's %d x %d shape" % (b, t))
+
+
+def hybridize_phase(fa, dev):
+    """``HybridBlock.hybridize()`` on the card: (1) f32, 2 layers at full
+    width, TF32 off: three hybridized calls (eager, captured and
+    replayed, replayed) against the eager forward, within 1e-5 of its
+    largest logit; (2) the main path: bf16, the train phase's 8 layers at
+    full width, forward under ``no_grad`` at 1 x 128 and 2 x 2048 tokens,
+    eager against hybridized (wall p50 of synchronised calls), after
+    K1 is held against its plain version at (2)'s attention shapes.
+    K1's launches are counted over (2)."""
+    import torch
+
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dict(LLAMA3_8B)
+    vocab = cfg.pop("vocab_size")
+    cfg.pop("head_dim")
+
+    def model(layers, seed):
+        net = llama.LlamaModel(vocab, device=dev,
+                               **dict(cfg, num_layers=layers))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        net.initialize(initializer.Xavier(), generator=gen)
+        return net
+
+    rng = np.random.default_rng(5)
+    net = model(2, 1)
+    x = torch.from_numpy(rng.integers(0, vocab, (1, 128))).to(dev)
+    with torch.no_grad():
+        want = net(x)
+        net.hybridize()
+        got = [net(x) for _ in range(3)]
+    (cc,) = net._graphs.calls.values()
+    errs = [float((o - want).abs().max() / want.abs().max()) for o in got]
+    log("hybridize: f32, 2 layers at full width, 1 x 128 tokens: calls 1-3 "
+        "(eager, captured + replayed, replayed) against eager: max error "
+        "%s of the largest logit (tolerance 1e-5); %d capture(s), %d "
+        "replays" % (["%.3g" % e for e in errs], cc.captures, cc.replays))
+    if (cc.calls, cc.captures, cc.replays) != (3, 1, 2):
+        fail("the hybridized block did not capture once and replay twice")
+    if max(errs) > 1e-5:
+        fail("the hybridized f32 forward disagrees with the eager one")
+    del net, want, got, cc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hybrid_flash_checks(fa, dev, cfg["num_heads"], LLAMA3_8B["head_dim"])
+    net = model(TRAIN_LAYERS, 0)
+    net.cast("bfloat16")
+    for name in ("fwd_launches", "dq_launches", "dkv_launches"):
+        setattr(fa.flash_attention, name, 0)
+    rows = []
+    calls = 0
+    for b, t in HYBRID_SHAPES:
+        x = torch.from_numpy(rng.integers(0, vocab, (b, t))).to(dev)
+        n = 20 if t <= 128 else 10
+        eager, want = timed_forward(net, x, n + 2)
+        net.hybridize()
+        first, _ = timed_forward(net, x, 2)     # eager, then the capture
+        hyb, got = timed_forward(net, x, n)
+        (cc,) = net._graphs.calls.values()
+        st = (cc.capture_s, net._graphs.stats()["pool_bytes"],
+              1e6 * cc.host_s / max(cc.replays, 1))
+        calls += n + 2 + 2 + n
+        net.hybridize(False)
+        err = float((got.float() - want.float()).abs().max())
+        rows.append((b, t, p50(eager[2:]), p50(hyb), first, st, err,
+                     torch.equal(got, want)))
+        if not torch.isfinite(got).all() or \
+                err > 1e-2 * float(want.float().abs().max()):
+            fail("hybridized bf16 forward at %d x %d disagrees with eager "
+                 "(max abs error %.3g)" % (b, t, err))
+        del want, got
+    launches = {name: getattr(fa.flash_attention, name)
+                for name in ("fwd_launches", "dq_launches", "dkv_launches")}
+    for b, t, e_ms, h_ms, first, st, err, same in rows:
+        log("hybridize: bf16, %d layers at full width, %d x %d tokens, "
+            "no_grad forward: eager p50 %.3f ms, hybridized p50 %.3f ms "
+            "(%.2fx); first hybridized calls %.1f ms (eager) and %.1f ms "
+            "(capture %.3f s + replay); graph pool %.1f MB; %.1f us host "
+            "time a replay outside it; outputs %s (max abs error %.3g)"
+            % (TRAIN_LAYERS, b, t, e_ms, h_ms, e_ms / h_ms, first[0],
+               first[1], st[0], st[1] / 1e6, st[2],
+               "bitwise equal" if same else "not bitwise equal", err))
+    log("hybridize: K1 launches %d over %d forwards of %d layers"
+        % (launches["fwd_launches"], calls, TRAIN_LAYERS))
+    if launches["fwd_launches"] < calls * TRAIN_LAYERS:
+        fail("K1 launched %d times over %d forwards of %d layers"
+             % (launches["fwd_launches"], calls, TRAIN_LAYERS))
+    del net
+    return launches
+
+# -- phases 10-12: mx.rtc (K5) and the imperative NDArray path -----------
 
 # The user kernels of the rtc and imperative phases: CUDA C++ that
 # ``mx.rtc.CudaModule`` compiles with NVRTC at first use.  The SwiGLU
@@ -2395,10 +2676,11 @@ def nvidia_smi_line():
 
 
 PHASES = ("kernel", "flash", "serve", "parity", "fleet", "train",
-          "train_parity", "rtc", "imperative", "imperative_parity")
+          "train_parity", "hybridize", "rtc", "imperative",
+          "imperative_parity")
 # the phases that launch K1-K4, whose libraries the smoke builds first
 NVCC_PHASES = {"kernel", "flash", "serve", "parity", "fleet", "train",
-               "train_parity"}
+               "train_parity", "hybridize"}
 
 
 def kernel_entry(name, source, replaces, launches, timing):
@@ -2479,6 +2761,7 @@ def main(argv):
     fleet_launches = timed("fleet", fleet_phase, serve, pa, dev)
     flash_launches = timed("train", train_main_path, fa, dev)
     timed("train_parity", train_parity, dev)
+    hybrid_launches = timed("hybridize", hybridize_phase, fa, dev)
     k5 = timed("rtc", rtc_phase, mx, dev)
     k5_launches = timed("imperative", imperative_main_path, mx, dev)
     timed("imperative_parity", imperative_parity, mx, dev)
@@ -2491,7 +2774,8 @@ def main(argv):
     print(json.dumps({"kernels": [
         kernel_entry("K1 flash_fwd", src,
                      "mxnet_tpu/ops/pallas_kernels.py:83",
-                     flash_launches["fwd_launches"], flash["K1"]),
+                     flash_launches["fwd_launches"]
+                     + hybrid_launches["fwd_launches"], flash["K1"]),
         kernel_entry("K2 flash_bwd_dq", src,
                      "mxnet_tpu/ops/pallas_kernels.py:166",
                      flash_launches["dq_launches"], flash["K2"]),

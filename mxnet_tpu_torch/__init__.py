@@ -14,6 +14,9 @@ Ported so far:
   streams, the ``autograd`` tape over torch's autograd, and ``rtc``
   (K5: user CUDA C++ compiled by NVRTC and launched on NDArrays, and
   the interpreted ``PallasKernel``);
+* the compiled paths: ``graph_cache`` captures one CUDA graph per call
+  signature, the counterpart of the JAX package's one executable per
+  signature, for the serve runner's steps and ``HybridBlock.hybridize()``;
 * the telemetry and testing modules these tiers use.
 
 The port's own kernels are CUDA C++ for sm_90a in ``csrc/``.  Entry

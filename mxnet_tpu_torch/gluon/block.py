@@ -8,14 +8,29 @@ which are the JAX package's ``_collect_params_with_prefix()`` names, so
 ``state_dict()`` keys equal them.  A parameter may carry an ``init``
 attribute (``"ones"``, ``"zeros"`` or an ``Initializer``) that overrides
 the initializer given to ``initialize``, as in the JAX package.
+
+``HybridBlock.hybridize()`` is the counterpart of the JAX package's one
+compiled executable per input signature: on the card, the outermost
+hybridized block runs each signature as one captured CUDA graph
+(``graph_cache.CapturedCall``), and the blocks it calls are captured
+with it.  A call that autograd would record runs eagerly.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
+from .. import autograd as _autograd
+from .. import graph_cache as _graph_cache
 from .. import initializer as _init
 from ..base import MXNetError
 from ..context import resolve
+
+# how deep this thread is inside a hybridized block's call: the blocks
+# it calls run eagerly and are captured with it (the reference's
+# is_tracing())
+_nesting = threading.local()
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
@@ -72,27 +87,134 @@ class Block(torch.nn.Module):
             if getattr(p, "_initialized", False) and not force_reinit:
                 continue
             fill_param(name, p, default, generator)
+        if force_reinit:
+            _clear_caches(self)
         return self
 
     def cast(self, dtype):
         """Cast every floating-point parameter to ``dtype`` (parity:
         Block.cast, which ``amp.convert_hybrid_block`` uses)."""
         dt = as_dtype(dtype)
+        _clear_caches(self)
         for p in self.parameters():
             if p.is_floating_point() and not isinstance(
                     p, torch.nn.parameter.UninitializedParameter):
                 p.data = p.data.to(dt)
         return self
 
+    def _apply(self, fn, *args, **kwargs):
+        # ``to()``, ``float()`` and the like may put new tensors in the
+        # tree's dicts without registering them
+        out = super()._apply(fn, *args, **kwargs)
+        _graph_cache.tree_changed()
+        return out
+
     def hybridize(self, active=True, **kwargs):
-        """A no-op kept for parity: the port runs eagerly, and nothing
-        is traced or compiled (the JAX package compiles one executable
-        here)."""
+        """Arm (or, with ``active=False``, disarm) every
+        ``HybridBlock`` below this one (parity: Block.hybridize, which
+        recurses)."""
+        for child in self.children():
+            if isinstance(child, Block):
+                child.hybridize(active, **kwargs)
         return self
 
 
 class HybridBlock(Block):
-    """Parity: gluon.HybridBlock — the same as ``Block`` in the port."""
+    """A block whose calls run as captured CUDA graphs once
+    ``hybridize()``d (parity: gluon.HybridBlock).
+
+    Each call is keyed by its tensor inputs' ``(shape, dtype, device)``
+    and ``autograd.is_training()``.  Per key, the first call runs
+    eagerly, the second captures one CUDA graph and replays it, later
+    calls replay; outputs are handed back as fresh tensors.  The graph
+    reads the parameters in place, so an in-place update shows in the
+    next replay; a parameter whose storage moved is captured again, and
+    ``hybridize(False)``, ``clear_cache()``, ``cast()`` and
+    ``initialize(force_reinit=True)`` drop the graphs.  Calls inside a
+    hybridized block's call, calls with keyword arguments or without a
+    tensor input, calls that autograd would record (grad mode on and a
+    parameter or input requiring grad) and calls on the CPU run eagerly.
+    """
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._graphs = _graph_cache.CallCache()     # signature -> call
+        self._watched = None    # (tree generation, parameters + buffers)
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  lint=False, aot=None, **kwargs):
+        """Arm or disarm graph capture (parity: HybridBlock.hybridize).
+        ``static_alloc`` and ``static_shape`` are accepted for parity: a
+        graph's buffers are static by construction.  ``aot=`` (the
+        persistent compile cache) and ``lint=True`` (the mxlint passes)
+        are not ported and raise."""
+        if aot is not None:
+            raise MXNetError("hybridize(aot=...) is not ported yet: the "
+                             "persistent compile cache comes with slice S5b "
+                             "(ROADMAP.md)")
+        if active and lint:
+            raise MXNetError("hybridize(lint=True) is not ported yet: the "
+                             "mxlint passes come with slice S9 (ROADMAP.md)")
+        self._active = bool(active)
+        if not active:
+            self.clear_cache()
+        return super().hybridize(active, static_alloc=static_alloc,
+                                 static_shape=static_shape, **kwargs)
+
+    def clear_cache(self):
+        """Drop every captured graph of this block."""
+        self._graphs.clear()
+        self._watched = None
+
+    def __call__(self, *args, **kwargs):
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        if not self._active or kwargs or not tensors \
+                or getattr(_nesting, "depth", 0) \
+                or (torch.is_grad_enabled() and any(
+                    t.requires_grad for t in tensors + self._graph_tensors())):
+            return super().__call__(*args, **kwargs)
+        cc = self._graphs.get(
+            _graph_cache.signature(args, _autograd.is_training()),
+            self._nested_call, tensors[0].device, self._graph_tensors,
+            type(self).__name__)
+        out = cc(*args)
+        return _fresh(out) if cc.static else out
+
+    def _nested_call(self, *args):
+        _nesting.depth = getattr(_nesting, "depth", 0) + 1
+        try:
+            return torch.nn.Module.__call__(self, *args)
+        finally:
+            _nesting.depth -= 1
+
+    def _graph_tensors(self):
+        """The tree's parameters and buffers, which a graph reads in
+        place: collected again only after a module, parameter or buffer
+        was registered or converted somewhere (a ``p.data`` swap keeps
+        the object, and the graph's storage check sees it move)."""
+        gen = _graph_cache.tree_generation()
+        if self._watched is None or self._watched[0] != gen:
+            self._watched = (gen, list(self.parameters())
+                             + list(self.buffers()))
+        return self._watched[1]
+
+
+def _clear_caches(block):
+    """Drop the captured graphs of every hybridized block in the tree."""
+    for b in block.modules():
+        if isinstance(b, HybridBlock):
+            b.clear_cache()
+
+
+def _fresh(out):
+    """Copies of a graph's static outputs, which its next replay
+    overwrites."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, (tuple, list)):
+        return type(out)(_fresh(o) for o in out)
+    return out
 
 
 def fill_param(name, p, default, generator):

@@ -42,8 +42,9 @@ class Sequential(Block):
         return iter(self._modules.values())
 
 
-class HybridSequential(Sequential):
-    """Parity: nn.HybridSequential (the same as ``Sequential`` here)."""
+class HybridSequential(Sequential, HybridBlock):
+    """Parity: nn.HybridSequential — a ``Sequential`` that
+    ``hybridize()`` runs as captured CUDA graphs."""
 
 
 class Dense(HybridBlock):

@@ -30,7 +30,8 @@ with f32 accumulation (K1, K2 and K3 on ``wgmma`` fed by TMA); every
 other case runs f32 products on the CUDA cores.  The kernels choose by
 dtype, head dim and alignment; the caller has no switch.
 ``flash_attention.fwd_launches``, ``.dq_launches`` and ``.dkv_launches``
-count kernel launches.
+count kernel launches, those replayed in a captured CUDA graph included
+(``graph_cache.count``).
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ import ctypes
 
 import torch
 
+from .. import graph_cache as _graph_cache
 from ..base import MXNetError
 from . import _build
 
@@ -148,8 +150,7 @@ def _run(name, counter, *args):
     dev = args[0].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        setattr(flash_attention, counter,
-                getattr(flash_attention, counter) + 1)
+        _graph_cache.count(flash_attention, counter)
         err = getattr(lib, name)(
             *[a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args], stream)

@@ -24,16 +24,18 @@ softmax states in a fixed order; the f32 scratch for them is allocated
 here.  ``paged_attention.launches`` counts calls that launched the
 kernel, ``paged_attention.combine_launches`` the combine launches among
 them; both are counted under a lock, since several serve loops (a
-fleet's replicas in one process) launch from their own threads.
+fleet's replicas in one process) launch from their own threads, and
+launches replayed in a captured CUDA graph count too
+(``graph_cache.count``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 
 import torch
 
+from .. import graph_cache as _graph_cache
 from ..base import MXNetError
 from . import _build
 
@@ -44,8 +46,6 @@ MAX_TABLE_WIDTH = 16384   # a block keeps its lane's table row in smem
 # dtype codes of the C interface
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-
-_count_lock = threading.Lock()
 
 KEYS_PER_STEP = 32   # the kernel's step: one key per lane of a warp
 MAX_SPLIT = 16
@@ -248,9 +248,9 @@ def _launch(q, k_pages, v_pages, block_table, positions, scales, scale):
         else (None, None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        with _count_lock:
-            paged_attention.launches += 1
-            paged_attention.combine_launches += splits > 1
+        _graph_cache.count(paged_attention, "launches")
+        _graph_cache.count(paged_attention, "combine_launches",
+                           int(splits > 1))
         err = lib.mxtt_paged_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), positions.data_ptr(), ks, vs,

@@ -6,8 +6,9 @@
 - :mod:`.arena` — the paged KV arena on torch tensors;
 - :mod:`.model` — the prefill/decode/verify/chunk steps as torch
   functions, attending through the paged-attention kernel on CUDA;
-- :mod:`.server` — :class:`TorchRunner` and :class:`LlamaServer` with
-  its HTTP front;
+- :mod:`.server` — :class:`TorchRunner` (on the card, each step
+  signature a captured CUDA graph) and :class:`LlamaServer` with its
+  HTTP front;
 - :mod:`.fleet` — :class:`FleetRouter`, a queue-aware front over N
   replicas (copied from the JAX package as it is): power-of-two-choices
   routing, bounded retries and hedging, circuit-breaker ejection and

@@ -560,7 +560,9 @@ def build_prefill_fn(weights, geometry, bucket):
     ``(kv_k, kv_v, tokens (T,), length, block_table (maxp,)) ->
     (kv_k, kv_v, logits (V,) f32)``; int8 geometries insert
     ``k_scale``/``v_scale`` after the kv buffers in both tuples, as in
-    :func:`build_step_fn`.  ``length`` is an int or a 0-d tensor.
+    :func:`build_step_fn`.  ``length`` is an int or a 0-d tensor (on the
+    arena's device inside a CUDA graph: the body reads nothing back to
+    the host).
 
     Every position's K/V is scattered into the arena (pad positions land
     on the null page or on this sequence's own not-yet-read slots); the
@@ -622,7 +624,12 @@ def build_prefill_fn(weights, geometry, bucket):
             att = torch.einsum("vgtu,uvd->tvgd", probs, v)
             x = x + F.linear(att.reshape(t, H * D).to(x.dtype), lw["o"])
             x = _ffn(x, lw, g.eps)
-        logits = _logits(x[length - 1], norm, embed, head, g.eps)
+        # the last real token's row, indexed on the device: indexing by
+        # a 0-d tensor would read it to the host, which a CUDA graph
+        # capture forbids
+        last = (torch.as_tensor(length, device=dev) - 1).reshape(1)
+        logits = _logits(x.index_select(0, last.long())[0], norm, embed,
+                         head, g.eps)
         if int8:
             return kv_k, kv_v, k_sc, v_sc, logits
         return kv_k, kv_v, logits

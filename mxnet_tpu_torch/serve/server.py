@@ -10,7 +10,7 @@ the step functions on the arena's tensors (they update the arena in
 place), and hands numpy logits back to the scheduler, which is the JAX
 package's host-side scheduler copied as it is.  Sampling is host-side
 numpy, so the decode loop's device work is one step-function call per
-step.
+step: on the card, one replay of that step's captured CUDA graph.
 
 ``static_generate`` is the naive baseline a serving bench compares
 against: fixed batches, no mid-flight admission, every batch runs until
@@ -32,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from .. import graph_cache as _graph_cache
 from ..base import MXNetError
 from ..telemetry import flight as _flight
 from ..telemetry import memdump as _memdump
@@ -78,13 +79,25 @@ class TorchRunner:
     """Runs the torch step functions against one arena.
 
     Same surface as the JAX package's ``AOTRunner`` — ``prefill``,
-    ``decode``, ``verify`` and ``chunk`` take and return numpy — but the
-    graphs are the eager functions of ``serve/model.py`` built once from
-    ``weights`` (the ``(embed, layers, norm, head)`` tensors on the
-    arena's device).
+    ``decode``, ``verify`` and ``chunk`` take and return numpy.  The
+    step functions of ``serve/model.py`` are built once from ``weights``
+    (the ``(embed, layers, norm, head)`` tensors on the arena's device).
+
+    On a CUDA arena each step signature (``decode``, ``verify``,
+    ``chunk``, one per prefill bucket) runs as one captured CUDA graph
+    (``graph_cache.CapturedCall``), the counterpart of the reference's
+    one AOT executable per signature: the first call runs eagerly, the
+    second captures and replays, later calls replay.  Tokens, positions,
+    block tables and the prefill length are copied into the graph's
+    static buffers; the arena tensors are captured in place, and a moved
+    arena tensor is captured again.  The graphs share one memory pool
+    and one capture stream: the steps run one at a time on the serve
+    thread, and each step's logits are read before the next one runs.
+    ``graphs=False`` runs every call eagerly, to hold graphed results
+    against eager ones.  On a CPU arena every call runs eagerly.
     """
 
-    def __init__(self, weights, arena):
+    def __init__(self, weights, arena, graphs=True):
         from .model import (build_decode_fn, build_prefill_fn,
                             build_step_fn, build_verify_fn)
 
@@ -100,42 +113,61 @@ class TorchRunner:
             self._fns["prefill_%d" % b] = build_prefill_fn(weights, g, b)
         self._pad = {b: np.zeros(b, dtype=np.int32)
                      for b in g.prefill_buckets}
+        self.graphs = bool(graphs) and self.device.type == "cuda"
+        self._graphs = _graph_cache.CallCache()   # (step, signature) -> call
 
-    def _ints(self, a):
-        return torch.from_numpy(
-            np.ascontiguousarray(a, dtype=np.int32)).to(self.device)
+    def _captured_call(self, name, args):
+        fn = self._fns[name]
+        return self._graphs.get(
+            (name, _graph_cache.signature(args)),
+            lambda *a: fn(*self.arena.buffers(), *a), self.device,
+            self.arena.buffers, "serve step %s" % name)
 
-    def _call(self, fn, origin, label, *args):
-        """Run ``fn`` over the arena state (kv tensors, plus scale arrays
-        for int8), adopt the returned state, hand back the trailing
-        logits as numpy."""
+    def graph_stats(self):
+        """Captures, replays, capture seconds, host seconds outside the
+        replays and the pool's bytes, over every captured step."""
+        return self._graphs.stats()
+
+    def _call(self, name, origin, label, *args):
+        """Run step ``name`` over the arena state (kv tensors, plus scale
+        arrays for int8) and ``args`` (host tensors), adopt the returned
+        state, hand back the trailing logits as numpy.  The logits are
+        tagged for memdump once per tensor: a graph returns the same
+        static logits on every replay."""
         self.arena.drain_pending_readers(origin)
         with torch.no_grad():
-            outs = fn(*self.arena.buffers(), *args)
+            if self.graphs:
+                cc = self._captured_call(name, args)
+                captures = cc.captures
+                outs = cc(*args)
+                fresh = not cc.static or cc.captures != captures
+            else:
+                outs = self._fns[name](*self.arena.buffers(),
+                                       *(a.to(self.device) for a in args))
+                fresh = True
         self.arena.adopt(*outs[:-1])
         logits = outs[-1]
-        _memdump.tag(logits, origin="activation", label=label)
+        if fresh:
+            _memdump.tag(logits, origin="activation", label=label)
         return logits.cpu().numpy()
 
     def _lanes(self, name, origin, tokens, positions, block_tables):
-        fn = self._fns.get(name)
-        if fn is None:
+        if name not in self._fns:
             raise MXNetError(
                 "runner has no %s step — build the geometry with %s > 0"
                 % (name, "spec_k" if name == "verify" else "prefill_chunk"))
-        return self._call(fn, origin, name + "_logits", self._ints(tokens),
-                          self._ints(positions), self._ints(block_tables))
+        return self._call(name, origin, name + "_logits", _ints(tokens),
+                          _ints(positions), _ints(block_tables))
 
     def prefill(self, bucket, tokens, length, block_row):
-        fn = self._fns.get("prefill_%d" % bucket)
-        if fn is None:
+        name = "prefill_%d" % bucket
+        if name not in self._fns:
             raise MXNetError("runner has no prefill step for bucket %d"
                              % bucket)
         padded = self._pad[bucket].copy()
         padded[:length] = tokens
-        return self._call(fn, "serve_prefill", "prefill_logits",
-                          self._ints(padded), int(length),
-                          self._ints(block_row))
+        return self._call(name, "serve_prefill", "prefill_logits",
+                          _ints(padded), _ints(length), _ints(block_row))
 
     def decode(self, tokens, positions, block_tables):
         return self._lanes("decode", "serve_decode", tokens, positions,
@@ -152,6 +184,11 @@ class TorchRunner:
         (B, prefill_chunk, V)."""
         return self._lanes("chunk", "serve_chunk", tokens, positions,
                            block_tables)
+
+
+def _ints(a):
+    """An int32 host tensor of ``a`` (0-d for a scalar)."""
+    return torch.from_numpy(np.array(a, dtype=np.int32))
 
 
 def _load_parts(bundle_path, expect_geometry=None, kv_dtype=None,

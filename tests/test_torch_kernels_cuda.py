@@ -366,3 +366,245 @@ def test_rtc_write_is_ordered_before_a_torch_read_on_its_stream(card):
     y.wait_to_read()          # waits on the side stream the write went to
     assert done.query()
     assert total.item() == 7.0 * n
+
+
+# -- captured CUDA graphs: the serve steps and hybridize() ----------------
+
+def _graph_geometry(kind):
+    from mxnet_tpu_torch import serve as ts
+
+    dtype = "bfloat16" if kind == "bf16" else "float32"
+    return ts.KVGeometry(num_layers=2, num_heads=4, num_kv_heads=2,
+                         head_dim=16, units=64, hidden_size=128,
+                         vocab_size=512, page_size=4, num_pages=32,
+                         max_pages_per_seq=8, max_batch=3,
+                         prefill_buckets=(8, 16), spec_k=2, prefill_chunk=4,
+                         dtype=dtype,
+                         kv_dtype="int8" if kind == "int8" else None)
+
+
+_LANE_A = np.array([1, 2, 3, 9, 0, 0, 0, 0], np.int32)
+_LANE_B = np.array([4, 5, 6, 7, 8, 0, 0, 0], np.int32)
+_TABLES = np.stack([_LANE_A, _LANE_B, np.zeros(8, np.int32)])
+
+
+def _step_script(seed):
+    """Prefill of two lanes (both buckets), then decode, verify and chunk
+    over them with a third lane inactive on the null page."""
+    rng = np.random.default_rng(seed)
+    tok = lambda *s: rng.integers(1, 512, size=s).astype(np.int32)  # noqa
+    three = lambda a: np.concatenate([a, np.zeros_like(a[:1])])  # noqa
+    yield "prefill", (8, tok(5), 5, _LANE_A)
+    yield "prefill", (16, tok(11), 11, _LANE_B)
+    yield "decode", (three(tok(2)), np.array([5, 11, 0], np.int32), _TABLES)
+    yield "verify", (three(tok(2, 3)), np.array([6, 12, 0], np.int32),
+                     _TABLES)
+    yield "chunk", (three(tok(2, 4)), np.array([9, 15, 0], np.int32),
+                    _TABLES)
+
+
+def _run_script(runner, seed):
+    return [getattr(runner, name)(*args) for name, args in
+            _step_script(seed)]
+
+
+def _runner_pair(card, kind, n_graphed=1):
+    from mxnet_tpu_torch import serve as ts
+
+    g = _graph_geometry(kind)
+    w = ts.init_weights(g, seed=5, std=0.5, device=card)
+    eager = ts.TorchRunner(w, ts.PagedKVArena(g, device=card), graphs=False)
+    graphed = [ts.TorchRunner(w, ts.PagedKVArena(g, device=card))
+               for _ in range(n_graphed)]
+    return eager, graphed
+
+
+def _assert_same(graphed, eager, got, want, what):
+    for name, (a, b) in zip(("prefill 8", "prefill 16", "decode", "verify",
+                             "chunk"), zip(got, want)):
+        assert np.array_equal(a, b), "%s: %s logits" % (what, name)
+    for a, b in zip(graphed.arena.buffers(), eager.arena.buffers()):
+        # page 0 is the null page: pad and inactive-lane rows race there
+        assert torch.equal(a[:, 1:], b[:, 1:]), what + ": arena bytes"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_graphed_serve_steps_equal_eager_on_card(card, kind):
+    """Each step signature runs eagerly, then is captured and replayed:
+    logits and arena bytes stay bitwise equal to ``graphs=False`` after
+    every call, and K4's count grows by one launch per layer per
+    replayed step."""
+    eager, (graphed,) = _runner_pair(card, kind)
+    assert graphed.graphs and not eager.graphs
+    for rnd in range(3):
+        want = _run_script(eager, rnd)
+        before = pa.paged_attention.launches
+        got = _run_script(graphed, rnd)
+        _assert_same(graphed, eager, got, want, "round %d" % rnd)
+        if rnd == 2:     # decode, verify and chunk all replayed
+            assert pa.paged_attention.launches - before == 3 * 2
+    stats = graphed.graph_stats()
+    assert stats["graphs"] == stats["captures"] == 5
+    assert stats["replays"] == 10 and stats["pool_bytes"] > 0
+    assert all(cc.calls == 3 for cc in graphed._graphs.calls.values())
+
+
+@pytest.mark.cuda
+def test_serve_graph_recaptures_when_the_arena_moves_on_card(card):
+    eager, (graphed,) = _runner_pair(card, "f32")
+    for rnd in range(2):
+        _run_script(eager, rnd)
+        _run_script(graphed, rnd)
+    arena = graphed.arena
+    arena.kv_k = arena.kv_k.clone()       # as a step returning fresh state
+    want = _run_script(eager, 2)
+    got = _run_script(graphed, 2)
+    _assert_same(graphed, eager, got, want, "after the move")
+    assert all(cc.captures == 2 for cc in graphed._graphs.calls.values())
+
+
+@pytest.mark.cuda
+def test_two_runners_capture_at_once_on_two_threads(card):
+    """Two serve loops of one process capture on their own streams at
+    about the same time; neither breaks the other's capture."""
+    import threading
+
+    eager, graphed = _runner_pair(card, "bf16", n_graphed=2)
+    want = [_run_script(eager, rnd) for rnd in range(3)]
+    results, errors = {}, []
+    gate = threading.Barrier(2)
+
+    def loop(i):
+        try:
+            out = []
+            for rnd in range(3):
+                gate.wait(timeout=60)
+                out.append(_run_script(graphed[i], rnd))
+            torch.cuda.current_stream().synchronize()
+            results[i] = out
+        except Exception as e:          # reported by the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=loop, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    for i in range(2):
+        for rnd in range(3):
+            for a, b in zip(results[i][rnd], want[rnd]):
+                assert np.array_equal(a, b), "runner %d round %d" % (i, rnd)
+        assert graphed[i].graph_stats()["captures"] == 5
+
+
+def _hybrid_net(card):
+    from mxnet_tpu_torch import init
+    from mxnet_tpu_torch.gluon.model_zoo import llama as tllama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=card).manual_seed(0)
+    net = tllama.llama_small(device=card)
+    net.initialize(init.Xavier(), generator=gen)
+    return net
+
+
+def _eager(net, x):
+    """The net's eager output: a call autograd records is never
+    captured."""
+    with torch.enable_grad():
+        return net(x).detach()
+
+
+@pytest.mark.cuda
+def test_hybridized_block_equals_eager_and_recaptures_on_card(card):
+    net = _hybrid_net(card)
+    x = torch.randint(0, 512, (2, 16), device=card)
+    net.hybridize()
+    with torch.no_grad():
+        outs = [net(x) for _ in range(3)]
+    want = _eager(net, x)
+    for out in outs:
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+    (cc,) = net._graphs.calls.values()
+    assert (cc.calls, cc.captures, cc.replays) == (3, 1, 2)
+    assert outs[1].data_ptr() != outs[2].data_ptr(), "fresh outputs"
+    # an in-place update shows in the next replay
+    with torch.no_grad():
+        net.norm.weight.mul_(1.5)
+        got = net(x)
+    torch.testing.assert_close(got, _eager(net, x), rtol=1e-5, atol=1e-6)
+    assert cc.captures == 1
+    # a parameter whose storage moved is captured again
+    net.norm.weight.data = net.norm.weight.data.clone() * 0.5
+    with torch.no_grad():
+        got = net(x)
+    torch.testing.assert_close(got, _eager(net, x), rtol=1e-5, atol=1e-6)
+    assert cc.captures == 2
+    # so is a parameter replaced by a new object
+    net.norm.weight = torch.nn.Parameter(net.norm.weight.data * 2.0)
+    with torch.no_grad():
+        got = net(x)
+    torch.testing.assert_close(got, _eager(net, x), rtol=1e-5, atol=1e-6)
+    assert cc.captures == 3
+    # a new input shape is a new signature
+    y = torch.randint(0, 512, (1, 24), device=card)
+    with torch.no_grad():
+        got = [net(y) for _ in range(2)]
+    assert len(net._graphs.calls) == 2
+    for out in got:
+        torch.testing.assert_close(out, _eager(net, y), rtol=1e-5, atol=1e-6)
+    # cast drops the graphs; the bf16 graph equals the bf16 eager call
+    net.cast("bfloat16")
+    assert not net._graphs.calls
+    with torch.no_grad():
+        got = [net(x) for _ in range(3)]
+    want = _eager(net, x)
+    for out in got:
+        assert torch.equal(out, want)
+    net.hybridize(False)
+    assert not net._graphs.calls
+
+
+@pytest.mark.cuda
+def test_k1_count_grows_with_replays_on_card(card):
+    net = _hybrid_net(card)
+    x = torch.randint(0, 512, (1, 32), device=card)
+    net.hybridize()
+    with torch.no_grad():
+        net(x)
+        net(x)                               # captured and replayed
+        before = fa.flash_attention.fwd_launches
+        for _ in range(3):
+            net(x)
+    assert fa.flash_attention.fwd_launches - before == 3 * 2
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises_and_the_process_goes_on_on_card(card):
+    """A host read inside the function invalidates its capture: the call
+    raises MXNetError, and afterwards random draws outside a graph, a
+    capture that draws random numbers and its replays all work."""
+    from mxnet_tpu_torch import graph_cache as gc
+    from mxnet_tpu_torch.base import MXNetError
+
+    x = torch.ones(8, device=card)
+    bad = gc.CapturedCall(lambda a: a * float(a.sum().item()), card,
+                          label="host read")
+    assert torch.equal(bad(x), torch.full((8,), 8.0, device=card))
+    for _ in range(2):
+        with pytest.raises(MXNetError, match="capture of host read failed"):
+            bad(x)
+    assert bad.captures == 0 and bad.graph is None
+    r = torch.randint(0, 10, (4096,), device=card)
+    assert 0 <= int(r.min()) and int(r.max()) < 10
+    good = gc.CapturedCall(lambda a: (a * 2, torch.rand(64, device=a.device)),
+                           card, label="good")
+    outs = [tuple(t.clone() for t in good(x)) for _ in range(3)]
+    assert (good.captures, good.replays) == (1, 2)
+    for doubled, drawn in outs:
+        assert torch.equal(doubled, torch.full((8,), 2.0, device=card))
+        assert bool(((drawn >= 0) & (drawn < 1)).all())
+    assert not torch.equal(outs[1][1], outs[2][1]), "each replay draws anew"
+    torch.cuda.synchronize()

@@ -41,6 +41,10 @@ def _logits(net, tokens):
 
 
 def test_forward_matches_jax_and_hybridize_is_a_noop():
+    """``hybridize()`` arms the block (a captured CUDA graph per input
+    signature on the card); on the CPU it changes no number: calls 1, 2
+    and 3 give the eager logits (tests/test_torch_graphs.py holds the
+    rules)."""
     toks = np.random.RandomState(0).randint(0, 512, (2, 16)) \
         .astype(np.float32)
     jnet = _jax_net(0)
@@ -49,8 +53,11 @@ def test_forward_matches_jax_and_hybridize_is_a_noop():
     got = _logits(net, toks)
     assert got.shape == (2, 16, 512)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-    assert net.hybridize() is net
-    np.testing.assert_array_equal(_logits(net, toks), got)
+    assert net.hybridize() is net and net._active
+    for _ in range(3):
+        np.testing.assert_array_equal(_logits(net, toks), got)
+    (cc,) = net._graphs.calls.values()
+    assert (cc.calls, cc.captures) == (3, 0)
 
 
 def test_state_dict_keys_are_the_jax_structural_names():
