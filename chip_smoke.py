@@ -64,10 +64,16 @@ Phases, each fatal on failure:
              flight drops nothing and converges to one ``bundle_sha``, and
              ``python -m mxnet_tpu_torch.serve --fleet 2`` serves and
              exits 0 on SIGTERM;
-7. train   — a main path: ``JitTrainStep`` with ``adamw`` trains
+7. train   — first, full width, 2 layers, f32, TF32 off: the graphed
+             ``JitTrainStep`` (one captured CUDA graph a step) against
+             the eager one, 5 adamw steps with ``set_learning_rate``
+             between steps 3 and 4 and then ``step_n(4)`` against four
+             ``step()`` calls: losses and weights bitwise equal; then a
+             main path: ``JitTrainStep`` with ``adamw`` trains
              Llama-3-8B at full width, 8 of its 32 layers, weights Xavier
              from a seeded generator and cast to bf16, on a fixed batch
-             of 2 x 2048 random tokens; every loss must be finite, the
+             of 2 x 2048 random tokens, every step eager, then graphed
+             (one capture, replays); every loss must be finite, the
              last below the first, and K1, K2 and K3 must each have
              launched at least once per layer per step;
 8. train parity — full width, 1 layer, vocab 2048, f32 with TF32 off:
@@ -77,10 +83,16 @@ Phases, each fatal on failure:
 9. hybridize — ``HybridBlock.hybridize()`` as captured CUDA graphs:
              f32, 2 layers at full width, TF32 off: the hybridized forward
              (eager, then captured and replayed) within 1e-5 of the eager
-             one; then a main path: bf16, 8 layers at full width, forward
-             under ``no_grad`` at 1 x 128 and 2 x 2048 tokens, eager
-             against hybridized, with K1 launched once per layer per
-             forward (replays included);
+             one, and 3 ``gluon.Trainer`` steps under
+             ``autograd.record()`` through the hybridized block (a
+             forward graph and a backward graph) with gradients and
+             weights bitwise equal to eager; then two main paths at bf16,
+             8 layers at full width: forward under ``no_grad`` at 1 x 128
+             and 2 x 2048 tokens, eager against hybridized, with K1
+             launched once per layer per forward (replays included), and
+             Trainer steps under ``record()`` at 2 x 2048 tokens, eager
+             against hybridized, with K1, K2 and K3 launched once per
+             layer per step;
 10. rtc    — K5, ``mx.rtc.CudaModule``: user CUDA C++ compiled by NVRTC
              and launched on NDArrays: scale_add equal to x*2 + y, the
              SwiGLU forward and backward kernels (bf16, f32 arithmetic)
@@ -93,19 +105,26 @@ Phases, each fatal on failure:
              Llama-3-8B MLP block at full width, bf16, written on ``mx.nd``
              with ``ctx=mx.gpu()`` (``autograd.record()``, a SwiGLU
              ``autograd.Function`` launching the rtc kernels,
-             ``backward()``, in-place SGD); every loss finite and the last
-             below the first, each rtc kernel launched once per step (an
-             engine hook counts); then the imperative dispatch rate and a
-             check that the engine enqueues without waiting;
+             ``backward()``, in-place SGD), bulked (the engine's default:
+             each segment a captured CUDA graph, or a forward and backward
+             pair where it is recorded), after 3 bulked steps are shown
+             bitwise equal to 3 under ``bulk(0)``, then eager; every loss
+             finite and the last below the first, each rtc kernel
+             launched once per step (the kernels' own counts: an engine
+             hook would turn bulking off); then the dispatch rate,
+             bulked and eager, and a check that the engine enqueues
+             without waiting;
 12. imperative parity — the same step in f32 with TF32 off at width
              256 / 512: the card (rtc kernels) against the host
              (``PallasKernel`` bodies over the plain SwiGLU).
 
+Each phase logs the card's SM clock and its maximum when it starts.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit from nvidia-smi, and before that a
 ``{"kernels": [...]}`` line.  Exits non-zero without that line when CUDA
 is unavailable or any phase fails.
 """
+import contextlib
 import gc
 import json
 import math
@@ -1741,14 +1760,47 @@ def log_train_profile(events, wall):
     return busy_us / 1e3
 
 
-def train_main_path(fa, dev):
-    """Llama-3-8B width, 8 layers, bf16, adamw through ``JitTrainStep``."""
+def profiled_step(fn):
+    """Wall ms and the kernels' busy ms (union of intervals) of one
+    profiled call of ``fn``, with the profiler's key averages."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, kernel_busy_ms(prof.events()), prof.key_averages()
+
+
+def timed_steps(fn, n_warm, n_timed):
+    """Wall seconds of ``n_timed`` synchronised calls after ``n_warm``,
+    and every call's result."""
+    import torch
+
+    times, outs = [], []
+    for i in range(n_warm + n_timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        if i >= n_warm:
+            times.append(time.perf_counter() - t0)
+    return sorted(times), outs
+
+
+def train_main_path(fa, dev):
+    """Llama-3-8B width, 8 layers, bf16, adamw through ``JitTrainStep``:
+    every step eager (``graphs=False``), then the same step object with
+    its step a captured CUDA graph (the default)."""
+    import torch
 
     from mxnet_tpu_torch import gluon, initializer, parallel
     from mxnet_tpu_torch.gluon.model_zoo import llama
 
+    start_profiler(dev)
     cfg = dict(LLAMA3_8B, num_layers=TRAIN_LAYERS)
     vocab = cfg.pop("vocab_size")
     cfg.pop("head_dim")
@@ -1775,31 +1827,30 @@ def train_main_path(fa, dev):
            TRAIN_T, time.perf_counter() - t0))
     step = parallel.JitTrainStep(lm_wrapper(gluon, vocab)(net),
                                  gluon.loss.SoftmaxCrossEntropyLoss(),
-                                 "adamw", {"learning_rate": 1e-4})
+                                 "adamw", {"learning_rate": 1e-4},
+                                 graphs=False)
     rng = np.random.RandomState(0)
     toks = rng.randint(0, vocab, (TRAIN_B, TRAIN_T)).astype(np.int32)
     labels = rng.randint(0, vocab, TRAIN_B * TRAIN_T).astype(np.float32)
     for name in ("fwd_launches", "dq_launches", "dkv_launches"):
         setattr(fa.flash_attention, name, 0)
-    torch.cuda.reset_peak_memory_stats()
-    losses, times = [], []
+    losses, rows = [], {}
     n_warm, n_timed = 2, 8
-    for i in range(n_warm + n_timed):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = step.step(toks, labels)
-        losses.append(loss.item())       # syncs
-        if i >= n_warm:
-            times.append(time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        losses.append(step.step(toks, labels).item())
-    wall = time.perf_counter() - t0
+    for mode in ("eager", "graphed"):
+        step.graphs = mode == "graphed"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, outs = timed_steps(lambda: step.step(toks, labels), n_warm,
+                                  n_timed)
+        losses += [x.item() for x in outs]
+        out, wall, busy, averages = profiled_step(
+            lambda: step.step(toks, labels))
+        losses.append(out.item())
+        rows[mode] = (times, wall, busy, averages,
+                      torch.cuda.max_memory_allocated(), step.stats())
     steps = len(losses)
     launches = {name: getattr(fa.flash_attention, name)
                 for name in ("fwd_launches", "dq_launches", "dkv_launches")}
-    peak = torch.cuda.max_memory_allocated()
     log("train: losses %s" % ["%.4f" % x for x in losses])
     if not all(math.isfinite(x) for x in losses):
         fail("a train loss is not finite")
@@ -1809,23 +1860,97 @@ def train_main_path(fa, dev):
         if n < TRAIN_LAYERS * steps:
             fail("flash %s = %d over %d steps of %d layers"
                  % (name, n, steps, TRAIN_LAYERS))
-    times.sort()
-    p50 = times[len(times) // 2]
-    log("train: %d steps, flash launches %s (%d layers x steps = %d)"
-        % (steps, launches, TRAIN_LAYERS, TRAIN_LAYERS * steps))
-    log("train: step ms p50 %.3f (min %.3f max %.3f over %d timed steps), "
-        "%.1f tokens/s, peak device memory %.2f GB (%.2f GB held before the "
-        "phase)" % (1e3 * p50, 1e3 * times[0], 1e3 * times[-1], len(times),
-                    tokens / p50, peak / 1e9, held / 1e9))
-    log("train: model FLOPs per step %.4g (6 x %.4g matmul params x %d "
-        "tokens + %.4g causal attention) -> %.1f%% of 989 TFLOP/s bf16 at "
-        "p50" % (step_flops, matmul_params, tokens, attn_flops,
-                 100 * step_flops / p50 / BF16_FLOPS))
-    busy_ms = log_train_profile(prof.key_averages(), wall)
-    log("train: device busy %.3f ms of the p50 step's %.3f ms"
-        % (busy_ms, 1e3 * p50))
+    log("train: %d steps (%d eager, %d graphed), flash launches %s (%d "
+        "layers x steps = %d)" % (steps, steps // 2, steps // 2, launches,
+                                  TRAIN_LAYERS, TRAIN_LAYERS * steps))
+    st = rows["graphed"][5]
+    if st["captures"] != 1 or st["replays"] != n_warm + n_timed:
+        fail("the graphed train step did not capture once and replay "
+             "(%s)" % st)
+    for mode, (times, wall, busy, averages, peak, st) in rows.items():
+        p50 = times[len(times) // 2]
+        log("train: %s step ms p50 %.3f (min %.3f max %.3f over %d timed "
+            "steps), %.1f tokens/s, %.1f%% MFU (%.4g model FLOP a step at "
+            "989 TFLOP/s bf16), peak device memory %.2f GB (%.2f GB held "
+            "before the phase)"
+            % (mode, 1e3 * p50, 1e3 * times[0], 1e3 * times[-1],
+               len(times), tokens / p50, 100 * step_flops / p50 / BF16_FLOPS,
+               step_flops, peak / 1e9, held / 1e9))
+        log("train: %s profiled step: wall %.3f ms, kernels busy %.3f ms "
+            "(union of intervals), idle %.1f%%"
+            % (mode, wall * 1e3, busy, 100 * (1 - busy / (wall * 1e3))))
+        if mode == "graphed":
+            log("train: graphed: %d capture in %.3f s, %d replays, %.1f us "
+                "host time a replay outside it, graph pool %.1f MB"
+                % (st["captures"], st["capture_s"], st["replays"],
+                   1e6 * st["host_s"] / max(st["replays"], 1),
+                   st["pool_bytes"] / 1e6))
+        log_train_profile(averages, wall)
+    e50, g50 = (rows[m][0][n_timed // 2] for m in ("eager", "graphed"))
+    log("train: graphed / eager step p50 %.3f / %.3f ms (%.3fx)"
+        % (1e3 * g50, 1e3 * e50, e50 / g50))
     del step, net
     return launches
+
+
+def train_graph_check(dev):
+    """Full width, 2 layers, vocab 2048, f32 with TF32 off, B=1 T=256:
+    ``JitTrainStep`` graphed against eager on the card, 5 steps with
+    ``set_learning_rate`` between steps 3 and 4, then ``step_n(4)``
+    against four ``step()`` calls: losses and weights bitwise equal."""
+    import torch
+
+    from mxnet_tpu_torch import gluon, initializer, parallel
+    from mxnet_tpu_torch.gluon.model_zoo import llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dict(LLAMA3_8B, num_layers=2)
+    del cfg["vocab_size"], cfg["head_dim"]
+    vocab = 2048
+    rng = np.random.RandomState(4)
+    toks = rng.randint(0, vocab, (1, 256)).astype(np.int32)
+    labels = rng.randint(0, vocab, (1, 256)).astype(np.float32)
+    runs = []
+    for graphs in (False, True):
+        net = llama.LlamaModel(vocab, device=dev, **cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(3)
+        net.initialize(initializer.Xavier(), generator=gen)
+        step = parallel.JitTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                                     "adamw", {"learning_rate": 1e-4,
+                                               "wd": 0.01}, graphs=graphs)
+        losses = []
+        for i in range(5):
+            if i == 3:
+                step._opt.set_learning_rate(3e-4)
+            losses.append(step.step(toks, labels).clone())
+        if graphs:
+            losses.append(step.step_n(4, toks, labels).clone())
+        else:
+            losses.append([step.step(toks, labels)
+                           for _ in range(4)][-1].clone())
+        runs.append((losses, [p.detach().clone() for p in net.parameters()],
+                     step.stats() if graphs else None))
+        del step, net
+        gc.collect()
+        torch.cuda.empty_cache()
+    (e_loss, e_w, _), (g_loss, g_w, st) = runs
+    same_loss = all(torch.equal(a, b) for a, b in zip(e_loss, g_loss))
+    same_w = all(torch.equal(a, b) for a, b in zip(e_w, g_w))
+    log("train graphs: f32, 2 layers at full width, 5 adamw steps (lr 1e-4, "
+        "then 3e-4 from step 4) and step_n(4): losses eager %s graphed %s; "
+        "losses %s, weights %s; graphed %d capture, %d replays"
+        % (["%.6f" % x.item() for x in e_loss],
+           ["%.6f" % x.item() for x in g_loss],
+           "bitwise equal" if same_loss else "DIFFER",
+           "bitwise equal" if same_w else "DIFFER",
+           st["captures"], st["replays"]))
+    if not (same_loss and same_w):
+        fail("the graphed JitTrainStep is not bitwise equal to the eager one")
+    if (st["captures"], st["replays"]) != (1, 8):
+        fail("the graphed JitTrainStep did not capture once and replay 8 "
+             "times")
 
 
 # -- phase 8: the kernel path against the plain path ----------------------
@@ -1969,6 +2094,9 @@ def hybridize_phase(fa, dev):
     gc.collect()
     torch.cuda.empty_cache()
 
+    from mxnet_tpu_torch import gluon
+
+    hybridize_recorded_check(gluon, dev, vocab, cfg)
     hybrid_flash_checks(fa, dev, cfg["num_heads"], LLAMA3_8B["head_dim"])
     net = model(TRAIN_LAYERS, 0)
     net.cast("bfloat16")
@@ -2012,8 +2140,155 @@ def hybridize_phase(fa, dev):
     if launches["fwd_launches"] < calls * TRAIN_LAYERS:
         fail("K1 launched %d times over %d forwards of %d layers"
              % (launches["fwd_launches"], calls, TRAIN_LAYERS))
+    recorded = hybridize_recorded_main(fa, gluon, net, vocab)
     del net
+    return {n: launches[n] + recorded[n] for n in launches}
+
+def trainer_run(net, lm, x, y, lr=1e-4, keep_grads=False):
+    """A gluon.Trainer (adamw) over ``net``'s parameters and one step of
+    it: ``lm`` under ``autograd.record()``, ``backward()``, ``step(1)``.
+    Returns the step, which returns the loss and, with ``keep_grads``,
+    copies of the gradients."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "adamw",
+                            {"learning_rate": lr})
+    params = list(net.parameters())
+
+    def one():
+        with autograd.record():
+            loss = loss_fn(lm(x), y).mean()
+        loss.backward()
+        grads = [p.grad.clone() for p in params] if keep_grads else None
+        trainer.step(1)
+        return loss.detach(), grads
+
+    return one
+
+
+def hybridize_recorded_check(gluon, dev, vocab, cfg):
+    """f32, 2 layers at full width, TF32 off, 1 x 256 tokens: 3 Trainer
+    steps under ``record()`` through the eager block and through the
+    hybridized one (eager, captured, replayed): every step's gradients
+    and the weights after them bitwise equal."""
+    import torch
+
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.integers(0, vocab, (1, 256))).to(dev)
+    y = torch.from_numpy(rng.integers(0, vocab, 256).astype(np.float32)) \
+        .to(dev)
+    runs = []
+    for hybrid in (False, True):
+        net = llama.LlamaModel(vocab, device=dev, **dict(cfg, num_layers=2))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        net.initialize(initializer.Xavier(), generator=gen)
+        lm = lm_wrapper(gluon, vocab)(net)
+        if hybrid:
+            lm.hybridize()
+        one = trainer_run(net, lm, x, y, keep_grads=True)
+        res = [one() for _ in range(3)]
+        runs.append(([r[0] for r in res], [r[1] for r in res],
+                     [p.detach().clone() for p in net.parameters()],
+                     lm.stats() if hybrid else None))
+        del net, lm, one, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    (e_l, e_g, e_w, _), (h_l, h_g, h_w, st) = runs
+    same_l = all(torch.equal(a, b) for a, b in zip(e_l, h_l))
+    same_g = all(torch.equal(a, b) for ga, gb in zip(e_g, h_g)
+                 for a, b in zip(ga, gb))
+    same_w = all(torch.equal(a, b) for a, b in zip(e_w, h_w))
+    log("hybridize recorded: f32, 2 layers at full width, 1 x 256 tokens, "
+        "3 Trainer adamw steps under record(): losses %s; hybridized "
+        "against eager: losses %s, gradients of every step %s, weights %s; "
+        "%d capture, %d forward and %d backward replays"
+        % (["%.6f" % v.item() for v in e_l],
+           "bitwise equal" if same_l else "DIFFER",
+           "bitwise equal" if same_g else "DIFFER",
+           "bitwise equal" if same_w else "DIFFER",
+           st["captures"], st["replays"], st["backward_replays"]))
+    if not (same_l and same_g and same_w):
+        fail("the hybridized recorded step is not bitwise equal to eager")
+    if (st["captures"], st["replays"], st["backward_replays"]) != (1, 2, 2):
+        fail("the recorded call did not capture once and replay twice")
+
+
+def hybridize_recorded_main(fa, gluon, net, vocab):
+    """The main path of recorded calls: gluon.Trainer (adamw 1e-4) over
+    the 8-layer bf16 block under ``record()`` at 2 x 2048 tokens, eager
+    against hybridized, 2 warm-up and 8 timed steps each and one
+    profiled.  K1 must grow by the layers with every forward, K2 and K3
+    with every backward, replays included."""
+    import torch
+
+    dev = next(net.parameters()).device
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, vocab, (TRAIN_B, TRAIN_T))).to(dev)
+    y = torch.from_numpy(rng.integers(0, vocab, TRAIN_B * TRAIN_T)
+                         .astype(np.float32)).to(dev)
+    lm = lm_wrapper(gluon, vocab)(net)
+    names = ("fwd_launches", "dq_launches", "dkv_launches")
+    before = {n: getattr(fa.flash_attention, n) for n in names}
+    rows = {}
+    losses = []
+    n_warm, n_timed = 2, 8
+    for mode in ("eager", "hybridized"):
+        if mode == "hybridized":
+            lm.hybridize()
+        one = trainer_run(net, lm, x, y)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, outs = timed_steps(lambda: one()[0], n_warm, n_timed)
+        losses += [v.item() for v in outs]
+        out, wall, busy, _ = profiled_step(lambda: one()[0])
+        losses.append(out.item())
+        rows[mode] = (times, wall, busy, torch.cuda.max_memory_allocated(),
+                      lm.stats() if mode == "hybridized" else None)
+    launches = {n: getattr(fa.flash_attention, n) - before[n] for n in names}
+    steps = 2 * (n_warm + n_timed + 1)
+    st = rows["hybridized"][4]
+    log("hybridize recorded: bf16, %d layers at full width, %d x %d tokens, "
+        "Trainer adamw 1e-4: losses %s" % (TRAIN_LAYERS, TRAIN_B, TRAIN_T,
+                                          ["%.4f" % v for v in losses]))
+    if not all(math.isfinite(v) for v in losses):
+        fail("a recorded hybridize loss is not finite")
+    for mode, (times, wall, busy, peak, _) in rows.items():
+        log("hybridize recorded: %s step ms p50 %.3f (min %.3f max %.3f "
+            "over %d timed steps); profiled step wall %.3f ms, kernels busy "
+            "%.3f ms, idle %.1f%%; peak device memory %.2f GB"
+            % (mode, 1e3 * p50(times), 1e3 * times[0], 1e3 * times[-1],
+               len(times), 1e3 * wall, busy,
+               100 * (1 - busy / (1e3 * wall)), peak / 1e9))
+    log("hybridize recorded: %d capture in %.3f s, %d forward and %d "
+        "backward replays, %.1f us host time a replay outside it, graph "
+        "pool %.1f MB, %d busy-signature calls run eagerly"
+        % (st["captures"], st["capture_s"], st["replays"],
+           st["backward_replays"], 1e6 * st["host_s"] / max(st["replays"], 1),
+           st["pool_bytes"] / 1e6, st["busy_calls"]))
+    log("hybridize recorded: flash launches over the %d steps: %s (%d "
+        "layers x steps = %d)" % (steps, launches, TRAIN_LAYERS,
+                                  TRAIN_LAYERS * steps))
+    if st["captures"] != 1 or st["replays"] != n_warm + n_timed \
+            or st["backward_replays"] != st["replays"]:
+        fail("the recorded hybridized step did not capture once and replay "
+             "forward and backward (%s)" % st)
+    for n in names:
+        if launches[n] < TRAIN_LAYERS * steps:
+            fail("flash %s = %d over %d recorded steps of %d layers"
+                 % (n, launches[n], steps, TRAIN_LAYERS))
+    e50, h50 = (p50(rows[m][0]) for m in ("eager", "hybridized"))
+    log("hybridize recorded: hybridized / eager step p50 %.3f / %.3f ms "
+        "(%.3fx)" % (1e3 * h50, 1e3 * e50, e50 / h50))
+    lm.hybridize(False)
     return launches
+
 
 # -- phases 10-12: mx.rtc (K5) and the imperative NDArray path -----------
 
@@ -2495,115 +2770,159 @@ def imperative_main_path(mx, dev):
     at full width (4096 / 14336, bf16 weights from a seeded card
     generator) on a 2 x 2048-token batch, written on ``mx.nd`` with
     ``ctx=mx.gpu()``; SwiGLU is an ``autograd.Function`` whose forward and
-    backward launch the rtc kernels.  Then the engine's dispatch rate and
-    its asynchrony."""
+    backward launch the rtc kernels.  The steps run bulked (the engine's
+    default: segments replayed as CUDA graphs), then under ``bulk(0)``
+    (every op eager), after a check that 3 bulked steps are bitwise
+    equal to 3 eager ones.  Then the engine's dispatch rate, bulked and
+    eager, and its asynchrony."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     ctx = mx.gpu(0)
+    eng = mx.engine.Engine.get()
     units, hidden = LLAMA3_8B["units"], LLAMA3_8B["hidden_size"]
     held = torch.cuda.memory_allocated()
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
     def rand(shape, std, dtype=torch.bfloat16):
-        return mx.nd.array(torch.randn(shape, generator=gen, device=dev)
-                           .mul_(std).to(dtype), ctx=ctx)
+        return torch.randn(shape, generator=gen, device=dev).mul_(std) \
+            .to(dtype)
 
-    params = [rand((units, hidden), units ** -0.5),
-              rand((units, hidden), units ** -0.5),
-              rand((hidden, units), hidden ** -0.5)]
-    for w in params:
-        w.attach_grad()
-    x = rand((IMP_TOKENS, units), 1.0)
-    target = rand((IMP_TOKENS, units), 1.0, torch.float32)
+    init = [rand((units, hidden), units ** -0.5),
+            rand((units, hidden), units ** -0.5),
+            rand((hidden, units), hidden ** -0.5)]
+    x = mx.nd.array(rand((IMP_TOKENS, units), 1.0), ctx=ctx)
+    target = mx.nd.array(rand((IMP_TOKENS, units), 1.0, torch.float32),
+                         ctx=ctx)
     kern = SwigluKernels(mx)
     kernels = [kern.kernel(w, torch.bfloat16) for w in ("fwd", "bwd")]
     SwiGLU = swiglu_function(mx, kern)
     names = [k.name for k in kernels]
-    counts = dict.fromkeys(names, 0)
 
-    def hook(name, t0, t1):
-        if name in counts:
-            counts[name] += 1
+    def fresh():
+        params = [mx.nd.array(w, ctx=ctx) for w in init]
+        for w in params:
+            w.attach_grad()
+        return params
 
-    with profile(activities=[ProfilerActivity.CUDA]):
-        torch.zeros(1, device=dev)      # the first profile starts CUPTI, slowly
-    eng = mx.engine.Engine.get()
-    for k in kernels:
-        k.launches = 0
-    losses, times, per_step = [], [], []
+    def step(params):
+        return mlp_step(mx, params, x, target,
+                        lambda a, b: SwiGLU()(a, b), IMP_LR)
+
+    # (1) bulked against eager, bitwise, from the same weights
+    res = []
+    for on in (False, True):
+        params = fresh()
+        got = []
+        with bulking(mx, on):
+            for _ in range(3):
+                loss = step(params)
+                got.append((loss.data().clone(),
+                            [w.grad.data().clone() for w in params]))
+        res.append((got, [w.data().clone() for w in params]))
+    (e_steps, e_w), (b_steps, b_w) = res
+    same = all(torch.equal(a[0], b[0]) and all(
+        torch.equal(g, h) for g, h in zip(a[1], b[1]))
+        for a, b in zip(e_steps, b_steps)) \
+        and all(torch.equal(a, b) for a, b in zip(e_w, b_w))
+    log("imperative: 3 steps bulked against 3 under bulk(0): losses, "
+        "gradients and weights %s" % ("bitwise equal" if same else "DIFFER"))
+    if not same:
+        fail("bulked imperative steps are not bitwise equal to eager ones")
+    del res, e_steps, b_steps, e_w, b_w
+
+    # (2) the main path: bulked (the default) steps, counted by the rtc
+    # kernels' own counters (an op hook would turn bulking off)
+    start_profiler(dev)
+    rows = {}
     n_warm, n_timed = 2, 5
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    eng.add_hook(hook)
-    try:
-        for i in range(n_warm + n_timed + 1):
-            before = dict(counts)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if i == n_warm + n_timed:       # one profiled step, untimed
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    loss = mlp_step(mx, params, x, target,
-                                    lambda a, b: SwiGLU()(a, b), IMP_LR)
-                    losses.append(float(loss.asscalar()))
-                wall = time.perf_counter() - t0
-            else:
-                loss = mlp_step(mx, params, x, target,
-                                lambda a, b: SwiGLU()(a, b), IMP_LR)
+    for mode in ("bulked", "eager"):
+        params = fresh()
+        for k in kernels:
+            k.launches = 0
+        seg0 = eng.stats.bulk_segments
+        pushes0 = eng.stats.ops_pushed
+        st0 = eng.segment_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, per_step = [], []
+        with bulking(mx, mode == "bulked"):
+            def one():
+                before = [k.launches for k in kernels]
+                loss = step(params)
                 losses.append(float(loss.asscalar()))     # syncs
-                if i >= n_warm:
-                    times.append(time.perf_counter() - t0)
-            per_step.append([counts[n] - before[n] for n in names])
-    finally:
-        eng.remove_hook(hook)
-    launches = {n: k.launches for n, k in zip(names, kernels)}
-    peak = torch.cuda.max_memory_allocated()
+                per_step.append([k.launches - b
+                                 for k, b in zip(kernels, before)])
+            times, _ = timed_steps(one, n_warm, n_timed)
+            _, wall, busy, averages = profiled_step(one)
+        st1 = eng.segment_stats()
+        rows[mode] = dict(
+            losses=losses, per_step=per_step, times=times, wall=wall,
+            busy=busy, averages=averages,
+            launches={n: k.launches for n, k in zip(names, kernels)},
+            segments=eng.stats.bulk_segments - seg0,
+            pushes=eng.stats.ops_pushed - pushes0,
+            peak=torch.cuda.max_memory_allocated(),
+            replays=st1["graphs"]["replays"] - st0["graphs"]["replays"],
+            bwd_replays=st1["graphs"]["backward_replays"]
+            - st0["graphs"]["backward_replays"],
+            captures=st1["graphs"]["captures"] - st0["graphs"]["captures"],
+            hits={t: st1["tiers"][t]["hits"] - st0["tiers"][t]["hits"]
+                  for t in st1["tiers"]})
+        del params
+    main = rows["bulked"]
+    losses = main["losses"]
     log("imperative: Llama-3-8B MLP block (%d / %d, bf16), %d tokens, SGD "
-        "lr %g; losses %s" % (units, hidden, IMP_TOKENS, IMP_LR,
-                              ["%.5f" % v for v in losses]))
+        "lr %g; bulked losses %s" % (units, hidden, IMP_TOKENS, IMP_LR,
+                                     ["%.5f" % v for v in losses]))
     if not all(math.isfinite(v) for v in losses):
         fail("an imperative loss is not finite")
     if not losses[-1] < losses[0]:
         fail("the imperative loss did not fall")
-    if any(c != [1, 1] for c in per_step) or \
-            any(v != len(losses) for v in launches.values()):
-        fail("the rtc kernels did not launch once per step: engine hook "
-             "counts %s, kernel counts %s" % (per_step, launches))
-    times.sort()
-    p50 = times[len(times) // 2]
+    for mode, r in rows.items():
+        if any(c != [1, 1] for c in r["per_step"]) or \
+                any(v != len(r["losses"]) for v in r["launches"].values()):
+            fail("the rtc kernels did not launch once per %s step: %s, "
+                 "kernel counts %s" % (mode, r["per_step"], r["launches"]))
+    if main["replays"] < 1 or main["segments"] < 1:
+        fail("the bulked steps replayed no segment graph")
     # model FLOPs: 3 products forward, twice that backward; x is not
     # differentiated, so the step runs 7 of those 9 products
     flops = 3 * 3 * 2 * IMP_TOKENS * units * hidden
-    run_flops = 7 * 2 * IMP_TOKENS * units * hidden
-    rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()]
-    rows = [r for r in rows if r[0] > 0]
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    rtc_ms = sum(r[0] for r in rows if "mxtt_swiglu" in r[2]) / 1e3
-    log("imperative: %d steps, each rtc kernel once per step (engine hook: "
-        "%s; kernel counts %s)" % (len(losses), per_step[0], launches))
-    log("imperative: step ms p50 %.3f (min %.3f max %.3f over %d timed "
-        "steps), %.4g model FLOP per step -> %.1f TFLOP/s (%.1f%% of 989 "
-        "bf16; %.1f TFLOP/s over the %.4g FLOP the step runs), peak device "
-        "memory %.3f GB (%.3f GB held before the phase)"
-        % (1e3 * p50, 1e3 * times[0], 1e3 * times[-1], len(times), flops,
-           flops / p50 / 1e12, 100 * flops / p50 / BF16_FLOPS,
-           run_flops / p50 / 1e12, run_flops, peak / 1e9, held / 1e9))
-    log("imperative: profiled step: wall %.3f ms, device busy %.3f ms "
-        "(%.1f%% of that wall, %.1f%% of the unprofiled p50 step), %d kernel "
-        "launches, rtc SwiGLU kernels %.3f ms"
-        % (wall * 1e3, busy_ms, 100 * busy_ms / (wall * 1e3),
-           100 * busy_ms / (p50 * 1e3), sum(r[1] for r in rows), rtc_ms))
-    for us, count, key in sorted(rows, reverse=True)[:6]:
+    for mode, r in rows.items():
+        t = r["times"]
+        p = t[len(t) // 2]
+        log("imperative: %s step ms p50 %.3f (min %.3f max %.3f over %d "
+            "timed steps), %.1f TFLOP/s of model FLOPs (%.1f%% of 989 "
+            "bf16); profiled step wall %.3f ms, kernels busy %.3f ms, idle "
+            "%.1f%%; %d engine pushes, %d segments flushed (%d captured, "
+            "%d forward and %d backward replays, tier hits %s) over %d "
+            "steps; peak device memory %.3f GB (%.3f GB held before)"
+            % (mode, 1e3 * p, 1e3 * t[0], 1e3 * t[-1], len(t),
+               flops / p / 1e12, 100 * flops / p / BF16_FLOPS,
+               1e3 * r["wall"], r["busy"], 100 * (1 - r["busy"]
+                                                  / (1e3 * r["wall"])),
+               r["pushes"], r["segments"], r["captures"], r["replays"],
+               r["bwd_replays"], r["hits"], len(r["losses"]),
+               r["peak"] / 1e9, held / 1e9))
+    rows_k = [(e.self_device_time_total, e.count, e.key)
+              for e in main["averages"]]
+    rows_k = [r for r in rows_k if r[0] > 0]
+    for us, count, key in sorted(rows_k, reverse=True)[:6]:
         log("imperative:   %8.3f ms  x%-3d %s" % (us / 1e3, count, key[:90]))
-    del params, x, target, loss
+    launches = main["launches"]
+    log("imperative: each rtc kernel once per step (kernel counts %s)"
+        % launches)
 
-    plain = dispatch_rate(mx, ctx, record=False)
-    recorded = dispatch_rate(mx, ctx, record=True)
-    log("imperative: dispatch over a 20-op chain on (64, 64) f32: %.0f ops/s "
-        "plain, %.0f ops/s under record() with backward()"
-        % (plain, recorded))
+    for mode in ("bulked", "eager"):
+        with bulking(mx, mode == "bulked"):
+            s0 = eng.stats.bulk_segments
+            plain = dispatch_rate(mx, ctx, record=False)
+            recorded = dispatch_rate(mx, ctx, record=True)
+            segs = eng.stats.bulk_segments - s0
+        log("imperative: dispatch (%s) over a 20-op chain on (64, 64) f32: "
+            "%.0f ops/s plain, %.0f ops/s under record() with backward(); "
+            "%d segments flushed" % (mode, plain, recorded, segs))
     big = mx.nd.ones((8192, 8192), ctx=ctx)
 
     def chain():
@@ -2612,7 +2931,7 @@ def imperative_main_path(mx, dev):
             a = (a + 1.0) if i % 2 else (a * 1.0009765625)
         return a
 
-    chain()
+    chain().wait_to_read()
     mx.waitall()
     t0 = time.perf_counter()
     out = chain()
@@ -2620,13 +2939,28 @@ def imperative_main_path(mx, dev):
     mx.waitall()
     t_all = time.perf_counter() - t0
     value = float(out[0, 0].asscalar())
-    log("imperative: a 20-op chain on (8192, 8192) f32 was enqueued in %.3f "
-        "ms; waitall() returned after %.3f ms (value %.6f)"
-        % (1e3 * t_enqueue, 1e3 * t_all, value))
+    log("imperative: a 20-op chain on (8192, 8192) f32 was deferred and "
+        "enqueued in %.3f ms; waitall() (one segment replay) returned after "
+        "%.3f ms (value %.6f)" % (1e3 * t_enqueue, 1e3 * t_all, value))
     if not t_enqueue < 0.5 * t_all or not math.isfinite(value):
         fail("the engine is not asynchronous: enqueue %.3f ms of %.3f ms"
              % (1e3 * t_enqueue, 1e3 * t_all))
     return {w: (n, launches[n]) for w, n in zip(("fwd", "bwd"), names)}
+
+
+def start_profiler(dev):
+    """The profiler's first session starts CUPTI, slowly: open one before
+    anything is timed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.zeros(1, device=dev)
+
+
+def bulking(mx, on):
+    """The engine's default (bulking on) or ``bulk(0)`` (every op eager)."""
+    return contextlib.nullcontext() if on else mx.engine.bulk(0)
 
 
 def imperative_parity(mx, dev):
@@ -2664,6 +2998,16 @@ def imperative_parity(mx, dev):
     if abs(l_card - l_host) > 1e-5 * abs(l_host) or worst_g > 1e-4 or \
             worst_w > 1e-4:
         fail("the card's imperative step disagrees with the host's")
+
+
+def clocks_line():
+    """The card's SM clock and its maximum now (nvidia-smi)."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    out = r.stdout.strip().splitlines()
+    return "clocks.sm, clocks.max.sm: %s" % (out[0] if out else
+                                             "not read (%s)" % r.stderr.strip())
 
 
 def nvidia_smi_line():
@@ -2730,6 +3074,8 @@ def main(argv):
                 % (os.path.relpath(lib, REPO), seconds))
 
     def timed(name, fn, *args):
+        if name in phases:
+            log("%s phase: start, %s" % (name, clocks_line()))
         t0 = time.perf_counter()
         out = fn(*args) if name in phases else None
         if name in phases:
@@ -2759,7 +3105,11 @@ def main(argv):
     k4_launches = timed("serve", serve_main_path, serve, pa, dev)
     timed("parity", parity, serve, dev)
     fleet_launches = timed("fleet", fleet_phase, serve, pa, dev)
-    flash_launches = timed("train", train_main_path, fa, dev)
+    def train_phase():
+        train_graph_check(dev)
+        return train_main_path(fa, dev)
+
+    flash_launches = timed("train", train_phase)
     timed("train_parity", train_parity, dev)
     hybrid_launches = timed("hybridize", hybridize_phase, fa, dev)
     k5 = timed("rtc", rtc_phase, mx, dev)
@@ -2778,10 +3128,12 @@ def main(argv):
                      + hybrid_launches["fwd_launches"], flash["K1"]),
         kernel_entry("K2 flash_bwd_dq", src,
                      "mxnet_tpu/ops/pallas_kernels.py:166",
-                     flash_launches["dq_launches"], flash["K2"]),
+                     flash_launches["dq_launches"]
+                     + hybrid_launches["dq_launches"], flash["K2"]),
         kernel_entry("K3 flash_bwd_dkv", src,
                      "mxnet_tpu/ops/pallas_kernels.py:208",
-                     flash_launches["dkv_launches"], flash["K3"]),
+                     flash_launches["dkv_launches"]
+                     + hybrid_launches["dkv_launches"], flash["K3"]),
         kernel_entry("K4 paged_attention",
                      "mxnet_tpu_torch/csrc/paged_attention.cu",
                      "mxnet_tpu/ops/paged_attention.py:80",

@@ -23,7 +23,14 @@ The tape is torch's autograd graph:
 * ``Function`` is a ``torch.autograd.Function`` underneath: its
   ``forward`` and ``backward`` run under ``pause()`` and see NDArrays,
   so a backward can launch a kernel of its own (``rtc.CudaKernel``).
-  On a CUDA tensor torch runs the backward on its autograd thread.
+  On a CUDA tensor torch runs the backward on its autograd thread.  A
+  call flushes the open bulk segment and runs eagerly.
+* ops deferred into a bulk segment are recorded too: the segment runs
+  them under grad mode at its flush (on the card as a graph pair,
+  ``graph_cache.RecordedCall``), and ``backward`` flushes a lazy head
+  when it reads it.  Through a graphed segment or hybridized call a
+  backward with ``create_graph=True`` raises ``MXNetError``: the
+  backward graph cannot be differentiated again.
 
 ``train_mode``/``predict_mode`` set the training flag that mode-aware
 ops read; no op of this slice reads it.
@@ -261,8 +268,11 @@ class Function:
         raise NotImplementedError
 
     def __call__(self, *inputs):
+        from .engine import Engine
         from .ndarray.ndarray import NDArray
 
+        # never deferred (its forward may launch a kernel of its own)
+        Engine.get().flush_bulk("function")
         nd_in = [i for i in inputs if isinstance(i, NDArray)]
         if len(nd_in) != len(inputs):
             raise MXNetError("autograd.Function takes NDArray inputs only")

@@ -13,7 +13,9 @@ the initializer given to ``initialize``, as in the JAX package.
 compiled executable per input signature: on the card, the outermost
 hybridized block runs each signature as one captured CUDA graph
 (``graph_cache.CapturedCall``), and the blocks it calls are captured
-with it.  A call that autograd would record runs eagerly.
+with it.  A call that autograd records runs as a forward graph and a
+backward graph (``graph_cache.RecordedCall``), the counterpart of the
+reference's cached jitted vjp.
 """
 from __future__ import annotations
 
@@ -126,14 +128,18 @@ class HybridBlock(Block):
     Each call is keyed by its tensor inputs' ``(shape, dtype, device)``
     and ``autograd.is_training()``.  Per key, the first call runs
     eagerly, the second captures one CUDA graph and replays it, later
-    calls replay; outputs are handed back as fresh tensors.  The graph
-    reads the parameters in place, so an in-place update shows in the
+    calls replay; outputs are handed back as fresh tensors.  A call that
+    autograd records (grad mode on and a parameter or input requiring
+    grad) is keyed also by which inputs and parameters require grad, and
+    replays a forward graph whose outputs carry a backward graph that
+    gives their gradients; while that backward is pending, a call of
+    the same key runs eagerly (``stats()["busy_calls"]``).  The graphs
+    read the parameters in place, so an in-place update shows in the
     next replay; a parameter whose storage moved is captured again, and
     ``hybridize(False)``, ``clear_cache()``, ``cast()`` and
     ``initialize(force_reinit=True)`` drop the graphs.  Calls inside a
     hybridized block's call, calls with keyword arguments or without a
-    tensor input, calls that autograd would record (grad mode on and a
-    parameter or input requiring grad) and calls on the CPU run eagerly.
+    tensor input, and calls on the CPU run eagerly.
     """
 
     def __init__(self, prefix=None, params=None):
@@ -151,7 +157,7 @@ class HybridBlock(Block):
         are not ported and raise."""
         if aot is not None:
             raise MXNetError("hybridize(aot=...) is not ported yet: the "
-                             "persistent compile cache comes with slice S5b "
+                             "persistent compile cache comes with slice S5c "
                              "(ROADMAP.md)")
         if active and lint:
             raise MXNetError("hybridize(lint=True) is not ported yet: the "
@@ -170,16 +176,33 @@ class HybridBlock(Block):
     def __call__(self, *args, **kwargs):
         tensors = [a for a in args if isinstance(a, torch.Tensor)]
         if not self._active or kwargs or not tensors \
-                or getattr(_nesting, "depth", 0) \
-                or (torch.is_grad_enabled() and any(
-                    t.requires_grad for t in tensors + self._graph_tensors())):
+                or getattr(_nesting, "depth", 0):
             return super().__call__(*args, **kwargs)
-        cc = self._graphs.get(
-            _graph_cache.signature(args, _autograd.is_training()),
-            self._nested_call, tensors[0].device, self._graph_tensors,
-            type(self).__name__)
+        key = _graph_cache.signature(args, _autograd.is_training())
+        watched = self._graph_tensors()
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in tensors + watched):
+            if not self._graphs.pairs_on(tensors[0].device):
+                return super().__call__(*args, **kwargs)
+            key += (_graph_cache.grad_signature(tensors),
+                    _graph_cache.grad_signature(watched))
+            return self._graphs.get(
+                key, self._nested_call, tensors[0].device,
+                self._graph_tensors, type(self).__name__,
+                params=self._grad_params)(*args)
+        cc = self._graphs.get(key, self._nested_call, tensors[0].device,
+                              self._graph_tensors, type(self).__name__)
         out = cc(*args)
         return _fresh(out) if cc.static else out
+
+    def stats(self):
+        """This block's graphs: held, captures, replays, backward
+        replays, busy calls run eagerly, capture and host seconds, and
+        the pool's bytes (``graph_cache.CallCache.stats``)."""
+        return self._graphs.stats()
+
+    def _grad_params(self):
+        return [t for t in self._graph_tensors() if t.requires_grad]
 
     def _nested_call(self, *args):
         _nesting.depth = getattr(_nesting, "depth", 0) + 1

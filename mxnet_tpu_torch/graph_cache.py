@@ -21,9 +21,20 @@ back to eager running.  On a device other than CUDA every call runs
 eagerly.
 
 Kernel wrappers count their launches through :func:`count`.  During a
-capture on the calling thread the launches are recorded into the graph
-being captured instead (capture launches nothing), and every replay
-adds them to the counters.
+capture the launches are recorded into the graph being captured instead
+(capture launches nothing), and every replay adds them to the counters.
+That holds for launches from torch's autograd thread too, which runs a
+captured backward's kernels on the capturing stream.
+
+:class:`RecordedCall` is the counterpart of the reference's cached
+vjp: a call that autograd records runs as a pair of graphs, a forward
+graph that keeps what the backward needs in the pair's own memory pool
+and a backward graph that reads it, joined into torch's autograd by one
+``torch.autograd.Function``.  A pair is busy from its forward replay to
+its backward replay (or until the forward's outputs are released); a
+call of the same signature in that time runs eagerly, since a replay
+would overwrite the saved activations.  No other graph can: none
+shares the pair's pool.
 
 Captures are serialised across the process by one lock, and each one
 runs in ``thread_local`` capture mode on its owner's non-blocking
@@ -31,13 +42,17 @@ stream, so a second serve loop in the process may launch and allocate
 while another loop captures.
 
 :class:`CallCache` is one owner's calls by key (a hybridized block's,
-a serve runner's), with the stream and the memory pool they share.
+a serve runner's), with the stream they share and the memory pool its
+captured calls share.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import threading
 import time
 import warnings
+import weakref
 
 import torch
 
@@ -46,6 +61,9 @@ from .base import MXNetError
 _tls = threading.local()
 _count_lock = threading.Lock()
 _capture_lock = threading.Lock()
+# (stream handle, record) of the capture under way: captures are
+# serialised by _capture_lock, so there is at most one
+_capturing = None
 
 # bumped whenever a module, parameter or buffer is registered anywhere
 # (or a module's tensors are converted): a cached list of a module
@@ -77,6 +95,9 @@ def count(owner, name, n=1):
     if not n:
         return
     rec = getattr(_tls, "recording", None)
+    if rec is None and _capturing is not None \
+            and torch.cuda.current_stream().cuda_stream == _capturing[0]:
+        rec = _capturing[1]     # autograd's thread, inside a capture
     if rec is not None:
         rec[(owner, name)] = rec.get((owner, name), 0) + n
         return
@@ -86,15 +107,23 @@ def count(owner, name, n=1):
 
 class recording:
     """Scope in which :func:`count` records into a dict (``as rec``)
-    keyed by ``(owner, name)`` instead of adding to the counters."""
+    keyed by ``(owner, name)`` instead of adding to the counters: on this
+    thread, and on any thread launching on ``stream`` (a capture's)."""
+
+    def __init__(self, stream=None):
+        self._stream = stream
 
     def __enter__(self):
-        self._prev = getattr(_tls, "recording", None)
+        global _capturing
+        self._prev = getattr(_tls, "recording", None), _capturing
         _tls.recording = {}
+        if self._stream is not None:
+            _capturing = (self._stream.cuda_stream, _tls.recording)
         return _tls.recording
 
     def __exit__(self, *exc):
-        _tls.recording = self._prev
+        global _capturing
+        _tls.recording, _capturing = self._prev
 
 
 def signature(args, training=False):
@@ -105,6 +134,12 @@ def signature(args, training=False):
     return (tuple((tuple(a.shape), a.dtype, a.device)
                   if isinstance(a, torch.Tensor) else a for a in args),
             bool(training))
+
+
+def grad_signature(tensors):
+    """Which of ``tensors`` require grad: part of a recorded call's key,
+    since its backward graph differentiates exactly those."""
+    return tuple(t.requires_grad for t in tensors)
 
 
 def storage_key(tensors):
@@ -120,6 +155,16 @@ def _tensors(out):
     if isinstance(out, (tuple, list)):
         return [t for o in out for t in _tensors(o)]
     return []
+
+
+def _rebuild(template, flat):
+    """``template``'s structure with its tensors taken in order from the
+    iterator ``flat``."""
+    if isinstance(template, torch.Tensor):
+        return next(flat)
+    if isinstance(template, (tuple, list)):
+        return type(template)(_rebuild(o, flat) for o in template)
+    return template
 
 
 def _indexed(device):
@@ -168,30 +213,114 @@ def pool_bytes(pool, device=None):
                and (index is None or seg["device"] == index))
 
 
-class CapturedCall:
-    """``fn`` at one call signature, replayed as one CUDA graph.
+def _copy_in(static, args, inplace=None):
+    """Copy the tensor arguments into their static buffers (outside
+    autograd: a buffer never joins the caller's graph), but for those
+    the graph reads in place."""
+    with torch.no_grad():
+        for i, (buf, a) in enumerate(zip(static, args)):
+            if isinstance(a, torch.Tensor) and not (inplace and inplace[i]):
+                buf.copy_(a, non_blocking=True)
 
-    ``fn(*args)`` is called with tensor arguments copied into static
-    buffers on ``device`` (the caller's tensors may live on the host)
-    and any other argument as given.  ``watched()`` returns the tensors
-    ``fn`` uses in place.  ``stream`` (a non-blocking
-    ``torch.cuda.Stream``) runs the warm-up and the capture; ``pool``
-    (``torch.cuda.graph_pool_handle()``) may be shared by graphs of one
-    owner that never run at once and whose outputs are read before the
-    next of them replays.
 
-    A replay returns the graph's static outputs, which the next replay
-    overwrites; ``static`` says whether the last call returned them.
-    ``calls``, ``captures``, ``replays``, ``capture_s`` and ``host_s``
-    (host seconds of the replayed calls outside ``graph.replay()``)
-    count what happened.
+def _static_args(args, device, inplace=None, grad=False):
+    """The capture's arguments: a static buffer for each tensor argument
+    (a leaf that requires grad where the argument does, with ``grad``),
+    the argument itself where ``inplace`` marks it, any other argument
+    as it is."""
+    out = []
+    for i, a in enumerate(args):
+        if not isinstance(a, torch.Tensor) or (inplace and inplace[i]):
+            out.append(a)
+            continue
+        buf = torch.empty(a.shape, dtype=a.dtype, device=device)
+        out.append(buf.requires_grad_(a.requires_grad) if grad else buf)
+    return tuple(out)
+
+
+def _held(call, args):
+    """The tensors a call's graph reads in place: the arguments its
+    ``inplace`` mask marks, and ``watched()``."""
+    mask = call.inplace
+    own = [a for i, a in enumerate(args) if mask[i]] if mask else []
+    return own + list(call.watched())
+
+
+def _capture_into(graph, pool, stream, label, fn):
+    """Capture ``fn()`` into ``graph`` on ``stream`` (the caller holds
+    ``_capture_lock``); returns ``fn``'s result and the launches counted
+    during the capture.  A failed capture raises ``MXNetError``."""
+    with recording(stream) as rec:
+        try:
+            with torch.cuda.stream(stream):
+                try:
+                    graph.capture_begin(pool=pool,
+                                        capture_error_mode="thread_local")
+                    out = fn()
+                except BaseException:
+                    _end_quietly(graph, stream.device, pool)
+                    raise
+                graph.capture_end()
+        except Exception as e:
+            raise MXNetError("CUDA graph capture of %s failed: %s: %s"
+                             % (label, type(e).__name__, e)) from e
+    return out, dict(rec)
+
+
+class _Graph:
+    """One captured CUDA graph of ``fn()``.  ``out`` is what ``fn``
+    returned at the capture: the static outputs, which every replay
+    overwrites (``last`` is the same).  A replay adds the launches
+    counted during the capture to the counters."""
+
+    def __init__(self, pool, stream, label, fn):
+        self.graph = torch.cuda.CUDAGraph()
+        self.out, self._launches = _capture_into(self.graph, pool, stream,
+                                                 label, fn)
+        self.last = self.out
+
+    def replay(self):
+        self.graph.replay()
+        for (owner, name), n in self._launches.items():
+            count(owner, name, n)
+
+
+class _HostGraph:
+    """The card-free double of :class:`_Graph`, which a graph call on a
+    host device captures (the host tests' set-up of a graph pair): the
+    capture runs ``fn`` once, and a replay runs it again and copies what
+    it returns into the first run's tensors, the double's static
+    outputs.  ``last`` is the newest run's result, whose autograd graph
+    a backward double differentiates."""
+
+    def __init__(self, pool, stream, label, fn):
+        self.fn = fn
+        self.out = self.last = fn()
+
+    def replay(self):
+        self.last = self.fn()
+        with torch.no_grad():
+            for buf, t in zip(_tensors(self.out), _tensors(self.last)):
+                buf.copy_(t)
+
+
+class _GraphCall:
+    """What :class:`CapturedCall` and :class:`RecordedCall` share: the
+    function and the tensors its graphs read in place, the owner's
+    stream and pool, the counters, the eager first call and the capture.
+
+    ``calls``, ``captures``, ``replays``, ``backward_replays``,
+    ``busy_calls``, ``capture_s`` and ``host_s`` (host seconds of the
+    replayed calls outside the replays) count what happened; ``graphs``
+    are the graphs held, captured into ``held_pool``.
     """
 
     def __init__(self, fn, device, watched=None, stream=None, pool=None,
-                 label="call"):
+                 label="call", inplace=None):
         self.fn = fn
         self.device = _indexed(device)
         self.watched = watched or (lambda: ())
+        self.inplace = inplace
         self.label = label
         self.graphed = self.device.type == "cuda"
         if self.graphed and stream is None:
@@ -199,11 +328,112 @@ class CapturedCall:
         self.stream = stream
         self.pool = pool
         self.calls = self.captures = self.replays = 0
+        self.backward_replays = self.busy_calls = 0
         self.capture_s = self.host_s = 0.0
+        self.on_capture = None      # called after each capture
+        self.graphs = ()
+        self.held_pool = None
+        self._key = None
+
+    def _stale(self, held):
+        """Whether the call must capture: nothing is captured, or a
+        tensor its graphs read in place (``held``) has moved."""
+        return not self.graphs or self._key != storage_key(held)
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """Run the body on the owner's stream, which waits for the
+        caller's stream before and is waited for after (off the card,
+        as it is)."""
+        if not self.graphed:
+            yield
+            return
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            yield
+        cur.wait_stream(self.stream)
+
+    def _warm_up(self, args):
+        """The first call: ``fn`` eagerly on the owner's stream, so that
+        cuBLAS and the nvcc-built libraries set themselves up outside
+        any capture."""
+        with self._on_stream():
+            out = self.fn(*(a.to(self.device)
+                            if isinstance(a, torch.Tensor) else a
+                            for a in args))
+        for t in _tensors(out):
+            if t.device.type == "cuda":
+                t.record_stream(torch.cuda.current_stream(self.device))
+        return out
+
+    def _graph(self, pool, label, fn):
+        """``fn()`` captured into ``pool``: a :class:`_Graph` on the
+        card, its :class:`_HostGraph` double elsewhere."""
+        return (_Graph if self.graphed else _HostGraph)(
+            pool, self.stream, label, fn)
+
+    def _capture(self, args, held):
+        """Capture the graphs for ``args`` (``_build``) under the
+        process's capture lock on the owner's stream, into the owner's
+        pool, or into a new one where the call shares none.  The graphs
+        held before go only after, so that a pool they share stays in
+        use, and after their last replay has run."""
+        pool = self.pool
+        if pool is None and self.graphed:
+            pool = torch.cuda.graph_pool_handle()
+        old = self.graphs
+        t0 = time.perf_counter()
+        with _capture_lock, self._on_stream():
+            self._build(args, pool)
+        if old and self.graphed:
+            torch.cuda.current_stream(self.device).synchronize()
+        del old
+        self.held_pool = pool
+        self._key = storage_key(held)
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        if self.on_capture is not None:
+            self.on_capture()
+
+    def release(self):
+        """Drop the graphs, their buffers and outputs, after the work
+        queued on the current stream (a replay) has finished, so that no
+        replay reads the pool after it is freed.  The owner of a pool
+        whose every graph was released takes a new pool handle for its
+        next capture."""
+        if self.graphs and self.graphed:
+            torch.cuda.current_stream(self.device).synchronize()
+        self.graphs = ()
+        self.held_pool = None
+        self._drop()
+
+
+class CapturedCall(_GraphCall):
+    """``fn`` at one call signature, replayed as one CUDA graph.
+
+    ``fn(*args)`` is called with tensor arguments copied into static
+    buffers on ``device`` (the caller's tensors may live on the host)
+    and any other argument as given, but for the tensor arguments that
+    ``inplace`` (a mask) marks: the graph reads those in place, as it
+    reads the tensors ``watched()`` returns, and a change of their
+    storage captures it again.  ``stream`` (a non-blocking
+    ``torch.cuda.Stream``) runs the warm-up and the capture; ``pool``
+    (``torch.cuda.graph_pool_handle()``) may be shared by graphs of one
+    owner that never run at once and whose outputs are read before the
+    next of them replays.
+
+    A replay returns the graph's static outputs, which the next replay
+    overwrites; ``static`` says whether the last call returned them.
+    Off the card every call runs ``fn`` eagerly.
+    """
+
+    def __init__(self, fn, device, watched=None, stream=None, pool=None,
+                 label="call", inplace=None):
+        super().__init__(fn, device, watched=watched, stream=stream,
+                         pool=pool, label=label, inplace=inplace)
         self.static = False
-        self.graph = None
-        self._static_in = self._out = self._key = None
-        self._launches = {}
+        self._static_in = None
 
     def __call__(self, *args):
         self.calls += 1
@@ -213,98 +443,255 @@ class CapturedCall:
         if self.calls == 1:
             return self._warm_up(args)
         t0 = time.perf_counter()
-        if self.graph is None or self._key != storage_key(self.watched()):
-            self._capture(args)
+        held = _held(self, args)
+        if self._stale(held):
+            self._capture(args, held)
             t0 = time.perf_counter()
-        for buf, a in zip(self._static_in, args):
-            if isinstance(a, torch.Tensor):
-                buf.copy_(a, non_blocking=True)
+        _copy_in(self._static_in, args, self.inplace)
+        (graph,) = self.graphs
         t1 = time.perf_counter()
-        self.graph.replay()
-        t2 = time.perf_counter()
-        for (owner, name), n in self._launches.items():
-            count(owner, name, n)
+        graph.replay()
         self.replays += 1
         self.static = True
-        self.host_s += (t1 - t0) + (time.perf_counter() - t2)
-        return self._out
+        self.host_s += t1 - t0
+        return graph.out
 
-    def _warm_up(self, args):
-        cur = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-            out = self.fn(*(a.to(self.device)
-                            if isinstance(a, torch.Tensor) else a
-                            for a in args))
-        cur.wait_stream(self.stream)
-        for t in _tensors(out):
-            if t.device.type == "cuda":
-                t.record_stream(cur)
-        return out
+    def _build(self, args, pool):
+        static = _static_args(args, self.device, self.inplace)
+        self.graphs = (self._graph(pool, self.label,
+                                   lambda: self.fn(*static)),)
+        self._static_in = static
 
-    def release(self):
-        """Drop the graph, its static buffers and outputs, after the
-        work queued on the current stream (a replay) has finished, so
-        that no replay reads the pool after it is freed.  The owner of a
-        pool whose every graph was released takes a new pool handle for
-        its next capture."""
-        if self.graph is not None:
-            torch.cuda.current_stream(self.device).synchronize()
-        self.graph = self._static_in = self._out = self._key = None
-        self._launches = {}
+    def _drop(self):
+        self._static_in = None
 
-    def _capture(self, args):
-        # the old graph (if a watched tensor moved) is released only
-        # after the new capture, so that the pool it shares stays in use
-        static = tuple(torch.empty(a.shape, dtype=a.dtype, device=self.device)
-                       if isinstance(a, torch.Tensor) else a for a in args)
-        cur = torch.cuda.current_stream(self.device)
-        graph = torch.cuda.CUDAGraph()
-        pool = self.pool if self.pool is not None \
-            else torch.cuda.graph_pool_handle()
+
+class _Pair(torch.autograd.Function):
+    """A :class:`RecordedCall`'s forward and backward replays inside
+    torch's autograd.  ``tensors`` are the call's tensor arguments and
+    then the parameters it reads in place; the outputs are copies of the
+    forward graph's static outputs."""
+
+    @staticmethod
+    def forward(ctx, call, n_args, *tensors):
+        outs = call._forward(tensors[:n_args])
+        ctx.call = call
+        ctx.generation, ctx.hold = call._hold()
+        keep = call.keep or (True,) * len(outs)
+        # an output nobody holds is handed over as a view of the static
+        # buffer (never read), the others as copies
+        res = tuple(o.clone() if k else o.detach() for o, k in zip(outs, keep))
+        ctx.mark_non_differentiable(
+            *[r for r, d in zip(res, call._diff) if not d])
+        return res
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise MXNetError(
+                "a backward with create_graph=True reached the graphed "
+                "call %s: its backward graph cannot be differentiated "
+                "again (a deviation of the port: the JAX package "
+                "re-linearises); call it under hybridize(False) or "
+                "engine.bulk(0)" % ctx.call.label)
+        got = ctx.call._backward(ctx.generation, ctx.hold, grads)
+        return (None, None) + tuple(got)
+
+
+class RecordedCall(_GraphCall):
+    """``fn`` at one recorded call signature, as a forward graph and a
+    backward graph (the reference's cached jitted vjp).
+
+    ``fn(*args)`` is called with tensor arguments copied into static
+    buffers (those requiring grad as leaves that do) and reads the
+    tensors ``params()`` returns in place; the backward graph gives the
+    gradients of every argument and parameter that requires grad, so
+    those flags are part of the caller's key.  The rules are
+    :class:`CapturedCall`'s: the first call runs eagerly on the owner's
+    stream, the second captures both graphs and replays, later calls
+    replay, and a watched tensor that moved is captured again.
+
+    The pair captures into a memory pool of its own, never the owner's:
+    the activations its forward leaves for its backward must survive any
+    other graph of the owner that replays in between (another key's
+    pair, an unrecorded call).  Between a forward replay and its
+    backward replay the pair itself is busy: a call then runs ``fn``
+    eagerly (``busy_calls`` counts them), because a replay would
+    overwrite the activations the pending backward reads.  The
+    backward's gradients are copies, since the next backward replay
+    overwrites its static outputs; so are the outputs, but for those a
+    caller marks as unheld in ``keep`` (a bulk segment's dead values).
+    Arguments that ``inplace`` marks are read in place, as the
+    parameters are: their storage is part of the capture's check, and
+    none of them may change in place between a forward and its
+    backward (that raises, where eager autograd raises for saved
+    tensors).  Off the card the graphs are their host doubles.
+    """
+
+    def __init__(self, fn, device, params=None, watched=None, stream=None,
+                 label="call", inplace=None):
+        super().__init__(fn, device, watched=watched, stream=stream,
+                         label=label, inplace=inplace)
+        self.params = params or (lambda: ())
+        self.keep = None    # which outputs to copy (None: all)
+        self.busy = False
+        self._static_in = self._tensor_mask = self._diff = None
+        self._gout = self._targets = None
+        self._versions = ((), [])
+        self._generation = 0
+        self._holds = itertools.count(1)
+        self._holder = None
+
+    # -- the call --------------------------------------------------------
+    def __call__(self, *args):
+        self.calls += 1
+        if self.busy:
+            self.busy_calls += 1
+            return self.fn(*args)
+        if self.calls == 1:
+            return self._warm_up(args)
+        held = _held(self, args)
+        if self._stale(held):
+            self._capture(args, held)
+        params = tuple(self.params())
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        # what the graphs read in place must not change before the
+        # backward reads it (eager autograd's saved-tensor check)
+        self._versions = (held, [t._version for t in held])
+        outs = _Pair.apply(self, len(tensors), *tensors, *params)
+        return _rebuild(self.graphs[0].out, iter(outs))
+
+    def _hold(self):
+        """Mark the pair busy for one pending backward; the hold ends at
+        that backward or when the forward's autograd node is freed."""
+        hold = next(self._holds)
+        self.busy, self._holder = True, hold
+        token = _Token()
+        weakref.finalize(token, self._free, hold)
+        return self._generation, (hold, token, self._versions)
+
+    def _free(self, hold):
+        if self._holder == hold:
+            self.busy, self._holder = False, None
+
+    def _forward(self, args):
         t0 = time.perf_counter()
-        with _capture_lock, recording() as rec, \
-                torch.cuda.device(self.device):
-            self.stream.wait_stream(cur)
-            try:
-                with torch.cuda.stream(self.stream):
-                    try:
-                        graph.capture_begin(pool=pool,
-                                            capture_error_mode="thread_local")
-                        out = self.fn(*static)
-                    except BaseException:
-                        _end_quietly(graph, self.device, pool)
-                        raise
-                    graph.capture_end()
-            except Exception as e:
-                raise MXNetError("CUDA graph capture of %s failed: %s: %s"
-                                 % (self.label, type(e).__name__, e)) from e
-            cur.wait_stream(self.stream)
-        self.release()
-        self.capture_s += time.perf_counter() - t0
-        self.captures += 1
-        self.graph, self._static_in, self._out = graph, static, out
-        self._launches = rec
-        self._key = storage_key(self.watched())
+        _copy_in([b for b in self._static_in if isinstance(b, torch.Tensor)],
+                 args, self._tensor_mask)
+        self._generation += 1
+        fwd = self.graphs[0]
+        t1 = time.perf_counter()
+        fwd.replay()
+        self.replays += 1
+        self.host_s += t1 - t0
+        return _tensors(fwd.out)
+
+    def _backward(self, generation, hold, grads):
+        if generation != self._generation or not self.graphs:
+            raise MXNetError(
+                "the graphed call %s was replayed again (or released) "
+                "before the backward of an earlier replay (a retained graph "
+                "used twice): its saved activations are gone" % self.label)
+        held, versions = hold[2]
+        if [t._version for t in held] != versions:
+            raise MXNetError(
+                "a tensor the graphed call %s reads in place was modified "
+                "in place between its forward and its backward" % self.label)
+        with torch.no_grad():
+            for buf, g in zip(self._gout, grads):
+                if buf is not None:
+                    buf.copy_(g)
+        bwd = self.graphs[1]
+        bwd.replay()
+        self.backward_replays += 1
+        self._free(hold[0])
+        out = iter(g.clone() if g is not None else None for g in bwd.out)
+        return [next(out) if need else None for need in self._targets]
+
+    # -- capture ---------------------------------------------------------
+    def _build(self, args, pool):
+        static = _static_args(args, self.device, self.inplace, grad=True)
+        mask = self.inplace or (False,) * len(args)
+        tmask = tuple(m for a, m in zip(args, mask)
+                      if isinstance(a, torch.Tensor))
+        # the arguments go in first: a host double runs fn on them
+        _copy_in([b for b in static if isinstance(b, torch.Tensor)],
+                 [a for a in args if isinstance(a, torch.Tensor)], tmask)
+        params = tuple(self.params())
+        # which tensor arguments, then parameters, get a gradient back
+        targets = tuple(a.requires_grad for a in args
+                        if isinstance(a, torch.Tensor)) \
+            + (True,) * len(params)
+        # the pool holds activations and gradients: give it the memory
+        # the eager first call left cached (no other capture runs while
+        # the lock is held)
+        torch.cuda.empty_cache()
+
+        def forward():
+            with torch.enable_grad():
+                return self.fn(*static)
+
+        fwd = self._graph(pool, self.label, forward)
+        outs = _tensors(fwd.out)
+        diff = tuple(o.requires_grad for o in outs)
+        gout = [torch.zeros_like(o) if d else None
+                for o, d in zip(outs, diff)]
+        inputs = [t for t in static
+                  if isinstance(t, torch.Tensor) and t.requires_grad]
+        inputs += list(params)
+
+        def backward():
+            # the gradients of the forward's newest run (on the card,
+            # the captured one)
+            heads = [o for o, d in zip(_tensors(fwd.last), diff) if d]
+            if not heads:
+                return [None] * len(inputs)
+            return torch.autograd.grad(
+                heads, inputs, [g for g in gout if g is not None],
+                retain_graph=True, allow_unused=True)
+
+        bwd = self._graph(pool, self.label + " backward", backward)
+        self.graphs = (fwd, bwd)
+        self._static_in, self._tensor_mask = static, tmask
+        self._diff, self._gout, self._targets = diff, gout, targets
+
+    def _drop(self):
+        self._static_in = self._gout = None
+        self.busy, self._holder = False, None
+
+
+class _Token:
+    """What a pending backward holds of its pair (a weakref target)."""
+    __slots__ = ("__weakref__",)
 
 
 class CallCache:
-    """One owner's captured calls (:class:`CapturedCall`) by key.
+    """One owner's graph calls by key: :class:`CapturedCall` and, for
+    recorded calls, :class:`RecordedCall`.
 
-    The calls on one device share a capture stream and a memory pool:
-    an owner runs its calls one at a time on one thread and reads each
-    call's outputs before the next one replays.  :meth:`clear` releases
-    every graph and takes a new pool for the next capture, since a pool
-    whose graphs were all released cannot take one.
+    The captured calls on one device share a capture stream and a
+    memory pool: an owner runs its calls one at a time on one thread and
+    reads each call's outputs before the next one replays.  A recorded
+    call shares the stream but captures into a pool of its own.
+    :meth:`clear` releases every graph and takes a new pool for the next
+    capture, since a pool whose graphs were all released cannot take
+    one.
     """
 
     def __init__(self):
         self.calls = {}
         self._shared = {}       # device -> (stream, pool)
 
-    def get(self, key, fn, device, watched, label):
+    def pairs_on(self, device):
+        """Whether a recorded call on ``device`` runs as a graph pair:
+        on the card; elsewhere it runs eagerly."""
+        return torch.device(device).type == "cuda"
+
+    def get(self, key, fn, device, watched, label, params=None):
         """The call cached under ``key``, made from the other arguments
-        (as :class:`CapturedCall` takes them) on a miss."""
+        on a miss: a :class:`CapturedCall`, or with ``params`` (the
+        tensors a recorded call differentiates in place) a
+        :class:`RecordedCall`."""
         cc = self.calls.get(key)
         if cc is None:
             device = _indexed(device)
@@ -314,9 +701,14 @@ class CallCache:
                     self._shared[device] = (torch.cuda.Stream(device),
                                             torch.cuda.graph_pool_handle())
                 stream, pool = self._shared[device]
-            cc = self.calls[key] = CapturedCall(
-                fn, device, watched=watched, stream=stream, pool=pool,
-                label=label)
+            if params is None:
+                cc = CapturedCall(fn, device, watched=watched,
+                                  stream=stream, pool=pool, label=label)
+            else:
+                cc = RecordedCall(fn, device, params=params,
+                                  watched=watched, stream=stream,
+                                  label=label)
+            self.calls[key] = cc
         return cc
 
     def clear(self):
@@ -327,14 +719,22 @@ class CallCache:
         self._shared = {}
 
     def stats(self):
-        """Graphs held, captures, replays, capture seconds, host seconds
-        of the replayed calls outside the replays, and the pools'
-        bytes."""
-        calls = list(self.calls.values())
-        return {"graphs": sum(cc.graph is not None for cc in calls),
-                "captures": sum(cc.captures for cc in calls),
-                "replays": sum(cc.replays for cc in calls),
-                "capture_s": sum(cc.capture_s for cc in calls),
-                "host_s": sum(cc.host_s for cc in calls),
-                "pool_bytes": sum(pool_bytes(pool, dev) for dev, (_, pool)
-                                  in self._shared.items())}
+        """Graphs held, captures, replays (backward replays apart),
+        busy calls run eagerly, capture seconds, host seconds of the
+        replayed calls outside the replays, and the bytes of the pools
+        the graphs held were captured into."""
+        pools = {(cc.device, tuple(cc.held_pool))
+                 for cc in self.calls.values() if cc.held_pool is not None}
+        return dict(call_stats(self.calls.values()),
+                    pool_bytes=sum(pool_bytes(p, d) for d, p in pools))
+
+
+def call_stats(calls):
+    """What :meth:`CallCache.stats` sums over ``calls`` (captured and
+    recorded calls), the pools aside."""
+    calls = list(calls)
+    out = {"graphs": sum(bool(cc.graphs) for cc in calls)}
+    for name in ("captures", "replays", "backward_replays", "busy_calls",
+                 "capture_s", "host_s"):
+        out[name] = sum(getattr(cc, name) for cc in calls)
+    return out

@@ -18,6 +18,10 @@ Where the port differs from the JAX package, deliberately:
   there it is ``torch.bfloat16``, and ``asnumpy`` returns float32.
 * without a context, arrays go to the current context, which is
   ``gpu(0)`` unless a ``with mx.cpu():`` scope says otherwise.
+* an array made by a deferred op (engine bulking) is lazy: its tensor
+  is a promise of the open bulk segment (``_pending``) until a read of
+  ``_data`` flushes the segment; its shape, dtype and whether it
+  requires grad are known without a flush.
 
 Not ported yet (a call raises ``MXNetError`` naming the slice in
 ``ROADMAP.md``): sharding (``reshard``, ``with_sharding_constraint``,
@@ -69,8 +73,8 @@ def _host_tensor(source, dtype):
 class NDArray:
     """A mutable tensor on a context, with engine and autograd state."""
 
-    __slots__ = ("_data", "_ctx", "_var", "_marked", "_grad", "_grad_req",
-                 "_leaf", "__weakref__")
+    __slots__ = ("_value", "_pending", "_ctx", "_var", "_marked", "_grad",
+                 "_grad_req", "_leaf", "_stable", "__weakref__")
 
     def __init__(self, data, ctx=None, dtype=None):
         if isinstance(data, NDArray):
@@ -89,6 +93,7 @@ class NDArray:
 
     def _init_rest(self):
         self._var = Var()
+        self._stable = False    # a weight or a gradient buffer: kept
         self._marked = False
         self._grad = None
         self._grad_req = "write"
@@ -103,6 +108,32 @@ class NDArray:
         arr._init_rest()
         return arr
 
+    @classmethod
+    def _lazy(cls, ref, ctx):
+        """A lazy NDArray over a deferred op's output (an
+        ``engine._BulkRef``)."""
+        arr = cls.__new__(cls)
+        arr._value = None
+        arr._pending = ref
+        arr._ctx = ctx
+        arr._init_rest()
+        return arr
+
+    @property
+    def _data(self):
+        """The backing tensor; a lazy array's read flushes its segment
+        (and rethrows the segment's error if that failed)."""
+        p = self._pending
+        if p is not None:
+            self._value = p.resolve()
+            self._pending = None
+        return self._value
+
+    @_data.setter
+    def _data(self, tensor):
+        self._value = tensor
+        self._pending = None
+
     # ------------------------------------------------------------------
     # core accessors
     # ------------------------------------------------------------------
@@ -113,9 +144,10 @@ class NDArray:
     def _op_input(self, recording):
         """The tensor an op reads: inside ``record()``, a marked array
         feeds its leaf view so torch records the op."""
-        if recording and self._marked and self._data.grad_fn is None:
+        data = self._data
+        if recording and self._marked and data.grad_fn is None:
             return self._leaf_view()
-        return self._data
+        return data
 
     def _leaf_view(self):
         if self._leaf is None:
@@ -136,19 +168,24 @@ class NDArray:
 
     @property
     def shape(self):
-        return tuple(self._data.shape)
+        p = self._pending
+        return p.shape if p is not None else tuple(self._value.shape)
 
     @property
     def dtype(self):
-        return _numpy_dtype(self._data.dtype)
+        p = self._pending
+        return _numpy_dtype(p.dtype if p is not None else self._value.dtype)
 
     @property
     def size(self):
-        return self._data.numel()
+        n = 1
+        for d in self.shape:
+            n *= d
+        return n
 
     @property
     def ndim(self):
-        return self._data.dim()
+        return len(self.shape)
 
     @property
     def context(self):
@@ -162,7 +199,9 @@ class NDArray:
 
     @property
     def _in_graph(self):
-        return self._marked or self._data.requires_grad
+        p = self._pending
+        return self._marked or (p.requires_grad if p is not None
+                                else self._value.requires_grad)
 
     # ------------------------------------------------------------------
     # sync / host transfer
@@ -227,7 +266,7 @@ class NDArray:
             raise MXNetError("grad_req %r (write, add or null)" % grad_req)
         if self._data.requires_grad:
             self._data = self._data.detach()
-        self._marked = True
+        self._marked = self._stable = True
         self._grad_req = grad_req
         self._grad = None if grad_req == "null" else grad_buf
         self._leaf = None
@@ -238,6 +277,8 @@ class NDArray:
         if self._grad_req == "null":
             return
         g = g.to(self._data.dtype)
+        if self._grad is not None:
+            Engine.get().flush_if_referencing((self._grad,), "grad")
         if self._grad is None or self._grad.shape != g.shape:
             self._grad = g.clone()
         elif self._grad_req == "add":
@@ -249,10 +290,13 @@ class NDArray:
     def grad(self):
         if self._grad is None:
             return None
-        return NDArray._wrap(self._grad, self._ctx)
+        g = NDArray._wrap(self._grad, self._ctx)
+        g._stable = True
+        return g
 
     def zero_grad(self):
         if self._grad is not None:
+            Engine.get().flush_if_referencing((self._grad,), "grad")
             self._grad.zero_()
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
@@ -604,6 +648,7 @@ class NDArray:
                 and res._data.shape == self._data.shape \
                 and res._data.dtype == self._data.dtype \
                 and res._data.device == self._data.device:
+            Engine.get().flush_if_referencing((self._data,), "adopt")
             with torch.no_grad():
                 self._data.copy_(res._data)
             self._var.on_write()

@@ -14,9 +14,19 @@ an op whose inputs carry a graph runs under ``torch.no_grad()``: MXNet
 records nothing outside ``record()``.  An op with no tensor input
 (``_zeros``, ``_arange``, ...) gets the device of its ``ctx`` attr, or
 of the current context, as the keyword ``device``.
+
+Bulking (``_try_bulk``, the reference's): while ``Engine.bulk_size()``
+is positive, an op on NDArrays joins this thread's open
+``engine.BulkSegment`` and returns lazy NDArrays; their shapes, dtypes
+and grad flags come from one run of the op on the ``meta`` device
+(cached per signature).  Ops the reference does not defer flush the
+open segment and run eagerly: RNG ops, ops without NDArray inputs,
+unhashable attrs, ``out=`` (the port writes it in place) and ops with
+no meta run (the reference's ``eval_shape`` failure).
 """
 from __future__ import annotations
 
+import functools
 import inspect
 
 import torch
@@ -33,15 +43,16 @@ class OpReg:
     """A registered op: its forward, its tensor inputs (the leading
     parameters without defaults, unless ``inputs=`` names them) and its
     attrs (the other named parameters).  The JAX package's
-    ``needs_rng``/``needs_mode`` flags come with the random and
-    mode-aware ops (S7, S6); no op of this slice has them."""
+    ``needs_rng`` flag marks an op that draws random numbers (the random
+    ops come with S7): bulking never defers it."""
 
     __slots__ = ("name", "forward", "doc", "input_names", "variadic",
-                 "attr_names")
+                 "attr_names", "needs_rng")
 
-    def __init__(self, name, forward, inputs=None):
+    def __init__(self, name, forward, inputs=None, needs_rng=False):
         self.name = name
         self.forward = forward
+        self.needs_rng = needs_rng
         self.doc = forward.__doc__ or ""
         self.input_names, self.variadic = self._infer_inputs(forward, inputs)
         self.attr_names = self._infer_attrs(forward)
@@ -71,13 +82,13 @@ class OpReg:
         return tuple(names), False
 
 
-def register(name, aliases=(), inputs=None):
+def register(name, aliases=(), inputs=None, needs_rng=False):
     """Decorator: register a PyTorch forward under an MXNet op name."""
 
     def deco(fn):
         if name in _REGISTRY:
             raise MXNetError("op %s already registered" % name)
-        _REGISTRY[name] = OpReg(name, fn, inputs=inputs)
+        _REGISTRY[name] = OpReg(name, fn, inputs=inputs, needs_rng=needs_rng)
         for a in aliases:
             _ALIASES[a] = name
         return fn
@@ -177,9 +188,121 @@ def _wrap(outs, inputs, ctx, out):
     return results[0] if len(results) == 1 else results
 
 
-def invoke(name, inputs, attrs=None, out=None, fields=None):
-    """Imperative invoke on NDArrays (parity: Imperative::Invoke)."""
+def _freeze(x):
+    """A hashable mirror of an attr value (lists and dicts frozen)."""
+    if isinstance(x, dict):
+        return tuple(sorted((k, _freeze(v)) for k, v in x.items()))
+    if isinstance(x, (list, tuple)):
+        return tuple(_freeze(v) for v in x)
+    return x
+
+
+@functools.lru_cache(maxsize=4096)
+def _out_meta(name, fields, attrs_key, in_meta, recording, attrs_ref):
+    """``((shape, dtype, requires_grad), ...)`` of the op's outputs from
+    one run on the ``meta`` device, or None where it has no meta run."""
     reg = get(name)
+    args = [torch.empty(shape, dtype=dt, device="meta").requires_grad_(
+        rg and (dt.is_floating_point or dt.is_complex))
+        for shape, dt, rg in in_meta]
+    try:
+        with torch.set_grad_enabled(recording):
+            outs = _run(reg, args, attrs_ref.attrs, fields)
+        return tuple((tuple(o.shape), o.dtype, o.requires_grad)
+                     for o in outs)
+    except Exception:
+        return None
+
+
+class _Attrs:
+    """Attrs beside their frozen key: hashed and compared by the key, so
+    the meta cache keeps one run per signature."""
+
+    __slots__ = ("attrs", "key")
+
+    def __init__(self, attrs, key):
+        self.attrs, self.key = attrs, key
+
+    def __hash__(self):
+        return hash(self.key)
+
+    def __eq__(self, other):
+        return self.key == other.key
+
+
+def _try_bulk(reg, inputs, attrs, out, fields, eng):
+    """Defer one op into this thread's open bulk segment.
+
+    Returns the op's lazy NDArray results, or ``NotImplemented`` to run
+    it eagerly.  Non-deferrable ops flush the open segment first so that
+    program order holds."""
+    from ..ndarray.ndarray import NDArray
+
+    size = eng.bulk_size()
+    if size <= 0:
+        return NotImplemented
+    if reg.needs_rng:
+        eng.flush_bulk("rng:%s" % reg.name)
+        return NotImplemented
+    if out is not None or not inputs \
+            or any(not isinstance(x, NDArray) for x in inputs):
+        eng.flush_bulk("nondeferrable:%s" % reg.name)
+        return NotImplemented
+    attrs, fields, _ = _prep(reg, len(inputs), attrs, fields)
+    try:
+        attrs_key = _freeze(attrs)
+        hash(attrs_key)
+    except TypeError:
+        eng.flush_bulk("unhashable_attrs:%s" % reg.name)
+        return NotImplemented
+    recording = autograd.is_recording()
+    device = None
+    for x in inputs:
+        x._var.rethrow()
+        p = x._pending
+        dev = p.device if p is not None else x._value.device
+        if device is None:
+            device = dev
+        elif dev != device:
+            return NotImplemented       # the eager op raises
+    seg = eng.current_segment(size, device)
+    handles, in_meta = [], []
+    for x in inputs:
+        p = x._pending
+        if p is not None and p.segment is seg and p.value is None \
+                and not p.failed:
+            handles.append(("v", p))
+            in_meta.append((p.shape, p.dtype, p.requires_grad))
+        else:
+            d = x._op_input(recording)
+            handles.append(("x", d, x._stable))
+            in_meta.append((tuple(d.shape), d.dtype, d.requires_grad))
+    metas = _out_meta(reg.name, fields, attrs_key, tuple(in_meta),
+                      recording, _Attrs(attrs, attrs_key))
+    if metas is None:
+        return NotImplemented           # no meta run: eagerly
+    run_fn = (lambda r, a, f: lambda *datas: _run(r, datas, a, f))(
+        reg, attrs, fields)
+    refs = seg.defer((reg.name, fields, attrs_key), run_fn, handles, metas,
+                     recording)
+    eng.stats.bulk_ops += 1
+    ctx = inputs[0]._ctx
+    results = [NDArray._lazy(r, ctx) for r in refs]
+    # a failed flush poisons every promised output (async rethrow)
+    seg.write_vars.extend(a._var for a in results)
+    if seg.cap and seg.n_ops >= seg.cap:
+        seg.flush("max_node")
+    return results[0] if len(results) == 1 else results
+
+
+def invoke(name, inputs, attrs=None, out=None, fields=None):
+    """Imperative invoke on NDArrays (parity: Imperative::Invoke); a
+    deferrable op joins the open bulk segment (``_try_bulk``)."""
+    reg = get(name)
+    eng = Engine.get()
+    res = _try_bulk(reg, inputs, attrs, out, fields, eng)
+    if res is not NotImplemented:
+        return res
     attrs, fields, ctx = _prep(reg, len(inputs), attrs, fields)
     recording = autograd.is_recording()
     datas = tuple(x._op_input(recording) for x in inputs)
@@ -192,7 +315,9 @@ def invoke(name, inputs, attrs=None, out=None, fields=None):
 def invoke_fn(fn, inputs, op_name="custom", n_outputs=None, ctx=None):
     """Invoke an ad-hoc ``fn(*tensors) → tuple`` on NDArrays; torch's
     autograd records it inside ``record()`` like any op.  Returns a list
-    of NDArrays on ``ctx`` (default: the first input's context)."""
+    of NDArrays on ``ctx`` (default: the first input's context).  It is
+    never deferred: the open bulk segment flushes first."""
+    Engine.get().flush_bulk("nondeferrable:%s" % op_name)
     recording = autograd.is_recording()
     datas = tuple(x._op_input(recording) for x in inputs)
     outs = _push(op_name, lambda: tuple(fn(*datas)), datas,

@@ -98,7 +98,8 @@ def _reduce(fn_name):
 def _scalar(x, scalar):
     """``scalar`` as a 0-d tensor of the promoted type, beside ``x``."""
     dt = torch.result_type(x, scalar)
-    return x.to(dt), torch.tensor(scalar, dtype=dt, device=x.device)
+    # a fill, not a host copy: a captured graph may hold it
+    return x.to(dt), torch.full((), scalar, dtype=dt, device=x.device)
 
 
 # ----------------------------------------------------------------------------

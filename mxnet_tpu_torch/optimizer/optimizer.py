@@ -10,6 +10,14 @@ is updated in bf16 storage without f32 copies of its weights or state.
 ``adamw`` is the JAX package's rule, not ``torch.optim.AdamW``:
 ``lr_t = lr*sqrt(1-b2^t)/(1-b1^t)`` and
 ``w -= lr_t*m/(sqrt(v)+eps) + lr*wd*w`` with the old ``w``.
+
+``lr`` and ``t`` are Python numbers (``gluon.Trainer``) or 0-d tensors
+on the weights' device (``JitTrainStep``, whose captured step graph
+reads them where the host wrote them before the replay, as the JAX
+package's jitted step takes an f32 ``lr`` and an int32 ``t``).  With
+tensors, ``lr_t`` is formed on the device in f32 from them, and every
+product with a scalar is taken in f32 before the one rounding into the
+weight's dtype.
 """
 from __future__ import annotations
 
@@ -117,10 +125,11 @@ class Optimizer:
         raise NotImplementedError
 
     def _step(self, weight, grad, state, lr, wd, t):
-        """Apply one update to ``weight`` and ``state`` in place."""
+        """Apply one update to ``weight`` and ``state`` in place; ``lr``
+        and ``t`` are numbers or 0-d device tensors."""
         with torch.no_grad():
-            self._update(weight, grad.to(weight.dtype), state, float(lr),
-                         float(wd), int(t))
+            self._update(weight, grad.to(weight.dtype), state,
+                         _scalar(lr, float), float(wd), _scalar(t, int))
         return weight, state
 
     def __repr__(self):
@@ -131,8 +140,36 @@ class Optimizer:
 register = Optimizer.register
 
 
+def _device_of(*xs):
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    return None
+
+
 def create(name, **kwargs):
     return Optimizer.create_optimizer(name, **kwargs)
+
+
+def _scalar(x, kind):
+    """A number as ``kind``, a tensor as it is."""
+    return x if isinstance(x, torch.Tensor) else kind(x)
+
+
+def _factor(a):
+    """A device scalar as a 1-element f32 tensor: unlike a 0-d tensor it
+    takes part in type promotion, so ``bf16 * factor`` is formed in f32
+    inside one kernel, without an f32 copy of the bf16 operand."""
+    return a.reshape(1).to(torch.float32)
+
+
+def _axpy(w, x, a):
+    """``w += a * x`` in place with one rounding into ``w``'s dtype; ``x``
+    is at least f32.  A tensor ``a`` is multiplied in f32 (one kernel)."""
+    if isinstance(a, torch.Tensor):
+        w.addcmul_(x, _factor(a))
+    else:
+        w.add_(x, alpha=a)
 
 
 def _decayed(g, weight, wd):
@@ -159,9 +196,10 @@ class SGD(Optimizer):
         # weight's dtype once; bf16 arithmetic here would round twice
         g = _decayed(self._clip_rescale(grad), weight, wd)
         if state is None:
-            weight.add_(g, alpha=-lr)
+            _axpy(weight, g, -lr)
             return
-        mom = torch.add(state * self.momentum, g, alpha=-lr)
+        mom = (state * self.momentum).to(g.dtype)
+        _axpy(mom, g, -lr)
         state.copy_(mom)
         weight.add_(mom)
 
@@ -184,6 +222,29 @@ class Adam(Optimizer):
     def _lr_t(self, lr, t):
         return lr * math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
 
+    def _device_scalars(self, lr, t, wd=0.0):
+        """The step's device scalars, formed on the device in f32 (as the
+        JAX package's jitted step forms ``lr_t``) once for all the
+        parameters of a step, while ``lr`` and ``t`` keep their versions:
+        with ``c = sqrt(1-b2^t)/(1-b1^t)`` and ``lr_t = lr*c``,
+        ``-1/lr_t`` and ``-eps/lr_t``, ``wd/c`` (0-d) and ``-lr_t`` (a
+        factor)."""
+        key = tuple((id(x), x._version) if isinstance(x, torch.Tensor)
+                    else x for x in (lr, t)) + (wd,)
+        cached = getattr(self, "_scalar_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        dev = _device_of(lr, t)
+        tf = torch.as_tensor(t, device=dev).float()
+        lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
+        c = torch.sqrt(1.0 - self.beta2 ** tf) / (1.0 - self.beta1 ** tf)
+        inv_lr_t = -1.0 / (lr * c)
+        out = {"inv_lr_t": inv_lr_t, "eps_lr_t": self.epsilon * inv_lr_t,
+               "wd_c": wd / c, "neg_lr_t": _factor(-lr * c)}
+        # the key's tensors are kept alive, so their ids stay theirs
+        self._scalar_cache = (key, out, lr, t)
+        return out
+
     def _moments(self, g, state):
         """``m = b1 m + (1-b1) g`` and ``v = b2 v + (1-b2) g^2``, in
         place, each rounded once into the state's dtype."""
@@ -193,20 +254,39 @@ class Adam(Optimizer):
         torch.lerp(var.to(g.dtype), g * g, 1 - self.beta2, out=var)
         return mean, var
 
-    def _adam_step(self, weight, mean, var, lr, t, decay=0.0):
+    def _adam_step(self, weight, mean, var, lr, t, decay=0.0, wd=0.0):
         """``w <- w - lr_t * m / (sqrt(v) + eps) - decay * w`` from the old
         ``w``, in place.  The decay and the step are summed in f32 and
         added to ``w`` in one rounding, as in the JAX rule: a decay applied
         on its own would round back to ``w`` in bf16 whenever it is below
-        half an ulp."""
-        denom = var.sqrt().add_(self.epsilon)
-        if not decay:
-            weight.addcdiv_(mean, denom, value=-self._lr_t(lr, t))
+        half an ulp.
+
+        With device scalars (``lr`` or ``t`` a tensor) the passes stay
+        those of the number path, and a scalar goes only where a pass
+        already takes one (a 0-d or broadcast tensor operand costs a pass
+        its vectorized kernel): with the decoupled decay ``wd``,
+        ``w += -lr_t * ((wd / c) * w + m / (sqrt(v) + eps))``; without it
+        the denominator's pass becomes ``(sqrt(v) + eps) / -lr_t``."""
+        wide = torch.promote_types(weight.dtype, torch.float32)
+        if isinstance(lr, torch.Tensor) or isinstance(t, torch.Tensor):
+            sc = self._device_scalars(lr, t, wd)
+            if not wd:
+                weight.addcdiv_(mean, torch.addcmul(
+                    sc["eps_lr_t"], var.sqrt(), sc["inv_lr_t"]))
+                return
+            denom = var.sqrt().add_(self.epsilon)
+            delta = torch.empty_like(weight, dtype=wide)
+            torch.mul(weight, sc["wd_c"], out=delta)
+            weight.addcmul_(delta.addcdiv_(mean, denom), sc["neg_lr_t"])
             return
-        delta = torch.empty_like(
-            weight, dtype=torch.promote_types(weight.dtype, torch.float32))
+        denom = var.sqrt().add_(self.epsilon)
+        lr_t = self._lr_t(lr, t)
+        if not decay:
+            weight.addcdiv_(mean, denom, value=-lr_t)
+            return
+        delta = torch.empty_like(weight, dtype=wide)
         torch.mul(weight, -decay, out=delta)
-        weight.add_(delta.addcdiv_(mean, denom, value=-self._lr_t(lr, t)))
+        weight.add_(delta.addcdiv_(mean, denom, value=-lr_t))
 
     def _update(self, weight, grad, state, lr, wd, t):
         g = self._clip_rescale(grad)
@@ -227,4 +307,5 @@ class AdamW(Adam):
 
     def _update(self, weight, grad, state, lr, wd, t):
         mean, var = self._moments(self._clip_rescale(grad), state)
-        self._adam_step(weight, mean, var, lr, t, decay=lr * wd)
+        self._adam_step(weight, mean, var, lr, t,
+                        decay=lr * wd if wd else 0.0, wd=wd)

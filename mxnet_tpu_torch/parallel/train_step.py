@@ -2,14 +2,24 @@
 (the port's counterpart of ``mxnet_tpu/parallel/train_step.py``).
 
 The JAX package traces the step once and compiles it into one XLA
-executable with donated weight buffers.  The port runs the same step
-eagerly: ``step(*batch)`` runs the net and the loss in train mode,
-takes the mean loss in f32, gets the gradients with
-``torch.autograd.grad`` and applies the optimizer's update to every
-trainable parameter in place, where the JAX package donates and
-replaces them.  The weights and optimizer state keep their dtypes from
-step to step (the JAX package pins them the same way).  The loss comes
-back as a tensor on the device, without a sync.
+executable with donated weight buffers.  The port's step runs the net
+and the loss in train mode, takes the mean loss in f32, gets the
+gradients with ``torch.autograd.grad``, clips them by their global norm
+if asked and applies the optimizer's update to every trainable
+parameter in place, where the JAX package donates and replaces them.
+On the card the whole step is one captured CUDA graph per batch
+signature (``graph_cache.CapturedCall``: the first call eager, the
+second captured and replayed, later calls replayed).  As in the JAX
+package, the learning rate (f32) and the update count (int32) are
+device scalars that the graph reads: the host writes the learning rate
+before each call and the step adds one to the count on the device, so
+the eager and the graphed step run the same update code.  The
+per-parameter ``lr_mult``/``wd_mult``, ``wd``, ``rescale_grad`` and the
+clips are constants of a captured step: changing one drops the graphs.
+``step_n(n)`` runs n steps as n replays.  The weights and optimizer
+state keep their dtypes from step to step (the JAX package pins them the
+same way).  The loss comes back as a tensor on the device, without a
+sync.
 
 Single device only: ``mesh=``, ``rules=`` and ``param_rule=`` are
 sharded training, slice S8 of the port, and raise.
@@ -20,6 +30,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from .. import graph_cache as _graph_cache
 from .. import optimizer as _opt_mod
 
 
@@ -40,13 +51,15 @@ class JitTrainStep:
     ``loss`` (a loss block, or None when the net's first output is the
     loss), ``optimizer`` and ``optimizer_params``, ``clip_global_norm``.
     ``donate`` is accepted and means nothing here: updates are in place.
-    The step runs where the net's parameters live.
+    The step runs where the net's parameters live; on the card as a
+    captured graph unless ``graphs=False`` (every step eager: the same
+    code, which tests and the chip smoke hold the graphs against).
     """
 
     def __init__(self, net, loss=None, optimizer="sgd",
                  optimizer_params=None, mesh=None, data_axis="data",
                  param_rule=None, donate=True, clip_global_norm=None,
-                 rules=None):
+                 rules=None, graphs=True):
         for name, v in (("mesh", mesh), ("param_rule", param_rule),
                         ("rules", rules)):
             if v is not None:
@@ -63,10 +76,12 @@ class JitTrainStep:
         self._params = None
         self._t = 0
         self._last_loss = None
+        self.graphs = bool(graphs)
 
     def _ensure_init(self, data):
-        """Snapshot the parameters and make the optimizer state; one
-        forward without gradients first resolves lazy shapes."""
+        """Snapshot the parameters and make the optimizer state and the
+        device scalars; one forward without gradients first resolves
+        lazy shapes."""
         if self._params is not None:
             return
         lazy = torch.nn.parameter.UninitializedParameter
@@ -83,20 +98,31 @@ class JitTrainStep:
         self._opt_state = [
             self._opt.create_state(i, p.detach()) if i in train else None
             for i, p in enumerate(self._params)]
+        dev = self._params[0].device
+        self._lr = torch.zeros((), dtype=torch.float32, device=dev)
+        self._count = torch.full((), self._t, dtype=torch.int32, device=dev)
+        self._graphs = _graph_cache.CallCache()
+        self._consts = None
+        self._watch = self._params + [
+            s for st in self._opt_state
+            for s in (st if isinstance(st, tuple) else (st,))
+            if s is not None] + [self._lr, self._count]
 
-    def step(self, *batch):
-        """Run one train step; returns the loss (a device tensor)."""
-        n_label = 1 if self._loss is not None else 0
+    def _arrays(self, batch):
         dev = next(self._net.parameters()).device
-        arrays = [b.to(dev) if isinstance(b, torch.Tensor) else
-                  torch.from_numpy(np.ascontiguousarray(b)).to(dev)
-                  for b in batch]
-        data, labels = arrays[:len(arrays) - n_label], \
-            arrays[len(arrays) - n_label:]
-        self._ensure_init(data)
-        self._t += 1
-        self._opt.num_update = self._t
-        self._net.train()
+        return [b.to(dev) if isinstance(b, torch.Tensor) else
+                torch.from_numpy(np.ascontiguousarray(b)).to(dev)
+                for b in batch]
+
+    def _split(self, arrays):
+        n_label = 1 if self._loss is not None else 0
+        return arrays[:len(arrays) - n_label], arrays[len(arrays) - n_label:]
+
+    def _body(self, *arrays):
+        """One step on the device: count, forward, loss, gradients, clip
+        and update; what the graph captures.  Returns the f32 loss."""
+        data, labels = self._split(arrays)
+        self._count.add_(1)
         out = self._net(*data)
         outs = [out] if isinstance(out, torch.Tensor) else list(out)
         loss = self._loss(outs[0], *labels) if self._loss is not None \
@@ -107,16 +133,68 @@ class JitTrainStep:
         del out, outs, loss
         if self._clip_global_norm is not None:
             grads = _global_norm_scale(grads, self._clip_global_norm)
-        lr = self._opt.learning_rate
         for j, i in enumerate(self._train_idx):
-            lr_i = lr * self._opt.lr_mult.get(
-                self._names[i], self._opt.lr_mult.get(i, 1.0))
+            mult = self._opt._mult(self._opt.lr_mult, i)
+            lr_i = self._lr if mult == 1.0 else self._lr * mult
             self._opt._step(self._params[i].detach(), grads[j],
                             self._opt_state[i], lr_i, self._opt._get_wd(i),
-                            self._t)
+                            self._count)
             grads[j] = None
-        self._last_loss = loss_val.detach()
+        return loss_val.detach()
+
+    def _watched(self):
+        return self._watch
+
+    def _constants(self):
+        """What a captured step reads as constants."""
+        opt = self._opt
+        return (tuple(sorted(opt.lr_mult.items(), key=repr)),
+                tuple(sorted(opt.wd_mult.items(), key=repr)), opt.wd,
+                opt.rescale_grad, opt.clip_gradient, self._clip_global_norm)
+
+    def _run(self, arrays):
+        self._t += 1
+        self._opt.num_update = self._t
+        self._lr.fill_(self._opt.learning_rate)
+        self._net.train()
+        if not self.graphs:
+            self._last_loss = self._body(*arrays)
+            return self._last_loss
+        consts = self._constants()
+        if consts != self._consts:
+            self._graphs.clear()
+            self._consts = consts
+        cc = self._graphs.get(_graph_cache.signature(arrays), self._body,
+                              self._lr.device, self._watched, "JitTrainStep")
+        if cc.graphed and cc.calls == 1:
+            # the capture's pool needs the memory the eager step cached
+            torch.cuda.empty_cache()
+        loss = cc(*arrays)
+        self._last_loss = loss.clone() if cc.static else loss
         return self._last_loss
+
+    def step(self, *batch):
+        """Run one train step; returns the loss (a device tensor)."""
+        arrays = self._arrays(batch)
+        self._ensure_init(self._split(arrays)[0])
+        return self._run(arrays)
+
+    def step_n(self, n, *batch):
+        """Run ``n`` train steps on one batch and return the last loss
+        (the JAX package's one-dispatch loop).  On the card each step is
+        a replay of the step's graph; the count advances on the device
+        and the learning rate, scheduled or not, is written before each
+        replay (the reference's per-step fallback for a scheduler)."""
+        arrays = self._arrays(batch)
+        self._ensure_init(self._split(arrays)[0])
+        loss = None
+        for _ in range(int(n)):
+            loss = self._run(arrays)
+        return loss
+
+    def stats(self):
+        """The step's graphs (``graph_cache.CallCache.stats``)."""
+        return self._graphs.stats() if self._params is not None else {}
 
     def sync_params(self):
         """Kept for parity.  The JAX package copies its jitted weights

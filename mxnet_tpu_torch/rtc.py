@@ -431,7 +431,10 @@ class CudaKernel:
         return params, keep, reads, writes
 
     def launch(self, args, ctx, grid_dims, block_dims, shared_mem=0):
-        """Launch on ``ctx`` (a gpu context) over ``args``, in place."""
+        """Launch on ``ctx`` (a gpu context) over ``args``, in place.
+        The open bulk segment flushes first: a launch is never
+        deferred."""
+        Engine.get().flush_bulk("rtc:%s" % self.name)
         dev = as_context(ctx).torch_device
         if dev.type != "cuda":
             raise MXNetError("CudaKernel %s launches on a gpu context, got "

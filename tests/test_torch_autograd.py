@@ -433,14 +433,21 @@ def test_engine_hooks_stats_and_bulk_scope():
     try:
         n0 = eng.stats.ops_pushed
         with tmx.cpu(), tmx.engine.bulk(16):
-            a = tmx.nd.ones((2, 2))
-            b = (a + 1) * 3
-            b.wait_to_read()
+            a = tmx.nd.ones((2, 2))         # no NDArray input: eager
+            b = (a + 1) * 3                 # deferred into one segment
+            assert eng.stats.ops_pushed == n0 + 1
+            b.wait_to_read()                # flushes it as one push
             tmx.waitall()
-        assert seen == ["_ones", "_plus_scalar", "_mul_scalar"]
-        assert eng.stats.ops_pushed == n0 + 3
+        assert seen == ["_ones", "bulk_segment[2]"]
+        assert eng.stats.ops_pushed == n0 + 2
         assert syncs == ["wait_to_read", "waitall"]
         np.testing.assert_allclose(b.asnumpy(), 6.0)
+        # without an explicit scope an op hook turns implicit bulking
+        # off (one span per op), as in the JAX package
+        with tmx.cpu():
+            c = (a + 1) * 3
+        assert seen[-2:] == ["_plus_scalar", "_mul_scalar"]
+        np.testing.assert_allclose(c.asnumpy(), 6.0)
     finally:
         eng.remove_hook(hook)
         eng.remove_hook(syncs.append, kind="sync")

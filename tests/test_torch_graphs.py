@@ -54,6 +54,13 @@ def _twins(seed, toks):
     return jnet, net
 
 
+def _host_pairs(net):
+    """Run ``net``'s recorded calls as graph pairs on the host: the pair
+    then captures its graphs' host doubles (eager runs in place of the
+    replays)."""
+    net._graphs.pairs_on = lambda device: True
+
+
 def _both(jnet, net, toks):
     want = jnet(nd.array(toks)).asnumpy()
     with torch.no_grad():
@@ -114,6 +121,10 @@ def test_hybridized_llama_matches_jax_across_calls_and_invalidations():
 
 
 def test_hybridize_keys_by_training_and_skips_recorded_calls():
+    """Unrecorded calls key by signature and training flag; a recorded
+    call runs eagerly on the host, and where recorded calls run as graph
+    pairs (the card, or the host double) it keys also by which inputs
+    and parameters require grad."""
     toks = np.random.RandomState(1).randint(0, 512, (1, 8)) \
         .astype(np.float32)
     _, net = _twins(1, toks)
@@ -126,6 +137,19 @@ def test_hybridize_keys_by_training_and_skips_recorded_calls():
         with tag.train_mode():
             net(x)
     assert sorted(k[1] for k in net._graphs.calls) == [False, True]
+    _host_pairs(net)
+    out = net(x)
+    assert out.requires_grad
+    (rkey,) = [k for k in net._graphs.calls if len(k) == 4]
+    n_params = len(list(net.parameters()))
+    assert rkey[:2] == gc.signature((x,), False)
+    assert rkey[2] == (False,) and rkey[3] == (True,) * n_params
+    assert isinstance(net._graphs.calls[rkey], gc.RecordedCall)
+    net.blocks[0].attn.q_proj.weight.requires_grad_(False)
+    net(x)
+    assert len([k for k in net._graphs.calls if len(k) == 4]) == 2, \
+        "a parameter's grad flag is part of the key"
+    net.blocks[0].attn.q_proj.weight.requires_grad_(True)
     inner = net.blocks[0]
     assert inner._active and inner._graphs.calls == {}, \
         "blocks called inside a hybridized call run with it"
@@ -137,9 +161,190 @@ def test_hybridize_keys_by_training_and_skips_recorded_calls():
     assert net._graphs.calls == {}
 
 
+def _train(net, x, y, steps=3, hybrid=False):
+    """``steps`` adam steps of gluon.Trainer under ``record()``, through
+    the graph pair's host double where ``hybrid``."""
+    from mxnet_tpu_torch import gluon as tgluon
+
+    if hybrid:
+        net.hybridize()
+        _host_pairs(net)
+    loss_fn = tgluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = tgluon.Trainer(net.collect_params(), "adam",
+                             {"learning_rate": 1e-3})
+    losses = []
+    for _ in range(steps):
+        with tag.record():
+            loss = loss_fn(net(torch.from_numpy(x)).reshape(-1, 512),
+                           torch.from_numpy(y).reshape(-1)).mean()
+        loss.backward()
+        trainer.step(1)
+        losses.append(loss.item())
+    return losses
+
+
+def test_hybridized_llama_trained_under_record_matches_jax():
+    """3 adam steps of gluon.Trainer over a hybridized llama_small under
+    ``record()``: the JAX package's hybridized losses and weights within
+    the tolerance of test_train's Trainer case (1e-4), and the port's
+    graph pair (its host double: eager passes in place of the graphs)
+    bitwise equal to the port's eager training."""
+    from mxnet_tpu import autograd as jautograd
+    from mxnet_tpu import gluon as jgluon
+
+    rs = np.random.RandomState(8)
+    x = rs.randint(0, 512, (2, 16)).astype(np.float32)
+    y = rs.randint(0, 512, (2, 16)).astype(np.float32)
+    jnet, eager = _twins(8, x)
+    _, paired = _twins(8, x)
+    jnet.hybridize()
+    jloss = jgluon.loss.SoftmaxCrossEntropyLoss()
+    jtrainer = jgluon.Trainer(jnet.collect_params(), "adam",
+                              {"learning_rate": 1e-3})
+    want = []
+    for _ in range(3):
+        with jautograd.record():
+            jl = jloss(jnet(nd.array(x)).reshape(-3, 0),
+                       nd.array(y).reshape(-1)).mean()
+        jl.backward()
+        jtrainer.step(1)
+        want.append(float(jl.asscalar()))
+    got = _train(paired, x, y, hybrid=True)
+    np.testing.assert_allclose(got, want, **TOL)
+    jparams = jnet._collect_params_with_prefix()
+    for name, p in paired.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   jparams[name].data().asnumpy(),
+                                   err_msg=name, **TOL)
+    (pair,) = paired._graphs.calls.values()
+    assert (pair.calls, pair.captures, pair.replays,
+            pair.backward_replays) == (3, 1, 2, 2)
+    assert _train(eager, x, y) == got
+    for (name, a), b in zip(paired.named_parameters(), eager.parameters()):
+        assert torch.equal(a, b), name
+
+
+def test_two_recorded_forwards_then_one_backward_give_eager_grads():
+    """Gradient accumulation: two recorded calls of one signature before
+    one backward.  The second finds the pair busy and runs eagerly
+    (counted), so the gradients equal the eager block's bitwise."""
+    rs = np.random.RandomState(9)
+    toks = [rs.randint(0, 512, (1, 8)).astype(np.float32) for _ in range(3)]
+    _, net = _twins(9, toks[0])
+    _, ref = _twins(9, toks[0])
+    net.hybridize()
+    _host_pairs(net)
+
+    def grads(block, pairs):
+        outs = [block(torch.from_numpy(t)) for t in pairs]
+        loss = sum((o.float() ** 2).mean() for o in outs)
+        return torch.autograd.grad(loss, list(block.parameters()))
+
+    grads(net, toks[:1])                      # eager, then the capture
+    grads(net, toks[:1])
+    got = grads(net, toks[1:])
+    want = grads(ref, toks[1:])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    st = net.stats()
+    assert st["captures"] == 1 and st["busy_calls"] == 1
+    assert st["replays"] == 2 and st["backward_replays"] == 2
+
+
+def test_two_keys_interleaved_and_a_call_between_give_eager_grads():
+    """Two recorded signatures whose backwards run in another order than
+    their forwards, and an unrecorded call between a forward and its
+    backward: each pair keeps what its backward reads (on the card in a
+    pool of its own), so the gradients equal the eager block's bitwise
+    and no call finds a pair busy."""
+    rs = np.random.RandomState(12)
+    xa = torch.from_numpy(rs.randint(0, 512, (1, 8)).astype(np.float32))
+    xb = torch.from_numpy(rs.randint(0, 512, (2, 12)).astype(np.float32))
+    _, net = _twins(12, xa.numpy())
+    _, ref = _twins(12, xa.numpy())
+
+    def head(out):
+        return (out.float() ** 2).mean()
+
+    def interleaved(block):
+        params = list(block.parameters())
+        lb, la = head(block(xb)), head(block(xa))
+        return (torch.autograd.grad(la, params)
+                + torch.autograd.grad(lb, params))
+
+    def between(block):
+        loss = head(block(xa))
+        with torch.no_grad():
+            block(xb)
+        return torch.autograd.grad(loss, list(block.parameters()))
+
+    want = interleaved(ref), between(ref)
+    net.hybridize()
+    _host_pairs(net)
+    with torch.no_grad():
+        for _ in range(2):
+            net(xb)                           # the unrecorded call
+    for x in (xa, xb):
+        for _ in range(2):                    # each pair: eager, captured
+            torch.autograd.grad(head(net(x)), list(net.parameters()))
+    for _ in range(2):
+        got = interleaved(net), between(net)
+        for g, w in zip(got, want):
+            assert all(torch.equal(a, b) for a, b in zip(g, w))
+    st = net.stats()
+    assert (st["captures"], st["busy_calls"]) == (2, 0)
+    assert st["replays"] == 2 + 3 * 2 and st["backward_replays"] == 2 + 3 * 2
+
+
+def test_in_place_change_before_the_backward_raises_as_eager_does():
+    """A parameter changed in place between a graphed call's forward and
+    its backward: eager autograd refuses the backward (a saved tensor
+    changed), and so does the graph pair, whose backward graph would
+    read the new value (shown on the pair's host double)."""
+    toks = np.random.RandomState(11).randint(0, 512, (1, 8)) \
+        .astype(np.float32)
+    _, net = _twins(11, toks)
+    x = torch.from_numpy(toks)
+    params = list(net.parameters())
+    weight = net.blocks[0].attn.q_proj.weight
+
+    def backward_after_change():
+        out = net(x).sum()
+        with torch.no_grad():
+            weight.mul_(1.0)
+        torch.autograd.grad(out, params)
+
+    with pytest.raises(RuntimeError, match="modified by an inplace"):
+        backward_after_change()               # eager
+    net.hybridize()
+    _host_pairs(net)
+    for _ in range(2):                        # eager, then captured
+        torch.autograd.grad(net(x).sum(), params)
+    with pytest.raises(MXNetError, match="modified in place"):
+        backward_after_change()
+    torch.autograd.grad(net(x).sum(), params)  # the pair is free again
+
+
+def test_create_graph_through_a_graphed_call_raises():
+    """The backward graph cannot be differentiated again: a backward
+    with ``create_graph=True`` through a graphed call raises (shown on
+    the pair's host double)."""
+    toks = np.random.RandomState(10).randint(0, 512, (1, 8)) \
+        .astype(np.float32)
+    _, net = _twins(10, toks)
+    net.hybridize()
+    _host_pairs(net)
+    x = torch.from_numpy(toks)
+    params = list(net.parameters())
+    for _ in range(2):                        # eager, then captured
+        torch.autograd.grad(net(x).sum(), params)
+    out = net(x).sum()
+    with pytest.raises(MXNetError, match="create_graph=True"):
+        torch.autograd.grad(out, params, create_graph=True)
+
+
 def test_hybridize_aot_and_lint_raise_naming_their_slice():
     net = tllama.llama_small(device="cpu")
-    with pytest.raises(MXNetError, match="S5b"):
+    with pytest.raises(MXNetError, match="S5c"):
         net.hybridize(aot="bundle.mxaot")
     with pytest.raises(MXNetError, match="S9"):
         net.hybridize(lint=True)
@@ -215,6 +420,7 @@ def test_call_cache_gets_by_key_and_clears():
     assert b is not a and list(cache.calls) == ["a", "b"]
     assert torch.equal(a(torch.ones(2)), torch.full((2,), 2.0))
     assert cache.stats() == {"graphs": 0, "captures": 0, "replays": 0,
+                             "backward_replays": 0, "busy_calls": 0,
                              "capture_s": 0.0, "host_s": 0.0,
                              "pool_bytes": 0}
     cache.clear()

@@ -418,7 +418,8 @@ names += ["mxnet_tpu_torch.serve.fleet", "mxnet_tpu_torch.serve.__main__",
           "mxnet_tpu_torch.telemetry.slo", "mxnet_tpu_torch.telemetry.trace"]
 names += ["chip_smoke", "tools.torch_paged_attention_sweep",
           "tools.torch_flash_attention_sweep", "tools.torch_mxfleet",
-          "tools.torch_mxflight", "tools.torch_mxtrace"]
+          "tools.torch_mxflight", "tools.torch_mxtrace",
+          "tools.torch_adamw_passes"]
 for name in names:
     importlib.import_module(name) if name != "mxnet_tpu_torch.nd" \
         else mxnet_tpu_torch.nd
@@ -449,7 +450,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files += [os.path.join(REPO, "chip_smoke.py")]
     files += [os.path.join(REPO, "tools", "torch_%s.py" % t)
               for t in ("paged_attention_sweep", "flash_attention_sweep",
-                        "mxfleet", "mxflight", "mxtrace")]
+                        "mxfleet", "mxflight", "mxtrace", "adamw_passes")]
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -511,10 +511,10 @@ def _hybrid_net(card):
 
 
 def _eager(net, x):
-    """The net's eager output: a call autograd records is never
-    captured."""
-    with torch.enable_grad():
-        return net(x).detach()
+    """The net's eager output: a nested call runs its blocks eagerly
+    (a recorded call would replay a graph pair)."""
+    with torch.no_grad():
+        return net._nested_call(x)
 
 
 @pytest.mark.cuda
@@ -596,7 +596,7 @@ def test_a_failed_capture_raises_and_the_process_goes_on_on_card(card):
     for _ in range(2):
         with pytest.raises(MXNetError, match="capture of host read failed"):
             bad(x)
-    assert bad.captures == 0 and bad.graph is None
+    assert bad.captures == 0 and bad.graphs == ()
     r = torch.randint(0, 10, (4096,), device=card)
     assert 0 <= int(r.min()) and int(r.max()) < 10
     good = gc.CapturedCall(lambda a: (a * 2, torch.rand(64, device=a.device)),
@@ -608,3 +608,187 @@ def test_a_failed_capture_raises_and_the_process_goes_on_on_card(card):
         assert bool(((drawn >= 0) & (drawn < 1)).all())
     assert not torch.equal(outs[1][1], outs[2][1]), "each replay draws anew"
     torch.cuda.synchronize()
+
+
+# -- S5b: recorded calls, the train step graph, bulked segments ------------
+
+def _grads(net, x, call=None):
+    """Gradients of a mean-square head over ``net``'s output, through
+    ``call`` (default the net itself)."""
+    out = (call or net)(x)
+    loss = (out.float() ** 2).mean()
+    return torch.autograd.grad(loss, list(net.parameters()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recorded_hybridized_grads_bitwise_equal_eager_on_card(card, dtype):
+    net = _hybrid_net(card)
+    if dtype == "bfloat16":
+        net.cast("bfloat16")
+    x = torch.randint(0, 512, (2, 16), device=card)
+    with torch.enable_grad():
+        want = _grads(net, x, net._nested_call)
+        net.hybridize()
+        got = [_grads(net, x) for _ in range(3)]
+    (pair,) = net._graphs.calls.values()
+    assert (pair.calls, pair.captures, pair.replays,
+            pair.backward_replays) == (3, 1, 2, 2)
+    for g in got:
+        assert all(torch.equal(a, b) for a, b in zip(g, want))
+
+
+@pytest.mark.cuda
+def test_busy_pair_runs_eagerly_with_eager_grads_on_card(card):
+    net = _hybrid_net(card)
+    xs = [torch.randint(0, 512, (1, 16), device=card) for _ in range(2)]
+
+    def two(call):
+        loss = sum((call(x).float() ** 2).mean() for x in xs)
+        return torch.autograd.grad(loss, list(net.parameters()))
+
+    want = two(net._nested_call)
+    net.hybridize()
+    for _ in range(2):
+        _grads(net, xs[0])                    # eager, then captured
+    got = two(net)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    st = net.stats()
+    assert st["busy_calls"] == 1 and st["captures"] == 1
+
+
+@pytest.mark.cuda
+def test_other_graphs_between_a_pairs_forward_and_backward_on_card(card):
+    """Each graph pair captures into a pool of its own.  Two pairs whose
+    backwards run in another order than they were captured (forward B,
+    forward A, backward A, backward B), and an unrecorded call captured
+    before the pair and replayed between its forward and its backward,
+    leave the gradients bitwise equal to eager."""
+    net = _hybrid_net(card)
+    params = list(net.parameters())
+    xa = torch.randint(0, 512, (1, 16), device=card)
+    xb = torch.randint(0, 512, (2, 32), device=card)
+
+    def head(out):
+        return (out.float() ** 2).mean()
+
+    def interleaved(call):
+        lb, la = head(call(xb)), head(call(xa))
+        return (torch.autograd.grad(la, params)
+                + torch.autograd.grad(lb, params))
+
+    def between(call):
+        loss = head(call(xa))
+        with torch.no_grad():
+            call(xb)
+        return torch.autograd.grad(loss, params)
+
+    with torch.enable_grad():
+        want = interleaved(net._nested_call), between(net._nested_call)
+        net.hybridize()
+        with torch.no_grad():
+            for _ in range(2):
+                net(xb)                       # eager, then captured
+        for x in (xa, xb):
+            for _ in range(2):
+                _grads(net, x)                # each pair: eager, captured
+        for _ in range(2):
+            got = interleaved(net), between(net)
+            for g, w in zip(got, want):
+                assert all(torch.equal(a, b) for a, b in zip(g, w))
+    st = net.stats()
+    assert (st["captures"], st["busy_calls"]) == (3, 0)
+    pools = {cc.held_pool for cc in net._graphs.calls.values()}
+    assert len(pools) == 3, "each pair holds a pool of its own"
+
+
+@pytest.mark.cuda
+def test_k2_k3_counts_grow_with_backward_replays_on_card(card):
+    net = _hybrid_net(card)
+    layers = len(net.blocks)
+    x = torch.randint(0, 512, (1, 32), device=card)
+    net.hybridize()
+    for _ in range(2):
+        _grads(net, x)                        # eager, then captured
+    before = [getattr(fa.flash_attention, n)
+              for n in ("fwd_launches", "dq_launches", "dkv_launches")]
+    for _ in range(3):
+        _grads(net, x)
+    after = [getattr(fa.flash_attention, n)
+             for n in ("fwd_launches", "dq_launches", "dkv_launches")]
+    assert [a - b for a, b in zip(after, before)] == [3 * layers] * 3
+
+
+def _train_step(card, graphs):
+    from mxnet_tpu_torch import gluon, parallel
+
+    net = _hybrid_net(card)
+    return net, parallel.JitTrainStep(
+        net, gluon.loss.SoftmaxCrossEntropyLoss(), "adamw",
+        {"learning_rate": 1e-3, "wd": 0.01}, graphs=graphs)
+
+
+@pytest.mark.cuda
+def test_graphed_train_step_bitwise_equal_eager_on_card(card):
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 512, (2, 16)).astype(np.int32)
+    y = rng.integers(0, 512, (2, 16)).astype(np.float32)
+    runs = []
+    for graphs in (False, True):
+        net, step = _train_step(card, graphs)
+        losses = []
+        for i in range(5):
+            if i == 3:
+                step._opt.set_learning_rate(3e-3)
+            losses.append(step.step(x, y).clone())
+        losses.append(step.step_n(4, x, y).clone())
+        runs.append((net, losses, step))
+    (e_net, e_loss, _), (g_net, g_loss, g_step) = runs
+    assert all(torch.equal(a, b) for a, b in zip(e_loss, g_loss))
+    for (name, a), b in zip(e_net.named_parameters(), g_net.parameters()):
+        assert torch.equal(a, b), name
+    st = g_step.stats()
+    assert (st["captures"], st["replays"]) == (1, 8)
+
+
+@pytest.mark.cuda
+def test_bulked_segments_bitwise_equal_eager_on_two_threads_on_card(card):
+    import threading
+
+    import mxnet_tpu_torch as mx
+
+    def work(seed, out):
+        rng = np.random.default_rng(seed)
+        ctx = mx.gpu(0)
+        w = mx.nd.array(rng.standard_normal((64, 64)).astype(np.float32),
+                        ctx=ctx)
+        x = mx.nd.array(rng.standard_normal((32, 64)).astype(np.float32),
+                        ctx=ctx)
+        w.attach_grad()
+        res = []
+        for _ in range(4):
+            with mx.autograd.record():
+                h = mx.nd.tanh(mx.nd.dot(x, w)) * 1.5 + 0.25
+                loss = (h * h).mean()
+            loss.backward()
+            z = (w * 2.0 + 1.0).sum(axis=0)
+            res.append((loss.asnumpy(), w.grad.asnumpy(), z.asnumpy()))
+        out[seed] = (res, mx.engine.Engine.get().segment_stats())
+
+    eager = {}
+    with mx.engine.bulk(0):
+        for seed in (1, 2):
+            work(seed, eager)
+    bulked = {}
+    threads = [threading.Thread(target=work, args=(s, bulked))
+               for s in (1, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for seed in (1, 2):
+        got, st = bulked[seed]
+        want, _ = eager[seed]
+        for a, b in zip(got, want):
+            assert all(np.array_equal(p, q) for p, q in zip(a, b))
+        assert st["graphs"]["replays"] > 0, "segments replayed on the card"

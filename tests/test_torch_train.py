@@ -78,6 +78,65 @@ def test_jit_train_step_adamw_trajectory_matches_jax():
                                    atol=1e-3, err_msg=name)
 
 
+def test_step_n_equals_n_steps_and_jax_step_n():
+    """``step_n(3)`` is three ``step()`` calls, bitwise (the update count
+    advances on the device), and gives the JAX package's ``step_n``
+    loss and weights (the trajectory case's tolerance)."""
+    x, y = _batch(2)
+    jnet, one = _twins(2, x)
+    _, many = _twins(2, x)
+    opt = {"learning_rate": 1e-3, "wd": 0.01}
+    steps = [parallel.JitTrainStep(n, gluon.loss.SoftmaxCrossEntropyLoss(),
+                                   "adamw", dict(opt)) for n in (one, many)]
+    first = [steps[0].step(x, y) for _ in range(3)][-1]
+    last = steps[1].step_n(3, x, y)
+    assert torch.equal(first, last) and steps[1]._t == 3
+    assert int(steps[1]._count) == 3
+    for (name, a), b in zip(one.named_parameters(), many.parameters()):
+        assert torch.equal(a, b), name
+    jstep = jparallel.JitTrainStep(jnet, jgluon.loss.SoftmaxCrossEntropyLoss(),
+                                   "adamw", dict(opt))
+    np.testing.assert_allclose(last.item(), float(jstep.step_n(3, x, y)),
+                               rtol=1e-5, atol=1e-5)
+    jstep.sync_params()
+    jparams = jnet._collect_params_with_prefix()
+    for name, p in many.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   jparams[name].data().asnumpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def test_learning_rate_change_between_steps_takes_effect():
+    """``set_learning_rate`` between steps 3 and 4: the port follows the
+    JAX package's JitTrainStep (whose jitted step takes lr as an
+    argument), and differs from a run that kept the old rate."""
+    x, y = _batch(3)
+    jnet, net = _twins(3, x)
+    _, kept = _twins(3, x)
+    opt = {"learning_rate": 1e-3}
+    jstep = jparallel.JitTrainStep(jnet, jgluon.loss.SoftmaxCrossEntropyLoss(),
+                                   "adamw", dict(opt))
+    step, ref = (parallel.JitTrainStep(
+        n, gluon.loss.SoftmaxCrossEntropyLoss(), "adamw", dict(opt))
+        for n in (net, kept))
+    for i in range(5):
+        if i == 3:
+            jstep._opt.set_learning_rate(3e-2)
+            step._opt.set_learning_rate(3e-2)
+        got, want = step.step(x, y), float(jstep.step(x, y))
+        np.testing.assert_allclose(got.item(), want, rtol=1e-5, atol=1e-5)
+        ref.step(x, y)
+    jstep.sync_params()
+    jparams = jnet._collect_params_with_prefix()
+    moved = 0
+    for (name, p), q in zip(net.named_parameters(), kept.parameters()):
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   jparams[name].data().asnumpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+        moved += not torch.equal(p, q)
+    assert moved == len(list(net.parameters()))
+
+
 def test_trainer_adam_matches_jax_and_converges():
     """test_llama.py's convergence case: the same 8 adam steps through
     the imperative form in both packages, then the 0.8x drop."""
