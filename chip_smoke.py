@@ -116,7 +116,29 @@ Phases, each fatal on failure:
              without waiting;
 12. imperative parity — the same step in f32 with TF32 off at width
              256 / 512: the card (rtc kernels) against the host
-             (``PallasKernel`` bodies over the plain SwiGLU).
+             (``PallasKernel`` bodies over the plain SwiGLU);
+13. resnet — ResNet-50 v1, the repo's headline workload (no Pallas
+             kernel lies on its path: convolutions run through cuDNN).
+             First, f32 with TF32 off at 224 x 224, batch 2: the card
+             (channels-last) against the host (NCHW) from the same
+             weights, within 1e-3: train- and predict-mode logits, the
+             loss, three gradients and the running statistics after
+             the step; then ``resnet18_v1`` at 64 x 64, batch 8, f32,
+             deterministic cuDNN: the graphed ``JitTrainStep`` (3 sgd
+             steps, an lr change, ``step_n(4)``), the hybridized forward
+             (predict and train mode) and 3 ``gluon.Trainer`` steps under
+             ``record()`` through the graph pair, each bitwise equal to
+             eager, running statistics included; then a main path:
+             ResNet-50 v1 at 224 x 224, 1000 classes, ``amp`` bf16, sgd
+             0.1 with momentum 0.9 through ``JitTrainStep`` on seeded
+             random images, batch 256 (and 384 where it fits), every step
+             eager, then graphed, then a ``step_n(10)`` window; losses
+             finite and falling; images/s, step ms, MFU from the
+             convolutions' and dense layer's shapes, peak memory, the
+             profiled step's idle share and top kernels, and the
+             BatchNorms and the SGD update each timed alone; then the
+             trained net's ``no_grad`` inference at batch 32 and 256,
+             eager against hybridized.
 
 Each phase logs the card's SM clock and its maximum when it starts.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -3000,6 +3022,563 @@ def imperative_parity(mx, dev):
         fail("the card's imperative step disagrees with the host's")
 
 
+# -- phase 13: ResNet-50, the repo's headline workload ---------------------
+
+RESNET_IMAGE = 224
+RESNET_BATCH = 256                # bench.py's is 384 on a v5e: run if it fits
+RESNET_BIG_BATCH = 384
+RESNET_INFER_BATCHES = (32, 256)  # 32 is bench.py infer's row
+RESNET_SMALL = dict(name="resnet18_v1", batch=8, image=64)
+
+
+@contextlib.contextmanager
+def exact_convs():
+    """f32 convolutions and products in IEEE f32 (TF32 off) and
+    deterministic cuDNN algorithms without autotuning, for the checks
+    that compare bits or hold the card to the host."""
+    import torch
+
+    b = torch.backends
+    saved = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32,
+             b.cudnn.deterministic, b.cudnn.benchmark)
+    b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = False
+    b.cudnn.deterministic, b.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32,
+         b.cudnn.deterministic, b.cudnn.benchmark) = saved
+
+
+def resnet_net(dev, name, seed, **kw):
+    """``vision.get_model(name)`` on ``dev``, Xavier from a seeded
+    generator: the deferred shapes are filled from the same generator at
+    the first forward, so two nets from one seed are equal."""
+    import torch
+
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    net = vision.get_model(name, device=dev, **kw)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    net.initialize(initializer.Xavier(), generator=gen)
+    return net
+
+
+def resnet_shapes(net, x):
+    """One predict-mode forward under ``no_grad`` on ``x``: the deferred
+    shapes are made and filled (the running statistics stay as they
+    are).  Returns the model FLOP of one train step on ``x`` (2 x the
+    multiply-adds of every convolution and dense layer, from their
+    shapes in this forward, x 3: the backward takes twice the forward's)
+    and the (shape, axis) of every BatchNorm's input."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.nn.conv_layers import _Conv
+
+    macs, bns, hooks = [0], [], []
+
+    def conv(m, inp, out):
+        macs[0] += out.numel() * math.prod(m.weight.shape[1:])
+
+    def dense(m, inp, out):
+        macs[0] += out.numel() * m.weight.shape[1]
+
+    def bn(m, inp, out):
+        bns.append((tuple(inp[0].shape), m._axis))
+
+    for m in net.modules():
+        hook = conv if isinstance(m, _Conv) else dense \
+            if isinstance(m, nn.Dense) else bn \
+            if isinstance(m, nn.BatchNorm) else None
+        if hook is not None:
+            hooks.append(m.register_forward_hook(hook))
+    try:
+        with torch.no_grad(), autograd.predict_mode():
+            net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return 3 * 2 * macs[0], bns
+
+
+def resnet_parity(dev):
+    """ResNet-50 v1 at 224 x 224, batch 2, f32, TF32 off: the card
+    (channels-last, cuDNN) against the host (NCHW) from the same
+    weights: train-mode logits and loss, the gradients of the stem
+    convolution, one bottleneck's BatchNorm gamma and the output layer,
+    the running statistics after that step, and predict-mode logits.
+    Each is held to the host's f64 run of the same step: the card's
+    error within 1e-3 of the largest value, or within 3x the host f32
+    run's own error where that is larger (at batch 2 the BatchNorms'
+    backward cancels heavily, and the deep gradients of any f32 run
+    are off by a few percent)."""
+    import torch
+
+    from mxnet_tpu_torch import autograd, gluon
+
+    rng = np.random.RandomState(1)
+    x = rng.rand(2, 3, RESNET_IMAGE, RESNET_IMAGE).astype(np.float32)
+    y = rng.randint(0, 1000, 2).astype(np.float32)
+    host = resnet_net("cpu", "resnet50_v1", 1)
+    resnet_shapes(host, torch.from_numpy(x))
+    card = resnet_net(dev, "resnet50_v1", 1)
+    resnet_shapes(card, torch.from_numpy(x).to(dev))
+    card.load_state_dict(host.state_dict())
+    wide = resnet_net("cpu", "resnet50_v1", 1)
+    resnet_shapes(wide, torch.from_numpy(x))
+    wide.load_state_dict(host.state_dict())
+    wide.double()
+    names = ("features.0.weight", "features.5.0.body.1.gamma",
+             "output.weight")
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    res = []
+    with exact_convs():
+        for net in (card, host, wide):
+            where = next(net.parameters()).device
+            xt = torch.from_numpy(x).to(where, next(net.parameters()).dtype)
+            params = net.collect_params()
+            with autograd.record():
+                out = net(xt)
+                loss = loss_fn(out, torch.from_numpy(y).to(where)).mean()
+            grads = torch.autograd.grad(loss, [params[n] for n in names])
+            with torch.no_grad():
+                pred = net(xt)
+            stats = torch.cat([t.reshape(-1) for k, t in params.items()
+                               if "running" in k])
+            res.append([t.detach().double().cpu()
+                        for t in (out, loss, *grads, stats, pred)])
+    labels = ("train logits", "loss") + tuple("grad " + n for n in names) \
+        + ("running statistics after the step", "predict logits")
+    ok = True
+    for label, c, h, w in zip(labels, *res):
+        scale = w.abs().max().item() + 1e-30
+        e_card = (c - w).abs().max().item() / scale
+        e_host = (h - w).abs().max().item() / scale
+        bound = max(1e-3, 3 * e_host)
+        ok &= e_card <= bound
+        log("resnet parity: %s: card %.3g, host f32 %.3g of the largest "
+            "value (%.4g) from the host's f64 run (bound %.3g) %s"
+            % (label, e_card, e_host, scale, bound,
+               "ok" if e_card <= bound else "FAIL"))
+    log("resnet parity: ResNet-50 v1, 224 x 224, batch 2, f32, TF32 off, "
+        "card %s against host %s: %s" % (card._layout, host._layout,
+                                         "ok" if ok else "FAIL"))
+    if not ok:
+        fail("the card's ResNet-50 disagrees with the host's")
+
+
+def _resnet_batch(dev, batch, image, seed, dtype=None):
+    """Seeded images in [0, 1) and labels, as bench.py makes them."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.rand(batch, 3, image, image)
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, 1000, batch).astype(np.float32)) \
+        .to(dev)
+    return (x if dtype is None else x.to(dtype)), y
+
+
+def _state(net):
+    """Copies of a net's weights and running statistics, by name."""
+    return {k: t.detach().clone() for k, t in net.collect_params().items()}
+
+
+def _same(a, b):
+    import torch
+
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def resnet_train_step_check(dev, name, batch, image):
+    """f32, TF32 off, deterministic cuDNN: ``JitTrainStep`` (sgd 0.1,
+    momentum 0.9) graphed against ``graphs=False``: 3 steps with the
+    learning rate changed before the third, then ``step_n(4)`` against
+    four ``step()`` calls: losses, weights and running statistics
+    bitwise equal, one capture and 6 replays."""
+    import torch
+
+    from mxnet_tpu_torch import gluon, parallel
+
+    x, y = _resnet_batch(dev, batch, image, 2)
+    runs = []
+    with exact_convs():
+        for graphs in (False, True):
+            net = resnet_net(dev, name, 2)
+            step = parallel.JitTrainStep(
+                net, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+                {"learning_rate": 0.1, "momentum": 0.9}, graphs=graphs)
+            losses = []
+            for i in range(3):
+                if i == 2:
+                    step._opt.set_learning_rate(0.05)
+                losses.append(step.step(x, y).clone())
+            losses.append(step.step_n(4, x, y).clone())
+            runs.append((losses, _state(net), step.stats()))
+            del step, net
+    (e_loss, e_w, _), (g_loss, g_w, st) = runs
+    same_loss = all(torch.equal(a, b) for a, b in zip(e_loss, g_loss))
+    same_w = _same(e_w, g_w)
+    log("resnet graphs: %s %d x %d, batch %d, f32: JitTrainStep sgd "
+        "momentum, 3 steps (lr 0.1, then 0.05) and step_n(4): losses %s; "
+        "graphed against eager: losses %s, weights and running statistics "
+        "%s; %d capture, %d replays"
+        % (name, image, image, batch, ["%.5f" % v.item() for v in e_loss],
+           "bitwise equal" if same_loss else "DIFFER",
+           "bitwise equal" if same_w else "DIFFER", st["captures"],
+           st["replays"]))
+    if not (same_loss and same_w):
+        fail("the graphed ResNet JitTrainStep is not bitwise equal to eager")
+    if (st["captures"], st["replays"]) != (1, 6):
+        fail("the graphed ResNet step did not capture once and replay 6 "
+             "times")
+
+
+def resnet_hybrid_forward_check(dev, name, batch, image):
+    """f32, TF32 off, deterministic cuDNN: the hybridized forward
+    (eager, captured, replayed) against eager, bitwise: under
+    ``no_grad`` in predict mode, and in train mode, where each call
+    writes the running statistics (3 calls: the statistics after them
+    bitwise equal too)."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+
+    x, _ = _resnet_batch(dev, batch, image, 3)
+    with exact_convs():
+        outs = []
+        for hybrid in (False, True):
+            net = resnet_net(dev, name, 3)
+            resnet_shapes(net, x)
+            if hybrid:
+                net.hybridize()
+            with torch.no_grad():
+                pred = [net(x).clone() for _ in range(3)]
+                with autograd.train_mode():
+                    train = [net(x).clone() for _ in range(3)]
+            outs.append((pred, train, _state(net),
+                         net.stats() if hybrid else None))
+            del net
+    (e_p, e_t, e_w, _), (h_p, h_t, h_w, st) = outs
+    same = all(torch.equal(a, b) for a, b in zip(e_p + e_t, h_p + h_t))
+    same_w = _same(e_w, h_w)
+    log("resnet graphs: %s, batch %d, f32: hybridized no_grad forward, 3 "
+        "predict-mode and 3 train-mode calls: outputs %s, running "
+        "statistics %s; %d captures, %d replays"
+        % (name, batch, "bitwise equal" if same else "DIFFER",
+           "bitwise equal" if same_w else "DIFFER", st["captures"],
+           st["replays"]))
+    if not (same and same_w):
+        fail("the hybridized ResNet forward is not bitwise equal to eager")
+    if (st["captures"], st["replays"]) != (2, 4):
+        fail("the hybridized forward did not capture once a mode")
+
+
+def resnet_recorded_trainer_check(dev, name, batch, image):
+    """f32, TF32 off, deterministic cuDNN: 3 ``gluon.Trainer`` steps
+    (sgd 0.1, momentum 0.9) under ``record()`` through the hybridized
+    net's graph pair (BatchNorm writing its running statistics inside
+    the forward graph) against eager: losses, weights and running
+    statistics bitwise equal; one capture, 2 forward and 2 backward
+    replays."""
+    import torch
+
+    from mxnet_tpu_torch import autograd, gluon
+
+    x, y = _resnet_batch(dev, batch, image, 4)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    runs = []
+    with exact_convs():
+        for hybrid in (False, True):
+            net = resnet_net(dev, name, 4)
+            resnet_shapes(net, x)
+            if hybrid:
+                net.hybridize()
+            trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                    {"learning_rate": 0.1, "momentum": 0.9})
+            losses = []
+            for _ in range(3):
+                with autograd.record():
+                    loss = loss_fn(net(x), y).sum()
+                loss.backward()
+                trainer.step(batch)
+                losses.append(loss.detach().clone())
+            runs.append((losses, _state(net),
+                         net.stats() if hybrid else None))
+            del net, trainer
+    (e_l, e_w, _), (h_l, h_w, st) = runs
+    same_l = all(torch.equal(a, b) for a, b in zip(e_l, h_l))
+    same_w = _same(e_w, h_w)
+    moved = not torch.equal(
+        e_w["features.1.running_var"],
+        torch.ones_like(e_w["features.1.running_var"]))
+    log("resnet graphs: %s, batch %d, f32: 3 Trainer sgd steps under "
+        "record() through the graph pair: losses %s; hybridized against "
+        "eager: losses %s, weights and running statistics %s (statistics "
+        "moved: %s); %d capture, %d forward and %d backward replays"
+        % (name, batch, ["%.4f" % v.item() for v in e_l],
+           "bitwise equal" if same_l else "DIFFER",
+           "bitwise equal" if same_w else "DIFFER", moved, st["captures"],
+           st["replays"], st["backward_replays"]))
+    if not (same_l and same_w and moved):
+        fail("the recorded hybridized ResNet step is not bitwise equal to "
+             "eager")
+    if (st["captures"], st["replays"], st["backward_replays"]) != (1, 2, 2):
+        fail("the recorded ResNet call did not capture once and replay "
+             "twice")
+
+
+def kernel_rows(averages, top=12):
+    """Device ms, launches and name of each kernel in a profile, largest
+    first, with the convolutions' share (cuDNN's and CUTLASS's kernels
+    by name)."""
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in averages if e.self_device_time_total > 0),
+                  reverse=True)
+    rows = [r for r in rows if not r[2].startswith(("Memcpy", "Memset"))]
+    conv = sum(r[0] for r in rows if any(
+        s in r[2].lower() for s in ("conv", "cudnn", "xmma", "implicit",
+                                    "sm90_", "cutlass", "nhwc", "dgrad",
+                                    "wgrad")))
+    return rows[:top], conv, sum(r[0] for r in rows)
+
+
+def resnet_layer_times(dev, bn_shapes, net, dtype):
+    """The layers the step cannot show apart, each alone on the card:
+    every BatchNorm of the net forward and backward in train mode at its
+    input shape (kernel busy ms, one profiled pass after a warm-up), and
+    the SGD-momentum update of every weight with a device learning rate
+    as ``JitTrainStep`` runs it."""
+    import torch
+
+    from mxnet_tpu_torch import optimizer
+    from mxnet_tpu_torch.ops import nn as nn_ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    ins = []
+    for shape, axis in bn_shapes:
+        c = shape[axis]
+        ins.append((torch.randn(shape, device=dev, generator=gen)
+                    .to(dtype).contiguous(), axis,
+                    torch.ones(c, device=dev, requires_grad=True),
+                    torch.zeros(c, device=dev, requires_grad=True),
+                    torch.zeros(c, device=dev), torch.ones(c, device=dev)))
+    ins = [(x.requires_grad_(), *rest) for x, *rest in ins]
+
+    def bn_pass():
+        for x, axis, g, b, mm, mv in ins:
+            out, _, _ = nn_ops._batch_norm(x, g, b, mm, mv, eps=1e-5,
+                                           fix_gamma=False, axis=axis,
+                                           _mode="train")
+            torch.autograd.grad(out, (x, g, b), torch.ones_like(out))
+
+    bn_pass()
+    _, bn_wall, bn_busy, _ = profiled_step(bn_pass)
+    elements = sum(math.prod(s) for s, _ in bn_shapes)
+    del ins
+    opt = optimizer.create("sgd", learning_rate=0.1, momentum=0.9)
+    params = [p.detach().clone() for p in net.parameters()
+              if p.requires_grad]
+    grads = [torch.randn(p.shape, device=dev, generator=gen).to(p.dtype)
+             for p in params]
+    states = [opt.create_state(i, p.detach()) for i, p in enumerate(params)]
+    lr = torch.full((), 0.1, device=dev)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def update():
+        with torch.no_grad():
+            for i, p in enumerate(params):
+                opt._step(p, grads[i], states[i], lr, 0.0, count)
+
+    update()
+    _, sgd_wall, sgd_busy, sgd_avg = profiled_step(update)
+    n = sum(p.numel() for p in params)
+    log("resnet layers: %d BatchNorms forward + backward alone (%.4g G "
+        "activation elements, %s): kernels busy %.3f ms (wall %.3f ms)"
+        % (len(bn_shapes), elements / 1e9, dtype, bn_busy, bn_wall * 1e3))
+    log("resnet layers: the SGD-momentum update alone (%d weights, %.4g M "
+        "elements, device lr): kernels busy %.3f ms (wall %.3f ms); top %s"
+        % (len(params), n / 1e6, sgd_busy, sgd_wall * 1e3,
+           ["%.3f ms x%d %s" % r for r in kernel_rows(sgd_avg, 3)[0]]))
+    return bn_busy, sgd_busy
+
+
+def resnet_train_run(dev, batch, keep_net=False):
+    """ResNet-50 v1 at 224 x 224, 1000 classes, amp bf16, sgd lr 0.1,
+    momentum 0.9, through ``JitTrainStep`` on seeded random images and
+    labels: every step eager (``graphs=False``), then graphed, 2 warm-up,
+    8 timed and 1 profiled step each, then one ``step_n(10)`` window."""
+    import torch
+
+    from mxnet_tpu_torch import amp, gluon, parallel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    net = resnet_net(dev, "resnet50_v1", 0)
+    amp.convert_hybrid_block(net)
+    x, y = _resnet_batch(dev, batch, RESNET_IMAGE, 0, torch.bfloat16)
+    step_flops, bn_shapes = resnet_shapes(net, x)
+    n_params = sum(p.numel() for p in net.parameters())
+    step = parallel.JitTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                                 "sgd", {"learning_rate": 0.1,
+                                         "momentum": 0.9}, graphs=False)
+    log("resnet train: ResNet-50 v1, %.4g M parameters (bf16, BatchNorm "
+        "f32), %s, batch %d at %d x %d, %.4g TFLOP a step (3 x 2 x the "
+        "conv and dense multiply-adds), set-up %.1f s; cudnn.benchmark %s, "
+        "cudnn.allow_tf32 %s, matmul.allow_tf32 %s"
+        % (n_params / 1e6, net._layout, batch, RESNET_IMAGE, RESNET_IMAGE,
+           step_flops / 1e12, time.perf_counter() - t0,
+           torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32))
+    losses, rows = [], {}
+    n_warm, n_timed = 2, 8
+    for mode in ("eager", "graphed"):
+        step.graphs = mode == "graphed"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, outs = timed_steps(lambda: step.step(x, y), n_warm, n_timed)
+        losses += [o.item() for o in outs]
+        out, wall, busy, averages = profiled_step(lambda: step.step(x, y))
+        losses.append(out.item())
+        rows[mode] = (times, wall, busy, averages,
+                      torch.cuda.max_memory_allocated(), step.stats())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    last = step.step_n(10, x, y)
+    torch.cuda.synchronize()
+    window = time.perf_counter() - t1
+    losses.append(last.item())
+    log("resnet train: batch %d losses %s" % (batch, ["%.4f" % v
+                                                      for v in losses]))
+    if not all(math.isfinite(v) for v in losses):
+        fail("a ResNet-50 train loss is not finite")
+    if not losses[-1] < losses[0]:
+        fail("the ResNet-50 loss did not fall on the fixed batch")
+    st = step.stats()
+    if st["captures"] != 1 or st["replays"] != n_warm + n_timed + 10:
+        fail("the graphed ResNet-50 step did not capture once and replay "
+             "(%s)" % st)
+    result = {"batch": batch}
+    for mode, (times, wall, busy, averages, peak, st) in rows.items():
+        p50_s = times[len(times) // 2]
+        top, conv_ms, kern_ms = kernel_rows(averages)
+        log("resnet train: batch %d %s step ms p50 %.3f (min %.3f max %.3f "
+            "over %d timed steps), %.1f images/s, %.1f%% MFU (%.4g model "
+            "FLOP a step at 989 TFLOP/s bf16), peak device memory %.2f GB "
+            "(%.2f GB held before the run)"
+            % (batch, mode, 1e3 * p50_s, 1e3 * times[0], 1e3 * times[-1],
+               len(times), batch / p50_s,
+               100 * step_flops / p50_s / BF16_FLOPS, step_flops,
+               peak / 1e9, held / 1e9))
+        log("resnet train: batch %d %s profiled step: wall %.3f ms, kernels "
+            "busy %.3f ms (union of intervals), idle %.1f%%; kernels summed "
+            "%.3f ms, convolution kernels %.3f ms (%.1f%%)"
+            % (batch, mode, wall * 1e3, busy,
+               100 * (1 - busy / (wall * 1e3)), kern_ms, conv_ms,
+               100 * conv_ms / max(kern_ms, 1e-9)))
+        for ms, n, key in top:
+            log("resnet train:   %9.3f ms  x%-5d %s" % (ms, n, key[:100]))
+        result[mode] = dict(p50_ms=1e3 * p50_s, images_s=batch / p50_s,
+                            peak_gb=(peak - held) / 1e9)
+        if mode == "graphed":
+            log("resnet train: batch %d graphed: %d capture in %.3f s, %d "
+                "replays, %.1f us host time a replay outside it, graph pool "
+                "%.1f MB" % (batch, st["captures"], st["capture_s"],
+                             st["replays"],
+                             1e6 * st["host_s"] / max(st["replays"], 1),
+                             st["pool_bytes"] / 1e6))
+    log("resnet train: batch %d step_n(10): %.3f s, %.1f images/s, %.3f ms "
+        "a step" % (batch, window, 10 * batch / window, 100 * window))
+    result["step_n_images_s"] = 10 * batch / window
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if keep_net:
+        result["bn_ms"], result["sgd_ms"] = resnet_layer_times(
+            dev, bn_shapes, net, torch.bfloat16)
+        return result, net
+    return result, None
+
+
+def resnet_infer(net, dev):
+    """``no_grad`` predict-mode forward of the trained bf16 net, eager
+    against hybridized (eager first call, capture, replays), at each of
+    RESNET_INFER_BATCHES: wall p50 of 10 synchronised calls after 3."""
+    import torch
+
+    for batch in RESNET_INFER_BATCHES:
+        x, _ = _resnet_batch(dev, batch, RESNET_IMAGE, 6, torch.bfloat16)
+        net.hybridize(False)
+        eager, want = timed_forward(net, x, 13)
+        net.hybridize()
+        hyb, got = timed_forward(net, x, 13)
+        eager, hyb = sorted(eager[3:]), sorted(hyb[3:])
+        if not bool(torch.isfinite(got.float()).all()):
+            fail("non-finite ResNet-50 logits")
+        err = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        st = net.stats()
+        log("resnet infer: batch %d, bf16, no_grad: eager ms p50 %.3f (min "
+            "%.3f max %.3f), %.1f images/s; hybridized ms p50 %.3f (min "
+            "%.3f max %.3f), %.1f images/s; logits %s (%.3g of the largest);"
+            " %d capture, %d replays"
+            % (batch, eager[len(eager) // 2], eager[0], eager[-1],
+               1e3 * batch / eager[len(eager) // 2], hyb[len(hyb) // 2],
+               hyb[0], hyb[-1], 1e3 * batch / hyb[len(hyb) // 2],
+               "bitwise equal" if err == 0 else "differ", err,
+               st["captures"], st["replays"]))
+        if err > 1e-2:
+            fail("the hybridized ResNet-50 forward disagrees with eager")
+    net.hybridize(False)
+
+
+def resnet_phase(dev):
+    """f32 card-against-host checks at ResNet-50's full size, the
+    graphed-against-eager checks at RESNET_SMALL, then the main path:
+    ResNet-50 v1 trained through ``JitTrainStep`` under amp bf16 at
+    batch 256 (and 384 where it fits), and its hybridized inference."""
+    import torch
+
+    from mxnet_tpu_torch import amp
+
+    start_profiler(dev)
+    resnet_parity(dev)
+    small = RESNET_SMALL
+    for check in (resnet_train_step_check, resnet_hybrid_forward_check,
+                  resnet_recorded_trainer_check):
+        check(dev, small["name"], small["batch"], small["image"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the timed run: autotuned cuDNN, no TF32 (its convolutions are bf16)
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    amp.init("bfloat16")
+    try:
+        first, net = resnet_train_run(dev, RESNET_BATCH, keep_net=True)
+        total = torch.cuda.get_device_properties(dev).total_memory
+        need = first["graphed"]["peak_gb"] * 1e9 \
+            * RESNET_BIG_BATCH / RESNET_BATCH + torch.cuda.memory_allocated()
+        if need < 0.9 * total:
+            resnet_train_run(dev, RESNET_BIG_BATCH)
+        else:
+            log("resnet train: batch %d not run: it would need about %.1f "
+                "GB of the card's %.1f" % (RESNET_BIG_BATCH, need / 1e9,
+                                           total / 1e9))
+        resnet_infer(net, dev)
+    finally:
+        amp.turn_off()
+        torch.backends.cudnn.benchmark = False
+
+
 def clocks_line():
     """The card's SM clock and its maximum now (nvidia-smi)."""
     r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
@@ -3021,7 +3600,7 @@ def nvidia_smi_line():
 
 PHASES = ("kernel", "flash", "serve", "parity", "fleet", "train",
           "train_parity", "hybridize", "rtc", "imperative",
-          "imperative_parity")
+          "imperative_parity", "resnet")
 # the phases that launch K1-K4, whose libraries the smoke builds first
 NVCC_PHASES = {"kernel", "flash", "serve", "parity", "fleet", "train",
                "train_parity", "hybridize"}
@@ -3115,6 +3694,7 @@ def main(argv):
     k5 = timed("rtc", rtc_phase, mx, dev)
     k5_launches = timed("imperative", imperative_main_path, mx, dev)
     timed("imperative_parity", imperative_parity, mx, dev)
+    timed("resnet", resnet_phase, dev)
     log("total: %.1f s" % (time.perf_counter() - t_all))
     if list(phases) != list(PHASES):
         log("ran phases %s only: no result lines" % ",".join(phases))

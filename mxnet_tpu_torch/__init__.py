@@ -17,13 +17,17 @@ Ported so far:
 * the compiled paths: ``graph_cache`` captures one CUDA graph per call
   signature, the counterpart of the JAX package's one executable per
   signature, for the serve runner's steps and ``HybridBlock.hybridize()``;
+* ResNet: the convolution, pooling, BatchNorm and activation layers
+  (``gluon.nn`` over ``ops.nn``), ``gluon.model_zoo.vision``'s ResNets,
+  ``amp`` and the ``layout`` policy (channels-last on the card);
 * the telemetry and testing modules these tiers use.
 
 The port's own kernels are CUDA C++ for sm_90a in ``csrc/``.  Entry
 points run on the card (``cuda:0``, ``gpu(0)``) unless asked for the
 host with ``device="cpu"``, ``ctx=mx.cpu()`` or ``with mx.cpu():``.
 """
-from . import base, context, ops, serve, telemetry, testing  # noqa: F401
+from . import amp, base, context, layout, ops, serve  # noqa: F401
+from . import telemetry, testing  # noqa: F401
 from . import gluon, initializer, optimizer, parallel  # noqa: F401
 from . import autograd, engine, ndarray, rtc  # noqa: F401
 from . import initializer as init  # noqa: F401

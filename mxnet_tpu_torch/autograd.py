@@ -33,7 +33,8 @@ The tape is torch's autograd graph:
   backward graph cannot be differentiated again.
 
 ``train_mode``/``predict_mode`` set the training flag that mode-aware
-ops read; no op of this slice reads it.
+ops read (``BatchNorm`` takes batch statistics and ``Dropout`` drops
+only in train mode); ``record()`` sets it too, unless told otherwise.
 """
 from __future__ import annotations
 

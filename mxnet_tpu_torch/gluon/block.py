@@ -9,6 +9,10 @@ which are the JAX package's ``_collect_params_with_prefix()`` names, so
 attribute (``"ones"``, ``"zeros"`` or an ``Initializer``) that overrides
 the initializer given to ``initialize``, as in the JAX package.
 
+Running statistics (``nn.BatchNorm``'s) are buffers, listed by
+``collect_params()`` beside the parameters as the JAX package lists its
+``grad_req="null"`` parameters; a buffer may carry an ``init`` too.
+
 ``HybridBlock.hybridize()`` is the counterpart of the JAX package's one
 compiled executable per input signature: on the card, the outermost
 hybridized block runs each signature as one captured CUDA graph
@@ -19,6 +23,7 @@ reference's cached jitted vjp.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 
 import torch
@@ -67,8 +72,17 @@ class Block(torch.nn.Module):
         self._deferred_init = None    # (init, generator) for lazy shapes
 
     def collect_params(self):
-        """``{structural name: Parameter}`` in registration order."""
-        return dict(self.named_parameters())
+        """``{structural name: tensor}``, each block's parameters and then
+        its buffers (running statistics, which take no gradient: the JAX
+        package's ``grad_req="null"``), block by block in registration
+        order."""
+        out = {}
+        for prefix, module in self.named_modules():
+            for name, t in itertools.chain(module._parameters.items(),
+                                           module._buffers.items()):
+                if t is not None:
+                    out[prefix + "." + name if prefix else name] = t
+        return out
 
     def initialize(self, init=None, device=None, verbose=False,
                    force_reinit=False, generator=None):
@@ -83,8 +97,11 @@ class Block(torch.nn.Module):
         default = _init.create(init)
         for module in self.modules():
             module._deferred_init = (default, generator)
-        for name, p in self.named_parameters():
-            if isinstance(p, torch.nn.parameter.UninitializedParameter):
+        for name, p in itertools.chain(
+                self.named_parameters(),
+                ((n, b) for n, b in self.named_buffers()
+                 if hasattr(b, "init"))):
+            if isinstance(p, torch.nn.parameter.UninitializedTensorMixin):
                 continue
             if getattr(p, "_initialized", False) and not force_reinit:
                 continue
@@ -94,14 +111,17 @@ class Block(torch.nn.Module):
         return self
 
     def cast(self, dtype):
-        """Cast every floating-point parameter to ``dtype`` (parity:
-        Block.cast, which ``amp.convert_hybrid_block`` uses)."""
-        dt = as_dtype(dtype)
+        """Cast every floating-point parameter of this block and, through
+        their own ``cast``, of its children to ``dtype`` (parity:
+        Block.cast, which ``amp.convert_hybrid_block`` uses;
+        ``nn.BatchNorm`` keeps f32 under bf16 and f16)."""
         _clear_caches(self)
-        for p in self.parameters():
-            if p.is_floating_point() and not isinstance(
-                    p, torch.nn.parameter.UninitializedParameter):
-                p.data = p.data.to(dt)
+        for child in self.children():
+            if isinstance(child, Block):
+                child.cast(dtype)
+            else:
+                cast_tensors(child.parameters(), as_dtype(dtype))
+        cast_tensors(self._parameters.values(), as_dtype(dtype))
         return self
 
     def _apply(self, fn, *args, **kwargs):
@@ -221,6 +241,19 @@ class HybridBlock(Block):
             self._watched = (gen, list(self.parameters())
                              + list(self.buffers()))
         return self._watched[1]
+
+
+def cast_tensors(tensors, dtype):
+    """Cast each floating-point tensor of ``tensors`` in place of its
+    data (the object, and its memory format, kept); one whose shape is
+    not known yet is made in ``dtype`` when it is."""
+    for t in tensors:
+        if t is None:
+            continue
+        if isinstance(t, torch.nn.parameter.UninitializedTensorMixin):
+            t.data = torch.empty(0, dtype=dtype, device=t.device)
+        elif t.is_floating_point():
+            t.data = t.data.to(dtype)
 
 
 def _clear_caches(block):

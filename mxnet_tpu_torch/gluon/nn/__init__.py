@@ -1,3 +1,11 @@
 """Neural-network layers of the port (parity: gluon.nn)."""
-from .basic_layers import (Dense, Embedding, HybridSequential,  # noqa: F401
+from .activations import (ELU, GELU, SELU, Activation,  # noqa: F401
+                          LeakyReLU, PReLU, Swish)
+from .basic_layers import (BatchNorm, Dense, Dropout,  # noqa: F401
+                           Embedding, Flatten, HybridSequential, Identity,
                            Sequential)
+from .conv_layers import (AvgPool1D, AvgPool2D, AvgPool3D,  # noqa: F401
+                          Conv1D, Conv2D, Conv3D, GlobalAvgPool1D,
+                          GlobalAvgPool2D, GlobalAvgPool3D, GlobalMaxPool1D,
+                          GlobalMaxPool2D, GlobalMaxPool3D, MaxPool1D,
+                          MaxPool2D, MaxPool3D)

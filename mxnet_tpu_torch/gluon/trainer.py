@@ -8,7 +8,9 @@ A step consumes the gradients (sets ``.grad`` to None), so a parameter
 that the next backward does not reach raises the JAX package's stale
 gradient error unless ``ignore_stale_grad=True``.  There is no kvstore:
 the only one accepted is the default ``"device"``; distributed training
-is slice S8 of the port.
+is slice S8 of the port.  ``params`` may hold tensors that take no
+gradient (``collect_params()``'s running statistics, the JAX package's
+``grad_req="null"``): a step leaves them alone.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ class Trainer:
                 "'device' is ported; distributed training is slice S8 of "
                 "the port (ROADMAP.md)" % (kvstore,))
         for name, p in params:
-            if not isinstance(p, torch.nn.Parameter):
+            if not isinstance(p, torch.Tensor):
                 raise MXNetError("invalid parameter %s of type %s"
                                  % (name, type(p).__name__))
         self._names = [n for n, _ in params]

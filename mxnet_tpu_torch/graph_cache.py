@@ -291,11 +291,19 @@ class _HostGraph:
     capture runs ``fn`` once, and a replay runs it again and copies what
     it returns into the first run's tensors, the double's static
     outputs.  ``last`` is the newest run's result, whose autograd graph
-    a backward double differentiates."""
+    a backward double differentiates.  A capture on the card runs no
+    kernel, so the capture's run puts back what it wrote in place of
+    the tensors the call reads in place (``held``: a ``BatchNorm``'s
+    running statistics), as they were."""
 
-    def __init__(self, pool, stream, label, fn):
+    def __init__(self, pool, stream, label, fn, held=()):
         self.fn = fn
+        before = [(t, t._version, t.detach().clone()) for t in held]
         self.out = self.last = fn()
+        with torch.no_grad():
+            for t, version, value in before:
+                if t._version != version:
+                    t.copy_(value)
 
     def replay(self):
         self.last = self.fn()
@@ -367,11 +375,13 @@ class _GraphCall:
                 t.record_stream(torch.cuda.current_stream(self.device))
         return out
 
-    def _graph(self, pool, label, fn):
+    def _graph(self, pool, label, fn, held):
         """``fn()`` captured into ``pool``: a :class:`_Graph` on the
-        card, its :class:`_HostGraph` double elsewhere."""
-        return (_Graph if self.graphed else _HostGraph)(
-            pool, self.stream, label, fn)
+        card, its :class:`_HostGraph` double elsewhere (``held``: what
+        the call reads in place)."""
+        if self.graphed:
+            return _Graph(pool, self.stream, label, fn)
+        return _HostGraph(pool, self.stream, label, fn, held)
 
     def _capture(self, args, held):
         """Capture the graphs for ``args`` (``_build``) under the
@@ -385,7 +395,7 @@ class _GraphCall:
         old = self.graphs
         t0 = time.perf_counter()
         with _capture_lock, self._on_stream():
-            self._build(args, pool)
+            self._build(args, pool, held)
         if old and self.graphed:
             torch.cuda.current_stream(self.device).synchronize()
         del old
@@ -456,10 +466,10 @@ class CapturedCall(_GraphCall):
         self.host_s += t1 - t0
         return graph.out
 
-    def _build(self, args, pool):
+    def _build(self, args, pool, held):
         static = _static_args(args, self.device, self.inplace)
         self.graphs = (self._graph(pool, self.label,
-                                   lambda: self.fn(*static)),)
+                                   lambda: self.fn(*static), held),)
         self._static_in = static
 
     def _drop(self):
@@ -537,7 +547,7 @@ class RecordedCall(_GraphCall):
         self.busy = False
         self._static_in = self._tensor_mask = self._diff = None
         self._gout = self._targets = None
-        self._versions = ((), [])
+        self._reads = ()
         self._generation = 0
         self._holds = itertools.count(1)
         self._holder = None
@@ -555,20 +565,24 @@ class RecordedCall(_GraphCall):
             self._capture(args, held)
         params = tuple(self.params())
         tensors = [a for a in args if isinstance(a, torch.Tensor)]
-        # what the graphs read in place must not change before the
-        # backward reads it (eager autograd's saved-tensor check)
-        self._versions = (held, [t._version for t in held])
+        self._reads = held
         outs = _Pair.apply(self, len(tensors), *tensors, *params)
         return _rebuild(self.graphs[0].out, iter(outs))
 
     def _hold(self):
         """Mark the pair busy for one pending backward; the hold ends at
-        that backward or when the forward's autograd node is freed."""
+        that backward or when the forward's autograd node is freed.
+        What the graphs read in place must not change before the
+        backward reads it (eager autograd's saved-tensor check): their
+        versions are taken after the forward, which may write some of
+        them itself (a ``BatchNorm``'s running statistics; a replay
+        bumps no version, the host double's run does)."""
         hold = next(self._holds)
         self.busy, self._holder = True, hold
         token = _Token()
         weakref.finalize(token, self._free, hold)
-        return self._generation, (hold, token, self._versions)
+        versions = (self._reads, [t._version for t in self._reads])
+        return self._generation, (hold, token, versions)
 
     def _free(self, hold):
         if self._holder == hold:
@@ -609,7 +623,7 @@ class RecordedCall(_GraphCall):
         return [next(out) if need else None for need in self._targets]
 
     # -- capture ---------------------------------------------------------
-    def _build(self, args, pool):
+    def _build(self, args, pool, held):
         static = _static_args(args, self.device, self.inplace, grad=True)
         mask = self.inplace or (False,) * len(args)
         tmask = tuple(m for a, m in zip(args, mask)
@@ -631,7 +645,7 @@ class RecordedCall(_GraphCall):
             with torch.enable_grad():
                 return self.fn(*static)
 
-        fwd = self._graph(pool, self.label, forward)
+        fwd = self._graph(pool, self.label, forward, held)
         outs = _tensors(fwd.out)
         diff = tuple(o.requires_grad for o in outs)
         gout = [torch.zeros_like(o) if d else None
@@ -650,7 +664,7 @@ class RecordedCall(_GraphCall):
                 heads, inputs, [g for g in gout if g is not None],
                 retain_graph=True, allow_unused=True)
 
-        bwd = self._graph(pool, self.label + " backward", backward)
+        bwd = self._graph(pool, self.label + " backward", backward, held)
         self.graphs = (fwd, bwd)
         self._static_in, self._tensor_mask = static, tmask
         self._diff, self._gout, self._targets = diff, gout, targets

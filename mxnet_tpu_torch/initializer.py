@@ -83,6 +83,18 @@ _INIT_REGISTRY["ones"] = One
 
 
 @register
+class Constant(Initializer):
+    """Every element ``value`` (parity: initializer.Constant)."""
+
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, name, tensor, generator):
+        tensor.fill_(self.value)
+
+
+@register
 class Uniform(Initializer):
     """U(-scale, scale)."""
 

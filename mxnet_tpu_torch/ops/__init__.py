@@ -1,2 +1,5 @@
-"""Operators with hand-written CUDA kernels, each beside its plain
-PyTorch version (``paged_attention``, ``flash_attention``)."""
+"""Operators: those with hand-written CUDA kernels, each beside its plain
+PyTorch version (``paged_attention``, ``flash_attention``), and the
+registered ops of ``tensor`` and ``nn`` (convolution, pooling,
+BatchNorm, activations: plain PyTorch and cuDNN, as the JAX package's
+are plain XLA)."""

@@ -1,0 +1,391 @@
+"""Neural-network operators: ``Convolution``, ``Pooling``, ``BatchNorm``,
+``Activation``, ``LeakyReLU`` and ``Dropout``.
+
+The port's counterpart of the JAX package's ``ops/nn.py``, with the same
+names, attrs and semantics; the Gluon layers call these functions, so
+each op's rules live here once.  The JAX package runs these as plain
+XLA (``lax.conv_general_dilated``, ``lax.reduce_window``, ``jnp``): no
+Pallas kernel lies on this path, and the port's convolutions run through
+cuDNN (``torch.nn.functional.conv*d``).
+
+Layout: every spatial op takes ``layout``.  A channel-first layout
+(``NCW``/``NCHW``/``NCDHW``) takes OIHW-style weights; a channels-last
+one (``NWC``/``NHWC``/``NDHWC``) takes channels-last data and HWIO-style
+weights, as the JAX package's dimension numbers say.  A channels-last
+operand is permuted to its channel-first view (no copy: contiguous NHWC
+memory is ``torch.channels_last``), computed there and permuted back.
+
+AMP: ``Convolution`` passes its inputs through ``amp.transform_inputs``
+(it is on the target-dtype list); off AMP it runs in its weight's
+dtype, as ``nn.Dense`` does.  ``BatchNorm`` runs in its input's dtype.
+
+``BatchNorm`` is the JAX package's formula, not ``F.batch_norm``'s: in
+train mode the statistics are taken in one pass in f32, shifted by the
+running mean ``c`` (``var = E[(x-c)^2] - (E[x]-c)^2``, floored at
+``E[(x-c)^2] * 2^-20``); the running variance is updated with that
+biased batch variance as ``old * momentum + new * (1 - momentum)``;
+``scale`` and ``shift`` are formed per channel in f32 and rounded to the
+input's dtype, and the normalisation runs in that dtype.  Its train-mode
+backward is a ``torch.autograd.Function`` that keeps the input in its
+own dtype and per-channel f32 statistics, never an f32 copy of the
+activation.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .. import amp as _amp
+from .registry import register
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def _as_tuple(v, n):
+    if isinstance(v, (tuple, list)):
+        return tuple(v)
+    return (v,) * n
+
+
+def channel_last(layout):
+    """Whether ``layout`` keeps its channels last (``NWC``, ``NHWC``,
+    ``NDHWC``)."""
+    return not layout.startswith("NC")
+
+
+def to_channel_first(x):
+    """The channel-first view of a channels-last tensor."""
+    return x.movedim(-1, 1)
+
+
+def to_channel_last(x):
+    """The channels-last view of a channel-first tensor."""
+    return x.movedim(1, -1)
+
+
+# ----------------------------------------------------------------------------
+# Convolution
+# ----------------------------------------------------------------------------
+
+
+@register("Convolution", aliases=("convolution",),
+          inputs=("data", "weight", "bias"))
+def _convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                 pad=(), num_filter=0, num_group=1, no_bias=False,
+                 layout="NCHW", cudnn_tune=None, cudnn_off=False,
+                 workspace=1024):
+    """Parity: src/operator/nn/convolution.cc.  ``weight`` is OIHW for a
+    channel-first ``layout`` and HWIO for a channels-last one."""
+    data, weight, bias = _amp.transform_inputs("Convolution",
+                                               (data, weight, bias))
+    data = data.to(weight.dtype)
+    nd = len(kernel) if kernel else weight.dim() - 2
+    stride = _as_tuple(stride, nd) if stride else (1,) * nd
+    dilate = _as_tuple(dilate, nd) if dilate else (1,) * nd
+    pad = _as_tuple(pad, nd) if pad else (0,) * nd
+    last = channel_last(layout)
+    if last:
+        data = to_channel_first(data)
+        weight = weight.permute(nd + 1, nd, *range(nd))
+    if no_bias or bias is None:
+        bias = None
+    else:
+        bias = bias.to(weight.dtype)
+    out = _CONV[nd](data, weight, bias, stride, pad, dilate, num_group)
+    return to_channel_last(out) if last else out
+
+
+# ----------------------------------------------------------------------------
+# Pooling
+# ----------------------------------------------------------------------------
+
+
+def _window_pads(shape, kernel, stride, pad, full):
+    """The JAX package's (lo, hi) padding per spatial dim: ``full``
+    (ceil mode) pads the high side until the last window fits."""
+    pads = []
+    for size, k, s, p in zip(shape, kernel, stride, pad):
+        hi = p
+        if full:
+            rem = (size + 2 * p - k) % s
+            if rem:
+                hi += s - rem
+        pads.append((p, hi))
+    return pads
+
+
+def _torch_pool_fits(shape, kernel, stride, pad, pads, full):
+    """Whether torch's own padded (and ceil-mode) max pooling gives the
+    JAX package's windows: padding at most half a window, and the same
+    number of windows per dim (in ceil mode torch drops a last window
+    that starts in the padding, the JAX package keeps it)."""
+    for size, k, s, p, (lo, hi) in zip(shape, kernel, stride, pad, pads):
+        if p > k // 2:
+            return False
+        span = size + 2 * p - k
+        got = (-(-span // s) if full else span // s) + 1
+        if full and (got - 1) * s >= size + p:
+            got -= 1
+        if got != (size + lo + hi - k) // s + 1:
+            return False
+    return True
+
+
+def _pad_spatial(x, pads, value):
+    flat = []
+    for lo, hi in reversed(pads):
+        flat += [lo, hi]
+    return F.pad(x, flat, value=value)
+
+
+def _window_sum(x, kernel, stride):
+    """Sum over each window of a padded channel-first ``x``."""
+    nd = len(kernel)
+    if nd == 1:
+        out = F.avg_pool2d(x.unsqueeze(-2), (1,) + tuple(kernel),
+                           (1,) + tuple(stride), divisor_override=1)
+        return out.squeeze(-2)
+    pool = F.avg_pool2d if nd == 2 else F.avg_pool3d
+    return pool(x, tuple(kernel), tuple(stride), divisor_override=1)
+
+
+@register("Pooling", aliases=("pooling",))
+def _pooling(data, kernel=(), pool_type="max", stride=(), pad=(),
+             global_pool=False, pooling_convention="valid", layout="NCHW",
+             count_include_pad=True, cudnn_off=False):
+    """Parity: src/operator/nn/pooling.cc (the JAX package's
+    ``reduce_window`` windows: explicit padding, ``full`` as ceil mode,
+    ``avg`` over the whole window with ``count_include_pad`` else over
+    its unpadded part, ``lp`` as the 2-norm)."""
+    last = channel_last(layout)
+    if global_pool:
+        spatial = tuple(range(1, data.dim() - 1)) if last \
+            else tuple(range(2, data.dim()))
+        if pool_type == "max":
+            return torch.amax(data, dim=spatial, keepdim=True)
+        return torch.mean(data, dim=spatial, keepdim=True)
+    if pool_type not in ("max", "avg", "sum", "lp"):
+        raise ValueError("unknown pool_type %r" % pool_type)
+    x = to_channel_first(data) if last else data
+    nd = len(kernel)
+    stride = _as_tuple(stride, nd) if stride else (1,) * nd
+    pad = _as_tuple(pad, nd) if pad else (0,) * nd
+    kernel = tuple(kernel)
+    shape = x.shape[2:]
+    full = pooling_convention == "full"
+    pads = _window_pads(shape, kernel, stride, pad, full)
+    if pool_type == "max":
+        pool = (F.max_pool1d, F.max_pool2d, F.max_pool3d)[nd - 1]
+        if _torch_pool_fits(shape, kernel, stride, pad, pads, full):
+            out = pool(x, kernel, stride, pad, ceil_mode=full)
+        else:
+            out = pool(_pad_spatial(x, pads, -math.inf), kernel, stride)
+    else:
+        src = x.abs() ** 2 if pool_type == "lp" else x
+        summed = _window_sum(_pad_spatial(src, pads, 0.0), kernel, stride)
+        if pool_type == "sum":
+            out = summed
+        elif pool_type == "lp":
+            out = torch.sqrt(summed)
+        elif count_include_pad:
+            out = summed / torch.tensor(float(math.prod(kernel)),
+                                        dtype=x.dtype)
+        else:
+            ones = torch.ones((1, 1) + tuple(shape), dtype=x.dtype,
+                              device=x.device)
+            out = summed / _window_sum(_pad_spatial(ones, pads, 0.0),
+                                       kernel, stride)
+    return to_channel_last(out) if last else out
+
+
+# ----------------------------------------------------------------------------
+# BatchNorm
+# ----------------------------------------------------------------------------
+
+_VAR_FLOOR = 2.0 ** -20
+
+
+def _bn_geometry(data, axis):
+    ax = axis % data.dim()
+    reduce = tuple(i for i in range(data.dim()) if i != ax)
+    bshape = [1] * data.dim()
+    bshape[ax] = data.shape[ax]
+    return reduce, bshape, data.numel() // max(data.shape[ax], 1)
+
+
+def _scale_shift(g, beta, mean, inv, dtype):
+    """Per-channel ``scale = g * inv`` and ``shift = beta - mean * g *
+    inv``, formed in f32 and rounded to ``dtype``."""
+    return (g * inv).to(dtype), (beta - mean * g * inv).to(dtype)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Train-mode BatchNorm with the JAX package's shifted one-pass
+    statistics; the backward is the gradient of that formula (what the
+    JAX package's autodiff takes), from the input in its own dtype and
+    per-channel f32 tensors.  Returns ``(out, mean, var)``; ``mean`` and
+    ``var`` (f32, per channel) carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, data, gamma, beta, c, eps, axis, fix_gamma):
+        reduce, bshape, _ = _bn_geometry(data, axis)
+        xc = torch.sub(data, c.view(bshape))       # f32
+        d1 = xc.mean(reduce)
+        d2 = xc.square().mean(reduce)
+        del xc
+        mean = c + d1
+        var = torch.maximum(d2 - d1 * d1, d2 * _VAR_FLOOR)
+        inv = torch.rsqrt(var + eps)
+        g = torch.ones_like(c) if fix_gamma else gamma.float()
+        scale, shift = _scale_shift(g, beta.float(), mean, inv, data.dtype)
+        out = torch.addcmul(shift.view(bshape), data, scale.view(bshape))
+        ctx.save_for_backward(data, c, d1, d2, g, mean, var, inv, scale)
+        ctx.eps, ctx.axis, ctx.fix_gamma = eps, axis, fix_gamma
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        data, c, d1, d2, g, mean, var, inv, scale = ctx.saved_tensors
+        reduce, bshape, m = _bn_geometry(data, ctx.axis)
+        dy = dy.to(data.dtype)
+        # out = data * scale + shift, scale and shift per channel
+        d_shift = dy.sum(reduce, dtype=torch.float32)
+        d_scale = (dy * data).sum(reduce, dtype=torch.float32)
+        # scale = g * inv; shift = beta - (mean * g) * inv
+        d_mg = -d_shift * inv
+        d_inv = d_scale * g - d_shift * (mean * g)
+        d_gamma = d_scale * inv + d_mg * mean
+        d_mean = d_mg * g
+        # inv = rsqrt(var + eps)
+        d_var = d_inv * -0.5 * inv / (var + ctx.eps)
+        # var = max(d2 - d1^2, d2 * 2^-20), ties split as jnp.maximum does
+        a = d2 - d1 * d1
+        b = d2 * _VAR_FLOOR
+        w_a = (a > b).float() + 0.5 * (a == b).float()
+        d_a = d_var * w_a
+        d_d2 = d_a + d_var * (1.0 - w_a) * _VAR_FLOOR
+        # mean = c + d1, d1 = E[x - c], d2 = E[(x - c)^2]
+        d_d1 = d_mean - 2.0 * d1 * d_a
+        d_xc = torch.addcmul((d_d1 / m).view(bshape),
+                             torch.sub(data, c.view(bshape)),
+                             (2.0 * d_d2 / m).view(bshape))
+        dx = torch.addcmul(d_xc.to(data.dtype), dy, scale.view(bshape))
+        d_g = None
+        if ctx.needs_input_grad[1]:
+            d_g = torch.zeros_like(d_gamma) if ctx.fix_gamma else d_gamma
+        return dx, d_g, d_shift, None, None, None, None
+
+
+@register("BatchNorm", aliases=("batch_norm",), needs_mode=True)
+def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                momentum=0.9, fix_gamma=True, use_global_stats=False,
+                output_mean_var=False, axis=1, cudnn_off=False,
+                _mode="predict"):
+    """Parity: src/operator/nn/batch_norm.cc.  Returns ``(out,
+    new_moving_mean, new_moving_var)``; the caller writes the new
+    statistics back (``nn.BatchNorm`` does, in place), as in the JAX
+    package."""
+    reduce, bshape, _ = _bn_geometry(data, axis)
+    if _mode == "train" and not use_global_stats:
+        # the shift: the running mean as it is now, never a view of it
+        c = moving_mean.detach().to(torch.float32, copy=True)
+        out, mean, var = _BatchNormTrain.apply(data, gamma, beta, c,
+                                               float(eps), axis,
+                                               bool(fix_gamma))
+        with torch.no_grad():
+            new_mm = moving_mean * momentum \
+                + mean.to(moving_mean.dtype) * (1 - momentum)
+            new_mv = moving_var * momentum \
+                + var.to(moving_var.dtype) * (1 - momentum)
+        return out, new_mm, new_mv
+    mean = moving_mean.float()
+    inv = torch.rsqrt(moving_var.float() + eps)
+    g = torch.ones_like(mean) if fix_gamma else gamma.float()
+    scale, shift = _scale_shift(g, beta.float(), mean, inv, data.dtype)
+    out = torch.addcmul(shift.view(bshape), data, scale.view(bshape))
+    return out, moving_mean, moving_var
+
+
+# ----------------------------------------------------------------------------
+# Activations
+# ----------------------------------------------------------------------------
+
+_ACTIVATIONS = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "softrelu": F.softplus,
+    "softsign": F.softsign,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),   # jax.nn.gelu's
+    "silu": F.silu,
+    "erf": torch.erf,
+}
+
+
+@register("Activation", aliases=("activation",))
+def _activation(data, act_type="relu"):
+    """Parity: src/operator/nn/activation.cc (``gelu`` is the tanh
+    approximation, as ``jax.nn.gelu``'s default)."""
+    return _ACTIVATIONS[act_type](data)
+
+
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+@register("LeakyReLU", aliases=("leaky_relu",), inputs=("data", "gamma"),
+          needs_rng=True, needs_mode=True)
+def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+                lower_bound=0.125, upper_bound=0.334, _mode="predict"):
+    """Parity: src/operator/leaky_relu.cc.  ``rrelu`` in train mode
+    draws its slopes from torch's default generator on the data's device
+    (the JAX package's from its key: compared by moments only)."""
+    pos = data > 0
+    if act_type == "leaky":
+        return torch.where(pos, data, slope * data)
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2)) \
+            if data.dim() > 2 else gamma
+        return torch.where(pos, data, g * data)
+    if act_type == "elu":
+        return torch.where(pos, data, slope * (torch.exp(data) - 1.0))
+    if act_type == "selu":
+        return _SELU_SCALE * torch.where(
+            pos, data, _SELU_ALPHA * (torch.exp(data) - 1.0))
+    if act_type == "gelu":
+        return F.gelu(data, approximate="none")
+    if act_type == "rrelu":
+        if _mode == "train":
+            s = torch.empty(data.shape, dtype=torch.float32,
+                            device=data.device).uniform_(lower_bound,
+                                                         upper_bound)
+            return torch.where(pos, data, s.to(data.dtype) * data)
+        return torch.where(pos, data,
+                           (lower_bound + upper_bound) / 2.0 * data)
+    raise ValueError("unknown act_type %r" % act_type)
+
+
+# ----------------------------------------------------------------------------
+# Dropout
+# ----------------------------------------------------------------------------
+
+
+@register("Dropout", aliases=("dropout",), needs_rng=True, needs_mode=True)
+def _dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
+             _mode="predict", generator=None):
+    """Parity: src/operator/nn/dropout.cc: in train mode (or
+    ``mode="always"``) each element, or each slice along ``axes``, is
+    kept with probability ``1 - p`` and scaled by ``1 / (1 - p)``.  The
+    mask comes from ``generator`` (default: torch's on the data's
+    device), so it is compared with the JAX package's by moments."""
+    if (_mode != "train" and mode != "always") or p <= 0.0:
+        return data
+    shape = list(data.shape)
+    for ax in axes or ():
+        shape[ax] = 1
+    keep = torch.empty(shape, dtype=torch.float32, device=data.device) \
+        .uniform_(generator=generator) < 1.0 - p
+    return torch.where(keep, data / (1.0 - p), torch.zeros((), dtype=data.dtype,
+                                                          device=data.device))

@@ -44,15 +44,19 @@ class OpReg:
     parameters without defaults, unless ``inputs=`` names them) and its
     attrs (the other named parameters).  The JAX package's
     ``needs_rng`` flag marks an op that draws random numbers (the random
-    ops come with S7): bulking never defers it."""
+    ops come with S7): bulking never defers it.  A ``needs_mode`` op
+    (``BatchNorm``, ``Dropout``) gets ``_mode="train"`` or ``"predict"``
+    from ``autograd.is_training()`` unless the caller sets it."""
 
     __slots__ = ("name", "forward", "doc", "input_names", "variadic",
-                 "attr_names", "needs_rng")
+                 "attr_names", "needs_rng", "needs_mode")
 
-    def __init__(self, name, forward, inputs=None, needs_rng=False):
+    def __init__(self, name, forward, inputs=None, needs_rng=False,
+                 needs_mode=False):
         self.name = name
         self.forward = forward
         self.needs_rng = needs_rng
+        self.needs_mode = needs_mode
         self.doc = forward.__doc__ or ""
         self.input_names, self.variadic = self._infer_inputs(forward, inputs)
         self.attr_names = self._infer_attrs(forward)
@@ -63,7 +67,7 @@ class OpReg:
         names = [p.name for p in sig.parameters.values()
                  if p.kind in (inspect.Parameter.POSITIONAL_OR_KEYWORD,
                                inspect.Parameter.KEYWORD_ONLY)]
-        return tuple(n for n in names if n != "device"
+        return tuple(n for n in names if n not in ("device", "_mode")
                      and n not in self.input_names)
 
     def _infer_inputs(self, fn, explicit):
@@ -82,13 +86,15 @@ class OpReg:
         return tuple(names), False
 
 
-def register(name, aliases=(), inputs=None, needs_rng=False):
+def register(name, aliases=(), inputs=None, needs_rng=False,
+             needs_mode=False):
     """Decorator: register a PyTorch forward under an MXNet op name."""
 
     def deco(fn):
         if name in _REGISTRY:
             raise MXNetError("op %s already registered" % name)
-        _REGISTRY[name] = OpReg(name, fn, inputs=inputs, needs_rng=needs_rng)
+        _REGISTRY[name] = OpReg(name, fn, inputs=inputs, needs_rng=needs_rng,
+                                needs_mode=needs_mode)
         for a in aliases:
             _ALIASES[a] = name
         return fn
@@ -126,6 +132,8 @@ def _prep(reg, n_inputs, attrs, fields):
     """Drop unset attrs, add the device of an op with no tensor input;
     name the input fields."""
     attrs = {k: v for k, v in (attrs or {}).items() if v is not None}
+    if reg.needs_mode and "_mode" not in attrs:
+        attrs["_mode"] = "train" if autograd.is_training() else "predict"
     ctx = None
     if not n_inputs:
         from ..context import as_context

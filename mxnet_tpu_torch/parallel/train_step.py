@@ -18,17 +18,24 @@ per-parameter ``lr_mult``/``wd_mult``, ``wd``, ``rescale_grad`` and the
 clips are constants of a captured step: changing one drops the graphs.
 ``step_n(n)`` runs n steps as n replays.  The weights and optimizer
 state keep their dtypes from step to step (the JAX package pins them the
-same way).  The loss comes back as a tensor on the device, without a
-sync.
+same way).  The step runs in train mode (``autograd.train_mode()``), so
+a ``BatchNorm`` takes batch statistics and writes its running statistics
+in place, once a step; the JAX package returns them from its executable
+and writes them after the update, which reads the same.  The graph
+watches the net's buffers beside its parameters.  The loss comes back
+as a tensor on the device, without a sync.
 
 Single device only: ``mesh=``, ``rules=`` and ``param_rule=`` are
 sharded training, slice S8 of the port, and raise.
 """
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
+from .. import autograd as _autograd
 from ..base import MXNetError
 from .. import graph_cache as _graph_cache
 from .. import optimizer as _opt_mod
@@ -84,9 +91,11 @@ class JitTrainStep:
         lazy shapes."""
         if self._params is not None:
             return
-        lazy = torch.nn.parameter.UninitializedParameter
-        if any(isinstance(p, lazy) for p in self._net.parameters()):
-            with torch.no_grad():
+        lazy = torch.nn.parameter.UninitializedTensorMixin
+        if any(isinstance(t, lazy) for t in itertools.chain(
+                self._net.parameters(), self._net.buffers())):
+            # predict mode: the running statistics stay as they are
+            with torch.no_grad(), _autograd.predict_mode():
                 self._net(*data)
         named = list(self._net.named_parameters())
         self._names = [n for n, _ in named]
@@ -106,7 +115,8 @@ class JitTrainStep:
         self._watch = self._params + [
             s for st in self._opt_state
             for s in (st if isinstance(st, tuple) else (st,))
-            if s is not None] + [self._lr, self._count]
+            if s is not None] + list(self._net.buffers()) \
+            + [self._lr, self._count]
 
     def _arrays(self, batch):
         dev = next(self._net.parameters()).device
@@ -123,10 +133,11 @@ class JitTrainStep:
         and update; what the graph captures.  Returns the f32 loss."""
         data, labels = self._split(arrays)
         self._count.add_(1)
-        out = self._net(*data)
-        outs = [out] if isinstance(out, torch.Tensor) else list(out)
-        loss = self._loss(outs[0], *labels) if self._loss is not None \
-            else outs[0]
+        with _autograd.train_mode():
+            out = self._net(*data)
+            outs = [out] if isinstance(out, torch.Tensor) else list(out)
+            loss = self._loss(outs[0], *labels) if self._loss is not None \
+                else outs[0]
         loss_val = loss.float().mean()
         train = [self._params[i] for i in self._train_idx]
         grads = list(torch.autograd.grad(loss_val, train))

@@ -416,6 +416,12 @@ names += ["mxnet_tpu_torch.nd", "mxnet_tpu_torch.ndarray.ndarray",
 names += ["mxnet_tpu_torch.serve.fleet", "mxnet_tpu_torch.serve.__main__",
           "mxnet_tpu_torch.telemetry.aggregate",
           "mxnet_tpu_torch.telemetry.slo", "mxnet_tpu_torch.telemetry.trace"]
+names += ["mxnet_tpu_torch.layout", "mxnet_tpu_torch.amp",
+          "mxnet_tpu_torch.amp.lists", "mxnet_tpu_torch.amp.loss_scaler",
+          "mxnet_tpu_torch.ops.nn", "mxnet_tpu_torch.gluon.nn.conv_layers",
+          "mxnet_tpu_torch.gluon.nn.activations",
+          "mxnet_tpu_torch.gluon.model_zoo.vision",
+          "mxnet_tpu_torch.gluon.model_zoo.vision.resnet"]
 names += ["chip_smoke", "tools.torch_paged_attention_sweep",
           "tools.torch_flash_attention_sweep", "tools.torch_mxfleet",
           "tools.torch_mxflight", "tools.torch_mxtrace",

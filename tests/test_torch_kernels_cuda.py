@@ -792,3 +792,30 @@ def test_bulked_segments_bitwise_equal_eager_on_two_threads_on_card(card):
         for a, b in zip(got, want):
             assert all(np.array_equal(p, q) for p, q in zip(a, b))
         assert st["graphs"]["replays"] > 0, "segments replayed on the card"
+
+
+# -- S6a: ResNet's graphs, with BatchNorm writing its running statistics ---
+# (chip_smoke's checks at a small size: f32, TF32 off, deterministic
+# cuDNN; each raises where the graphed path differs from eager by a bit)
+
+@pytest.mark.cuda
+def test_resnet_graphed_train_step_bitwise_equal_eager_on_card(card):
+    """JitTrainStep (sgd momentum, an lr change, step_n) on resnet18_v1:
+    losses, weights and running statistics bitwise equal to eager."""
+    chip_smoke.resnet_train_step_check(card, "resnet18_v1", 4, 32)
+
+
+@pytest.mark.cuda
+def test_resnet_hybridized_forward_bitwise_equal_eager_on_card(card):
+    """Predict- and train-mode hybridized forwards: outputs and running
+    statistics bitwise equal to eager, one capture a mode."""
+    chip_smoke.resnet_hybrid_forward_check(card, "resnet18_v1", 4, 32)
+
+
+@pytest.mark.cuda
+def test_resnet_recorded_trainer_step_through_the_pair_on_card(card):
+    """Trainer steps under record() through the graph pair, BatchNorm
+    writing its statistics in the forward graph: bitwise equal to
+    eager."""
+    chip_smoke.resnet_recorded_trainer_check(card, "resnet18_v1", 4, 32)
+
