@@ -20,6 +20,10 @@ Ported so far:
 * ResNet: the convolution, pooling, BatchNorm and activation layers
   (``gluon.nn`` over ``ops.nn``), ``gluon.model_zoo.vision``'s ResNets,
   ``amp`` and the ``layout`` policy (channels-last on the card);
+* the optimizer tier: every optimizer of the registry, ``Updater``,
+  ``lr_scheduler``, the update ops of ``ops.optimizer_ops`` with the
+  multi-tensor kernels O1-O3 (Adam/AdamW, SGD, sum of squares), and
+  ``Trainer.save_states`` in the MXGC1 format (``sharding.checkpoint``);
 * the telemetry and testing modules these tiers use.
 
 The port's own kernels are CUDA C++ for sm_90a in ``csrc/``.  Entry
@@ -29,6 +33,7 @@ host with ``device="cpu"``, ``ctx=mx.cpu()`` or ``with mx.cpu():``.
 from . import amp, base, context, layout, ops, serve  # noqa: F401
 from . import telemetry, testing  # noqa: F401
 from . import gluon, initializer, optimizer, parallel  # noqa: F401
+from . import lr_scheduler, sharding  # noqa: F401
 from . import autograd, engine, ndarray, rtc  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import ndarray as nd  # noqa: F401

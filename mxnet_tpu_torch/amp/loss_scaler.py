@@ -1,6 +1,7 @@
 """Dynamic loss scaler (parity: python/mxnet/contrib/amp/loss_scaler.py;
-the JAX package's ``amp/loss_scaler.py``, copied, with the host read of a
-gradient taught torch tensors).
+the JAX package's ``amp/loss_scaler.py``, copied; its overflow check
+reads one flag: O3 of ``ops/optimizer_ops.py`` checks every gradient of
+a device in one pass, where the JAX package copies each to the host).
 
 Classic dynamic scaling: on overflow (non-finite grads) halve the scale
 and skip the update; after ``scale_window`` clean steps double it.  With
@@ -10,6 +11,7 @@ matches float32 — but the API is kept for float16 parity.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class LossScaler:
@@ -22,7 +24,13 @@ class LossScaler:
         self._unskipped = 0
 
     def has_overflow(self, params):
-        """True if any gradient of ``params`` is non-finite."""
+        """True if any gradient of ``params`` is non-finite: one
+        all-finite flag per device, read once (O3 on the card, where each
+        gradient must be dense, as the port's parameters' gradients are;
+        ``multi_sum_sq`` raises on a strided view there)."""
+        from ..ops import optimizer_ops
+
+        by_device = {}
         for p in params:
             if getattr(p, "grad_req", "write") == "null":
                 continue
@@ -32,14 +40,19 @@ class LossScaler:
                 continue
             if g is None:
                 continue
-            # dynamic loss scaling must inspect grads on host
-            if hasattr(g, "asnumpy"):
-                a = g.asnumpy()
-            elif hasattr(g, "detach"):         # a torch tensor, any dtype
-                a = g.detach().float().cpu().numpy()
-            else:
-                a = np.asarray(g)
-            if not np.isfinite(a.astype(np.float64)).all():
+            if hasattr(g, "_var"):             # an NDArray
+                g = g.data()
+            if not isinstance(g, torch.Tensor):
+                g = torch.from_numpy(np.asarray(g, dtype=np.float32))
+            g = g.detach()
+            if not g.is_floating_point():
+                continue
+            if g.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+                g = g.float()
+            by_device.setdefault(g.device, []).append(g)
+        for grads in by_device.values():
+            _, flag = optimizer_ops.multi_sum_sq(grads)
+            if float(flag) == 0.0:
                 return True
         return False
 

@@ -11,13 +11,26 @@ the only one accepted is the default ``"device"``; distributed training
 is slice S8 of the port.  ``params`` may hold tensors that take no
 gradient (``collect_params()``'s running statistics, the JAX package's
 ``grad_req="null"``): a step leaves them alone.
+
+A step updates every parameter through the optimizer's
+``_step_multi``: one call per update count (counts differ per index
+only under ``ignore_stale_grad``), whose learning rate and count the
+Trainer writes into two device scalars first, so SGD, NAG, Adam and
+AdamW launch one multi-tensor kernel per group of dtypes on the card.
+``save_states``/``load_states`` write and read the JAX package's MXGC1
+format (``sharding/checkpoint.py``) with its entry names and meta, and
+read its legacy pickles: a file one package writes, the other reads.
 """
 from __future__ import annotations
 
+import pickle
+
+import numpy as np
 import torch
 
 from ..base import MXNetError
 from .. import optimizer as opt_mod
+from .. import sharding as _shd
 
 
 class Trainer:
@@ -57,6 +70,7 @@ class Trainer:
                                              **(optimizer_params or {}))
         self._optimizer.idx2name = dict(enumerate(self._names))
         self._scale = self._optimizer.rescale_grad
+        self._scalars = {}
 
     @property
     def learning_rate(self):
@@ -71,10 +85,32 @@ class Trainer:
 
     def step(self, batch_size, ignore_stale_grad=False):
         """Rescale by ``1/batch_size`` and apply one update."""
+        self.allreduce_grads()
         self.update(batch_size, ignore_stale_grad)
 
+    def allreduce_grads(self):
+        """Sum gradients across devices: a no-op on one device, as in the
+        JAX package (kvstore training is S8)."""
+
+    def _ensure_states(self):
+        for i, p in enumerate(self._params):
+            if not self._states_created[i] and p.requires_grad:
+                self._states[i] = self._optimizer.create_state(i, p.detach())
+                self._states_created[i] = True
+
+    def _scalars_on(self, device):
+        """The f32 learning rate and int32 count the kernels read on
+        ``device``, written by a fill before each group's launch."""
+        pair = self._scalars.get(device)
+        if pair is None:
+            pair = (torch.zeros((), dtype=torch.float32, device=device),
+                    torch.zeros((), dtype=torch.int32, device=device))
+            self._scalars[device] = pair
+        return pair
+
     def update(self, batch_size, ignore_stale_grad=False):
-        """One optimizer update of every parameter with a fresh gradient."""
+        """One optimizer update of every parameter with a fresh gradient:
+        one ``_step_multi`` per (device, update count, learning rate)."""
         opt = self._optimizer
         opt.rescale_grad = self._scale / batch_size
         active = []
@@ -91,12 +127,102 @@ class Trainer:
                     "parameters for this iteration; pass "
                     "ignore_stale_grad=True to suppress" % self._names[i])
             active.append(i)
+        self._ensure_states()
+        groups = {}
         for i in active:
-            p = self._params[i]
-            if not self._states_created[i]:
-                self._states[i] = opt.create_state(i, p.detach())
-                self._states_created[i] = True
             opt._update_count(i)
-            opt._step(p.detach(), p.grad, self._states[i], opt._get_lr(i),
-                      opt._get_wd(i), opt._index_update_count[i])
-            p.grad = None
+            key = (self._params[i].device, opt._index_update_count[i],
+                   opt.learning_rate)
+            groups.setdefault(key, []).append(i)
+        for (dev, t, lr), idx in groups.items():
+            lr_dev, t_dev = self._scalars_on(dev)
+            lr_dev.fill_(lr)
+            t_dev.fill_(t)
+            opt._step_multi(
+                [self._params[i].detach() for i in idx],
+                [self._params[i].grad for i in idx],
+                [self._states[i] for i in idx], lr_dev,
+                [opt._get_wd(i) for i in idx], t_dev,
+                [opt._mult(opt.lr_mult, i) for i in idx])
+        for i in active:
+            self._params[i].grad = None
+
+    # ------------------------------------------------------------------
+    def save_states(self, fname):
+        """The optimizer state as an MXGC1 checkpoint: every state leaf
+        stored once as ``state/<i>/<j>`` with a crc32, written
+        atomically, and the update counts in the meta (the JAX package's
+        format and names)."""
+        self._ensure_states()
+
+        def entries():
+            for i, st in enumerate(self._states):
+                for j, leaf in enumerate(_leaves(st)):
+                    yield "state/%d/%d" % (i, j), leaf, None
+        opt = self._optimizer
+        _shd.save_global(fname, entries(), meta={
+            "kind": "trainer",
+            "num_update": int(opt.num_update),
+            "index_update_count": {
+                str(k): int(v) for k, v in opt._index_update_count.items()},
+        })
+
+    def load_states(self, fname):
+        """Read ``save_states``' file (or a legacy pickle of the JAX
+        package's) into the live states, in place: each state keeps its
+        dtype, device and strides."""
+        self._ensure_states()
+        opt = self._optimizer
+        if _shd.is_global_checkpoint(fname):
+            entries, meta = _shd.load_global(fname)
+            for i, st in enumerate(self._states):
+                for j, leaf in enumerate(_leaves(st)):
+                    name = "state/%d/%d" % (i, j)
+                    ent = entries.get(name)
+                    if ent is None:
+                        raise MXNetError(
+                            "trainer checkpoint %s: missing entry %r "
+                            "(optimizer config changed?)" % (fname, name))
+                    _assign(leaf, ent["array"], ent["dtype"], name)
+            opt.num_update = int(meta["num_update"])
+            opt._index_update_count = {
+                int(k): int(v) for k, v in meta["index_update_count"].items()}
+            return
+        try:
+            with open(fname, "rb") as f:
+                payload = pickle.load(f)
+        except Exception as e:  # noqa: BLE001 — a torn legacy pickle
+            raise MXNetError(
+                "trainer checkpoint %s is neither MXGC1 nor a loadable "
+                "legacy pickle (%s: %s) — corrupt or truncated"
+                % (fname, type(e).__name__, e))
+        for i, (st, saved) in enumerate(zip(self._states,
+                                            payload["states"])):
+            saved = _leaves(saved)
+            for j, leaf in enumerate(_leaves(st)):
+                arr = np.asarray(saved[j])
+                _assign(leaf, arr, str(arr.dtype), "state/%d/%d" % (i, j))
+        opt.num_update = payload["num_update"]
+        opt._index_update_count = dict(payload["index_update_count"])
+
+
+def _leaves(state):
+    """A state's tensors in order (the JAX package's tree leaves)."""
+    if state is None:
+        return []
+    if isinstance(state, (tuple, list)):
+        return [x for s in state for x in _leaves(s)]
+    return [state]
+
+
+def _assign(leaf, arr, dtype, name):
+    """Copy a checkpoint entry into a live state tensor."""
+    host = torch.from_numpy(np.ascontiguousarray(arr))
+    if dtype == "bfloat16":
+        host = host.view(torch.bfloat16)
+    if tuple(host.shape) != tuple(leaf.shape):
+        raise MXNetError("trainer checkpoint: %s has shape %s, the live "
+                         "state %s" % (name, tuple(host.shape),
+                                       tuple(leaf.shape)))
+    with torch.no_grad():
+        leaf.copy_(host)

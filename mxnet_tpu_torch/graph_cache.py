@@ -48,6 +48,7 @@ captured calls share.
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import threading
 import time
@@ -246,11 +247,29 @@ def _held(call, args):
     return own + list(call.watched())
 
 
+@contextlib.contextmanager
+def _collector_paused():
+    """The cyclic garbage collector off for the block.  A collection
+    inside a capture can free a CUDA graph that only a reference cycle
+    kept (an earlier step's or block's graphs), and torch's
+    ``CUDAGraph.reset()`` during a capture invalidates it
+    (``cudaErrorStreamCaptureInvalidated``); the garbage is collected
+    after the capture instead."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 def _capture_into(graph, pool, stream, label, fn):
     """Capture ``fn()`` into ``graph`` on ``stream`` (the caller holds
-    ``_capture_lock``); returns ``fn``'s result and the launches counted
-    during the capture.  A failed capture raises ``MXNetError``."""
-    with recording(stream) as rec:
+    ``_capture_lock``), with the collector paused; returns ``fn``'s
+    result and the launches counted during the capture.  A failed
+    capture raises ``MXNetError``."""
+    with recording(stream) as rec, _collector_paused():
         try:
             with torch.cuda.stream(stream):
                 try:

@@ -46,17 +46,20 @@ class OpReg:
     ``needs_rng`` flag marks an op that draws random numbers (the random
     ops come with S7): bulking never defers it.  A ``needs_mode`` op
     (``BatchNorm``, ``Dropout``) gets ``_mode="train"`` or ``"predict"``
-    from ``autograd.is_training()`` unless the caller sets it."""
+    from ``autograd.is_training()`` unless the caller sets it.  An
+    ``inplace`` op (the optimizer updates) writes its tensor inputs: it
+    is never deferred, and its inputs' versions move."""
 
     __slots__ = ("name", "forward", "doc", "input_names", "variadic",
-                 "attr_names", "needs_rng", "needs_mode")
+                 "attr_names", "needs_rng", "needs_mode", "inplace")
 
     def __init__(self, name, forward, inputs=None, needs_rng=False,
-                 needs_mode=False):
+                 needs_mode=False, inplace=False):
         self.name = name
         self.forward = forward
         self.needs_rng = needs_rng
         self.needs_mode = needs_mode
+        self.inplace = inplace
         self.doc = forward.__doc__ or ""
         self.input_names, self.variadic = self._infer_inputs(forward, inputs)
         self.attr_names = self._infer_attrs(forward)
@@ -87,14 +90,14 @@ class OpReg:
 
 
 def register(name, aliases=(), inputs=None, needs_rng=False,
-             needs_mode=False):
+             needs_mode=False, inplace=False):
     """Decorator: register a PyTorch forward under an MXNet op name."""
 
     def deco(fn):
         if name in _REGISTRY:
             raise MXNetError("op %s already registered" % name)
         _REGISTRY[name] = OpReg(name, fn, inputs=inputs, needs_rng=needs_rng,
-                                needs_mode=needs_mode)
+                                needs_mode=needs_mode, inplace=inplace)
         for a in aliases:
             _ALIASES[a] = name
         return fn
@@ -147,7 +150,7 @@ def _prep(reg, n_inputs, attrs, fields):
     return attrs, tuple(fields), ctx
 
 
-def _push(name, fn, datas, read_vars, device):
+def _push(name, fn, datas, read_vars, device, write_vars=()):
     """Push ``fn`` and return its output tensors.  Outside ``record()``
     an input that carries a graph must not extend it; an output that is
     an input tensor itself is copied, so each result owns its tensor."""
@@ -155,9 +158,11 @@ def _push(name, fn, datas, read_vars, device):
     recording = autograd.is_recording()
     if not recording and any(d.requires_grad for d in datas):
         with torch.no_grad():
-            outs = eng.push(fn, read_vars, op_name=name, device=device)
+            outs = eng.push(fn, read_vars, write_vars, op_name=name,
+                            device=device)
     else:
-        outs = eng.push(fn, read_vars, op_name=name, device=device)
+        outs = eng.push(fn, read_vars, write_vars, op_name=name,
+                        device=device)
     if any(o is d for o in outs for d in datas):
         outs = tuple(o.clone() if any(o is d for d in datas) else o
                      for o in outs)
@@ -252,6 +257,9 @@ def _try_bulk(reg, inputs, attrs, out, fields, eng):
     if reg.needs_rng:
         eng.flush_bulk("rng:%s" % reg.name)
         return NotImplemented
+    if reg.inplace:
+        eng.flush_bulk("inplace:%s" % reg.name)
+        return NotImplemented
     if out is not None or not inputs \
             or any(not isinstance(x, NDArray) for x in inputs):
         eng.flush_bulk("nondeferrable:%s" % reg.name)
@@ -314,9 +322,10 @@ def invoke(name, inputs, attrs=None, out=None, fields=None):
     attrs, fields, ctx = _prep(reg, len(inputs), attrs, fields)
     recording = autograd.is_recording()
     datas = tuple(x._op_input(recording) for x in inputs)
+    reads = tuple(x._var for x in inputs)
     outs = _push(name, lambda: _run(reg, datas, attrs, fields), datas,
-                 tuple(x._var for x in inputs),
-                 datas[0].device if datas else attrs["device"])
+                 reads, datas[0].device if datas else attrs["device"],
+                 reads if reg.inplace else ())
     return _wrap(outs, inputs, ctx, out)
 
 

@@ -13,7 +13,12 @@ second captured and replayed, later calls replayed).  As in the JAX
 package, the learning rate (f32) and the update count (int32) are
 device scalars that the graph reads: the host writes the learning rate
 before each call and the step adds one to the count on the device, so
-the eager and the graphed step run the same update code.  The
+the eager and the graphed step run the same update code.  The update is
+one ``_step_multi`` over every trainable parameter: on the card, for
+SGD, NAG, Adam and AdamW, one multi-tensor kernel launch per group of
+dtypes (``ops/optimizer_ops.py``: O1 or O2) that reads ``lr`` and the
+count by pointer, with each parameter's ``lr_mult`` a factor in its
+table; ``clip_global_norm`` takes its norm from O3.  The
 per-parameter ``lr_mult``/``wd_mult``, ``wd``, ``rescale_grad`` and the
 clips are constants of a captured step: changing one drops the graphs.
 ``step_n(n)`` runs n steps as n replays.  The weights and optimizer
@@ -39,14 +44,15 @@ from .. import autograd as _autograd
 from ..base import MXNetError
 from .. import graph_cache as _graph_cache
 from .. import optimizer as _opt_mod
+from ..ops import optimizer_ops as _optimizer_ops
 
 
 def _global_norm_scale(grads, max_norm):
     """The JAX package's global-norm clip: scale every gradient by
-    ``min(max_norm / (norm + 1e-8), 1)``."""
-    total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-    for g in grads:
-        total = total + g.float().square().sum()
+    ``min(max_norm / (norm + 1e-8), 1)``; the per-gradient sums of
+    squares come from one O3 read (deterministic: no float atomics)."""
+    sums, _ = _optimizer_ops.multi_sum_sq(grads)
+    total = sums.sum()
     scale = torch.clamp(max_norm / (total.sqrt() + 1e-8), max=1.0)
     return [g * scale.to(g.dtype) for g in grads]
 
@@ -144,13 +150,12 @@ class JitTrainStep:
         del out, outs, loss
         if self._clip_global_norm is not None:
             grads = _global_norm_scale(grads, self._clip_global_norm)
-        for j, i in enumerate(self._train_idx):
-            mult = self._opt._mult(self._opt.lr_mult, i)
-            lr_i = self._lr if mult == 1.0 else self._lr * mult
-            self._opt._step(self._params[i].detach(), grads[j],
-                            self._opt_state[i], lr_i, self._opt._get_wd(i),
-                            self._count)
-            grads[j] = None
+        opt, idx = self._opt, self._train_idx
+        opt._step_multi([self._params[i].detach() for i in idx], grads,
+                        [self._opt_state[i] for i in idx], self._lr,
+                        [opt._get_wd(i) for i in idx], self._count,
+                        [opt._mult(opt.lr_mult, i) for i in idx])
+        del grads
         return loss_val.detach()
 
     def _watched(self):

@@ -528,3 +528,25 @@ def test_prefill_takes_an_int_or_a_tensor_length(raw):
         full = tm.build_prefill_fn(w, g, 8)(*arena.buffers(), toks, 8,
                                             row)[-1]
     assert not torch.equal(full, outs[0]), "the length picks the row"
+
+
+def test_a_capture_pauses_the_collector_and_restores_it():
+    """Captures run with the cyclic collector paused (a collection there
+    can free an earlier graph, which invalidates the capture on the
+    card); the collector's state comes back as it was, nested or not."""
+    import gc as collector
+
+    assert collector.isenabled()
+    with gc._collector_paused():
+        assert not collector.isenabled()
+        with gc._collector_paused():
+            assert not collector.isenabled()
+        assert not collector.isenabled()
+    assert collector.isenabled()
+    collector.disable()
+    try:
+        with gc._collector_paused():
+            assert not collector.isenabled()
+        assert not collector.isenabled()
+    finally:
+        collector.enable()

@@ -422,10 +422,14 @@ names += ["mxnet_tpu_torch.layout", "mxnet_tpu_torch.amp",
           "mxnet_tpu_torch.gluon.nn.activations",
           "mxnet_tpu_torch.gluon.model_zoo.vision",
           "mxnet_tpu_torch.gluon.model_zoo.vision.resnet"]
+names += ["mxnet_tpu_torch.lr_scheduler", "mxnet_tpu_torch.sharding",
+          "mxnet_tpu_torch.sharding.checkpoint",
+          "mxnet_tpu_torch.ops.optimizer_ops",
+          "mxnet_tpu_torch.optimizer.optimizer"]
 names += ["chip_smoke", "tools.torch_paged_attention_sweep",
           "tools.torch_flash_attention_sweep", "tools.torch_mxfleet",
           "tools.torch_mxflight", "tools.torch_mxtrace",
-          "tools.torch_adamw_passes"]
+          "tools.torch_resnet_trajectory"]
 for name in names:
     importlib.import_module(name) if name != "mxnet_tpu_torch.nd" \
         else mxnet_tpu_torch.nd
@@ -456,7 +460,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files += [os.path.join(REPO, "chip_smoke.py")]
     files += [os.path.join(REPO, "tools", "torch_%s.py" % t)
               for t in ("paged_attention_sweep", "flash_attention_sweep",
-                        "mxfleet", "mxflight", "mxtrace", "adamw_passes")]
+                        "mxfleet", "mxflight", "mxtrace",
+                        "resnet_trajectory")]
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 import chip_smoke
+from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import flash_attention as fa
+from mxnet_tpu_torch.ops import optimizer_ops as oo
 from mxnet_tpu_torch.ops import paged_attention as pa
 from mxnet_tpu_torch.ops.paged_attention import _paged_ref, paged_attention
 
@@ -719,13 +721,14 @@ def test_k2_k3_counts_grow_with_backward_replays_on_card(card):
     assert [a - b for a, b in zip(after, before)] == [3 * layers] * 3
 
 
-def _train_step(card, graphs):
+def _train_step(card, graphs, clip=None):
     from mxnet_tpu_torch import gluon, parallel
 
     net = _hybrid_net(card)
     return net, parallel.JitTrainStep(
         net, gluon.loss.SoftmaxCrossEntropyLoss(), "adamw",
-        {"learning_rate": 1e-3, "wd": 0.01}, graphs=graphs)
+        {"learning_rate": 1e-3, "wd": 0.01}, graphs=graphs,
+        clip_global_norm=clip)
 
 
 @pytest.mark.cuda
@@ -799,6 +802,55 @@ def test_bulked_segments_bitwise_equal_eager_on_two_threads_on_card(card):
 # cuDNN; each raises where the graphed path differs from eager by a bit)
 
 @pytest.mark.cuda
+def test_a_collection_inside_a_capture_frees_no_graph_on_card(card):
+    """A CUDA graph that only the collector can free (a reference cycle,
+    as an earlier step's graphs are) must not be freed inside another
+    capture: torch's ``CUDAGraph.reset()`` there invalidates the capture
+    (``cudaErrorStreamCaptureInvalidated``; ROADMAP §3).  With the
+    collector's threshold at 1 any allocation would collect; the capture
+    keeps it paused."""
+    import gc
+
+    from mxnet_tpu_torch import graph_cache
+
+    old = torch.cuda.CUDAGraph()
+    x = torch.ones(4096, device=card)
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        old.capture_begin(pool=torch.cuda.graph_pool_handle())
+        kept = x * 5
+        old.capture_end()
+    torch.cuda.synchronize()
+    box = [old, kept]
+    box.append(box)
+    holder = [box]
+    del box, old, kept
+    thresholds = gc.get_threshold()
+
+    def fn():
+        y = x * 2
+        holder.clear()          # now only the collector can free the graph
+        junk = [[i] for i in range(200)]     # the collector's trigger
+        del junk
+        return y + 1
+
+    graph = torch.cuda.CUDAGraph()
+    gc.set_threshold(1)
+    try:
+        with graph_cache._capture_lock:
+            out, _ = graph_cache._capture_into(
+                graph, torch.cuda.graph_pool_handle(), side, "probe", fn)
+    finally:
+        gc.set_threshold(*thresholds)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full_like(x, 3.0))
+    assert gc.isenabled()
+    gc.collect()                               # freed here, after it
+
+
+@pytest.mark.cuda
 def test_resnet_graphed_train_step_bitwise_equal_eager_on_card(card):
     """JitTrainStep (sgd momentum, an lr change, step_n) on resnet18_v1:
     losses, weights and running statistics bitwise equal to eager."""
@@ -819,3 +871,138 @@ def test_resnet_recorded_trainer_step_through_the_pair_on_card(card):
     eager."""
     chip_smoke.resnet_recorded_trainer_check(card, "resnet18_v1", 4, 32)
 
+
+
+# -- O1-O3: the multi-tensor optimizer kernels (chip_smoke's checks) --------
+
+_OPT_NAMES = [n for n, _ in chip_smoke.opt_specs()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["adamw", "adam", "op"])
+@pytest.mark.parametrize("name", _OPT_NAMES)
+def test_multi_adamw_matches_plain_on_card(card, name, form):
+    """O1 against its plain version: f32 within 2 ulp, bf16 and f16 equal
+    in 99.9% of elements and within 1 ulp."""
+    ok, _, readings = chip_smoke.opt_compare(
+        oo, card, dict(chip_smoke.opt_specs())[name], 5,
+        chip_smoke.run_adamw, oo.multi_adamw, oo._multi_adamw_ref, form)
+    assert ok, readings
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["plain", "momentum", "nesterov",
+                                  "preloaded"])
+@pytest.mark.parametrize("name", _OPT_NAMES)
+def test_multi_sgd_matches_plain_on_card(card, name, form):
+    ok, _, readings = chip_smoke.opt_compare(
+        oo, card, dict(chip_smoke.opt_specs())[name], 6,
+        chip_smoke.run_sgd, oo.multi_sgd, oo._multi_sgd_ref, form)
+    assert ok, readings
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plant", [None, float("inf"), float("nan")],
+                         ids=["finite", "inf", "nan"])
+def test_multi_sum_sq_matches_f64_and_flags_on_card(card, plant):
+    """O3 within 1e-6 of an f64 host sum on every list, its flag exact,
+    and two runs bitwise equal (no float atomics)."""
+    for name, arrays in chip_smoke.sum_sq_lists(card):
+        ok, rel = chip_smoke.sum_sq_check(oo, arrays, plant)
+        assert ok, (name, rel)
+        a, b = oo.multi_sum_sq(arrays), oo.multi_sum_sq(arrays)
+        # bit patterns: a planted nan makes a sum nan, which equals nothing
+        assert torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)) \
+            and torch.equal(a[1], b[1]), name
+
+
+@pytest.mark.cuda
+def test_optimizer_checks_catch_a_table_that_skips_its_last_tensor(card):
+    from mxnet_tpu_torch.ops import _build
+
+    path = _build.build(oo._SOURCE, defines=("MXTT_SKIP_LAST=1",))
+    spec = dict(chip_smoke.opt_specs())["bf16"]
+    with chip_smoke.planted_optimizer_library(oo, path):
+        assert not chip_smoke.opt_compare(
+            oo, card, spec, 7, chip_smoke.run_adamw, oo.multi_adamw,
+            oo._multi_adamw_ref, "adamw")[0]
+        assert not chip_smoke.opt_compare(
+            oo, card, spec, 7, chip_smoke.run_sgd, oo.multi_sgd,
+            oo._multi_sgd_ref, "momentum")[0]
+        assert not chip_smoke.sum_sq_check(oo, chip_smoke.opt_buffers(
+            card, chip_smoke.OPT_SIZES, torch.float32, 77, "g"))[0]
+
+
+@pytest.mark.cuda
+def test_optimizer_wrappers_raise_on_strides_and_never_run_plain(card):
+    w = torch.randn(64, 48, device=card)
+    with pytest.raises(MXNetError, match="strides"):
+        oo.multi_adamw([w], [torch.randn(48, 64, device=card).t()],
+                       [torch.zeros_like(w)], [torch.zeros_like(w)], [1.0],
+                       [0.0], lr=torch.ones((), device=card),
+                       t=torch.ones((), dtype=torch.int32, device=card))
+    before = oo.multi_sgd.launches
+    oo.multi_sgd([w], [torch.randn_like(w)], None, [0.1], [0.0])
+    assert oo.multi_sgd.launches == before + 1
+    with pytest.raises(MXNetError, match="not dense"):
+        oo.multi_sum_sq([torch.randn(64, 96, device=card)[:, ::2]])
+
+
+@pytest.mark.cuda
+def test_optimizer_launch_counts_are_the_kernels_launched_on_card(card):
+    """The counts come from the library: one O1/O2 launch per table of a
+    dtype group, two O3 kernels per table (partial sums, then the
+    finish) and one where a table holds only empty tensors."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    sizes = [7] * 1100                  # more than one table of each
+    ws = [torch.randn(n, device=card, dtype=f32 if i % 2 else bf16)
+          for i, n in enumerate(sizes)]
+    lr = torch.full((), 1e-3, device=card)
+    t = torch.ones((), dtype=torch.int32, device=card)
+    ones, zeros = [1.0] * len(ws), [0.0] * len(ws)
+    counts = {}
+    for name, call in (
+            ("O1", lambda: oo.multi_adamw(
+                ws, [torch.randn_like(w) for w in ws],
+                [torch.zeros_like(w) for w in ws],
+                [torch.zeros_like(w) for w in ws], ones, zeros, lr=lr,
+                t=t)),
+            ("O2", lambda: oo.multi_sgd(ws, [torch.randn_like(w)
+                                             for w in ws], None, ones,
+                                        zeros, lr=lr)),
+            ("O3", lambda: oo.multi_sum_sq(ws)),
+            ("O3 empty", lambda: oo.multi_sum_sq(
+                [torch.zeros(0, device=card)]))):
+        chip_smoke.reset_opt_counts(oo)
+        call()
+        counts[name] = chip_smoke.opt_counts(oo)
+    # 550 tensors a dtype: 2 tables of 448 (O1) or 512 (O2) each;
+    # 1,100 tensors in 2 tables of 1,024 (O3)
+    assert counts["O1"] == {"O1": 4, "O2": 0, "O3": 0}
+    assert counts["O2"] == {"O1": 0, "O2": 4, "O3": 0}
+    assert counts["O3"] == {"O1": 0, "O2": 0, "O3": 4}
+    assert counts["O3 empty"] == {"O1": 0, "O2": 0, "O3": 1}
+
+
+@pytest.mark.cuda
+def test_graphed_train_step_with_clip_global_norm_bitwise_equal_eager_on_card(
+        card):
+    """The update through O1 and the clip's norm through O3, graphed and
+    eager: losses and weights bitwise equal, both kernels launched."""
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, 512, (2, 16)).astype(np.int32)
+    y = rng.integers(0, 512, (2, 16)).astype(np.float32)
+    runs = []
+    for graphs in (False, True):
+        before = chip_smoke.opt_counts(oo)
+        net, step = _train_step(card, graphs, clip=0.5)
+        losses = [step.step(x, y).clone() for _ in range(4)]
+        losses.append(step.step_n(3, x, y).clone())
+        after = chip_smoke.opt_counts(oo)
+        assert after["O1"] >= before["O1"] + 7
+        assert after["O3"] >= before["O3"] + 7
+        runs.append((net, losses))
+    (e_net, e_loss), (g_net, g_loss) = runs
+    assert all(torch.equal(a, b) for a, b in zip(e_loss, g_loss))
+    for (name, a), b in zip(e_net.named_parameters(), g_net.parameters()):
+        assert torch.equal(a, b), name
