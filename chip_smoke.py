@@ -33,7 +33,9 @@ Phases, each fatal on failure:
              backward allocates far less than one (T, T) score matrix per
              head, then time each kernel at the train shape beside its
              bound, its plain version and
-             ``scaled_dot_product_attention`` (a yardstick only);
+             ``scaled_dot_product_attention`` (a yardstick only); then
+             the same check and timing (queued behind a sleep) at
+             BERT-base's shape: B*H 384, T 128, D 64, non-causal;
 3b. optimizer — hold the port's multi-tensor optimizer kernels (O1
              multi_adamw in its class and op forms, O2 multi_sgd plain,
              momentum, Nesterov and preloaded, O3 multi_sum_sq with its
@@ -157,7 +159,27 @@ Phases, each fatal on failure:
              profiled step's idle share and top kernels, and the
              BatchNorms and the SGD update each timed alone; then the
              trained net's ``no_grad`` inference at batch 32 and 256,
-             eager against hybridized.
+             eager against hybridized;
+14. bert   — BERT-base, the second headline workload.  First, its
+             width at 2 layers, f32 with TF32 off, batch 2 x 128: the
+             card (K1-K3) against the host (the plain versions) from the
+             same weights: the outputs and the MLM loss within 1e-4, three
+             gradients (the tied word embedding's among them) within
+             1e-3; then ``bert_small`` in f32: the graphed
+             ``JitTrainStep`` (3 adam steps, an lr change, ``step_n(3)``),
+             the hybridized forward and 3 ``gluon.Trainer`` steps under
+             ``record()`` through the graph pair, each bitwise equal to
+             eager, and two more backward passes through the pair giving
+             one pass's gradients; then a main path: BERT-base (12 x 768,
+             vocab 30,522) under ``amp`` bf16, adam 1e-4, through
+             ``JitTrainStep`` over ``bench.py``'s MLM wrapper on a fixed
+             batch of 32 x 128 random tokens, every step eager, then
+             graphed, then a ``step_n(10)`` window: losses finite and
+             falling, K1, K2 and K3 launched 12 times a step and O1 once;
+             samples/s, step ms, MFU from the shapes, peak memory, the
+             profiled step's idle share and top kernels; then the trained
+             net's ``no_grad`` inference at 32 x 128, eager against
+             hybridized.
 
 Each phase logs the card's SM clock and its maximum when it starts.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -907,47 +929,51 @@ def flash_checks(fa, dev):
     torch.cuda.empty_cache()
 
 
-def flash_timing(fa, dev):
-    """K1, K2 and K3 at the Llama-3-8B train shape (B=2, H=32, T=2048,
-    D=128, causal, bf16) beside their bounds, the plain versions and
-    ``scaled_dot_product_attention`` (forward; backward for K2 + K3,
-    timed together)."""
+def flash_timing(fa, dev, b=TRAIN_B, h=32, t=TRAIN_T, d=128, causal=True,
+                 timer=None, label="B=2 H=32 T=2048 D=128 causal bf16"):
+    """K1, K2 and K3 at a bf16 shape, by default the Llama-3-8B train
+    shape (B=2, H=32, T=2048, D=128, causal), beside their bounds, the
+    plain versions and ``scaled_dot_product_attention`` (forward;
+    backward for K2 + K3, timed together).  ``timer`` (default
+    ``cuda_ms``: back-to-back calls) times every call but the plain
+    versions'."""
     import torch
     import torch.nn.functional as F
 
-    b, h, t, d = TRAIN_B, 32, TRAIN_T, 128
+    timer = timer or cuda_ms
     bh, scale = b * h, d ** -0.5
     rng = np.random.default_rng(3)
     q, k, v, do = flash_case(rng, dev, bh, t, t, d, torch.bfloat16)
-    out, lse = fa._fwd_kernel(q, k, v, scale, True)
+    out, lse = fa._fwd_kernel(q, k, v, scale, causal)
     delta = (do.float() * out.float()).sum(-1)
-    err = kernel_errors(flash_compare(fa, (q, k, v, do), scale, True)[0])
+    err = kernel_errors(flash_compare(fa, (q, k, v, do), scale, causal)[0])
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    ms = {"K1": cuda_ms(lambda i: fa._fwd_kernel(q, k, v, scale, True), 20),
-          "K2": cuda_ms(lambda i: fa._run(
+    c = int(causal)
+    ms = {"K1": timer(lambda i: fa._fwd_kernel(q, k, v, scale, causal), 20),
+          "K2": timer(lambda i: fa._run(
               "mxtt_flash_bwd_dq", "dq_launches", q, k, v, do, lse, delta,
-              dq, bh, t, t, d, scale, 1, 1), 20),
-          "K3": cuda_ms(lambda i: fa._run(
+              dq, bh, t, t, d, scale, c, 1), 20),
+          "K3": timer(lambda i: fa._run(
               "mxtt_flash_bwd_dkv", "dkv_launches", q, k, v, do, lse, delta,
-              dk, dv, bh, t, t, d, scale, 1, 1), 20)}
-    plain_fwd = cuda_ms(lambda i: fa._flash_fwd_ref(q, k, v, scale, True),
+              dk, dv, bh, t, t, d, scale, c, 1), 20)}
+    plain_fwd = cuda_ms(lambda i: fa._flash_fwd_ref(q, k, v, scale, causal),
                         3, warmup=1)
     plain_bwd = cuda_ms(lambda i: fa._flash_bwd_ref(
-        q, k, v, do, lse, delta, scale, True), 3, warmup=1)
+        q, k, v, do, lse, delta, scale, causal), 3, warmup=1)
     q4, k4, v4 = (x.reshape(b, h, t, d).detach().requires_grad_()
                   for x in (q, k, v))
-    lib_fwd = cuda_ms(lambda i: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True), 20)
-    lib_out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    lib_fwd = timer(lambda i: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=causal), 20)
+    lib_out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
     do4 = do.reshape(b, h, t, d)
-    lib_bwd = cuda_ms(lambda i: torch.autograd.grad(
+    lib_bwd = timer(lambda i: torch.autograd.grad(
         lib_out, (q4, k4, v4), do4, retain_graph=True), 20)
     lib_err = (lib_out.detach().reshape(bh, t, d).float()
                - out.float()).abs().max().item()
     # bound: the products' operations on the unmasked (row, col) pairs at
     # the bf16 tensor-core rate, or each input read once and each output
     # written once at the HBM rate, whichever is longer
-    pairs = bh * t * (t + 1) // 2
+    pairs = bh * t * (t + 1) // 2 if causal else bh * t * t
     tile = bh * t * d * 2                       # one bf16 (BH, T, D)
     rows = bh * t * 4                           # one f32 (BH, T)
     work = {"K1": (2, 4 * tile + rows), "K2": (3, 5 * tile + 2 * rows),
@@ -966,15 +992,49 @@ def flash_timing(fa, dev):
             "library_ms": library[name], "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "max_abs_err": err[name]}
-        log("flash timing %s B=2 H=32 T=2048 D=128 causal bf16: kernel %.4f "
-            "ms, plain %.4f ms, sdpa %.4f ms, bound %.4f ms (%d flops, %d "
-            "bytes) -> %.1f%% of bound; max_abs_err %.3g"
-            % (name, ms[name], plain[name], library[name], bound, flops,
-               n_bytes, 100.0 * bound / ms[name], err[name]))
+        log("flash timing %s %s: kernel %.4f ms, plain %.4f ms, sdpa %.4f "
+            "ms, bound %.4f ms (%d flops, %d bytes) -> %.1f%% of bound; "
+            "max_abs_err %.3g"
+            % (name, label, ms[name], plain[name], library[name], bound,
+               flops, n_bytes, 100.0 * bound / ms[name], err[name]))
     log("flash timing: sdpa forward vs K1 max_abs_err %.3g; K2 and K3 share "
         "one plain_ms and one library_ms: the plain backward and the sdpa "
         "backward compute dq, dk and dv together" % lib_err)
     return rows_out
+
+
+BERT_FLASH = dict(b=32, h=12, t=128, d=64)   # BERT-base's train shape
+
+
+def flash_bert_shape(fa, dev):
+    """K1, K2 and K3 at BERT-base's train shape (B=32, H=12, T=128,
+    D=64, non-causal, bf16: one 128-row tile a head, on the wgmma
+    kernels): held against their plain versions with the per-tile bf16
+    reading, then timed queued behind a sleep beside their bounds, the
+    plain versions and non-causal ``scaled_dot_product_attention``.
+    Returns each kernel's readings as ``bert_*`` fields."""
+    import torch
+
+    b, h, t, d = (BERT_FLASH[k] for k in "bhtd")
+    rng = np.random.default_rng(11)
+    args = flash_case(rng, dev, b * h, t, t, d, torch.bfloat16)
+    res, _, _, parts = flash_compare(fa, args, d ** -0.5, False)
+    worst = max(r for r, _ in res.values())
+    log("flash check bert    B*H=%d T=%d D=%d non-causal bf16 (reading, "
+        "max_abs_err): %s %s; bf16 readings' parts (tile L2, tile max): %s"
+        % (b * h, t, d,
+           " ".join("%s %.2f %.3g" % (n, r, e) for n, (r, e) in res.items()),
+           "ok" if worst <= 1 else "FAIL",
+           " ".join("%s %.3f %.3f" % ((n,) + pr) for n, pr in parts.items())))
+    if worst > 1:
+        fail("flash kernels disagree with their plain versions at BERT's "
+             "shape")
+    del args
+    rows = flash_timing(fa, dev, b, h, t, d, False, timer=queued_ms,
+                        label="B=%d H=%d T=%d D=%d non-causal bf16 (BERT, "
+                              "queued)" % (b, h, t, d))
+    return {name: {"bert_" + k: v for k, v in row.items()}
+            for name, row in rows.items()}
 
 
 # -- phase 4: the serve main path -----------------------------------
@@ -3668,6 +3728,532 @@ def resnet_phase(dev):
     return o2
 
 
+# -- phase 14: bert, the second headline workload --------------------------
+
+BERT_B, BERT_T = 32, 128          # bench.py's BERT batch (_run_bert)
+BERT_VOCAB = 30522
+BERT_BASE = dict(units=768, hidden_size=3072, num_layers=12, num_heads=12)
+BERT_SMALL_VOCAB = 1000
+
+
+def bert_net(dev, seed, vocab=None, small=False, **kw):
+    """``bert_base`` (or ``bert_small``) on ``dev``, vocab ``BERT_VOCAB``
+    unless given, Xavier from a seeded generator."""
+    import torch
+
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+
+    make = bert.bert_small if small else bert.bert_base
+    net = make(vocab_size=vocab or BERT_VOCAB, device=dev, **kw)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    net.initialize(initializer.Xavier(), generator=gen)
+    return net
+
+
+def mlm_wrapper(gluon, vocab):
+    """``bench.py``'s MLM wrapper: the tied head's logits flattened to
+    (B*T, V)."""
+    class MLM(gluon.HybridBlock):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, toks):
+            return self.inner(toks)[2].reshape(-1, vocab)
+
+    return MLM
+
+
+def bert_batch(dev, batch, t, vocab, seed):
+    """Seeded random tokens, token types and MLM labels (one a token)."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, vocab, (batch, t)).astype(np.int32)
+    types = rng.randint(0, 2, (batch, t)).astype(np.int32)
+    labels = rng.randint(0, vocab, batch * t).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (toks, types, labels))
+
+
+def bert_parity(dev):
+    """``bert_base``'s width (768 units, 12 heads, FFN 3072, vocab
+    30,522), 2 layers, f32 with TF32 off, batch 2 x 128 with token
+    types: the card (K1-K3 on their f32 path) against the host's CPU
+    (the plain versions) from the same weights.  ``seq``, ``pooled``,
+    ``logits`` and the MLM loss within 1e-4 of each one's largest
+    magnitude; the gradients of ``word_embed.weight`` (tied: the
+    embedding's and the head's contributions), one layer's
+    ``attn.qkv.weight`` and ``ln1.gamma`` within 1e-3 of theirs."""
+    import torch
+
+    from mxnet_tpu_torch import autograd, gluon
+
+    host = bert_net("cpu", 1, num_layers=2)
+    card = bert_net(dev, 1, num_layers=2)
+    card.load_state_dict(host.state_dict())
+    toks, types, labels = bert_batch("cpu", 2, BERT_T, BERT_VOCAB, 1)
+    names = ("word_embed.weight", "encoder.layers.0.attn.qkv.weight",
+             "encoder.layers.0.ln1.gamma")
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    res = []
+    with exact_convs():
+        for net in (card, host):
+            where = next(net.parameters()).device
+            params = dict(net.named_parameters())
+            with autograd.record():
+                seq, pooled, logits = net(toks.to(where), types.to(where))
+                loss = loss_fn(logits.reshape(-1, BERT_VOCAB),
+                               labels.to(where)).mean()
+            grads = torch.autograd.grad(loss, [params[n] for n in names])
+            res.append([t.detach().double().cpu()
+                        for t in (seq, pooled, logits, loss, *grads)])
+    what = ("seq", "pooled", "logits", "MLM loss") \
+        + tuple("grad " + n for n in names)
+    ok = True
+    for i, (label, c, h) in enumerate(zip(what, *res)):
+        scale = h.abs().max().item() + 1e-30
+        err = (c - h).abs().max().item() / scale
+        bound = 1e-4 if i < 4 else 1e-3
+        ok &= err <= bound
+        log("bert parity: %s: card against host %.3g of the largest value "
+            "(%.4g), bound %.0e %s" % (label, err, scale, bound,
+                                       "ok" if err <= bound else "FAIL"))
+    if not ok:
+        fail("the card's BERT disagrees with the host's")
+
+
+def _bert_losses_equal(a, b):
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def bert_train_step_check(dev):
+    """``bert_small`` (vocab 1000), f32 with TF32 off, batch 4 x 32:
+    ``JitTrainStep`` with adam (1e-3) over the MLM wrapper, graphed
+    against ``graphs=False``: 3 steps with the learning rate changed
+    before the third, then ``step_n(3)``: losses and weights bitwise
+    equal, one capture and 5 replays."""
+    from mxnet_tpu_torch import gluon, parallel
+
+    toks, _, labels = bert_batch(dev, 4, 32, BERT_SMALL_VOCAB, 2)
+    runs = []
+    with exact_convs():
+        for graphs in (False, True):
+            net = bert_net(dev, 2, BERT_SMALL_VOCAB, small=True)
+            step = parallel.JitTrainStep(
+                mlm_wrapper(gluon, BERT_SMALL_VOCAB)(net),
+                gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+                {"learning_rate": 1e-3}, graphs=graphs)
+            losses = []
+            for i in range(3):
+                if i == 2:
+                    step._opt.set_learning_rate(5e-4)
+                losses.append(step.step(toks, labels).clone())
+            losses.append(step.step_n(3, toks, labels).clone())
+            runs.append((losses, _state(net), step.stats()))
+            del step, net
+    (e_loss, e_w, _), (g_loss, g_w, st) = runs
+    same_loss, same_w = _bert_losses_equal(e_loss, g_loss), _same(e_w, g_w)
+    log("bert graphs: bert_small, f32, batch 4 x 32: JitTrainStep adam, 3 "
+        "steps (lr 1e-3, then 5e-4) and step_n(3): losses %s; graphed "
+        "against eager: losses %s, weights %s; %d capture, %d replays"
+        % (["%.5f" % v.item() for v in e_loss],
+           "bitwise equal" if same_loss else "DIFFER",
+           "bitwise equal" if same_w else "DIFFER", st["captures"],
+           st["replays"]))
+    if not (same_loss and same_w):
+        fail("the graphed BERT JitTrainStep is not bitwise equal to eager")
+    if (st["captures"], st["replays"]) != (1, 5):
+        fail("the graphed BERT step did not capture once and replay 5 "
+             "times")
+
+
+def bert_hybrid_checks(dev):
+    """``bert_small`` (vocab 1000), f32 with TF32 off, batch 4 x 32 with
+    token types, hybridized against eager, bitwise: the ``no_grad``
+    forward (``seq``, ``pooled``, ``logits``; 3 calls), then 3
+    ``gluon.Trainer`` adam steps under ``record()`` through the graph
+    pair (losses and weights; the tied ``word_embed.weight`` takes both
+    contributions in the backward graph), then the ``grad_req="write"``
+    rule through the pair: two more recorded forward and backward
+    passes leave one pass's gradients, equal to the eager net's."""
+    import torch
+
+    from mxnet_tpu_torch import autograd, gluon
+
+    toks, types, labels = bert_batch(dev, 4, 32, BERT_SMALL_VOCAB, 3)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    runs = []
+    with exact_convs():
+        for hybrid in (False, True):
+            net = bert_net(dev, 3, BERT_SMALL_VOCAB, small=True)
+            if hybrid:
+                net.hybridize()
+            with torch.no_grad():
+                fwd = [o.clone() for _ in range(3)
+                       for o in net(toks, types)]
+            trainer = gluon.Trainer(net.collect_params(), "adam",
+                                    {"learning_rate": 1e-3})
+
+            def loss_of():
+                with autograd.record():
+                    logits = net(toks, types)[2]
+                    loss = loss_fn(logits.reshape(-1, BERT_SMALL_VOCAB),
+                                   labels).mean()
+                loss.backward()
+                return loss.detach().clone()
+
+            losses = []
+            for _ in range(3):
+                losses.append(loss_of())
+                # the pooler is off the MLM loss's path
+                trainer.step(1, ignore_stale_grad=True)
+            grads = []
+            for _ in range(2):
+                loss_of()
+                grads.append({k: p.grad.clone()
+                              for k, p in net.named_parameters()
+                              if p.grad is not None})
+            runs.append((fwd, losses, _state(net), grads,
+                         net.stats() if hybrid else None))
+            del net, trainer
+    (e_f, e_l, e_w, e_g, _), (h_f, h_l, h_w, h_g, st) = runs
+    same_f = _bert_losses_equal(e_f, h_f)
+    same_l, same_w = _bert_losses_equal(e_l, h_l), _same(e_w, h_w)
+    write = all(_same(g[0], g[1]) for g in (e_g, h_g))
+    # the pair's backward graph gives the pooler (off the loss's path) a
+    # zero gradient where eager autograd gives none, as the JAX
+    # package's cached vjp and its imperative autograd differ
+    extra = set(h_g[0]) - set(e_g[0])
+    same_g = _same(e_g[0], {k: h_g[0][k] for k in e_g[0]}) and all(
+        not h_g[0][k].any() for k in extra)
+    log("bert graphs: bert_small, f32, batch 4 x 32: hybridized no_grad "
+        "forward (seq, pooled, logits; 3 calls) %s; 3 Trainer adam steps "
+        "under record() through the graph pair: losses %s, hybridized "
+        "against eager: losses %s, weights %s; two more backward passes "
+        "give one pass's gradients: eager %s, hybridized %s, hybridized "
+        "against eager %s (%s zero through the pair, none eager); %d "
+        "captures, %d replays, %d backward replays"
+        % ("bitwise equal" if same_f else "DIFFER",
+           ["%.5f" % v.item() for v in e_l],
+           "bitwise equal" if same_l else "DIFFER",
+           "bitwise equal" if same_w else "DIFFER",
+           _same(e_g[0], e_g[1]), _same(h_g[0], h_g[1]),
+           "bitwise equal" if same_g else "DIFFER", sorted(extra),
+           st["captures"], st["replays"], st["backward_replays"]))
+    if not (same_f and same_l and same_w and write and same_g):
+        fail("the hybridized BERT is not bitwise equal to eager, or a "
+             "second backward added to the gradients")
+    # the no_grad call: 1 capture, 2 replays; the recorded one: 5 calls,
+    # 1 capture, 4 forward and 4 backward replays
+    if (st["captures"], st["replays"], st["backward_replays"]) != (2, 6, 4):
+        fail("the hybridized BERT did not capture once a signature (%s)"
+             % st)
+
+
+def bert_train_run(dev):
+    """BERT-base (12 layers x 768 units, 12 heads, FFN 3072, vocab
+    30,522) under amp bf16, adam 1e-4, through ``JitTrainStep`` over
+    ``bench.py``'s MLM wrapper on a fixed batch of 32 x 128 seeded random
+    tokens and labels: every step eager (``graphs=False``), then graphed
+    (2 warm-up, 8 timed and 1 profiled step each), then one
+    ``step_n(10)`` window.  Returns the kernels' launch counts over
+    those steps and the trained net."""
+    import torch
+
+    from mxnet_tpu_torch import amp, gluon, parallel
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import optimizer_ops as oo
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    net = bert_net(dev, 0)
+    amp.convert_hybrid_block(net)
+    toks, _, labels = bert_batch(dev, BERT_B, BERT_T, BERT_VOCAB, 0)
+    layers, units = BERT_BASE["num_layers"], BERT_BASE["units"]
+    n_params = sum(p.numel() for p in net.parameters())
+    layer_w = sum(p.numel() for n, p in net.named_parameters()
+                  if n.startswith("encoder.") and p.dim() == 2)
+    head_w = net.word_embed.weight.numel()
+    tokens = BERT_B * BERT_T
+    # forward + backward = 3 x the forward's two products (q k^T, p v)
+    # over every (row, col) pair of every head
+    attn_flops = 3 * layers * 4 * BERT_B * BERT_T * BERT_T * units
+    step_flops = 6 * tokens * (layer_w + head_w) + attn_flops
+    step = parallel.JitTrainStep(
+        mlm_wrapper(gluon, BERT_VOCAB)(net),
+        gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+        {"learning_rate": 1e-4}, graphs=False)
+    log("bert train: BERT-base, %d layers x %d units, vocab %d, %.4g M "
+        "parameters (bf16; %.4g M in the layers' products, %.4g M in the "
+        "tied head), batch %d x %d, %.4g TFLOP a step (6 x tokens x product "
+        "weights + %.4g GFLOP of attention), set-up %.1f s"
+        % (layers, units, BERT_VOCAB, n_params / 1e6, layer_w / 1e6,
+           head_w / 1e6, BERT_B, BERT_T, step_flops / 1e12, attn_flops / 1e9,
+           time.perf_counter() - t0))
+    counters = ("fwd_launches", "dq_launches", "dkv_launches")
+    for name in counters:
+        setattr(fa.flash_attention, name, 0)
+    reset_opt_counts(oo)
+    losses, rows = [], {}
+    n_warm, n_timed = 2, 8
+    for mode in ("eager", "graphed"):
+        step.graphs = mode == "graphed"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, outs = timed_steps(lambda: step.step(toks, labels), n_warm,
+                                  n_timed)
+        losses += [o.item() for o in outs]
+        out, wall, busy, averages = profiled_step(
+            lambda: step.step(toks, labels))
+        losses.append(out.item())
+        rows[mode] = (times, wall, busy, averages,
+                      torch.cuda.max_memory_allocated(), step.stats())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    last = step.step_n(10, toks, labels)
+    torch.cuda.synchronize()
+    window = time.perf_counter() - t1
+    losses.append(last.item())
+    launches = {name: getattr(fa.flash_attention, name) for name in counters}
+    launches.update(opt_counts(oo))
+    n_steps = 2 * (n_warm + n_timed + 1) + 10
+    log("bert train: launches over %d steps: %s (K1-K3 must be %d each, "
+        "O1 %d)" % (n_steps, launches, layers * n_steps, n_steps))
+    for name in counters:
+        if launches[name] != layers * n_steps:
+            fail("BERT's %s = %d over %d steps of %d layers"
+                 % (name, launches[name], n_steps, layers))
+    if launches["O1"] != n_steps:
+        fail("BERT's adam update launched O1 %d times over %d steps"
+             % (launches["O1"], n_steps))
+    log("bert train: losses %s" % ["%.4f" % v for v in losses])
+    if not all(math.isfinite(v) for v in losses):
+        fail("a BERT train loss is not finite")
+    # adam 1e-4 on one batch of random labels: the loss falls steadily,
+    # from 10.35 to 7.91 over the 32 steps in the first run on the card;
+    # the check leaves room for another process's rounding
+    log("bert train: loss at the last step %.4f against %.4f at the first "
+        "(must be below 90%% of it)" % (losses[-1], losses[0]))
+    if not losses[-1] < 0.9 * losses[0]:
+        fail("the BERT loss did not fall on the fixed batch")
+    st = step.stats()
+    if st["captures"] != 1 or st["replays"] != n_warm + n_timed + 10:
+        fail("the graphed BERT step did not capture once and replay (%s)"
+             % st)
+    for mode, (times, wall, busy, averages, peak, st) in rows.items():
+        p50_s = times[len(times) // 2]
+        top, _, kern_ms = kernel_rows(averages)
+        log("bert train: %s step ms p50 %.3f (min %.3f max %.3f over %d "
+            "timed steps), %.1f samples/s, %.1f%% MFU (%.4g model FLOP a "
+            "step at 989 TFLOP/s bf16), peak device memory %.2f GB (%.2f GB "
+            "held before the run)"
+            % (mode, 1e3 * p50_s, 1e3 * times[0], 1e3 * times[-1],
+               len(times), BERT_B / p50_s,
+               100 * step_flops / p50_s / BF16_FLOPS, step_flops,
+               peak / 1e9, held / 1e9))
+        log("bert train: %s profiled step: wall %.3f ms (the profiler's "
+            "own cost included), kernels busy %.3f ms (union of intervals): "
+            "idle %.1f%% of the profiled step, %.1f%% of the p50 step; "
+            "kernels summed %.3f ms: %s"
+            % (mode, wall * 1e3, busy, 100 * (1 - busy / (wall * 1e3)),
+               100 * max(0.0, 1 - busy / (1e3 * p50_s)), kern_ms,
+               ", ".join("%s %.3f" % kv
+                         for kv in kernel_kinds(averages).items())))
+        for ms, n, key in top:
+            log("bert train:   %9.3f ms  x%-5d %s" % (ms, n, key[:100]))
+        if mode == "graphed":
+            log("bert train: graphed: %d capture in %.3f s, %d replays, %.1f "
+                "us host time a replay outside it, graph pool %.1f MB"
+                % (st["captures"], st["capture_s"], st["replays"],
+                   1e6 * st["host_s"] / max(st["replays"], 1),
+                   st["pool_bytes"] / 1e6))
+    e50, g50 = (rows[m][0][n_timed // 2] for m in ("eager", "graphed"))
+    log("bert train: step_n(10): %.3f s, %.1f samples/s, %.3f ms a step; "
+        "graphed / eager step p50 %.3f / %.3f ms (%.3fx)"
+        % (window, 10 * BERT_B / window, 100 * window, 1e3 * g50, 1e3 * e50,
+           e50 / g50))
+    o1_err = bert_adam_check(oo, dev, step)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, o1_err, net
+
+
+def bert_adam_check(oo, dev, step):
+    """O1 against its plain version on BERT-base's own list, after the
+    main path's launches were read: identical copies of the trained amp
+    bf16 weights and adam moments, with seeded gradients in the
+    weights' dtype, updated with the main path's adam (class form, its
+    learning rate, decays, rescale, clipping and a count of 33).  Each
+    of weights and moments is held to ``opt_within`` per dtype; fails on
+    a miss.  Returns the worst abs error."""
+    import torch
+
+    opt, idx = step._opt, step._train_idx
+    ws = [step._params[i].detach() for i in idx]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    grads = [torch.randn(w.shape, generator=gen, device=dev).mul_(2)
+             .to(w.dtype) for w in ws]
+    states = [step._opt_state[i] for i in idx]
+    kw = dict(lr=torch.full((), opt.learning_rate, dtype=torch.float32,
+                            device=dev),
+              t=torch.full((), 33, dtype=torch.int32, device=dev),
+              beta1=opt.beta1, beta2=opt.beta2, epsilon=opt.epsilon,
+              rescale_grad=float(opt.rescale_grad),
+              clip_gradient=opt._clip(), fold_wd=True)
+    mults = [opt._mult(opt.lr_mult, i) for i in idx]
+    wds = [opt._get_wd(i) for i in idx]
+    copies = []
+    for fn in (oo.multi_adamw, oo._multi_adamw_ref):
+        w, m, v = ([x.clone() for x in xs] for xs in
+                   (ws, [st[0] for st in states], [st[1] for st in states]))
+        fn(w, grads, m, v, mults, wds, **kw)
+        copies.append((w, m, v))
+    err = main_shape_check(
+        "O1 over BERT-base's amp list (%d tensors, %.4g M elements, %s; "
+        "adam, lr %g, wd %s, rescale %g)"
+        % (len(ws), sum(w.numel() for w in ws) / 1e6,
+           sorted({str(w.dtype).replace("torch.", "") for w in ws}),
+           opt.learning_rate, sorted(set(wds)), opt.rescale_grad),
+        dict(zip(("w", "m", "v"), zip(*copies))))
+    del copies, grads
+    return err
+
+
+def write_rule_cost(net):
+    """Host us of one outermost block call's ``grad_req="write"`` rule
+    over the net's parameters (``block.write_grads``, with a graph holding
+    the armed nodes, as in an eager Trainer step), of its node lookup
+    alone (through a view), and of the same lookup through
+    ``torch.autograd.graph.get_gradient_edge``: median and least of 50
+    rounds after 5."""
+    import torch
+    from torch.autograd.graph import get_gradient_edge
+
+    from mxnet_tpu_torch.gluon import block
+
+    params = [p for p in net.parameters() if p.requires_grad]
+    x = torch.zeros((1, 8), dtype=torch.int64, device=params[0].device)
+    with torch.enable_grad():
+        out = net(x)
+
+        def lookup():
+            for p in params:
+                p.view_as(p).grad_fn.next_functions[0][0]
+
+        def edge():
+            for p in params:
+                get_gradient_edge(p).node
+
+        fns = {"write_grads": lambda: block.write_grads(params),
+               "lookup": lookup, "edge": edge}
+        ts = {name: [] for name in fns}
+        # rounds of one call each, so that drift in the host's load
+        # falls on all three alike
+        for _ in range(55):
+            for name, fn in fns.items():
+                t0 = time.perf_counter()
+                fn()
+                ts[name].append(time.perf_counter() - t0)
+    del out
+    us = {name: (1e6 * sorted(t[5:])[25], 1e6 * min(t[5:]))
+          for name, t in ts.items()}
+    log("bert write rule: host us per outermost block call over %d "
+        "parameters, median (min) of 50: %.1f (%.1f) us (write_grads, "
+        "nodes armed); its node lookup through a view %.1f (%.1f) us; the "
+        "same lookup through get_gradient_edge %.1f (%.1f) us"
+        % (len(params), *us["write_grads"], *us["lookup"], *us["edge"]))
+
+
+BERT_KINDS = (("flash (K1-K3)", ("flash_",)), ("adam (O1)", ("multi_adamw",)),
+              ("GEMMs", ("gemm", "nvjet", "cutlass", "sm90_")),
+              ("softmax and loss", ("softmax", "gather", "scatter")),
+              ("norms", ("layer_norm", "gammabeta")),
+              ("copies", ("copy",)),
+              ("reductions", ("reduce_kernel",)),
+              ("elementwise", ("elementwise",)))
+
+
+def kernel_kinds(averages):
+    """Device ms of a profile's kernels by kind, each kernel counted in
+    the first kind whose pattern its name holds (BERT_KINDS; the rest
+    under "other")."""
+    out = {name: 0.0 for name, _ in BERT_KINDS}
+    out["other"] = 0.0
+    for e in averages:
+        if e.self_device_time_total <= 0:
+            continue
+        key = e.key.lower()
+        kind = next((name for name, pats in BERT_KINDS
+                     if any(p in key for p in pats)), "other")
+        out[kind] += e.self_device_time_total / 1e3
+    return out
+
+
+def bert_infer(net, dev):
+    """The trained bf16 net's ``no_grad`` forward at 32 x 128, eager
+    against hybridized (eager first call, capture, replays): wall p50 of
+    10 synchronised calls after 3, samples/s, and the logits equal."""
+    import torch
+
+    toks, _, _ = bert_batch(dev, BERT_B, BERT_T, BERT_VOCAB, 6)
+    net.hybridize(False)
+    eager, want = timed_forward(net, toks, 13)
+    net.hybridize()
+    hyb, got = timed_forward(net, toks, 13)
+    eager, hyb = sorted(eager[3:]), sorted(hyb[3:])
+    if not all(bool(torch.isfinite(o.float()).all()) for o in got):
+        fail("non-finite BERT outputs")
+    err = max(((g.float() - w.float()).abs().max()
+               / w.float().abs().max()).item() for g, w in zip(got, want))
+    st = net.stats()
+    log("bert infer: batch %d x %d, bf16, no_grad: eager ms p50 %.3f (min "
+        "%.3f max %.3f), %.1f samples/s; hybridized ms p50 %.3f (min %.3f "
+        "max %.3f), %.1f samples/s; seq, pooled and logits %s (%.3g of the "
+        "largest); %d capture, %d replays"
+        % (BERT_B, BERT_T, eager[len(eager) // 2], eager[0], eager[-1],
+           1e3 * BERT_B / eager[len(eager) // 2], hyb[len(hyb) // 2], hyb[0],
+           hyb[-1], 1e3 * BERT_B / hyb[len(hyb) // 2],
+           "bitwise equal" if err == 0 else "differ", err, st["captures"],
+           st["replays"]))
+    if err != 0:
+        fail("the hybridized BERT forward differs from eager")
+    net.hybridize(False)
+
+
+def bert_phase(dev):
+    """The f32 card-against-host check at BERT-base's width, the
+    graphed-against-eager checks at ``bert_small``, then the main path:
+    BERT-base trained through ``JitTrainStep`` under amp bf16 at 32 x
+    128, and its hybridized inference."""
+    import torch
+
+    from mxnet_tpu_torch import amp
+
+    start_profiler(dev)
+    bert_parity(dev)
+    bert_train_step_check(dev)
+    bert_hybrid_checks(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    amp.init("bfloat16")
+    try:
+        launches, o1_err, net = bert_train_run(dev)
+        write_rule_cost(net)
+        bert_infer(net, dev)
+    finally:
+        amp.turn_off()
+    return launches, o1_err
+
+
 # -- phase 14: the optimizer kernels O1-O3 ---------------------------------
 
 OPT_SIZES = (1, 7, 8191, 8192, 8193, 100003, 3 * 8192 + 5)
@@ -4276,20 +4862,23 @@ def nvidia_smi_line():
 
 PHASES = ("kernel", "flash", "optimizer", "serve", "parity", "fleet",
           "train", "train_parity", "hybridize", "rtc", "imperative",
-          "imperative_parity", "resnet")
+          "imperative_parity", "resnet", "bert")
 # the phases that launch K1-K4 and O1-O3, whose libraries the smoke
 # builds first
 NVCC_PHASES = {"kernel", "flash", "optimizer", "serve", "parity", "fleet",
-               "train", "train_parity", "hybridize", "resnet"}
+               "train", "train_parity", "hybridize", "resnet", "bert"}
 
 
-def kernel_entry(name, source, replaces, launches, timing):
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
-            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-            "bound_by": timing["bound_by"],
-            "library_ms": timing["library_ms"]}
+def kernel_entry(name, source, replaces, launches, timing, extra=None):
+    """One kernel's entry of the ``kernels`` line; ``extra`` adds fields
+    (K1-K3's readings at BERT's shape, O1's check on BERT-base's list)."""
+    return dict({"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches,
+                 "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
+                 "plain_ms": timing["plain_ms"],
+                 "bound_ms": timing["bound_ms"],
+                 "bound_by": timing["bound_by"],
+                 "library_ms": timing["library_ms"]}, **(extra or {}))
 
 
 def main(argv):
@@ -4357,7 +4946,7 @@ def main(argv):
 
     def flash_phase():
         flash_checks(fa, dev)
-        return flash_timing(fa, dev)
+        return flash_timing(fa, dev), flash_bert_shape(fa, dev)
 
     k4 = timed("kernel", kernel_phase)
     flash = timed("flash", flash_phase)
@@ -4377,6 +4966,8 @@ def main(argv):
     k5_launches = timed("imperative", imperative_main_path, mx, dev)
     timed("imperative_parity", imperative_parity, mx, dev)
     resnet_o2 = timed("resnet", resnet_phase, dev)
+    bert_launches, bert_o1_err = timed("bert", bert_phase, dev) \
+        or (None, None)
     log("total: %.1f s" % (time.perf_counter() - t_all))
     if list(phases) != list(PHASES):
         log("ran phases %s only: no result lines" % ",".join(phases))
@@ -4384,19 +4975,21 @@ def main(argv):
 
     src = "mxnet_tpu_torch/csrc/flash_attention.cu"
     opt_src = "mxnet_tpu_torch/csrc/optimizer_ops.cu"
+    flash, flash_bert = flash
+    paths = (flash_launches, hybrid_launches, bert_launches)
     print(json.dumps({"kernels": [
         kernel_entry("K1 flash_fwd", src,
                      "mxnet_tpu/ops/pallas_kernels.py:83",
-                     flash_launches["fwd_launches"]
-                     + hybrid_launches["fwd_launches"], flash["K1"]),
+                     sum(p["fwd_launches"] for p in paths), flash["K1"],
+                     flash_bert["K1"]),
         kernel_entry("K2 flash_bwd_dq", src,
                      "mxnet_tpu/ops/pallas_kernels.py:166",
-                     flash_launches["dq_launches"]
-                     + hybrid_launches["dq_launches"], flash["K2"]),
+                     sum(p["dq_launches"] for p in paths), flash["K2"],
+                     flash_bert["K2"]),
         kernel_entry("K3 flash_bwd_dkv", src,
                      "mxnet_tpu/ops/pallas_kernels.py:208",
-                     flash_launches["dkv_launches"]
-                     + hybrid_launches["dkv_launches"], flash["K3"]),
+                     sum(p["dkv_launches"] for p in paths), flash["K3"],
+                     flash_bert["K3"]),
         kernel_entry("K4 paged_attention",
                      "mxnet_tpu_torch/csrc/paged_attention.cu",
                      "mxnet_tpu/ops/paged_attention.py:80",
@@ -4409,8 +5002,8 @@ def main(argv):
         # the counterpart of a registered op of the JAX package
         kernel_entry("O1 multi_adamw (port-only)", opt_src,
                      "mxnet_tpu/ops/optimizer_ops.py:479",
-                     flash_launches["O1"] + hybrid_launches["O1"],
-                     opt["O1"]),
+                     sum(p["O1"] for p in paths), opt["O1"],
+                     {"bert_max_abs_err": bert_o1_err}),
         kernel_entry("O2 multi_sgd (port-only)", opt_src,
                      "mxnet_tpu/ops/optimizer_ops.py:314", resnet_o2,
                      opt["O2"]),

@@ -24,6 +24,10 @@ Ported so far:
   ``lr_scheduler``, the update ops of ``ops.optimizer_ops`` with the
   multi-tensor kernels O1-O3 (Adam/AdamW, SGD, sum of squares), and
   ``Trainer.save_states`` in the MXGC1 format (``sharding.checkpoint``);
+* BERT: ``gluon.model_zoo.bert`` (self-attention through K1-K3, the
+  exact-GELU FFN, the tied MLM head), the norms and containers of
+  ``gluon.nn`` (``LayerNorm``, ``GroupNorm``, ``InstanceNorm``,
+  ``Concurrent``, ``Lambda``, ...) and ``JitTrainStep.save_states``;
 * the telemetry and testing modules these tiers use.
 
 The port's own kernels are CUDA C++ for sm_90a in ``csrc/``.  Entry

@@ -6,13 +6,17 @@ The port mirrors AMP inside its ops instead: an op on one of the lists
 (``lists.py``, copied from the JAX package) passes its inputs through
 :func:`transform_inputs` before it computes, so one rule serves a
 Gluon layer and the imperative op alike.  The ops that do so:
-``Convolution`` and ``FullyConnected`` (``nn.Dense``) run in the
-target dtype; ``softmax_cross_entropy`` (``gluon.loss``) takes its
-log-softmax in f32 always; ``BatchNorm`` is on no list and runs in its
-input's dtype, with its parameters and running statistics kept in f32
-by ``nn.BatchNorm.cast``.  The other list ops of ``ops/tensor.py``
-(``mean``, ``exp``, the ``broadcast_*`` family, ...) are not rewritten
-yet (``ROADMAP.md``).
+``Convolution``, ``FullyConnected`` (``nn.Dense``), BERT's tied head
+(``dot``) and its attention (``_contrib_flash_attention``) run in the
+target dtype; ``LayerNorm``, ``InstanceNorm`` and ``GroupNorm`` cast
+their inputs to f32 and return f32; ``nn.Concurrent``'s ``concat``
+takes the widest dtype; ``softmax_cross_entropy`` (``gluon.loss``)
+takes its log-softmax in f32 always; ``BatchNorm`` is on no list and
+runs in its input's dtype, with its parameters and running statistics
+kept in f32 by ``nn.BatchNorm.cast``.  Torch's own type promotion gives
+the widest dtype for a residual add.  The other list ops of
+``ops/tensor.py`` (``mean``, ``exp``, the ``broadcast_*`` family, ...)
+are not rewritten yet (``ROADMAP.md``).
 
 The state is process-wide, as in the JAX package.
 """
@@ -109,8 +113,8 @@ def convert_hybrid_block(net, target_dtype="bfloat16"):
 
 def init_trainer(trainer):
     """Attach a dynamic ``LossScaler`` to a Trainer (parity: amp.py:305):
-    its ``step`` skips an update whose gradients overflowed, dropping
-    them, and the scale adapts."""
+    its ``step`` skips an update whose gradients overflowed, zeroing
+    them (the JAX package's ``p.zero_grad()``), and the scale adapts."""
     if getattr(trainer, "_amp_loss_scaler", None) is not None:
         return
     scaler = LossScaler()
@@ -121,8 +125,10 @@ def init_trainer(trainer):
         params = [p for p in trainer._params if p.requires_grad]
         overflow = scaler.has_overflow(params)
         if scaler.update_scale(overflow):
-            for p in params:
-                p.grad = None
+            with torch.no_grad():
+                for p in params:
+                    if p.grad is not None:
+                        p.grad.zero_()
             return
         orig_step(batch_size, ignore_stale_grad=ignore_stale_grad)
 

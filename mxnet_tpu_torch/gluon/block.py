@@ -13,6 +13,25 @@ Running statistics (``nn.BatchNorm``'s) are buffers, listed by
 ``collect_params()`` beside the parameters as the JAX package lists its
 ``grad_req="null"`` parameters; a buffer may carry an ``init`` too.
 
+Gradients follow the JAX package's default ``grad_req="write"``: each
+``backward()`` overwrites a parameter's ``.grad`` (contributions within
+one backward, as a tied weight's, are summed), where torch would add to
+it.  When the outermost block call of a thread returns with grad mode
+on, :func:`write_grads` arms each of the tree's parameters: a pre-hook
+on the ``AccumulateGrad`` node the call's graph holds for it drops the
+old ``.grad`` and marks the new one fresh (``p._fresh_grad``;
+``gluon.Trainer`` reads and clears the mark).  The node runs only when
+torch accumulates into ``.grad``, so ``torch.autograd.grad``
+(``JitTrainStep``, the graph pair's captured backward) never triggers
+it, and the engine sums a leaf's inputs before it calls the node, so it
+runs once a backward.  The nodes are not kept beyond torch's own
+lifetime: a node records the stream it was made on, and one held from
+an eager call into a CUDA graph capture on another stream would make
+the capture fail.  A tensor that no block owns is armed when a
+backward reaches it (:func:`write_grads_when_reached`, a hook on the
+tensor that holds no node).  ``JitTrainStep`` runs its net under
+:func:`grads_unwritten`, since it never writes ``.grad``.
+
 ``HybridBlock.hybridize()`` is the counterpart of the JAX package's one
 compiled executable per input signature: on the card, the outermost
 hybridized block runs each signature as one captured CUDA graph
@@ -23,8 +42,11 @@ reference's cached jitted vjp.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import itertools
 import threading
+import weakref
 
 import torch
 
@@ -38,6 +60,9 @@ from ..context import resolve
 # it calls run eagerly and are captured with it (the reference's
 # is_tracing())
 _nesting = threading.local()
+# how deep this thread is inside block calls, and whether the outermost
+# call arms its parameters (write_grads) when it returns
+_calls = threading.local()
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
@@ -62,6 +87,64 @@ def new_param(shape, device, dtype="float32", init=None):
     return p
 
 
+def _overwrite(ref, grad_outputs):
+    p = ref()
+    if p is not None:
+        p.grad = None
+        p._fresh_grad = True
+
+
+def write_grads(params):
+    """Arm each tensor of ``params`` that takes a gradient for the
+    ``grad_req="write"`` rule (see the module docstring): a pre-hook on
+    the ``AccumulateGrad`` node its graph holds for it, once a node.  No
+    node is held here: one that no graph holds is freed on return.  The
+    node is found through a view, as ``torch.autograd.graph.
+    get_gradient_edge`` finds it, without that function's own checks
+    (which cost as much again per parameter)."""
+    with torch.enable_grad():
+        for p in params:
+            if not p.requires_grad or not p.is_leaf or isinstance(
+                    p, torch.nn.parameter.UninitializedTensorMixin):
+                continue
+            node = p.view_as(p).grad_fn.next_functions[0][0]
+            if not node.metadata.get("write_grads"):
+                node.register_prehook(
+                    functools.partial(_overwrite, weakref.ref(p)))
+                node.metadata["write_grads"] = True
+
+
+def _arm_reached(ref, grad):
+    p = ref()
+    if p is not None:
+        write_grads((p,))
+
+
+def write_grads_when_reached(tensor):
+    """Arm a tensor that no block call arms (``gluon.Trainer``'s raw
+    tensors): a hook on the tensor, which torch runs when a backward
+    reaches it, arms the node of that backward before the node runs.
+    The hook holds no node; under ``torch.autograd.grad`` the node it
+    arms never runs.  Once a tensor."""
+    if tensor.requires_grad and tensor.is_leaf \
+            and not getattr(tensor, "_write_when_reached", False):
+        tensor.register_hook(
+            functools.partial(_arm_reached, weakref.ref(tensor)))
+        tensor._write_when_reached = True
+
+
+@contextlib.contextmanager
+def grads_unwritten():
+    """Block calls in this thread arm nothing (``JitTrainStep``: its
+    gradients come from ``torch.autograd.grad``)."""
+    saved = getattr(_calls, "quiet", False)
+    _calls.quiet = True
+    try:
+        yield
+    finally:
+        _calls.quiet = saved
+
+
 class Block(torch.nn.Module):
     """Base block (parity: gluon.Block).  ``prefix``/``params`` are
     accepted for the JAX package's signatures; names are structural."""
@@ -70,6 +153,35 @@ class Block(torch.nn.Module):
         super().__init__()
         del prefix, params
         self._deferred_init = None    # (init, generator) for lazy shapes
+        self._params_seen = None      # (tree generation, parameters)
+
+    def __call__(self, *args, **kwargs):
+        if getattr(_calls, "depth", 0):
+            return self._call(*args, **kwargs)
+        _calls.depth = 1
+        try:
+            out = self._call(*args, **kwargs)
+        finally:
+            _calls.depth = 0
+        if torch.is_grad_enabled() and not getattr(_calls, "quiet", False):
+            write_grads(self._tree_params())
+        return out
+
+    def _call(self, *args, **kwargs):
+        return torch.nn.Module.__call__(self, *args, **kwargs)
+
+    def register_parameter(self, name, param):
+        super().register_parameter(name, param)
+        if param is not None:
+            param._block_owned = True     # armed by its block's calls
+
+    def _tree_params(self):
+        """The tree's parameters, collected again only after a module,
+        parameter or buffer was registered or converted somewhere."""
+        gen = _graph_cache.tree_generation()
+        if self._params_seen is None or self._params_seen[0] != gen:
+            self._params_seen = (gen, list(self.parameters()))
+        return self._params_seen[1]
 
     def collect_params(self):
         """``{structural name: tensor}``, each block's parameters and then
@@ -193,17 +305,17 @@ class HybridBlock(Block):
         self._graphs.clear()
         self._watched = None
 
-    def __call__(self, *args, **kwargs):
+    def _call(self, *args, **kwargs):
         tensors = [a for a in args if isinstance(a, torch.Tensor)]
         if not self._active or kwargs or not tensors \
                 or getattr(_nesting, "depth", 0):
-            return super().__call__(*args, **kwargs)
+            return super()._call(*args, **kwargs)
         key = _graph_cache.signature(args, _autograd.is_training())
         watched = self._graph_tensors()
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in tensors + watched):
             if not self._graphs.pairs_on(tensors[0].device):
-                return super().__call__(*args, **kwargs)
+                return super()._call(*args, **kwargs)
             key += (_graph_cache.grad_signature(tensors),
                     _graph_cache.grad_signature(watched))
             return self._graphs.get(
@@ -274,9 +386,16 @@ def _fresh(out):
 
 
 def fill_param(name, p, default, generator):
-    """Initialize ``p`` in place from its own ``init`` or ``default``."""
+    """Initialize ``p`` in place from its own ``init`` or ``default``.  A
+    bf16 or f16 parameter is drawn in f32 and rounded once, as the JAX
+    package draws (so a parameter cast before its deferred fill gets
+    the values of one cast after it)."""
     own = getattr(p, "init", None)
     initializer = _init.create(own) if own is not None else default
     with torch.no_grad():
-        initializer(name, p.data, generator=generator)
+        if p.dtype in (torch.bfloat16, torch.float16):
+            full = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+            p.data.copy_(initializer(name, full, generator=generator))
+        else:
+            initializer(name, p.data, generator=generator)
     p._initialized = True

@@ -1,3 +1,3 @@
-"""Model zoo of the port (parity: gluon.model_zoo): the Llama family and
-the vision ResNets."""
-from . import llama, vision  # noqa: F401
+"""Model zoo of the port (parity: gluon.model_zoo): the Llama family,
+BERT and the vision ResNets."""
+from . import bert, llama, vision  # noqa: F401

@@ -1,8 +1,10 @@
 """Neural-network layers of the port (parity: gluon.nn)."""
 from .activations import (ELU, GELU, SELU, Activation,  # noqa: F401
                           LeakyReLU, PReLU, Swish)
-from .basic_layers import (BatchNorm, Dense, Dropout,  # noqa: F401
-                           Embedding, Flatten, HybridSequential, Identity,
+from .basic_layers import (BatchNorm, Concurrent, Dense,  # noqa: F401
+                           Dropout, Embedding, Flatten, GroupNorm,
+                           HybridConcurrent, HybridLambda, HybridSequential,
+                           Identity, InstanceNorm, Lambda, LayerNorm,
                            Sequential)
 from .conv_layers import (AvgPool1D, AvgPool2D, AvgPool3D,  # noqa: F401
                           Conv1D, Conv2D, Conv3D, GlobalAvgPool1D,

@@ -11,6 +11,22 @@ weight's dtype, or under ``amp.init`` in the target dtype
 (``FullyConnected`` is on AMP's target list), so a bf16 layer casts an
 f32 input down.
 
+``Dense(activation=...)`` applies an ``Activation`` child (``act``) to
+the product, in the product's dtype.
+
+``LayerNorm``, ``GroupNorm`` and ``InstanceNorm`` call the ops of
+``ops/nn.py``; their ``gamma`` and ``beta`` take their shape from the
+first input when ``in_channels=0`` (in the dtype a ``cast`` gave them
+before that), and one that ``scale=False`` or ``center=False`` turns off
+takes no gradient (the JAX package's ``grad_req="null"``).  Under AMP
+they compute in f32 and return f32, as the JAX package's do.
+
+``Concurrent`` and ``HybridConcurrent`` run each child on the input and
+concatenate the outputs along ``axis``.  ``Lambda`` and ``HybridLambda``
+wrap a function or the name of a registered op; ``HybridLambda`` calls
+a function as ``function(F, x, *args)``, where ``F.<op>`` is the
+registered op on tensors (``ops.registry.invoke_raw``).
+
 ``BatchNorm`` keeps ``gamma`` and ``beta`` as parameters and the running
 statistics as buffers (``running_mean``, ``running_var``: the JAX
 package's ``grad_req="null"`` parameters, under the same names); a
@@ -32,8 +48,10 @@ from ... import layout as _layout
 from ...base import MXNetError
 from ...context import resolve
 from ...ops import nn as _ops
+from ...ops import registry as _registry
 from ..block import (Block, HybridBlock, as_dtype, cast_tensors, fill_param,
                      new_param)
+from .activations import Activation
 
 _LAZY = torch.nn.parameter.UninitializedTensorMixin
 
@@ -76,9 +94,6 @@ class Dense(HybridBlock):
                  bias_initializer="zeros", in_units=0, prefix=None,
                  params=None, device=None):
         super().__init__(prefix=prefix, params=params)
-        if activation is not None:
-            raise MXNetError("Dense(activation=...) is not ported; apply "
-                             "the activation after the layer")
         dev = resolve(device)
         self._units = units
         self._flatten = flatten
@@ -91,6 +106,8 @@ class Dense(HybridBlock):
             self.weight.init = weight_initializer
         self.bias = new_param((units,), dev, dtype, bias_initializer) \
             if use_bias else None
+        self.act = Activation(activation) if activation is not None \
+            else None
 
     def _materialize(self, in_units):
         init = self.weight.init
@@ -108,12 +125,15 @@ class Dense(HybridBlock):
             self._materialize(x.shape[-1])
         x, w, b = _amp.transform_inputs("FullyConnected",
                                         (x, self.weight, self.bias))
-        return F.linear(x.to(w.dtype), w, b)
+        out = F.linear(x.to(w.dtype), w, b)
+        return out if self.act is None else self.act(out)
 
     def __repr__(self):
         shape = tuple(self.weight.shape) if not isinstance(
             self.weight, torch.nn.parameter.UninitializedParameter) else None
-        return "Dense(%s -> %s)" % (shape[1] if shape else None, self._units)
+        return "Dense(%s -> %s, %s)" % (
+            shape[1] if shape else None, self._units,
+            "linear" if self.act is None else self.act)
 
 
 class Embedding(HybridBlock):
@@ -200,15 +220,8 @@ class BatchNorm(HybridBlock):
                         "use_global_stats": use_global_stats}
         dev = resolve(device)
         shape = (in_channels,) if in_channels > 0 else None
-        for name, init, grad in (("gamma", gamma_initializer, scale),
-                                 ("beta", beta_initializer, center)):
-            if shape:
-                p = new_param(shape, dev, init=init).requires_grad_(grad)
-            else:
-                p = torch.nn.parameter.UninitializedParameter(
-                    requires_grad=grad, device=dev, dtype=torch.float32)
-                p.init = init
-            setattr(self, name, p)
+        _affine_params(self, in_channels, dev, center, scale,
+                       beta_initializer, gamma_initializer)
         for name, init in (("running_mean", running_mean_initializer),
                            ("running_var", running_variance_initializer)):
             b = torch.empty(shape, device=dev) if shape else \
@@ -263,3 +276,199 @@ class BatchNorm(HybridBlock):
     def __repr__(self):
         c = None if isinstance(self.gamma, _LAZY) else self.gamma.shape[0]
         return "BatchNorm(axis=%s, in_channels=%s)" % (self._axis, c)
+
+
+def _affine_params(block, in_channels, device, center, scale,
+                   beta_initializer, gamma_initializer):
+    """A norm's ``gamma`` and ``beta`` (``in_channels`` each, or deferred
+    when it is 0), each taking a gradient only when ``scale`` or
+    ``center`` turns it on."""
+    for name, init, grad in (("gamma", gamma_initializer, scale),
+                             ("beta", beta_initializer, center)):
+        if in_channels > 0:
+            p = new_param((in_channels,), device, init=init) \
+                .requires_grad_(grad)
+        else:
+            p = torch.nn.parameter.UninitializedParameter(
+                requires_grad=grad, device=device, dtype=torch.float32)
+            p.init = init
+        setattr(block, name, p)
+
+
+class _Norm(HybridBlock):
+    """A norm over ``gamma`` and ``beta`` of one channel axis, deferred
+    or not (LayerNorm, GroupNorm, InstanceNorm)."""
+
+    def __init__(self, axis, epsilon, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, prefix, params, device):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._epsilon = epsilon
+        _affine_params(self, in_channels, resolve(device), center, scale,
+                       beta_initializer, gamma_initializer)
+
+    def _materialize(self, channels):
+        if self._deferred_init is None:
+            raise MXNetError("%s: call initialize() before the first "
+                             "forward" % type(self).__name__)
+        for name in ("gamma", "beta"):
+            t = getattr(self, name)
+            init = t.init
+            t.materialize((channels,))
+            t.init = init
+            fill_param(name, t, *self._deferred_init)
+
+    def forward(self, x):
+        if isinstance(self.gamma, _LAZY):
+            self._materialize(x.shape[self._axis])
+        return self._norm(x)
+
+
+class LayerNorm(_Norm):
+    """Parity: nn.LayerNorm — over ``axis`` (default the last)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None, device=None):
+        super().__init__(axis, epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix, params,
+                         device)
+
+    def _norm(self, x):
+        return _ops._layer_norm(x, self.gamma, self.beta, axis=self._axis,
+                                eps=self._epsilon)
+
+    def __repr__(self):
+        return "LayerNorm(axis=%s, eps=%s)" % (self._axis, self._epsilon)
+
+
+class GroupNorm(_Norm):
+    """Parity: nn.GroupNorm — the channels (axis 1) in ``num_groups``
+    groups."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None, device=None):
+        super().__init__(1, epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix, params,
+                         device)
+        self._num_groups = num_groups
+
+    def _norm(self, x):
+        return _ops._group_norm(x, self.gamma, self.beta,
+                                num_groups=self._num_groups,
+                                eps=self._epsilon)
+
+
+class InstanceNorm(_Norm):
+    """Parity: nn.InstanceNorm — each channel (axis 1) of each sample;
+    ``axis`` is accepted as in the JAX package, which also normalizes
+    over the axes after axis 1."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None, device=None):
+        del axis
+        super().__init__(1, epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix, params,
+                         device)
+
+    def _norm(self, x):
+        return _ops._instance_norm(x, self.gamma, self.beta,
+                                   eps=self._epsilon)
+
+
+def _concat(outs, axis):
+    """The outputs along ``axis`` in their widest dtype (``concat`` is on
+    AMP's widest-type list; torch promotes the same way)."""
+    return torch.cat(_amp.transform_inputs("concat", outs), dim=axis)
+
+
+class Concurrent(Sequential):
+    """Parity: nn.Concurrent — each child on the same input, the outputs
+    concatenated along ``axis``."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def forward(self, x):
+        return _concat([block(x) for block in self._modules.values()],
+                       self.axis)
+
+
+class HybridConcurrent(HybridSequential):
+    """Parity: nn.HybridConcurrent — a ``Concurrent`` that
+    ``hybridize()`` runs as captured CUDA graphs."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def forward(self, x):
+        return _concat([block(x) for block in self._modules.values()],
+                       self.axis)
+
+
+def _registered(name):
+    """The registered op ``name`` on tensors, as a layer runs it: one
+    tensor or a tuple."""
+    def op(*datas, **attrs):
+        outs = _registry.invoke_raw(name, datas, attrs, push=False)[0]
+        return outs[0] if len(outs) == 1 else outs
+    return op
+
+
+class _Ops:
+    """``F`` of a ``HybridLambda``'s function: ``F.<name>(*tensors,
+    **attrs)`` runs the registered op ``name`` on tensors."""
+
+    def __getattr__(self, name):
+        _registry.get(name)
+        return _registered(name)
+
+
+def _op_function(function):
+    """``(function, name)`` from a callable or a registered op's name."""
+    if isinstance(function, str):
+        try:
+            _registry.get(function)
+        except MXNetError:
+            raise MXNetError("function %s not found in mx.nd" % function)
+        return _registered(function), function
+    if callable(function):
+        return function, getattr(function, "__name__", "lambda")
+    raise MXNetError("function must be str or callable")
+
+
+class Lambda(Block):
+    """Parity: nn.Lambda — ``function(*inputs)``, or the registered op of
+    that name."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func, self._func_name = _op_function(function)
+
+    def forward(self, *args):
+        return self._func(*args)
+
+    def __repr__(self):
+        return "Lambda(%s)" % self._func_name
+
+
+class HybridLambda(HybridBlock):
+    """Parity: nn.HybridLambda — ``function(F, x, *args)``, or the
+    registered op of that name on ``(x, *args)``."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func, self._func_name = _op_function(function)
+        self._takes_f = not isinstance(function, str)
+
+    def forward(self, x, *args):
+        if self._takes_f:
+            return self._func(_Ops(), x, *args)
+        return self._func(x, *args)
+
+    def __repr__(self):
+        return "HybridLambda(%s)" % self._func_name

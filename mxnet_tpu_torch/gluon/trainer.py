@@ -4,11 +4,15 @@
 The imperative form of training: ``loss.backward()`` fills each
 parameter's ``.grad`` and ``step(batch_size)`` applies the optimizer to
 every parameter in place, with ``rescale_grad = scale / batch_size``.
-A step consumes the gradients (sets ``.grad`` to None), so a parameter
-that the next backward does not reach raises the JAX package's stale
-gradient error unless ``ignore_stale_grad=True``.  There is no kvstore:
-the only one accepted is the default ``"device"``; distributed training
-is slice S8 of the port.  ``params`` may hold tensors that take no
+Gradients follow the JAX package's ``grad_req="write"``: each backward
+overwrites ``.grad`` and marks it fresh (``block.write_grads``: a
+block's calls arm its parameters; a tensor that no block owns is armed
+by a hook the Trainer puts on the tensor, which holds no autograd
+node); a step leaves the gradient readable and marks it stale, so a
+parameter that the next backward does not reach raises the JAX
+package's stale gradient error unless ``ignore_stale_grad=True``.
+There is no kvstore: the only one accepted is the default ``"device"``;
+distributed training is slice S8 of the port.  ``params`` may hold tensors that take no
 gradient (``collect_params()``'s running statistics, the JAX package's
 ``grad_req="null"``): a step leaves them alone.
 
@@ -31,6 +35,7 @@ import torch
 from ..base import MXNetError
 from .. import optimizer as opt_mod
 from .. import sharding as _shd
+from .block import write_grads_when_reached
 
 
 class Trainer:
@@ -58,6 +63,9 @@ class Trainer:
                                  % (name, type(p).__name__))
         self._names = [n for n, _ in params]
         self._params = [p for _, p in params]
+        for p in self._params:
+            if not getattr(p, "_block_owned", False):
+                write_grads_when_reached(p)
         self._states = [None] * len(self._params)
         self._states_created = [False] * len(self._params)
         if isinstance(optimizer, opt_mod.Optimizer):
@@ -117,7 +125,7 @@ class Trainer:
         for i, p in enumerate(self._params):
             if not p.requires_grad:
                 continue
-            if p.grad is None:
+            if p.grad is None or not getattr(p, "_fresh_grad", False):
                 if ignore_stale_grad:
                     continue
                 raise MXNetError(
@@ -145,7 +153,7 @@ class Trainer:
                 [opt._get_wd(i) for i in idx], t_dev,
                 [opt._mult(opt.lr_mult, i) for i in idx])
         for i in active:
-            self._params[i].grad = None
+            self._params[i]._fresh_grad = False
 
     # ------------------------------------------------------------------
     def save_states(self, fname):
@@ -215,14 +223,14 @@ def _leaves(state):
     return [state]
 
 
-def _assign(leaf, arr, dtype, name):
-    """Copy a checkpoint entry into a live state tensor."""
+def _assign(leaf, arr, dtype, name, what="trainer checkpoint"):
+    """Copy a checkpoint entry into a live tensor, in place."""
     host = torch.from_numpy(np.ascontiguousarray(arr))
     if dtype == "bfloat16":
         host = host.view(torch.bfloat16)
     if tuple(host.shape) != tuple(leaf.shape):
-        raise MXNetError("trainer checkpoint: %s has shape %s, the live "
-                         "state %s" % (name, tuple(host.shape),
-                                       tuple(leaf.shape)))
+        raise MXNetError("%s: %s has shape %s, the live tensor %s"
+                         % (what, name, tuple(host.shape),
+                            tuple(leaf.shape)))
     with torch.no_grad():
         leaf.copy_(host)

@@ -1,5 +1,6 @@
 """Neural-network operators: ``Convolution``, ``Pooling``, ``BatchNorm``,
-``Activation``, ``LeakyReLU`` and ``Dropout``.
+``LayerNorm``, ``InstanceNorm``, ``GroupNorm``, ``Activation``,
+``LeakyReLU`` and ``Dropout``.
 
 The port's counterpart of the JAX package's ``ops/nn.py``, with the same
 names, attrs and semantics; the Gluon layers call these functions, so
@@ -18,6 +19,9 @@ memory is ``torch.channels_last``), computed there and permuted back.
 AMP: ``Convolution`` passes its inputs through ``amp.transform_inputs``
 (it is on the target-dtype list); off AMP it runs in its weight's
 dtype, as ``nn.Dense`` does.  ``BatchNorm`` runs in its input's dtype.
+The other norms are on AMP's f32 list: under AMP their inputs are cast
+to f32, so they return f32; off AMP they take their statistics and
+affine in f32 and return the input's dtype (the JAX package's rule).
 
 ``BatchNorm`` is the JAX package's formula, not ``F.batch_norm``'s: in
 train mode the statistics are taken in one pass in f32, shifted by the
@@ -307,6 +311,49 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     scale, shift = _scale_shift(g, beta.float(), mean, inv, data.dtype)
     out = torch.addcmul(shift.view(bshape), data, scale.view(bshape))
     return out, moving_mean, moving_var
+
+
+# ----------------------------------------------------------------------------
+# LayerNorm, InstanceNorm, GroupNorm
+# ----------------------------------------------------------------------------
+
+
+@register("LayerNorm", aliases=("layer_norm",))
+def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
+    """Parity: src/operator/nn/layer_norm.cc: over ``axis``, in f32 (the
+    biased variance, ``(x - mean) * rsqrt(var + eps)``, then the f32
+    affine), returned in the data's dtype.  ``output_mean_var`` is
+    accepted and ignored, as in the JAX package."""
+    del output_mean_var
+    data, gamma, beta = _amp.transform_inputs("LayerNorm",
+                                              (data, gamma, beta))
+    x = data.float().movedim(axis, -1)
+    out = F.layer_norm(x, x.shape[-1:], gamma.float(), beta.float(), eps)
+    return out.movedim(-1, axis).to(data.dtype)
+
+
+@register("InstanceNorm", aliases=("instance_norm",))
+def _instance_norm(data, gamma, beta, eps=1e-3):
+    """Parity: src/operator/instance_norm.cc: each (sample, channel) over
+    the axes after the channel (axis 1), in f32, returned in the data's
+    dtype."""
+    data, gamma, beta = _amp.transform_inputs("InstanceNorm",
+                                              (data, gamma, beta))
+    out = F.group_norm(data.float(), data.shape[1], gamma.float(),
+                       beta.float(), eps)
+    return out.to(data.dtype)
+
+
+@register("GroupNorm", aliases=("group_norm",))
+def _group_norm(data, gamma, beta, num_groups=1, eps=1e-5):
+    """Parity: src/operator/nn/group_norm.cc: each sample's channels
+    (axis 1) in ``num_groups`` groups, each group with the axes after
+    the channel, in f32, returned in the data's dtype."""
+    data, gamma, beta = _amp.transform_inputs("GroupNorm",
+                                              (data, gamma, beta))
+    out = F.group_norm(data.float(), int(num_groups), gamma.float(),
+                       beta.float(), eps)
+    return out.to(data.dtype)
 
 
 # ----------------------------------------------------------------------------

@@ -171,12 +171,16 @@ def _push(name, fn, datas, read_vars, device, write_vars=()):
     return outs
 
 
-def invoke_raw(name, datas, attrs=None, fields=None):
+def invoke_raw(name, datas, attrs=None, fields=None, push=True):
     """Invoke on raw tensors → ``(outputs, None, 0)`` (the JAX package's
-    vjp slot is empty: torch's autograd records the op itself)."""
+    vjp slot is empty: torch's autograd records the op itself).  With
+    ``push=False`` the op runs in the caller's thread, as a Gluon layer
+    runs it (``nn.Lambda``), with no engine push."""
     reg = get(name)
     datas = tuple(datas)
     attrs, fields, _ = _prep(reg, len(datas), attrs, fields)
+    if not push:
+        return _run(reg, datas, attrs, fields), None, 0
     outs = _push(name, lambda: _run(reg, datas, attrs, fields), datas, (),
                  datas[0].device if datas else attrs.get("device"))
     return outs, None, 0

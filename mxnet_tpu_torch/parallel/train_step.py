@@ -21,9 +21,13 @@ count by pointer, with each parameter's ``lr_mult`` a factor in its
 table; ``clip_global_norm`` takes its norm from O3.  The
 per-parameter ``lr_mult``/``wd_mult``, ``wd``, ``rescale_grad`` and the
 clips are constants of a captured step: changing one drops the graphs.
-``step_n(n)`` runs n steps as n replays.  The weights and optimizer
-state keep their dtypes from step to step (the JAX package pins them the
-same way).  The step runs in train mode (``autograd.train_mode()``), so
+``step_n(n)`` runs n steps as n replays.  ``save_states`` and
+``load_states`` write and read the weights, the optimizer state and the
+step count as the JAX package's MXGC1 file (``sharding/checkpoint.py``)
+with its positional entry names (``weights/<i>``, ``opt/<i>/<j>``) and
+meta: a file one package writes, the other reads.  The weights and
+optimizer state keep their dtypes from step to step (the JAX package
+pins them the same way).  The step runs in train mode (``autograd.train_mode()``), so
 a ``BatchNorm`` takes batch statistics and writes its running statistics
 in place, once a step; the JAX package returns them from its executable
 and writes them after the update, which reads the same.  The graph
@@ -44,6 +48,9 @@ from .. import autograd as _autograd
 from ..base import MXNetError
 from .. import graph_cache as _graph_cache
 from .. import optimizer as _opt_mod
+from .. import sharding as _shd
+from ..gluon import block as _block
+from ..gluon.trainer import _assign, _leaves
 from ..ops import optimizer_ops as _optimizer_ops
 
 
@@ -139,14 +146,17 @@ class JitTrainStep:
         and update; what the graph captures.  Returns the f32 loss."""
         data, labels = self._split(arrays)
         self._count.add_(1)
-        with _autograd.train_mode():
+        with _autograd.train_mode(), _block.grads_unwritten():
             out = self._net(*data)
             outs = [out] if isinstance(out, torch.Tensor) else list(out)
             loss = self._loss(outs[0], *labels) if self._loss is not None \
                 else outs[0]
         loss_val = loss.float().mean()
         train = [self._params[i] for i in self._train_idx]
-        grads = list(torch.autograd.grad(loss_val, train))
+        # a parameter the loss does not reach (a BERT MLM wrapper's
+        # pooler) gets a zero gradient, as in the JAX package
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            train, torch.autograd.grad(loss_val, train, allow_unused=True))]
         del out, outs, loss
         if self._clip_global_norm is not None:
             grads = _global_norm_scale(grads, self._clip_global_norm)
@@ -217,6 +227,57 @@ class JitTrainStep:
         back into the net here; the port updates the net's parameters in
         place, so there is nothing to copy."""
         return self
+
+    def save_states(self, fname):
+        """The weights, the optimizer state and the step count as an
+        MXGC1 checkpoint: ``weights/<i>`` and ``opt/<i>/<j>`` by the
+        parameters' positions (the JAX package's keys: names differ
+        between processes, the order does not), each with a crc32,
+        written atomically."""
+        if self._params is None:
+            raise MXNetError("save_states before the first step")
+
+        def entries():
+            for i, p in enumerate(self._params):
+                yield "weights/%d" % i, p, None
+            for i, st in enumerate(self._opt_state):
+                for j, leaf in enumerate(_leaves(st)):
+                    yield "opt/%d/%d" % (i, j), leaf, None
+        _shd.save_global(fname, entries(), meta={
+            "kind": "jit_train_step", "t": int(self._t),
+            "param_names": list(self._names),
+            "opt_leaves": [len(_leaves(st)) for st in self._opt_state]})
+
+    def load_states(self, fname):
+        """Read ``save_states``' file (the JAX package's too) into the
+        live weights and optimizer state, in place, and the step count.
+        As in the JAX package, run one step first: the state exists from
+        then on."""
+        if self._params is None:
+            raise MXNetError(
+                "load_states needs initialized placement: run one step, "
+                "or call after net.initialize + a step")
+        if not _shd.is_global_checkpoint(fname):
+            raise MXNetError("checkpoint %s is not an MXGC1 file" % fname)
+        entries, meta = _shd.load_global(fname)
+        what = "checkpoint %s" % fname
+
+        def load(tensor, name, why):
+            ent = entries.get(name)
+            if ent is None:
+                raise MXNetError("%s: missing entry %r (%s)"
+                                 % (what, name, why))
+            _assign(tensor, ent["array"], ent["dtype"], name, what)
+
+        for i, p in enumerate(self._params):
+            load(p, "weights/%d" % i, "param %s: the file was written by a "
+                 "different net" % self._names[i])
+        for i, st in enumerate(self._opt_state):
+            for j, leaf in enumerate(_leaves(st)):
+                load(leaf, "opt/%d/%d" % (i, j), "optimizer config changed?")
+        self._t = int(meta.get("t", 0))
+        self._opt.num_update = self._t
+        self._count.fill_(self._t)
 
     @property
     def loss(self):

@@ -350,7 +350,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_train_entry_points_default_to_cuda_and_raise_without_it():
     from mxnet_tpu_torch import gluon, parallel
-    from mxnet_tpu_torch.gluon.model_zoo import llama
+    from mxnet_tpu_torch.gluon.model_zoo import bert, llama
     from mxnet_tpu_torch.ops import flash_attention as fa
 
     if torch.cuda.is_available():
@@ -363,7 +363,8 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it():
                  lambda: llama.LlamaModel(32, units=8, hidden_size=16,
                                           num_layers=1, num_heads=2),
                  lambda: gluon.nn.Dense(4, in_units=4),
-                 lambda: gluon.nn.Embedding(4, 4)):
+                 lambda: gluon.nn.Embedding(4, 4), bert.bert_small,
+                 lambda: gluon.nn.LayerNorm(in_channels=4)):
         with pytest.raises(MXNetError, match="CUDA is not available"):
             make()
     net = llama.llama_small(num_layers=1, device="cpu")

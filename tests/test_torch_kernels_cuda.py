@@ -851,6 +851,127 @@ def test_a_collection_inside_a_capture_frees_no_graph_on_card(card):
 
 
 @pytest.mark.cuda
+def test_backward_overwrites_gradients_through_the_pair_on_card(card):
+    """The JAX package's ``grad_req="write"`` through a hybridized block
+    under ``record()``: each ``backward()`` through the graph pair (the
+    eager first call, the capture, then replays) leaves the eager
+    block's gradients of one backward, bitwise, where torch would add
+    them up."""
+    from mxnet_tpu_torch import autograd
+
+    eager, net = _hybrid_net(card), _hybrid_net(card)
+    x = torch.randint(0, 512, (2, 16), device=card)
+
+    def backward(block):
+        with autograd.record():
+            loss = (block(x).float() ** 2).mean()
+        loss.backward()
+        return [p.grad.clone() for p in block.parameters()]
+
+    want = backward(eager)
+    assert all(torch.equal(a, b) for a, b in zip(backward(eager), want))
+    net.hybridize()
+    for _ in range(4):
+        got = backward(net)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    (pair,) = net._graphs.calls.values()
+    assert (pair.captures, pair.replays, pair.backward_replays) == (1, 3, 3)
+
+
+def _raw_tensor_runs(device, hybrid):
+    """A tensor that no block owns, trained by a ``gluon.Trainer`` in
+    two eager steps, then made a block's parameter and trained by the
+    same Trainer in three ``record()`` steps (through the graph pair when
+    ``hybrid``) and by a ``JitTrainStep`` (graphed when ``hybrid``) in
+    three: the gradients after each Trainer step, the step's losses, the
+    weight and the graph counts."""
+    from mxnet_tpu_torch import autograd, gluon, parallel
+
+    class RawWeight(gluon.HybridBlock):
+        def __init__(self, w):
+            super().__init__()
+            self.w = w
+
+        def forward(self, x):
+            return torch.tanh(x @ self.w)
+
+    rng = np.random.default_rng(5)
+    w = torch.nn.Parameter(torch.from_numpy(
+        rng.standard_normal((16, 16)).astype(np.float32)).to(device))
+    x = torch.from_numpy(
+        rng.standard_normal((8, 16)).astype(np.float32)).to(device)
+    trainer = gluon.Trainer([w], "sgd", {"learning_rate": 0.1})
+    grads = []
+    for _ in range(2):
+        (torch.tanh(x @ w) ** 2).mean().backward()
+        trainer.step(1)
+        grads.append(w.grad.clone())
+    net = RawWeight(w)
+    if hybrid:
+        net.hybridize()
+    for _ in range(3):
+        with autograd.record():
+            loss = (net(x) ** 2).mean()
+        loss.backward()
+        trainer.step(1)
+        grads.append(w.grad.clone())
+    del loss
+    stats = net.stats() if hybrid else None
+    net.hybridize(False)
+    # no loss block: the step's loss is the mean of the net's output
+    step = parallel.JitTrainStep(net, None, "sgd", {"learning_rate": 0.1},
+                                 graphs=hybrid)
+    losses = [step.step(x).clone() for _ in range(3)]
+    return grads, losses, w.detach().clone(), stats, step.stats()
+
+
+@pytest.mark.cuda
+def test_trainer_raw_tensor_then_captures_on_card(card):
+    """A Trainer's raw tensor, trained eagerly and then captured in a
+    graph pair and a graphed ``JitTrainStep``: the Trainer holds no
+    autograd node of its eager steps (one made on the caller's stream
+    and held into a capture on another makes the capture fail), and the
+    graphed runs are bitwise equal to eager."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = _raw_tensor_runs(card, False)
+    got = _raw_tensor_runs(card, True)
+    for a, b in zip(got[:3], want[:3]):
+        a, b = (a, b) if isinstance(a, list) else ([a], [b])
+        assert all(torch.equal(p, q) for p, q in zip(a, b))
+    assert (got[3]["captures"], got[3]["backward_replays"]) == (1, 2)
+    assert got[4]["captures"] == 1
+
+
+@pytest.mark.cuda
+def test_flash_kernels_match_plain_at_bert_shape_on_card(card):
+    """K1, K2 and K3 at BERT-base's train shape (B*H 384, T 128, D 64,
+    non-causal, bf16: one 128-row tile a head, on the wgmma kernels)
+    against their plain versions, each reading <= 1
+    (``chip_smoke.flash_compare``)."""
+    b, h, t, d = (chip_smoke.BERT_FLASH[k] for k in "bhtd")
+    args = chip_smoke.flash_case(np.random.default_rng(11), card, b * h, t,
+                                 t, d, torch.bfloat16)
+    res = chip_smoke.flash_compare(fa, args, d ** -0.5, False)[0]
+    for name, (reading, _) in res.items():
+        assert reading <= 1, name
+
+
+@pytest.mark.cuda
+def test_bert_graphed_train_step_bitwise_equal_eager_on_card(card):
+    """bert_small's JitTrainStep (adam, an lr change, step_n) over the
+    MLM wrapper: losses and weights bitwise equal to eager."""
+    chip_smoke.bert_train_step_check(card)
+
+
+@pytest.mark.cuda
+def test_bert_hybridized_forward_and_pair_bitwise_equal_eager_on_card(card):
+    """bert_small hybridized: the forward, Trainer steps under record()
+    through the graph pair and two more backward passes (one pass's
+    gradients) bitwise equal to eager."""
+    chip_smoke.bert_hybrid_checks(card)
+
+
+@pytest.mark.cuda
 def test_resnet_graphed_train_step_bitwise_equal_eager_on_card(card):
     """JitTrainStep (sgd momentum, an lr change, step_n) on resnet18_v1:
     losses, weights and running statistics bitwise equal to eager."""

@@ -403,3 +403,121 @@ def test_trained_model_serves_through_extract_weights():
     arena.free(pages, "test")
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+class _JaxTwice(jgluon.HybridBlock):
+    """One Dense used twice in a call: its weight gets two contributions
+    in one backward (as BERT's tied word embedding does)."""
+
+    def __init__(self):
+        super().__init__()
+        with self.name_scope():
+            self.d = jgluon.nn.Dense(2, in_units=3)
+
+    def hybrid_forward(self, F, x):
+        return self.d(x) + self.d(x * 2)
+
+
+class _PortTwice(gluon.HybridBlock):
+    def __init__(self):
+        super().__init__()
+        self.d = gluon.nn.Dense(2, in_units=3, device="cpu")
+
+    def forward(self, x):
+        return self.d(x) + self.d(x * 2)
+
+
+@pytest.mark.parametrize("case", ["two_backwards", "tied", "stale"])
+def test_gluon_gradients_are_written_and_kept_as_in_jax(case):
+    """The JAX package's ``grad_req="write"``: ``nn.Dense(2,
+    in_units=3)`` with weights of ones and ``x = arange(6).reshape(2,
+    3)``.  ``two_backwards``: two backward passes of ``net(x).sum()``
+    give one pass's gradient, ``[[3, 5, 7], [3, 5, 7]]``, and it is still
+    there after ``Trainer(sgd, lr 0).step(1)``; ``tied``: a weight used
+    twice in one call gets both contributions, summed once per
+    backward; ``stale``: after a step, a step without a new backward
+    raises, and with ``ignore_stale_grad`` leaves the weights and the
+    gradient as they are.  Gradients and weights equal the JAX
+    package's."""
+    x = np.arange(6, dtype=np.float32).reshape(2, 3)
+    if case == "tied":
+        jnet, net = _JaxTwice(), _PortTwice()
+    else:
+        jnet = jgluon.nn.Dense(2, in_units=3)
+        net = gluon.nn.Dense(2, in_units=3, device="cpu")
+    jnet.initialize(mx.init.One())
+    net.initialize(initializer.One())
+    lr = 0.0 if case == "two_backwards" else 0.1
+    jtr = jgluon.Trainer(jnet.collect_params(), "sgd", {"learning_rate": lr})
+    tr = gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": lr})
+    jw = [p for k, p in jnet._collect_params_with_prefix().items()
+          if k.endswith("weight")][0]
+    w = [p for k, p in net.named_parameters() if k.endswith("weight")][0]
+    for _ in range(2):
+        with autograd.record():
+            jy = jnet(nd.array(x)).sum()
+        jy.backward()
+        net(torch.from_numpy(x)).sum().backward()
+        np.testing.assert_array_equal(w.grad.numpy(), jw.grad().asnumpy())
+    want = {"two_backwards": [[3, 5, 7]] * 2, "tied": [[9, 15, 21]] * 2,
+            "stale": [[3, 5, 7]] * 2}[case]
+    np.testing.assert_array_equal(w.grad.numpy(), np.float32(want))
+    jtr.step(1)
+    tr.step(1)
+    np.testing.assert_array_equal(w.grad.numpy(), jw.grad().asnumpy())
+    np.testing.assert_array_equal(w.detach().numpy(), jw.data().asnumpy())
+    if case == "stale":
+        before = w.detach().clone()
+        for trainer in (jtr, tr):
+            with pytest.raises(Exception, match="has not been updated by"):
+                trainer.step(1)
+            trainer.step(1, ignore_stale_grad=True)
+        assert torch.equal(w.detach(), before)
+        np.testing.assert_array_equal(w.detach().numpy(),
+                                      jw.data().asnumpy())
+        np.testing.assert_array_equal(w.grad.numpy(), np.float32(want))
+
+
+def test_write_rule_holds_no_autograd_node_beyond_its_graph():
+    """A block's call arms the ``AccumulateGrad`` nodes its graph holds
+    and nothing more: once the graph is gone the parameter's next node
+    is a new, unarmed one (a node records the stream it was made on, and
+    one held past its graph would be used by a later CUDA graph capture
+    on another stream).  Calls under ``grads_unwritten`` (as
+    ``JitTrainStep`` makes them) arm nothing.  A tensor no block owns,
+    given to a ``Trainer``, is armed by a hook on the tensor when a
+    backward reaches it: the Trainer holds no node, two backward passes
+    give one pass's gradient, and ``torch.autograd.grad`` leaves
+    ``.grad`` alone."""
+    from torch.autograd.graph import get_gradient_edge
+
+    from mxnet_tpu_torch.gluon import block
+
+    net = gluon.nn.Dense(2, in_units=3, device="cpu")
+    net.initialize(initializer.One())
+    x = torch.ones(2, 3)
+    out = net(x)
+    assert get_gradient_edge(net.weight).node.metadata.get("write_grads")
+    out.sum().backward()
+    del out
+    assert not get_gradient_edge(net.weight).node.metadata.get("write_grads")
+    with block.grads_unwritten():
+        out = net(x)
+    assert not get_gradient_edge(net.weight).node.metadata.get("write_grads")
+
+    w = torch.ones(2, 3, requires_grad=True)
+    tr = gluon.Trainer([w], "sgd", {"learning_rate": 0.0})
+    assert not get_gradient_edge(w).node.metadata.get("write_grads")
+    xs = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    for _ in range(2):
+        (xs @ w.t()).sum().backward()
+    np.testing.assert_array_equal(w.grad.numpy(),
+                                  np.float32([[3, 5, 7]] * 2))
+    assert not get_gradient_edge(w).node.metadata.get("write_grads")
+    tr.step(1)
+    (g,) = torch.autograd.grad((2 * xs @ w.t()).sum(), [w])
+    np.testing.assert_array_equal(g.numpy(), np.float32([[6, 10, 14]] * 2))
+    np.testing.assert_array_equal(w.grad.numpy(),
+                                  np.float32([[3, 5, 7]] * 2))
+    with pytest.raises(Exception, match="has not been updated by"):
+        tr.step(1)
