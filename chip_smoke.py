@@ -179,7 +179,30 @@ Phases, each fatal on failure:
              samples/s, step ms, MFU from the shapes, peak memory, the
              profiled step's idle share and top kernels; then the trained
              net's ``no_grad`` inference at 32 x 128, eager against
-             hybridized.
+             hybridized;
+15. gluon  — Gluon's parameter layer, data and metrics.  First, at
+             ``bert_small`` in f32: ``grad_req="add"`` through the graph
+             pair (two half batches give the full batch's gradients within
+             1e-4; ``zero_grad()`` clears them), a ``"null"`` change after
+             a capture (bitwise equal to eager, a new capture), and a
+             graphed ``JitTrainStep`` over a net whose pair holds
+             ``AccumulateGrad`` nodes (bitwise equal to the eager step);
+             then a main path: BERT-base under ``amp`` bf16 trained as a
+             user's script: a name-scoped MLM ``HybridBlock``,
+             ``DataLoader`` (2 workers) over 384 seeded sequences,
+             ``as_in_context``, ``record()``, ``backward()``,
+             ``clip_global_norm`` (O3), ``Trainer(net.collect_params(),
+             "adamw")`` with ``wd_mult`` 0 on gamma, beta and bias (O1),
+             ``mx.metric`` ``Loss`` and ``Perplexity``; two epochs eager,
+             two hybridized: epoch losses finite and falling, K1-K3 12
+             launches a step, O1 one, O3 the same every step; samples/s,
+             step ms, idle share and top kernels beside the ``bert``
+             phase's ``JitTrainStep``; then the ``wd_mult`` tensors
+             bitwise equal to O1's plain version with ``wd`` 0,
+             ``word_embed.weight`` unchanged and left out of O1 under
+             ``grad_req="null"``, and ``save_parameters`` /
+             ``load_parameters`` into a fresh net giving bitwise equal
+             logits.
 
 Each phase logs the card's SM clock and its maximum when it starts.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -3226,7 +3249,7 @@ def resnet_shapes(net, x):
             net(x)
     finally:
         for h in hooks:
-            h.remove()
+            h.detach()
     return 3 * 2 * macs[0], bns
 
 
@@ -3265,7 +3288,7 @@ def resnet_parity(dev):
         for net in (card, host, wide):
             where = next(net.parameters()).device
             xt = torch.from_numpy(x).to(where, next(net.parameters()).dtype)
-            params = net.collect_params()
+            params = net._collect_params_with_prefix()
             with autograd.record():
                 out = net(xt)
                 loss = loss_fn(out, torch.from_numpy(y).to(where)).mean()
@@ -3310,7 +3333,8 @@ def _resnet_batch(dev, batch, image, seed, dtype=None):
 
 def _state(net):
     """Copies of a net's weights and running statistics, by name."""
-    return {k: t.detach().clone() for k, t in net.collect_params().items()}
+    return {k: t.detach().clone()
+            for k, t in net._collect_params_with_prefix().items()}
 
 
 def _same(a, b):
@@ -4075,6 +4099,7 @@ def bert_train_run(dev):
                    1e6 * st["host_s"] / max(st["replays"], 1),
                    st["pool_bytes"] / 1e6))
     e50, g50 = (rows[m][0][n_timed // 2] for m in ("eager", "graphed"))
+    BERT_JIT_MS.update(eager=1e3 * e50, graphed=1e3 * g50)
     log("bert train: step_n(10): %.3f s, %.1f samples/s, %.3f ms a step; "
         "graphed / eager step p50 %.3f / %.3f ms (%.3fx)"
         % (window, 10 * BERT_B / window, 100 * window, 1e3 * g50, 1e3 * e50,
@@ -4128,7 +4153,7 @@ def bert_adam_check(oo, dev, step):
     return err
 
 
-def write_rule_cost(net):
+def write_rule_cost(net, phase="bert"):
     """Host us of one outermost block call's ``grad_req="write"`` rule
     over the net's parameters (``block.write_grads``, with a graph holding
     the armed nodes, as in an eager Trainer step), of its node lookup
@@ -4166,11 +4191,12 @@ def write_rule_cost(net):
     del out
     us = {name: (1e6 * sorted(t[5:])[25], 1e6 * min(t[5:]))
           for name, t in ts.items()}
-    log("bert write rule: host us per outermost block call over %d "
+    log("%s write rule: host us per outermost block call over %d "
         "parameters, median (min) of 50: %.1f (%.1f) us (write_grads, "
         "nodes armed); its node lookup through a view %.1f (%.1f) us; the "
         "same lookup through get_gradient_edge %.1f (%.1f) us"
-        % (len(params), *us["write_grads"], *us["lookup"], *us["edge"]))
+        % (phase, len(params), *us["write_grads"], *us["lookup"],
+           *us["edge"]))
 
 
 BERT_KINDS = (("flash (K1-K3)", ("flash_",)), ("adam (O1)", ("multi_adamw",)),
@@ -4252,6 +4278,559 @@ def bert_phase(dev):
     finally:
         amp.turn_off()
     return launches, o1_err
+
+
+# -- phase 15: Gluon's parameter layer, data and metrics -------------------
+
+GLUON_SAMPLES = 384        # 12 steps of BERT_B an epoch
+GLUON_MASK_ID = 3          # examples/bert/pretrain_mlm.py's mask token
+BERT_JIT_MS = {}           # the bert phase's JitTrainStep p50 ms by mode
+
+
+def mlm_samples(n, t, vocab, seed):
+    """``n`` sequences of ``t`` tokens with ``pretrain_mlm.py``'s
+    learnable rule (``examples/bert/pretrain_mlm.py:31-41``) at
+    ``vocab``: a sixth of the positions masked, each one's label the
+    previous token + 1; the other positions' label 0."""
+    rs = np.random.RandomState(seed)
+    toks = rs.randint(8, vocab, (n, t)).astype(np.int32)
+    labels = np.zeros((n, t), np.float32)
+    masked = toks.copy()
+    for b in range(n):
+        pos = rs.choice(np.arange(1, t), t // 6, replace=False)
+        labels[b, pos] = (toks[b, pos - 1] + 1) % vocab
+        masked[b, pos] = GLUON_MASK_ID
+    return masked, labels
+
+
+def script_mlm(gluon, bert):
+    """The MLM wrapper a user writes: a ``HybridBlock`` that builds BERT
+    in its name scope and gives the tied head's logits as (B*T, V)."""
+    class MLMNet(gluon.HybridBlock):
+        def __init__(self, vocab, device, small=False, **kwargs):
+            super().__init__(**kwargs)
+            self._vocab = vocab
+            make = bert.bert_small if small else bert.bert_base
+            with self.name_scope():
+                self.bert = make(vocab_size=vocab, device=device)
+
+        def forward(self, toks):
+            return self.bert(toks)[2].reshape(-1, self._vocab)
+
+    return MLMNet
+
+
+def gluon_net(dev, seed, vocab=None, small=False):
+    """The script's net on ``dev``, Xavier from a seeded generator; the
+    pooler and the token-type embedding, which the MLM loss over tokens
+    alone does not reach, take no gradient (``grad_req="null"``)."""
+    import torch
+
+    from mxnet_tpu_torch import gluon, initializer
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+
+    net = script_mlm(gluon, bert)(vocab or BERT_VOCAB, dev, small=small)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    net.initialize(initializer.Xavier(), generator=gen)
+    for unused in (net.bert.pooler, net.bert.type_embed):
+        unused.collect_params().setattr("grad_req", "null")
+    return net
+
+
+def gluon_add_check(dev):
+    """``grad_req="add"`` through the graph pair at ``bert_small``, f32
+    with TF32 off: two half batches (8 x 32 split in two) accumulated
+    through the hybridized net's replays give the full batch's
+    gradients (summed losses) within 1e-4 of each one's largest
+    magnitude, taken eagerly with ``"write"``; ``zero_grad()`` then
+    leaves zeros.  Returns the worst error."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    toks, labels = mlm_samples(8, 32, BERT_SMALL_VOCAB, 5)
+    x = mx.nd.array(toks, ctx=mx.gpu(0))
+    y = mx.nd.array(labels.reshape(-1), ctx=mx.gpu(0))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    with exact_convs():
+        net = gluon_net(dev, 5, BERT_SMALL_VOCAB, small=True)
+        params = {k: p for k, p in net.collect_params().items()
+                  if p.grad_req != "null"}
+
+        def backward(rows):
+            with autograd.record():
+                loss = loss_fn(net(x[rows]), y[rows.start * 32:
+                                                rows.stop * 32]).sum()
+            loss.backward()
+
+        backward(slice(0, 8))
+        want = {k: p.grad().asnumpy() for k, p in params.items()}
+        net.hybridize()
+        for p in params.values():
+            p.grad_req = "add"
+        for _ in range(2):          # the eager first call, the capture
+            backward(slice(0, 4))
+            net.zero_grad()
+        backward(slice(0, 4))
+        backward(slice(4, 8))
+        err = max(np.abs(p.grad().asnumpy() - want[k]).max()
+                  / max(np.abs(want[k]).max(), 1e-30)
+                  for k, p in params.items())
+        net.zero_grad()
+        cleared = all(not p._tensor.grad.any() for p in params.values())
+        st = net.stats()
+    log("gluon add: bert_small, f32, %d parameters with grad_req 'add': "
+        "two half batches through the graph pair (%d captures, %d "
+        "backward replays) against the full batch eagerly: %.3g of the "
+        "largest gradient (bound 1e-4); zero_grad() leaves zeros: %s"
+        % (len(params), st["captures"], st["backward_replays"], err,
+           cleared))
+    if not (err <= 1e-4 and cleared and st["backward_replays"] >= 2):
+        fail("grad_req 'add' through the graph pair does not accumulate "
+             "the full batch's gradients, or zero_grad() left some")
+    return err
+
+
+def gluon_null_change_check(dev):
+    """A ``grad_req="null"`` change after a capture, ``bert_small``, f32
+    with TF32 off: 3 recorded backward passes (eager, capture, replay),
+    then one layer's FFN weight set to ``"null"`` and 2 more; the
+    hybridized net's gradients bitwise equal to the eager net's at each
+    pass, the frozen weight's ``None`` in both, and a second capture for
+    the new gradient signature."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    toks, labels = mlm_samples(4, 32, BERT_SMALL_VOCAB, 6)
+    x = mx.nd.array(toks, ctx=mx.gpu(0))
+    y = mx.nd.array(labels.reshape(-1), ctx=mx.gpu(0))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    runs = []
+    with exact_convs():
+        for hybrid in (False, True):
+            net = gluon_net(dev, 6, BERT_SMALL_VOCAB, small=True)
+            if hybrid:
+                net.hybridize()
+            frozen = net.bert.encoder.layers[0].ffn.fc1.collect_params()
+            passes = []
+            for i in range(5):
+                if i == 3:
+                    frozen.setattr("grad_req", "null")
+                with autograd.record():
+                    loss = loss_fn(net(x), y).mean()
+                loss.backward()
+                passes.append({k: None if t.grad is None else
+                               t.grad.clone() for k, t in
+                               net._collect_params_with_prefix().items()
+                               if t.requires_grad or t.grad is not None
+                               or k.startswith("bert.encoder.layers.0."
+                                               "ffn.fc1.")})
+            runs.append((passes, net.stats() if hybrid else None))
+    (eager, _), (hyb, st) = runs
+    frozen_none = all(p[k] is None for p in (eager[-1], hyb[-1])
+                      for k in p if ".ffn.fc1." in k
+                      and k.startswith("bert.encoder.layers.0."))
+    same = all(a.keys() == b.keys() and all(
+        (a[k] is None and b[k] is None) or (
+            a[k] is not None and b[k] is not None
+            and torch.equal(a[k], b[k])) for k in a)
+        for a, b in zip(eager, hyb))
+    log("gluon null: a grad_req 'null' change after a capture: 5 recorded "
+        "passes (the change before the 4th), hybridized against eager "
+        "gradients %s; the frozen weight's gradient None: %s; %d "
+        "captures, %d backward replays"
+        % ("bitwise equal" if same else "DIFFER", frozen_none,
+           st["captures"], st["backward_replays"]))
+    if not (same and frozen_none and st["captures"] == 2):
+        fail("a grad_req 'null' change after a capture replayed the old "
+             "backward graph, or the hybridized gradients differ")
+
+
+def held_nodes_jit_check(dev):
+    """The case ROADMAP §3 left untested: a graphed ``JitTrainStep``
+    captured over a net whose hybridized graph pair still holds the
+    parameters' ``AccumulateGrad`` nodes (3 Trainer adamw steps under
+    ``record()`` through the pair, the net left hybridized), then 3
+    ``JitTrainStep`` adam steps and ``step_n(2)``: losses and weights
+    bitwise equal to the same run with an eager ``JitTrainStep``.
+    ``bert_small``, f32, TF32 off."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, parallel
+
+    toks, labels = mlm_samples(4, 32, BERT_SMALL_VOCAB, 7)
+    x = mx.nd.array(toks, ctx=mx.gpu(0))
+    y = mx.nd.array(labels.reshape(-1), ctx=mx.gpu(0))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    runs = []
+    with exact_convs():
+        for graphs in (False, True):
+            net = gluon_net(dev, 7, BERT_SMALL_VOCAB, small=True)
+            net.hybridize()
+            trainer = gluon.Trainer(net.collect_params(), "adamw",
+                                    {"learning_rate": 1e-3})
+            for _ in range(3):
+                with autograd.record():
+                    loss = loss_fn(net(x), y).mean()
+                loss.backward()
+                trainer.step(1)
+            held = net.stats()
+            step = parallel.JitTrainStep(net, loss_fn, "adam",
+                                         {"learning_rate": 1e-3},
+                                         graphs=graphs)
+            losses = [step.step(x._data, y._data).clone() for _ in range(3)]
+            losses.append(step.step_n(2, x._data, y._data).clone())
+            runs.append((losses, _state(net), held, step.stats()))
+            del step, trainer, net
+    (e_l, e_w, _, _), (g_l, g_w, held, st) = runs
+    same = _bert_losses_equal(e_l, g_l) and _same(e_w, g_w)
+    log("gluon held nodes: a graphed JitTrainStep over a net whose pair "
+        "holds AccumulateGrad nodes (%d pair captures, %d backward "
+        "replays before it): %d step captures, %d replays; losses %s, "
+        "against the eager step's: losses and weights %s"
+        % (held["captures"], held["backward_replays"], st["captures"],
+           st["replays"], ["%.5f" % v.item() for v in g_l],
+           "bitwise equal" if same else "DIFFER"))
+    if not same:
+        fail("a graphed JitTrainStep over a net whose pair holds "
+             "AccumulateGrad nodes differs from the eager step")
+
+
+@contextlib.contextmanager
+def _o1_spied(oo, calls):
+    """O1's wrapper wrapped: each call's inputs are cloned into
+    ``calls`` before it runs (the optimizer calls
+    ``optimizer_ops.multi_adamw`` by attribute, and the wrapper counts
+    its launches on whatever that name holds: they are handed back)."""
+    orig = oo.multi_adamw
+
+    def spy(weights, grads, means, variances, lrs, wds, **kw):
+        calls.append(dict(
+            live=(weights, means, variances),
+            before=tuple([t.clone() for t in ts] for ts in
+                         (weights, grads, means, variances)),
+            lrs=list(lrs), wds=list(wds),
+            kw={k: v.clone() if hasattr(v, "clone") else v
+                for k, v in kw.items()}))
+        return orig(weights, grads, means, variances, lrs, wds, **kw)
+
+    spy.launches = 0
+    oo.multi_adamw = spy
+    try:
+        yield
+    finally:
+        oo.multi_adamw = orig
+        orig.launches += spy.launches
+
+
+def gluon_wd_and_null_checks(oo, net, nowd, step_fn, batch):
+    """One more step of the trained net with O1's inputs cloned: every
+    ``wd_mult=0`` tensor (``nowd``) was given O1 with ``wd`` 0, and its
+    weight and moments after the step are bitwise equal to what O1's
+    plain version gives with ``wd`` 0 on the copies (with the run's
+    ``wd`` 0.01 the plain version moves that many of their elements:
+    logged, to show what the check can see in bf16).  Then
+    ``word_embed.weight`` set to ``grad_req="null"`` for one step: the
+    tensor is bitwise unchanged and O1's list leaves it out."""
+    import torch
+
+    calls = []
+    with _o1_spied(oo, calls):
+        step_fn(*batch)
+    if len(calls) != 1:
+        fail("one Trainer step called O1 %d times" % len(calls))
+    c = calls[0]
+    ws = c["live"][0]
+    ptrs = {p._tensor.data_ptr() for p in nowd}
+    idx = [i for i, w in enumerate(ws) if w.data_ptr() in ptrs]
+    wds = {c["wds"][i] for i in idx}
+    plain = ([t[i].clone() for i in idx] for t in c["before"])
+    w0, g0, m0, v0 = plain
+    oo._multi_adamw_ref(w0, g0, m0, v0, [c["lrs"][i] for i in idx],
+                        [0.0] * len(idx), **c["kw"])
+    live = [[t[i] for i in idx] for t in c["live"]]
+    same = all(torch.equal(a, b) for a, b in zip(
+        live[0] + live[1] + live[2], w0 + m0 + v0))
+    w1, g1, m1, v1 = ([t[i].clone() for i in idx] for t in c["before"])
+    oo._multi_adamw_ref(w1, g1, m1, v1, [c["lrs"][i] for i in idx],
+                        [0.01] * len(idx), **c["kw"])
+    moved = sum(int((a != b).sum()) for a, b in zip(w1, w0))
+    log("gluon wd_mult: %d tensors with wd_mult 0 (%d elements, %s) of %d "
+        "in O1's list, given wd %s: weights and moments %s O1's plain "
+        "version with wd 0 on copies; the plain version with wd 0.01 "
+        "would move %d of their weights' elements"
+        % (len(idx), sum(w.numel() for w in w0),
+           sorted({str(w.dtype).replace("torch.", "") for w in w0}),
+           len(ws), sorted(wds), "bitwise equal to" if same else
+           "DIFFER from", moved))
+    if len(idx) != len(nowd) or wds != {0.0} or not same:
+        fail("a wd_mult=0 tensor did not reach O1 with wd 0, or O1 "
+             "differs from its plain version there")
+    emb = net.bert.word_embed.collect_params()
+    (param,) = emb.values()
+    before = param._tensor.detach().clone()
+    param.grad_req = "null"
+    calls.clear()
+    try:
+        with _o1_spied(oo, calls):
+            step_fn(*batch)
+    finally:
+        param.grad_req = "write"
+    left_out = all(w.data_ptr() != param._tensor.data_ptr()
+                   for call in calls for w in call["live"][0])
+    unchanged = torch.equal(param._tensor.detach(), before)
+    log("gluon null: word_embed.weight with grad_req 'null' through one "
+        "step: bitwise unchanged %s, left out of O1's list (%d tensors) "
+        "%s" % (unchanged, len(calls[0]["live"][0]) if calls else 0,
+                left_out))
+    if not (unchanged and left_out):
+        fail("a grad_req 'null' parameter changed or reached O1")
+
+
+def gluon_save_load(net, dev, tmp):
+    """``save_parameters`` of the trained bf16 net and
+    ``load_parameters`` into a fresh BERT-base under amp: ``no_grad``
+    logits bitwise equal; ``nd.load`` of the file gives every entry as
+    f32 under the net's structural names (the JAX package's).  Returns
+    the file's bytes and the save and load seconds."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, autograd
+
+    path = os.path.join(tmp, "bert_base.params")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.save_parameters(path)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    fresh = gluon_net(dev, 1)
+    amp.convert_hybrid_block(fresh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.load_parameters(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    toks, _ = mlm_samples(BERT_B, BERT_T, BERT_VOCAB, 9)
+    x = mx.nd.array(toks, ctx=mx.gpu(0))
+    net.hybridize(False)
+    with torch.no_grad(), autograd.predict_mode():
+        want, got = net(x).asnumpy(), fresh(x).asnumpy()
+    same = np.array_equal(want, got) and np.isfinite(got).all()
+    entries = mx.nd.load(path, ctx=mx.cpu())
+    named = list(entries) == list(net._collect_params_with_prefix())
+    f32 = all(a.dtype == np.float32 for a in entries.values())
+    log("gluon save/load: %s, %.1f MB, %d entries, all f32 %s, names the "
+        "net's structural names %s; save %.3f s, load %.3f s; the loaded "
+        "net's no_grad logits (%d x %d) %s the saved net's"
+        % (os.path.basename(path), size / 1e6, len(entries), f32, named,
+           save_s, load_s, *got.shape,
+           "bitwise equal to" if same else "DIFFER from"))
+    del fresh, entries
+    if not (same and f32 and named):
+        fail("the loaded BERT-base differs from the saved one, or the "
+             "file's entries are not f32 under the structural names")
+    return size, save_s, load_s
+
+
+def gluon_train_run(dev):
+    """The main path: BERT-base (12 x 768, 12 heads, vocab 30,522) under
+    amp bf16 trained as a user's Gluon script.  ``DataLoader`` over an
+    ``ArrayDataset`` of 384 seeded sequences (``mlm_samples``), batch
+    32 x 128, shuffled, ``num_workers=2``; each batch
+    ``as_in_context(mx.gpu(0))``; the forward and
+    ``SoftmaxCrossEntropyLoss`` under ``autograd.record()``,
+    ``loss.backward()``, ``gluon.utils.clip_global_norm`` 1.0 over the
+    trainable gradients (O3), ``gluon.Trainer(net.collect_params(),
+    "adamw", lr 1e-4, wd 0.01).step(32)`` (O1) with ``wd_mult`` 0 on
+    every gamma, beta and bias, and ``mx.metric.Loss`` and
+    ``Perplexity`` updated each step.  Two epochs eagerly, then two
+    hybridized (one step a mode profiled).  Returns the kernels' launch
+    counts, the trained net, the script's step and a batch."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import optimizer_ops as oo
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctx = mx.gpu(0)
+    net = gluon_net(dev, 0)
+    mx.amp.convert_hybrid_block(net)
+    params = net.collect_params()
+    nowd = net.collect_params(".*gamma|.*beta|.*bias")
+    nowd.setattr("wd_mult", 0.0)
+    trainable = [p for p in params.values() if p.grad_req != "null"]
+    trainer = gluon.Trainer(params, "adamw",
+                            {"learning_rate": 1e-4, "wd": 0.01})
+    toks, labels = mlm_samples(GLUON_SAMPLES, BERT_T, BERT_VOCAB, 0)
+    np.random.seed(0)
+    loader = gluon.data.DataLoader(
+        gluon.data.ArrayDataset(toks, labels), batch_size=BERT_B,
+        shuffle=True, last_batch="discard", num_workers=2)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    loss_metric, ppl = mx.metric.Loss(), mx.metric.Perplexity(None)
+    nowd_train = [p for p in nowd.values() if p.grad_req != "null"]
+    log("gluon train: BERT-base as a Gluon script, %d parameters (%d "
+        "trainable, %d with wd_mult 0), %d samples of %d tokens, %d steps "
+        "an epoch, set-up %.1f s"
+        % (len(params), len(trainable), len(nowd_train), GLUON_SAMPLES,
+           BERT_T, len(loader), time.perf_counter() - t0))
+    host = {"copy": [], "metric": [], "loader": [], "sync": []}
+
+    def step(data, label):
+        t1 = time.perf_counter()
+        data, label = data.as_in_context(ctx), label.as_in_context(ctx)
+        host["copy"].append(time.perf_counter() - t1)
+        with autograd.record():
+            out = net(data)
+            loss = loss_fn(out, label.reshape((-1,)))
+        loss.backward()
+        gluon.utils.clip_global_norm(
+            [p.grad() for p in params.values() if p.grad_req != "null"], 1.0)
+        trainer.step(BERT_B)
+        t1 = time.perf_counter()
+        loss_metric.update(None, loss)
+        ppl.update([label.reshape((-1,))], [out.softmax()])
+        host["metric"].append(time.perf_counter() - t1)
+
+    counters = ("fwd_launches", "dq_launches", "dkv_launches")
+    for name in counters:
+        setattr(fa.flash_attention, name, 0)
+    reset_opt_counts(oo)
+    rows, epochs, n_steps, batch = {}, [], 0, None
+    for mode in ("eager", "hybridized"):
+        if mode == "hybridized":
+            net.hybridize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, prof = [], None
+        for epoch in range(2):
+            loss_metric.reset()
+            ppl.reset()
+            it = iter(loader)
+            for i in range(len(loader)):
+                t1 = time.perf_counter()
+                data, label = next(it)
+                host["loader"].append(time.perf_counter() - t1)
+                batch = (data, label)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                if epoch == 1 and i == 6:
+                    prof = profiled_step(lambda: step(data, label))
+                else:
+                    step(data, label)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t1)
+                n_steps += 1
+            t1 = time.perf_counter()
+            (_, mean_loss), (_, perplexity) = loss_metric.get(), ppl.get()
+            host["sync"].append(time.perf_counter() - t1)
+            epochs.append((mode, mean_loss, perplexity))
+            log("gluon train: %s epoch %d: mean loss %.4f, perplexity %.2f"
+                % (mode, epoch, mean_loss, perplexity))
+        rows[mode] = (sorted(times), prof, torch.cuda.max_memory_allocated(),
+                      net.stats() if mode == "hybridized" else None)
+    launches = {name: getattr(fa.flash_attention, name) for name in counters}
+    launches.update(opt_counts(oo))
+    layers = BERT_BASE["num_layers"]
+    log("gluon train: launches over %d steps: %s (K1-K3 must be %d each, "
+        "O1 %d, O3 the same every step)"
+        % (n_steps, launches, layers * n_steps, n_steps))
+    for name in counters:
+        if launches[name] != layers * n_steps:
+            fail("the Gluon script's %s = %d over %d steps of %d layers"
+                 % (name, launches[name], n_steps, layers))
+    if launches["O1"] != n_steps:
+        fail("the Gluon script's adamw update launched O1 %d times over %d "
+             "steps" % (launches["O1"], n_steps))
+    if not launches["O3"] or launches["O3"] % n_steps:
+        fail("clip_global_norm launched O3 %d times over %d steps"
+             % (launches["O3"], n_steps))
+    means = [m for _, m, _ in epochs]
+    if not all(math.isfinite(m) for _, m, p in epochs):
+        fail("a Gluon script epoch's loss is not finite")
+    log("gluon train: epoch mean losses %s; the last %.4f against the "
+        "first %.4f (must be below it)"
+        % (["%.4f" % m for m in means], means[-1], means[0]))
+    if not means[-1] < means[0]:
+        fail("the Gluon script's loss did not fall")
+    for mode, (times, (_, wall, busy, averages), peak, st) in rows.items():
+        p50_s = times[len(times) // 2]
+        top, _, kern_ms = kernel_rows(averages)
+        jit = BERT_JIT_MS.get("eager" if mode == "eager" else "graphed")
+        log("gluon train: %s Trainer step ms p50 %.3f (min %.3f max %.3f "
+            "over %d timed steps), %.1f samples/s; the bert phase's %s "
+            "JitTrainStep p50 %s ms; peak device memory %.2f GB"
+            % (mode, 1e3 * p50_s, 1e3 * times[0], 1e3 * times[-1],
+               len(times), BERT_B / p50_s,
+               "eager" if mode == "eager" else "graphed",
+               "%.3f" % jit if jit else "not run", peak / 1e9))
+        log("gluon train: %s profiled step: wall %.3f ms, kernels busy "
+            "%.3f ms (union of intervals): idle %.1f%% of the profiled "
+            "step, %.1f%% of the p50 step; kernels summed %.3f ms: %s"
+            % (mode, wall * 1e3, busy, 100 * (1 - busy / (wall * 1e3)),
+               100 * max(0.0, 1 - busy / (1e3 * p50_s)), kern_ms,
+               ", ".join("%s %.3f" % kv
+                         for kv in kernel_kinds(averages).items())))
+        for ms, n, key in top:
+            log("gluon train:   %9.3f ms  x%-5d %s" % (ms, n, key[:100]))
+        if st is not None:
+            log("gluon train: hybridized: %d captures, %d replays, %d "
+                "backward replays, %d busy calls, pool %.1f MB"
+                % (st["captures"], st["replays"], st["backward_replays"],
+                   st["busy_calls"], st["pool_bytes"] / 1e6))
+
+    def us(xs):
+        xs = sorted(xs)
+        return 1e6 * xs[len(xs) // 2], 1e6 * xs[-1]
+
+    log("gluon train: host us median (max): DataLoader next() %.1f (%.1f) "
+        "a batch; as_in_context of a batch %.1f (%.1f); the metrics' "
+        "update %.1f (%.1f) a step; the metrics' one pull (get()) %.1f "
+        "(%.1f) an epoch"
+        % (*us(host["loader"]), *us(host["copy"]), *us(host["metric"]),
+           *us(host["sync"])))
+    return launches, net, nowd_train, step, batch
+
+
+def gluon_phase(dev):
+    """The checks at ``bert_small`` (``grad_req`` "add" through the
+    graph pair, a "null" change after a capture, the held-node case),
+    then the main path (``gluon_train_run``) under amp bf16, with the
+    ``wd_mult`` and ``"null"`` checks on its net, its save and load, and
+    the write rule's host cost."""
+    import torch
+
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.ops import optimizer_ops as oo
+
+    start_profiler(dev)
+    gluon_add_check(dev)
+    gluon_null_change_check(dev)
+    held_nodes_jit_check(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    amp.init("bfloat16")
+    tmp = tempfile.mkdtemp(prefix="gluon_smoke_")
+    try:
+        launches, net, nowd, step, batch = gluon_train_run(dev)
+        gluon_wd_and_null_checks(oo, net, nowd, step, batch)
+        gluon_save_load(net, dev, tmp)
+        write_rule_cost(net.bert, "gluon")
+    finally:
+        amp.turn_off()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
 
 
 # -- phase 14: the optimizer kernels O1-O3 ---------------------------------
@@ -4862,11 +5441,12 @@ def nvidia_smi_line():
 
 PHASES = ("kernel", "flash", "optimizer", "serve", "parity", "fleet",
           "train", "train_parity", "hybridize", "rtc", "imperative",
-          "imperative_parity", "resnet", "bert")
+          "imperative_parity", "resnet", "bert", "gluon")
 # the phases that launch K1-K4 and O1-O3, whose libraries the smoke
 # builds first
 NVCC_PHASES = {"kernel", "flash", "optimizer", "serve", "parity", "fleet",
-               "train", "train_parity", "hybridize", "resnet", "bert"}
+               "train", "train_parity", "hybridize", "resnet", "bert",
+               "gluon"}
 
 
 def kernel_entry(name, source, replaces, launches, timing, extra=None):
@@ -4968,6 +5548,7 @@ def main(argv):
     resnet_o2 = timed("resnet", resnet_phase, dev)
     bert_launches, bert_o1_err = timed("bert", bert_phase, dev) \
         or (None, None)
+    gluon_launches = timed("gluon", gluon_phase, dev)
     log("total: %.1f s" % (time.perf_counter() - t_all))
     if list(phases) != list(PHASES):
         log("ran phases %s only: no result lines" % ",".join(phases))
@@ -4976,7 +5557,7 @@ def main(argv):
     src = "mxnet_tpu_torch/csrc/flash_attention.cu"
     opt_src = "mxnet_tpu_torch/csrc/optimizer_ops.cu"
     flash, flash_bert = flash
-    paths = (flash_launches, hybrid_launches, bert_launches)
+    paths = (flash_launches, hybrid_launches, bert_launches, gluon_launches)
     print(json.dumps({"kernels": [
         kernel_entry("K1 flash_fwd", src,
                      "mxnet_tpu/ops/pallas_kernels.py:83",
@@ -5009,7 +5590,8 @@ def main(argv):
                      opt["O2"]),
         kernel_entry("O3 multi_sum_sq (port-only)", opt_src,
                      "mxnet_tpu/ops/optimizer_ops.py:174",
-                     flash_launches["O3"], opt["O3"])]}))
+                     flash_launches["O3"] + gluon_launches["O3"],
+                     opt["O3"])]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,12 @@ Ported so far:
   exact-GELU FFN, the tied MLM head), the norms and containers of
   ``gluon.nn`` (``LayerNorm``, ``GroupNorm``, ``InstanceNorm``,
   ``Concurrent``, ``Lambda``, ...) and ``JitTrainStep.save_states``;
+* Gluon's parameter layer (``gluon.Parameter``, ``ParameterDict``,
+  ``collect_params()`` under the JAX package's names, ``grad_req``,
+  ``save_parameters``/``load_parameters`` over ``nd.save``'s ``.params``
+  files), NDArrays through Gluon blocks, ``gluon.data`` (datasets,
+  samplers, ``DataLoader``, vision transforms), ``gluon.utils`` and
+  ``metric``;
 * the telemetry and testing modules these tiers use.
 
 The port's own kernels are CUDA C++ for sm_90a in ``csrc/``.  Entry
@@ -38,6 +44,7 @@ from . import amp, base, context, layout, ops, serve  # noqa: F401
 from . import telemetry, testing  # noqa: F401
 from . import gluon, initializer, optimizer, parallel  # noqa: F401
 from . import lr_scheduler, sharding  # noqa: F401
+from . import metric, name, registry  # noqa: F401
 from . import autograd, engine, ndarray, rtc  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import ndarray as nd  # noqa: F401

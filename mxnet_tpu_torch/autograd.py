@@ -12,10 +12,12 @@ The tape is torch's autograd graph:
   feeds its tensor.  An op outside ``record()`` is not recorded, also
   when an input carries a graph: ``ops.registry`` runs it under
   ``torch.no_grad()``.
-* ``backward`` differentiates the heads with ``torch.autograd.grad``
-  with respect to the live leaf views and writes each marked array's
-  gradient by its ``grad_req``: ``write`` copies it over ``.grad``,
-  ``add`` adds it, ``null`` drops it.  A head that is not a scalar gets a
+* ``backward`` runs ``torch.autograd.backward`` from the heads and
+  writes each marked array's gradient (its leaf view's) by its
+  ``grad_req``; a Gluon block's parameters that the heads reach get
+  theirs in ``.grad``, as a tensor backward gives them.  ``grad_req``:
+  ``write`` copies it over ``.grad``, ``add`` adds it, ``null`` drops
+  it.  A head that is not a scalar gets a
   head gradient of ones.  Without ``retain_graph`` the graph is freed,
   and a second backward through it raises ``MXNetError``.
 * ``grad(..., create_graph=True)`` returns gradients that are themselves
@@ -152,6 +154,20 @@ def _differentiate(outputs, grads, inputs, retain_graph, create_graph):
         raise
 
 
+def _accumulate(outputs, grads, retain_graph):
+    """``torch.autograd.backward``: every leaf the heads reach adds its
+    gradient to ``.grad`` (a Gluon block's parameters through the write
+    rule of ``gluon.block``), with MXNet's error for a freed graph."""
+    try:
+        torch.autograd.backward(outputs, grads, retain_graph=retain_graph)
+    except RuntimeError as e:
+        if "backward through the graph a second time" in str(e):
+            raise MXNetError(
+                "graph already freed by a previous backward; pass "
+                "retain_graph=True to backward() to reuse it") from e
+        raise
+
+
 def _split_heads(heads, grads):
     """Heads with a graph, and marked leaves used as heads themselves."""
     graph, bare = ([], []), []
@@ -171,16 +187,21 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     """Run the reverse pass from ``heads`` (parity: MXAutogradBackwardEx).
 
     Every marked array whose leaf view took part writes its gradient by
-    its ``grad_req``.  ``train_mode`` is accepted for parity."""
+    its ``grad_req``; the parameters of the Gluon blocks the heads were
+    computed by get theirs in ``.grad`` (by each one's ``grad_req``).
+    ``train_mode`` is accepted for parity."""
     heads, grads = _heads_and_grads(heads, head_grads)
     (outs, ograds), bare = _split_heads(heads, grads)
     leaves = [a for a in list(_marked.values()) if a._leaf is not None]
     found = {}
     if outs:
-        res = _differentiate(outs, ograds, [a._leaf for a in leaves],
-                             retain_graph, False)
-        found = {id(a): (a, g) for a, g in zip(leaves, res)
-                 if g is not None}
+        for a in leaves:
+            a._leaf.grad = None
+        _accumulate(outs, ograds, retain_graph)
+        for a in leaves:
+            g, a._leaf.grad = a._leaf.grad, None
+            if g is not None:
+                found[id(a)] = (a, g)
     with torch.no_grad():
         for h, g in bare:
             prev = found.get(id(h))

@@ -147,11 +147,12 @@ def as_context(ctx=None):
 
 
 def resolve(device=None):
-    """``None`` → ``cuda:0``; a Context, string or ``torch.device`` is
-    checked the same way (a CUDA device must exist).  Returns the
-    ``torch.device``."""
+    """``None`` → the current context's device (``cuda:0`` unless a
+    ``with mx.cpu():`` scope says otherwise); a Context, string or
+    ``torch.device`` is checked the same way (a CUDA device must exist).
+    Returns the ``torch.device``."""
     if device is None:
-        return gpu(0).torch_device
+        return current_context().torch_device
     if isinstance(device, Context):
         return device.torch_device
     dev = torch.device(device)

@@ -2,26 +2,49 @@
 
 The port's counterpart of ``mxnet_tpu/gluon/block.py``.  A block is a
 module whose ``forward`` is plain torch; the JAX package's
-``hybrid_forward(F, ...)`` dispatch does not exist here.  Parameters are
-``torch.nn.Parameter``s named by structure (``blocks.0.attn.q_proj.weight``),
-which are the JAX package's ``_collect_params_with_prefix()`` names, so
-``state_dict()`` keys equal them.  A parameter may carry an ``init``
-attribute (``"ones"``, ``"zeros"`` or an ``Initializer``) that overrides
-the initializer given to ``initialize``, as in the JAX package.
+``hybrid_forward(F, ...)`` dispatch does not exist here.  Its
+parameters are ``gluon.Parameter`` handles (``parameter.py``) over the
+tensors the module registers: assigning a handle as an attribute, or
+``self.params.get(...)``'s handle, registers its tensor under the
+attribute name, and a tensor registered the torch way gets a handle
+too.  So a block has both of the JAX package's namings:
 
-Running statistics (``nn.BatchNorm``'s) are buffers, listed by
-``collect_params()`` beside the parameters as the JAX package lists its
-``grad_req="null"`` parameters; a buffer may carry an ``init`` too.
+* ``collect_params(select=None)`` is a ``ParameterDict`` of the handles
+  under their prefixed names (``bertmodel0_word_weight``), made as the
+  JAX package makes them: each block's prefix comes from its
+  ``name_scope()`` parent's counters, or from the process-wide counter
+  of its class's lower-cased name (``_name_manager_next``);
+* ``_collect_params_with_prefix()`` is ``{structural name: tensor}``
+  (``word_embed.weight``), which equals ``state_dict()``'s keys.
 
-Gradients follow the JAX package's default ``grad_req="write"``: each
-``backward()`` overwrites a parameter's ``.grad`` (contributions within
-one backward, as a tied weight's, are summed), where torch would add to
-it.  When the outermost block call of a thread returns with grad mode
-on, :func:`write_grads` arms each of the tree's parameters: a pre-hook
-on the ``AccumulateGrad`` node the call's graph holds for it drops the
-old ``.grad`` and marks the new one fresh (``p._fresh_grad``;
-``gluon.Trainer`` reads and clears the mark).  The node runs only when
-torch accumulates into ``.grad``, so ``torch.autograd.grad``
+Sharing goes through ``params=``: a block given another's
+``collect_params()`` gets its handles, and so registers the same
+tensors.  ``save_parameters``/``load_parameters`` write and read the
+JAX package's ``.params`` files under the structural names (f32 for a
+bf16 tensor; a channels-last convolution's weight as HWIO, as the JAX
+package keeps it), with its fallbacks on load: ``arg:``/``aux:`` keys,
+the prefixed names, and the prefixed names with the instance prefix
+taken off.
+
+A block called with NDArrays runs on their tensors (a lazy array is
+flushed first; inside ``autograd.record()`` a marked array feeds its
+leaf view) and returns NDArrays on the first input's context, so an
+NDArray loss's ``backward()`` fills the parameters' gradients.  Tensor
+inputs give tensor outputs.  Forward hooks and pre-hooks
+(``register_forward_hook``: MXNet's ``hook(block, inputs, outputs)``)
+run around each call with what the caller passed and got.
+
+Gradients follow the parameter's ``grad_req``.  ``"write"``, the
+default: each ``backward()`` overwrites a parameter's ``.grad``
+(contributions within one backward, as a tied weight's, are summed),
+where torch would add to it.  When the outermost block call of a
+thread returns with grad mode on, :func:`write_grads` arms each of the
+tree's parameters: a pre-hook on the ``AccumulateGrad`` node the call's
+graph holds for it drops the old ``.grad`` (unless the tensor's
+``_grad_req`` is ``"add"``, read when the hook runs) and marks the new
+one fresh (``p._fresh_grad``; ``gluon.Trainer`` reads and clears the
+mark).  ``"null"`` turns ``requires_grad`` off.  The node runs only
+when torch accumulates into ``.grad``, so ``torch.autograd.grad``
 (``JitTrainStep``, the graph pair's captured backward) never triggers
 it, and the engine sums a leaf's inputs before it calls the node, so it
 runs once a backward.  The nodes are not kept beyond torch's own
@@ -44,17 +67,22 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import itertools
+import re
 import threading
 import weakref
+from collections import OrderedDict
 
+import numpy as np
 import torch
 
 from .. import autograd as _autograd
 from .. import graph_cache as _graph_cache
 from .. import initializer as _init
 from ..base import MXNetError
-from ..context import resolve
+from ..ndarray.ndarray import NDArray
+from .parameter import (Parameter, ParameterDict,  # noqa: F401
+                        DeferredInitializationError, as_dtype)
+from .utils import HookHandle
 
 # how deep this thread is inside a hybridized block's call: the blocks
 # it calls run eagerly and are captured with it (the reference's
@@ -64,48 +92,28 @@ _nesting = threading.local()
 # call arms its parameters (write_grads) when it returns
 _calls = threading.local()
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16, "float64": torch.float64}
-
-
-def as_dtype(dtype):
-    """A ``torch.dtype`` from a dtype or its name."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    try:
-        return _DTYPES[str(dtype)]
-    except KeyError:
-        raise MXNetError("unsupported dtype %r (one of %s)"
-                         % (dtype, sorted(_DTYPES)))
-
-
-def new_param(shape, device, dtype="float32", init=None):
-    """An uninitialized parameter (filled by ``Block.initialize``)."""
-    p = torch.nn.Parameter(torch.empty(shape, dtype=as_dtype(dtype),
-                                       device=resolve(device)))
-    p.init = init
-    return p
+_LAZY = torch.nn.parameter.UninitializedTensorMixin
 
 
 def _overwrite(ref, grad_outputs):
     p = ref()
     if p is not None:
-        p.grad = None
+        if getattr(p, "_grad_req", "write") != "add":
+            p.grad = None
         p._fresh_grad = True
 
 
 def write_grads(params):
-    """Arm each tensor of ``params`` that takes a gradient for the
-    ``grad_req="write"`` rule (see the module docstring): a pre-hook on
-    the ``AccumulateGrad`` node its graph holds for it, once a node.  No
+    """Arm each tensor of ``params`` that takes a gradient for its
+    ``grad_req`` (see the module docstring): a pre-hook on the
+    ``AccumulateGrad`` node its graph holds for it, once a node.  No
     node is held here: one that no graph holds is freed on return.  The
     node is found through a view, as ``torch.autograd.graph.
     get_gradient_edge`` finds it, without that function's own checks
     (which cost as much again per parameter)."""
     with torch.enable_grad():
         for p in params:
-            if not p.requires_grad or not p.is_leaf or isinstance(
-                    p, torch.nn.parameter.UninitializedTensorMixin):
+            if not p.requires_grad or not p.is_leaf or isinstance(p, _LAZY):
                 continue
             node = p.view_as(p).grad_fn.next_functions[0][0]
             if not node.metadata.get("write_grads"):
@@ -145,17 +153,281 @@ def grads_unwritten():
         _calls.quiet = saved
 
 
+@contextlib.contextmanager
+def calls_inline():
+    """Hybridized blocks called in this thread run eagerly, as blocks
+    called inside a hybridized block's call do: for a step that is
+    captured whole (``JitTrainStep``), whose capture must not replay a
+    block's own graphs (the reference's blocks run imperatively inside
+    its step's trace)."""
+    _nesting.depth = getattr(_nesting, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _nesting.depth -= 1
+
+
+class _BlockScope:
+    """Name manager for nested blocks (parity: block.py _BlockScope): a
+    block made inside ``parent.name_scope()`` takes its prefix from the
+    parent's prefix and the parent's count of its hint."""
+
+    _current = threading.local()
+
+    def __init__(self, block):
+        # a weak reference: a block and its scope would otherwise form a
+        # cycle, and a model's memory would wait for the cyclic collector
+        self._block_ref = weakref.ref(block)
+        self._counter = {}
+        self._old_scope = None
+
+    @property
+    def _block(self):
+        return self._block_ref()
+
+    @staticmethod
+    def create(prefix, params, hint):
+        current = getattr(_BlockScope._current, "value", None)
+        if current is None:
+            if prefix is None:
+                prefix = _name_manager_next(hint) + "_"
+            if params is None:
+                params = ParameterDict(prefix)
+            else:
+                params = ParameterDict(params.prefix, params)
+            return prefix, params
+        if prefix is None:
+            count = current._counter.get(hint, 0)
+            current._counter[hint] = count + 1
+            prefix = "%s%d_" % (hint, count)
+        if params is None:
+            parent = current._block.params
+            params = ParameterDict(parent.prefix + prefix, parent._shared)
+        else:
+            params = ParameterDict(params.prefix, params)
+        return current._block.prefix + prefix, params
+
+    def __enter__(self):
+        if self._block._empty_prefix:
+            return self
+        self._old_scope = getattr(_BlockScope._current, "value", None)
+        _BlockScope._current.value = self
+        return self
+
+    def __exit__(self, *a):
+        if self._block._empty_prefix:
+            return
+        _BlockScope._current.value = self._old_scope
+
+
+_name_counter = {}
+_name_lock = threading.Lock()
+
+
+def _name_manager_next(hint):
+    """The process-wide name of the next block of ``hint`` made outside
+    any ``name_scope()`` (``dense0``, ``dense1``, ...)."""
+    with _name_lock:
+        c = _name_counter.get(hint, 0)
+        _name_counter[hint] = c + 1
+    return "%s%d" % (hint, c)
+
+
+def _nd_context(args):
+    """The context of the first NDArray among ``args``, else None."""
+    for a in args:
+        if isinstance(a, NDArray):
+            return a.context
+    return None
+
+
+def _tensor_arg(a, recording):
+    """What a block's forward reads for ``a``: an NDArray's tensor (a
+    lazy array flushed; a marked one's leaf view inside ``record()``)."""
+    return a._op_input(recording) if isinstance(a, NDArray) else a
+
+
+def _nd_out(out, ctx):
+    """A block's tensor outputs as NDArrays on ``ctx``."""
+    if isinstance(out, torch.Tensor):
+        return NDArray._wrap(out, ctx)
+    if isinstance(out, (tuple, list)):
+        return type(out)(_nd_out(o, ctx) for o in out)
+    return out
+
+
 class Block(torch.nn.Module):
-    """Base block (parity: gluon.Block).  ``prefix``/``params`` are
-    accepted for the JAX package's signatures; names are structural."""
+    """Base block (parity: gluon.Block)."""
 
     def __init__(self, prefix=None, params=None):
         super().__init__()
-        del prefix, params
-        self._deferred_init = None    # (init, generator) for lazy shapes
+        self._empty_prefix = prefix == ""
+        self._prefix, self._params = _BlockScope.create(
+            prefix, params, self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _BlockScope(self)
+        self._reg_params = OrderedDict()   # attribute -> Parameter
+        self._mx_pre_hooks = OrderedDict()
+        self._mx_hooks = OrderedDict()
         self._params_seen = None      # (tree generation, parameters)
 
+    def _alias(self):
+        return self.__class__.__name__.lower()
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @property
+    def name(self):
+        return self._name
+
+    def name_scope(self):
+        """Blocks made in this scope take their prefixes from this
+        block (parity: Block.name_scope)."""
+        return self._scope
+
+    @property
+    def params(self):
+        """This block's own ``ParameterDict`` (its children's are not in
+        it: ``collect_params()`` gathers the tree)."""
+        return self._params
+
+    # -- registration ---------------------------------------------------------
+    def __setattr__(self, name, value):
+        if isinstance(value, Parameter):
+            self._register_handle(name, value)
+            return
+        super().__setattr__(name, value)
+
+    def _register_handle(self, name, param, buffer=False):
+        """Register ``param``'s tensor (made now if need be) under
+        ``name``: as a parameter, or as a buffer (running statistics)."""
+        if buffer:
+            param._buffer = True
+            param._grad_req = "null"
+        t = param._ensure_tensor()
+        self.__dict__["_reg_params"][name] = param
+        if buffer:
+            torch.nn.Module.register_buffer(self, name, t)
+        else:
+            torch.nn.Module.register_parameter(self, name, t)
+            t._block_owned = True     # armed by its block's calls
+
+    def register_parameter(self, name, param):
+        """Register a tensor the torch way; it gets a handle named by
+        this block's prefix (or takes the one registered before under
+        ``name``)."""
+        super().register_parameter(name, param)
+        if param is None:
+            return
+        param._block_owned = True
+        reg = self.__dict__.get("_reg_params")
+        if reg is None:
+            return
+        handle = reg.get(name)
+        if handle is None:
+            handle = self._params.get(
+                name, grad_req="write" if param.requires_grad else "null",
+                shape=None if isinstance(param, _LAZY)
+                else tuple(param.shape),
+                dtype=param.dtype, init=getattr(param, "init", None))
+            reg[name] = handle
+        if handle._tensor is not param:
+            init = getattr(param, "init", handle.init)
+            handle._attach(param)
+            handle.init = init
+
+    def register_child(self, block, name=None):
+        """Add ``block`` as a child (parity: Block.register_child)."""
+        if name is None:
+            name = str(len(self._modules))
+        self.add_module(name, block)
+
+    def _tree_params(self):
+        """The tree's parameters, collected again only after a module,
+        parameter or buffer was registered or converted somewhere."""
+        gen = _graph_cache.tree_generation()
+        if self._params_seen is None or self._params_seen[0] != gen:
+            self._params_seen = (gen, list(self.parameters()))
+        return self._params_seen[1]
+
+    def _blocks(self):
+        return [c for c in self._modules.values() if isinstance(c, Block)]
+
+    def collect_params(self, select=None):
+        """The tree's ``Parameter``s under their prefixed names, each
+        block's own and then its children's in order, those whose name
+        matches the regular expression ``select`` if one is given
+        (parity: Block.collect_params).  Running statistics are listed
+        with ``grad_req="null"``."""
+        ret = ParameterDict(self._params.prefix)
+        if not select:
+            ret.update(self.params)
+        else:
+            pattern = re.compile(select)
+            ret.update({name: value for name, value in self.params.items()
+                        if pattern.match(name)})
+        for child in self._blocks():
+            ret.update(child.collect_params(select=select))
+        return ret
+
+    def _param_handles(self, prefix=""):
+        """``{structural name: Parameter}``."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + name: p for name, p in self._reg_params.items()}
+        for name, child in self._modules.items():
+            if isinstance(child, Block):
+                ret.update(child._param_handles(prefix + name))
+        return ret
+
+    def _collect_params_with_prefix(self, prefix=""):
+        """``{structural name: tensor}`` (``encoder.layers.0.ln1.gamma``),
+        parameters and running statistics, as ``state_dict()`` names
+        them."""
+        return {k: p._tensor
+                for k, p in self._param_handles(prefix).items()}
+
+    # -- hooks ----------------------------------------------------------------
+    def register_forward_pre_hook(self, hook):
+        """``hook(block, inputs)`` before each call (parity:
+        Block.register_forward_pre_hook); returns a ``HookHandle``."""
+        handle = HookHandle()
+        handle.attach(self._mx_pre_hooks, hook)
+        return handle
+
+    def register_forward_hook(self, hook):
+        """``hook(block, inputs, outputs)`` after each call (parity:
+        Block.register_forward_hook); returns a ``HookHandle``."""
+        handle = HookHandle()
+        handle.attach(self._mx_hooks, hook)
+        return handle
+
+    def apply(self, fn):
+        """``fn(block)`` on every child, depth first, then on this block
+        (parity: Block.apply)."""
+        for child in self._blocks():
+            child.apply(fn)
+        fn(self)
+        return self
+
+    # -- calls ----------------------------------------------------------------
     def __call__(self, *args, **kwargs):
+        for hook in tuple(self._mx_pre_hooks.values()):
+            hook(self, args)
+        ctx = _nd_context(args)
+        targs = args if ctx is None else tuple(
+            _tensor_arg(a, _autograd.is_recording()) for a in args)
+        out = self._outermost(*targs, **kwargs)
+        if ctx is not None:
+            out = _nd_out(out, ctx)
+        for hook in tuple(self._mx_hooks.values()):
+            hook(self, args, out)
+        return out
+
+    def _outermost(self, *args, **kwargs):
         if getattr(_calls, "depth", 0):
             return self._call(*args, **kwargs)
         _calls.depth = 1
@@ -170,57 +442,37 @@ class Block(torch.nn.Module):
     def _call(self, *args, **kwargs):
         return torch.nn.Module.__call__(self, *args, **kwargs)
 
-    def register_parameter(self, name, param):
-        super().register_parameter(name, param)
-        if param is not None:
-            param._block_owned = True     # armed by its block's calls
-
-    def _tree_params(self):
-        """The tree's parameters, collected again only after a module,
-        parameter or buffer was registered or converted somewhere."""
-        gen = _graph_cache.tree_generation()
-        if self._params_seen is None or self._params_seen[0] != gen:
-            self._params_seen = (gen, list(self.parameters()))
-        return self._params_seen[1]
-
-    def collect_params(self):
-        """``{structural name: tensor}``, each block's parameters and then
-        its buffers (running statistics, which take no gradient: the JAX
-        package's ``grad_req="null"``), block by block in registration
-        order."""
-        out = {}
-        for prefix, module in self.named_modules():
-            for name, t in itertools.chain(module._parameters.items(),
-                                           module._buffers.items()):
-                if t is not None:
-                    out[prefix + "." + name if prefix else name] = t
-        return out
-
+    # -- initialization and dtypes ------------------------------------------
     def initialize(self, init=None, device=None, verbose=False,
-                   force_reinit=False, generator=None):
-        """Fill every parameter from ``init`` (default ``Uniform()``), or
-        from the parameter's own ``init`` where it has one, drawing from
-        ``generator``.  A parameter initialized before is left alone
-        unless ``force_reinit``.  Parameters whose shape is known only at
-        the first forward (``Dense(in_units=0)``) are filled then.
-        ``device`` is accepted for parity: parameters live where their
-        block was built."""
-        del device, verbose
+                   force_reinit=False, generator=None, ctx=None):
+        """Fill every parameter from its own ``init``, else from ``init``
+        (default ``Uniform()``), drawing from ``generator``.  A parameter
+        initialized before is left alone unless ``force_reinit``.
+        Parameters whose shape is known only at the first forward
+        (``Dense(in_units=0)``) are filled then.  ``device`` (or ``ctx``)
+        is accepted for parity: parameters live where their block was
+        built."""
+        del verbose
         default = _init.create(init)
-        for module in self.modules():
-            module._deferred_init = (default, generator)
-        for name, p in itertools.chain(
-                self.named_parameters(),
-                ((n, b) for n, b in self.named_buffers()
-                 if hasattr(b, "init"))):
-            if isinstance(p, torch.nn.parameter.UninitializedTensorMixin):
-                continue
-            if getattr(p, "_initialized", False) and not force_reinit:
-                continue
-            fill_param(name, p, default, generator)
+        seen = set()
+        for p in self.collect_params().values():
+            if id(p) not in seen:
+                seen.add(id(p))
+                p.initialize(None, device if device is not None else ctx,
+                             default_init=default, force_reinit=force_reinit,
+                             generator=generator)
         if force_reinit:
             _clear_caches(self)
         return self
+
+    def _finish_param(self, name, shape):
+        """Give the deferred parameter ``name`` its shape and fill it."""
+        p = self._reg_params[name]
+        if p._deferred_init is None:
+            raise MXNetError("%s: call initialize() before the first "
+                             "forward" % type(self).__name__)
+        p.shape = shape
+        p._finish_deferred_init()
 
     def cast(self, dtype):
         """Cast every floating-point parameter of this block and, through
@@ -251,6 +503,120 @@ class Block(torch.nn.Module):
             if isinstance(child, Block):
                 child.hybridize(active, **kwargs)
         return self
+
+    def zero_grad(self):
+        """Zero every parameter's gradient in place (parity:
+        Block.zero_grad; torch's ``Module.zero_grad`` would drop them)."""
+        for p in self.collect_params().values():
+            p.zero_grad()
+
+    # -- .params files ----------------------------------------------------------
+    def save_parameters(self, filename, deduplicate=False):
+        """Write the parameters and running statistics as a ``.params``
+        file under their structural names (parity:
+        Block.save_parameters): bf16 as f32, a channels-last
+        convolution's weight as HWIO.  ``deduplicate`` writes a tensor
+        shared by several blocks once, under its first name.  The write
+        is atomic."""
+        from ..ndarray import ndarray as _ndm
+
+        out, seen = {}, set()
+        for name, p in self._param_handles().items():
+            if deduplicate and id(p) in seen:
+                continue
+            seen.add(id(p))
+            p._check_initialized()
+            out[name] = p._file_array()
+        _ndm.save_arrays(filename, out)
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False):
+        """Read a ``.params`` file into the parameters, in place and in
+        each one's dtype (parity: Block.load_parameters, with its
+        fallbacks: ``arg:``/``aux:`` keys, the prefixed names, and the
+        prefixed names without the instance prefix).  A deferred
+        parameter takes its shape from the file.  ``ctx`` and
+        ``cast_dtype`` are accepted for parity."""
+        from ..ndarray import ndarray as _ndm
+
+        loaded = _ndm.load_arrays(filename)
+        if not isinstance(loaded, dict):
+            raise MXNetError("%s is not a parameter dict file" % filename)
+        if any(k.startswith(("arg:", "aux:")) for k in loaded):
+            loaded = {k.split(":", 1)[1] if k.startswith(("arg:", "aux:"))
+                      else k: v for k, v in loaded.items()}
+        params = self._param_handles()
+        if loaded and not set(loaded) & set(params):
+            by_flat = {p.name: p for p in self.collect_params().values()}
+            if set(loaded) & set(by_flat):
+                params = by_flat
+            else:
+                def strip(k):
+                    return k.split("_", 1)[1] if "_" in k else k
+
+                flat2 = {}
+                for p in self.collect_params().values():
+                    flat2.setdefault(strip(p.name), p)
+                loaded2 = {}
+                for k, v in loaded.items():
+                    loaded2.setdefault(strip(k), v)
+                if len(flat2) == len(by_flat) and \
+                        len(loaded2) == len(loaded) and \
+                        set(loaded2) & set(flat2):
+                    params, loaded = flat2, loaded2
+        for name, p in params.items():
+            if name not in loaded:
+                if not allow_missing:
+                    raise MXNetError("parameter %s missing in %s"
+                                     % (name, filename))
+                continue
+            p._set_file_array(loaded[name])
+        if not ignore_extra:
+            extra = set(loaded) - set(params)
+            if extra:
+                raise MXNetError("%s has extra parameters %s"
+                                 % (filename, sorted(extra)))
+
+    # -- summary and shapes ------------------------------------------------------
+    def summary(self, *inputs):
+        """Print each block's output shape and parameter count from one
+        forward of ``inputs`` (parity: Block.summary)."""
+        rows, handles = [], []
+
+        def make_hook(name):
+            def hook(block, ins, outs):
+                out = outs[0] if isinstance(outs, (list, tuple)) else outs
+                n_params = sum(
+                    int(np.prod(p.shape)) for p in block._reg_params.values()
+                    if p._data is not None)
+                rows.append((name or "(root)", block.__class__.__name__,
+                             tuple(out.shape), n_params))
+            return hook
+
+        for name, child in self._iter_blocks():
+            handles.append(child.register_forward_hook(make_hook(name)))
+        try:
+            self(*inputs)
+        finally:
+            for h in handles:
+                h.detach()
+        header = "%-30s %-20s %-20s %10s" % ("Layer", "Type",
+                                             "Output Shape", "Params")
+        lines = [header, "-" * len(header)]
+        total = 0
+        for name, typ, shape, n in rows:
+            lines.append("%-30s %-20s %-20s %10d" % (name, typ, shape, n))
+            total += n
+        lines.append("-" * len(header))
+        lines.append("Total params: %d" % total)
+        print("\n".join(lines))
+
+    def _iter_blocks(self, prefix=""):
+        yield prefix, self
+        for name, child in self._modules.items():
+            if isinstance(child, Block):
+                yield from child._iter_blocks(
+                    prefix + ("." if prefix else "") + name)
 
 
 class HybridBlock(Block):
@@ -299,6 +665,16 @@ class HybridBlock(Block):
             self.clear_cache()
         return super().hybridize(active, static_alloc=static_alloc,
                                  static_shape=static_shape, **kwargs)
+
+    def infer_shape(self, *args):
+        """Give the deferred parameters of this block their shapes from
+        example inputs (parity: HybridBlock.infer_shape); they are filled
+        at the first forward.  Layers with deferred shapes override
+        ``_shape_hint``."""
+        self._shape_hint(*args)
+
+    def _shape_hint(self, *args):
+        return None
 
     def clear_cache(self):
         """Drop every captured graph of this block."""
@@ -383,19 +759,3 @@ def _fresh(out):
     if isinstance(out, (tuple, list)):
         return type(out)(_fresh(o) for o in out)
     return out
-
-
-def fill_param(name, p, default, generator):
-    """Initialize ``p`` in place from its own ``init`` or ``default``.  A
-    bf16 or f16 parameter is drawn in f32 and rounded once, as the JAX
-    package draws (so a parameter cast before its deferred fill gets
-    the values of one cast after it)."""
-    own = getattr(p, "init", None)
-    initializer = _init.create(own) if own is not None else default
-    with torch.no_grad():
-        if p.dtype in (torch.bfloat16, torch.float16):
-            full = torch.empty(p.shape, dtype=torch.float32, device=p.device)
-            p.data.copy_(initializer(name, full, generator=generator))
-        else:
-            initializer(name, p.data, generator=generator)
-    p._initialized = True

@@ -1,8 +1,10 @@
 """Transformer encoder / BERT model family (the port's counterpart of
 ``mxnet_tpu/gluon/model_zoo/bert.py``).
 
-The same blocks and attribute names as the JAX package, so that
-``state_dict()`` keys equal its structural parameter names
+The same blocks, attribute names and name scopes as the JAX package, so
+that ``collect_params()`` gives its prefixed names
+(``bertmodel0_enc_layers_cell0_attn_qkv_weight``) and ``state_dict()``
+keys equal its structural parameter names
 (``pos_embed``, ``mlm_bias``, ``word_embed.weight``, ``type_embed.weight``,
 ``ln.gamma``, ``encoder.layers.<i>.attn.qkv.weight``, ...,
 ``encoder.layers.<i>.ln2.beta``, ``pooler.weight``, ``pooler.bias``), in
@@ -37,7 +39,7 @@ from ... import amp as _amp
 from ...context import resolve
 from ...ops.flash_attention import flash_attention
 from .. import nn
-from ..block import HybridBlock, new_param
+from ..block import HybridBlock
 from .llama import load_jax_params  # noqa: F401  (the same strict loader)
 
 
@@ -52,11 +54,12 @@ class MultiHeadAttention(HybridBlock):
         self._units = units
         self._heads = num_heads
         self._causal = causal
-        self.qkv = nn.Dense(3 * units, flatten=False, in_units=units,
-                            device=device)
-        self.proj = nn.Dense(units, flatten=False, in_units=units,
-                             device=device)
-        self.drop = nn.Dropout(dropout) if dropout else None
+        with self.name_scope():
+            self.qkv = nn.Dense(3 * units, flatten=False, in_units=units,
+                                prefix="qkv_", device=device)
+            self.proj = nn.Dense(units, flatten=False, in_units=units,
+                                 prefix="proj_", device=device)
+            self.drop = nn.Dropout(dropout) if dropout else None
 
     def forward(self, x):
         b, t, _ = x.shape
@@ -78,11 +81,12 @@ class PositionwiseFFN(HybridBlock):
     def __init__(self, units, hidden_size, dropout=0.0, prefix=None,
                  params=None, device=None):
         super().__init__(prefix=prefix, params=params)
-        self.fc1 = nn.Dense(hidden_size, flatten=False, in_units=units,
-                            device=device)
-        self.fc2 = nn.Dense(units, flatten=False, in_units=hidden_size,
-                            device=device)
-        self.drop = nn.Dropout(dropout) if dropout else None
+        with self.name_scope():
+            self.fc1 = nn.Dense(hidden_size, flatten=False, in_units=units,
+                                prefix="fc1_", device=device)
+            self.fc2 = nn.Dense(units, flatten=False, in_units=hidden_size,
+                                prefix="fc2_", device=device)
+            self.drop = nn.Dropout(dropout) if dropout else None
 
     def forward(self, x):
         y = self.fc1(x)
@@ -99,12 +103,15 @@ class TransformerEncoderCell(HybridBlock):
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
                  causal=False, prefix=None, params=None, device=None):
         super().__init__(prefix=prefix, params=params)
-        self.attn = MultiHeadAttention(units, num_heads, dropout, causal,
-                                       device=device)
-        self.ln1 = nn.LayerNorm(in_channels=units, device=device)
-        self.ffn = PositionwiseFFN(units, hidden_size, dropout,
-                                   device=device)
-        self.ln2 = nn.LayerNorm(in_channels=units, device=device)
+        with self.name_scope():
+            self.attn = MultiHeadAttention(units, num_heads, dropout, causal,
+                                           prefix="attn_", device=device)
+            self.ln1 = nn.LayerNorm(in_channels=units, prefix="ln1_",
+                                    device=device)
+            self.ffn = PositionwiseFFN(units, hidden_size, dropout,
+                                       prefix="ffn_", device=device)
+            self.ln2 = nn.LayerNorm(in_channels=units, prefix="ln2_",
+                                    device=device)
 
     def forward(self, x):
         x = self.ln1(x + self.attn(x))
@@ -117,10 +124,12 @@ class BERTEncoder(HybridBlock):
     def __init__(self, num_layers, units, hidden_size, num_heads,
                  dropout=0.0, prefix=None, params=None, device=None):
         super().__init__(prefix=prefix, params=params)
-        self.layers = nn.HybridSequential()
-        for _ in range(num_layers):
-            self.layers.add(TransformerEncoderCell(
-                units, hidden_size, num_heads, dropout, device=device))
+        with self.name_scope():
+            self.layers = nn.HybridSequential(prefix="layers_")
+            for i in range(num_layers):
+                self.layers.add(TransformerEncoderCell(
+                    units, hidden_size, num_heads, dropout,
+                    prefix="cell%d_" % i, device=device))
 
     def forward(self, x):
         return self.layers(x)
@@ -142,17 +151,24 @@ class BERTModel(HybridBlock):
         super().__init__(prefix=prefix, params=params)
         dev = resolve(device)
         self._units = units
-        # the JAX package's order: the model's own parameters first
-        self.pos_embed = new_param((max_length, units), dev)
-        self.mlm_bias = new_param((vocab_size,), dev, init="zeros")
-        self.word_embed = nn.Embedding(vocab_size, units, device=dev)
-        self.type_embed = nn.Embedding(type_vocab, units, device=dev)
-        self.ln = nn.LayerNorm(in_channels=units, device=dev)
-        self.drop = nn.Dropout(dropout) if dropout else None
-        self.encoder = BERTEncoder(num_layers, units, hidden_size,
-                                   num_heads, dropout, device=dev)
-        self.pooler = nn.Dense(units, flatten=False, activation="tanh",
-                               in_units=units, device=dev)
+        with self.name_scope():
+            self.word_embed = nn.Embedding(vocab_size, units, prefix="word_",
+                                           device=dev)
+            self.type_embed = nn.Embedding(type_vocab, units,
+                                           prefix="type_", device=dev)
+            self.pos_embed = self.params.get(
+                "pos_embed", shape=(max_length, units), device=dev)
+            self.ln = nn.LayerNorm(in_channels=units, prefix="embln_",
+                                   device=dev)
+            self.drop = nn.Dropout(dropout) if dropout else None
+            self.encoder = BERTEncoder(num_layers, units, hidden_size,
+                                       num_heads, dropout, prefix="enc_",
+                                       device=dev)
+            self.pooler = nn.Dense(units, flatten=False, activation="tanh",
+                                   in_units=units, prefix="pooler_",
+                                   device=dev)
+            self.mlm_bias = self.params.get(
+                "mlm_bias", shape=(vocab_size,), init="zeros", device=dev)
 
     def forward(self, tokens, token_types=None):
         b, t = tokens.shape

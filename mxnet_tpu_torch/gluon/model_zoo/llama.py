@@ -27,7 +27,7 @@ from ...base import MXNetError
 from ...context import resolve
 from ...ops.flash_attention import flash_attention
 from .. import nn
-from ..block import HybridBlock, new_param
+from ..block import HybridBlock
 
 
 class RMSNorm(HybridBlock):
@@ -38,7 +38,8 @@ class RMSNorm(HybridBlock):
                  device=None):
         super().__init__(prefix=prefix, params=params)
         self._eps = eps
-        self.weight = new_param((units,), device, init="ones")
+        self.weight = self.params.get("weight", shape=(units,), init="ones",
+                                      device=resolve(device))
 
     def forward(self, x):
         x32 = x.float()
@@ -79,14 +80,15 @@ class LlamaAttention(HybridBlock):
         self._base = rope_base
         d = units // num_heads
 
-        def dense(out):
+        def dense(out, prefix):
             return nn.Dense(out, flatten=False, use_bias=False,
-                            in_units=units, device=device)
+                            in_units=units, prefix=prefix, device=device)
 
-        self.q_proj = dense(units)
-        self.k_proj = dense(num_kv_heads * d)
-        self.v_proj = dense(num_kv_heads * d)
-        self.o_proj = dense(units)
+        with self.name_scope():
+            self.q_proj = dense(units, "q_")
+            self.k_proj = dense(num_kv_heads * d, "k_")
+            self.v_proj = dense(num_kv_heads * d, "v_")
+            self.o_proj = dense(units, "o_")
 
     def forward(self, x):
         b, t, _ = x.shape
@@ -112,12 +114,15 @@ class LlamaFFN(HybridBlock):
     def __init__(self, units, hidden_size, prefix=None, params=None,
                  device=None):
         super().__init__(prefix=prefix, params=params)
-        self.gate = nn.Dense(hidden_size, flatten=False, use_bias=False,
-                             in_units=units, device=device)
-        self.up = nn.Dense(hidden_size, flatten=False, use_bias=False,
-                           in_units=units, device=device)
-        self.down = nn.Dense(units, flatten=False, use_bias=False,
-                             in_units=hidden_size, device=device)
+        with self.name_scope():
+            self.gate = nn.Dense(hidden_size, flatten=False, use_bias=False,
+                                 in_units=units, prefix="gate_",
+                                 device=device)
+            self.up = nn.Dense(hidden_size, flatten=False, use_bias=False,
+                               in_units=units, prefix="up_", device=device)
+            self.down = nn.Dense(units, flatten=False, use_bias=False,
+                                 in_units=hidden_size, prefix="down_",
+                                 device=device)
 
     def forward(self, x):
         return self.down(F.silu(self.gate(x)) * self.up(x))
@@ -130,11 +135,16 @@ class LlamaBlock(HybridBlock):
                  rope_base=10000.0, eps=1e-6, prefix=None, params=None,
                  device=None):
         super().__init__(prefix=prefix, params=params)
-        self.attn_norm = RMSNorm(units, eps, device=device)
-        self.attn = LlamaAttention(units, num_heads, num_kv_heads, rope_base,
-                                   device=device)
-        self.ffn_norm = RMSNorm(units, eps, device=device)
-        self.ffn = LlamaFFN(units, hidden_size, device=device)
+        with self.name_scope():
+            self.attn_norm = RMSNorm(units, eps, prefix="attnorm_",
+                                     device=device)
+            self.attn = LlamaAttention(units, num_heads, num_kv_heads,
+                                       rope_base, prefix="attn_",
+                                       device=device)
+            self.ffn_norm = RMSNorm(units, eps, prefix="ffnnorm_",
+                                    device=device)
+            self.ffn = LlamaFFN(units, hidden_size, prefix="ffn_",
+                                device=device)
 
     def forward(self, x):
         x = x + self.attn(self.attn_norm(x))
@@ -156,16 +166,20 @@ class LlamaModel(HybridBlock):
         dev = resolve(device)
         self._units = units
         self._tie = tie_embeddings
-        self.embed = nn.Embedding(vocab_size, units, device=dev)
-        self.blocks = nn.HybridSequential()
-        for _ in range(num_layers):
-            self.blocks.add(LlamaBlock(units, hidden_size, num_heads,
-                                       num_kv_heads, rope_base, eps,
-                                       device=dev))
-        self.norm = RMSNorm(units, eps, device=dev)
-        if not tie_embeddings:
-            self.lm_head = nn.Dense(vocab_size, flatten=False, use_bias=False,
-                                    in_units=units, device=dev)
+        with self.name_scope():
+            self.embed = nn.Embedding(vocab_size, units, prefix="embed_",
+                                      device=dev)
+            self.blocks = nn.HybridSequential(prefix="blocks_")
+            for i in range(num_layers):
+                self.blocks.add(LlamaBlock(units, hidden_size, num_heads,
+                                           num_kv_heads, rope_base, eps,
+                                           prefix="block%d_" % i,
+                                           device=dev))
+            self.norm = RMSNorm(units, eps, prefix="norm_", device=dev)
+            if not tie_embeddings:
+                self.lm_head = nn.Dense(vocab_size, flatten=False,
+                                        use_bias=False, in_units=units,
+                                        prefix="head_", device=dev)
 
     def forward(self, tokens):
         x = self.embed(tokens)
@@ -205,7 +219,8 @@ def load_jax_params(model, params):
     ``net._collect_params_with_prefix()`` names) into ``model``, in each
     parameter's dtype and on its device.  Strict: a missing, extra or
     mis-shaped name raises and names it."""
-    own = dict(model.named_parameters())
+    own = {k: t for k, t in model._collect_params_with_prefix().items()
+           if isinstance(t, torch.nn.Parameter)}
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
     if missing or extra:

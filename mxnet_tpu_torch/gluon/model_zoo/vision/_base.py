@@ -51,7 +51,8 @@ def load_jax_params(net, params, layout=None):
     channels-last; ``layout`` is the JAX net's (default: ``net``'s own).
     A tensor whose shape is still deferred gets it from the array.
     Strict: a missing, extra or mis-shaped name raises and names it."""
-    own = net.collect_params()
+    handles = net._param_handles()
+    own = {k: p._tensor for k, p in handles.items()}
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
     if missing or extra:
@@ -67,7 +68,7 @@ def load_jax_params(net, params, layout=None):
                 nd = a.ndim - 2
                 a = a.transpose(nd + 1, nd, *range(nd))     # HWIO -> OIHW
             if isinstance(t, torch.nn.parameter.UninitializedTensorMixin):
-                _materialize(net, name, t, a.shape)
+                handles[name]._materialize(a.shape)
             if tuple(a.shape) != tuple(t.shape):
                 raise MXNetError("load_jax_params: %s has shape %s, the "
                                  "net wants %s" % (name, a.shape,
@@ -75,14 +76,3 @@ def load_jax_params(net, params, layout=None):
             t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
             t._initialized = True
     return net
-
-
-def _materialize(net, name, t, shape):
-    """Give a deferred tensor its shape (and a convolution weight its
-    memory format), unfilled."""
-    init = getattr(t, "init", None)
-    t.materialize(shape)
-    t.init = init
-    owner = net.get_submodule(name.rpartition(".")[0])
-    if isinstance(owner, _Conv):
-        owner._set_format()

@@ -2,9 +2,11 @@
 ``mxnet_tpu/gluon/model_zoo/vision/resnet.py``).
 
 The blocks and nets are the JAX package's, attribute for attribute
-(``features``, ``output``, ``body``, ``downsample``, ``bn1``, ...), so
-``collect_params()`` names are its ``_collect_params_with_prefix()``
-names.  Every block takes ``device=`` (default ``cuda:0``).  No
+(``features``, ``output``, ``body``, ``downsample``, ``bn1``, ...) and
+name scope for name scope, so both ``collect_params()`` (the prefixed
+names, ``resnetv10_stage1_conv0_weight``) and
+``_collect_params_with_prefix()`` (the structural ones) name what the
+JAX package's do.  Every block takes ``device=`` (default ``cuda:0``).  No
 pretrained weights are shipped: ``pretrained=True`` raises.
 """
 from __future__ import annotations
@@ -23,7 +25,7 @@ def _conv3x3(channels, stride, in_channels, device):
 
 
 def _downsample(channels, stride, in_channels, device):
-    ds = nn.HybridSequential()
+    ds = nn.HybridSequential(prefix="")
     ds.add(nn.Conv2D(channels, kernel_size=1, strides=stride,
                      use_bias=False, in_channels=in_channels, device=device))
     ds.add(nn.BatchNorm(device=device))
@@ -36,7 +38,7 @@ class BasicBlockV1(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  device=None, **kwargs):
         super().__init__(**kwargs)
-        self.body = nn.HybridSequential()
+        self.body = nn.HybridSequential(prefix="")
         self.body.add(_conv3x3(channels, stride, in_channels, device))
         self.body.add(nn.BatchNorm(device=device))
         self.body.add(nn.Activation("relu"))
@@ -60,7 +62,7 @@ class BottleneckV1(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  device=None, **kwargs):
         super().__init__(**kwargs)
-        self.body = nn.HybridSequential()
+        self.body = nn.HybridSequential(prefix="")
         self.body.add(nn.Conv2D(channels // 4, kernel_size=1, strides=stride,
                                 device=device))
         self.body.add(nn.BatchNorm(device=device))
@@ -141,13 +143,16 @@ class BottleneckV2(HybridBlock):
 class _ResNet(_LayoutNet):
     """What ResNetV1 and ResNetV2 share: the stages and the forward."""
 
-    def _make_layer(self, block, layers, channels, stride, in_channels):
-        layer = nn.HybridSequential()
-        layer.add(block(channels, stride, channels != in_channels,
-                        in_channels=in_channels, device=self._device))
-        for _ in range(layers - 1):
-            layer.add(block(channels, 1, False, in_channels=channels,
-                            device=self._device))
+    def _make_layer(self, block, layers, channels, stride, stage_index,
+                    in_channels):
+        layer = nn.HybridSequential(prefix="stage%d_" % stage_index)
+        with layer.name_scope():
+            layer.add(block(channels, stride, channels != in_channels,
+                            in_channels=in_channels, device=self._device,
+                            prefix=""))
+            for _ in range(layers - 1):
+                layer.add(block(channels, 1, False, in_channels=channels,
+                                device=self._device, prefix=""))
         return layer
 
     def forward(self, x):
@@ -165,8 +170,8 @@ class ResNetV1(_ResNet):
                              "got %d" % (len(layers), len(layers) + 1,
                                          len(channels)))
         dev = self._device
-        with self._build_scope():
-            self.features = nn.HybridSequential()
+        with self._build_scope(), self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
             if thumbnail:
                 self.features.add(_conv3x3(channels[0], 1, 0, dev))
             else:
@@ -178,7 +183,8 @@ class ResNetV1(_ResNet):
             for i, num_layer in enumerate(layers):
                 stride = 1 if i == 0 else 2
                 self.features.add(self._make_layer(
-                    block, num_layer, channels[i + 1], stride, channels[i]))
+                    block, num_layer, channels[i + 1], stride, i + 1,
+                    channels[i]))
             self.features.add(nn.GlobalAvgPool2D())
             self.output = nn.Dense(classes, in_units=channels[-1],
                                    device=dev)
@@ -195,8 +201,8 @@ class ResNetV2(_ResNet):
                              "got %d" % (len(layers), len(layers) + 1,
                                          len(channels)))
         dev = self._device
-        with self._build_scope():
-            self.features = nn.HybridSequential()
+        with self._build_scope(), self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
             self.features.add(nn.BatchNorm(scale=False, center=False,
                                            device=dev))
             if thumbnail:
@@ -211,7 +217,8 @@ class ResNetV2(_ResNet):
             for i, num_layer in enumerate(layers):
                 stride = 1 if i == 0 else 2
                 self.features.add(self._make_layer(
-                    block, num_layer, channels[i + 1], stride, in_channels))
+                    block, num_layer, channels[i + 1], stride, i + 1,
+                    in_channels))
                 in_channels = channels[i + 1]
             self.features.add(nn.BatchNorm(device=dev))
             self.features.add(nn.Activation("relu"))

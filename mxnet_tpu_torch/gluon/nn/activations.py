@@ -6,8 +6,9 @@ from __future__ import annotations
 import torch
 
 from ... import initializer as _init
+from ...context import resolve
 from ...ops import nn as _ops
-from ..block import HybridBlock, new_param
+from ..block import HybridBlock
 
 
 class Activation(HybridBlock):
@@ -48,8 +49,10 @@ class PReLU(HybridBlock):
         super().__init__(prefix=prefix, params=params)
         if alpha_initializer is None:
             alpha_initializer = _init.Constant(0.25)
-        self.alpha = new_param((in_channels,), device,
-                               init=alpha_initializer)
+        with self.name_scope():
+            self.alpha = self.params.get(
+                "alpha", shape=(in_channels,), init=alpha_initializer,
+                device=resolve(device))
 
     def forward(self, x):
         return _ops._leaky_relu(x, self.alpha, act_type="prelu")

@@ -38,19 +38,18 @@ package.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ... import amp as _amp
 from ... import autograd as _autograd
-from ... import initializer as _init
 from ... import layout as _layout
 from ...base import MXNetError
 from ...context import resolve
 from ...ops import nn as _ops
 from ...ops import registry as _registry
-from ..block import (Block, HybridBlock, as_dtype, cast_tensors, fill_param,
-                     new_param)
+from ..block import Block, HybridBlock, as_dtype, cast_tensors
 from .activations import Activation
 
 _LAZY = torch.nn.parameter.UninitializedTensorMixin
@@ -61,7 +60,7 @@ class Sequential(Block):
 
     def add(self, *blocks):
         for block in blocks:
-            self.add_module(str(len(self._modules)), block)
+            self.register_child(block)
 
     def forward(self, x):
         for block in self._modules.values():
@@ -97,32 +96,29 @@ class Dense(HybridBlock):
         dev = resolve(device)
         self._units = units
         self._flatten = flatten
-        if in_units > 0:
-            self.weight = new_param((units, in_units), dev, dtype,
-                                    weight_initializer)
-        else:
-            self.weight = torch.nn.parameter.UninitializedParameter(
-                device=dev, dtype=as_dtype(dtype))
-            self.weight.init = weight_initializer
-        self.bias = new_param((units,), dev, dtype, bias_initializer) \
-            if use_bias else None
-        self.act = Activation(activation) if activation is not None \
-            else None
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(units, in_units), dtype=dtype,
+                init=weight_initializer, allow_deferred_init=True,
+                device=dev)
+            self.bias = self.params.get(
+                "bias", shape=(units,), dtype=dtype, init=bias_initializer,
+                allow_deferred_init=True, device=dev) if use_bias else None
+            self.act = Activation(activation, prefix=activation + "_") \
+                if activation is not None else None
 
-    def _materialize(self, in_units):
-        init = self.weight.init
-        self.weight.materialize((self._units, in_units))
-        self.weight.init = init
-        if self._deferred_init is None:
-            raise MXNetError("Dense: call initialize() before the first "
-                             "forward")
-        fill_param("weight", self.weight, *self._deferred_init)
+    def _shape_hint(self, x, *args):
+        p = self._reg_params["weight"]
+        if p.shape and p.shape[1] == 0:
+            in_units = int(np.prod(x.shape[1:])) if self._flatten \
+                else x.shape[-1]
+            p.shape = (self._units, in_units)
 
     def forward(self, x):
         if self._flatten:
             x = x.reshape(x.shape[0], -1)
-        if isinstance(self.weight, torch.nn.parameter.UninitializedParameter):
-            self._materialize(x.shape[-1])
+        if isinstance(self.weight, _LAZY):
+            self._finish_param("weight", (self._units, x.shape[-1]))
         x, w, b = _amp.transform_inputs("FullyConnected",
                                         (x, self.weight, self.bias))
         out = F.linear(x.to(w.dtype), w, b)
@@ -149,8 +145,10 @@ class Embedding(HybridBlock):
             raise MXNetError("Embedding(sparse_grad=True) is not ported")
         self._input_dim = input_dim
         self._output_dim = output_dim
-        self.weight = new_param((input_dim, output_dim), device, dtype,
-                                weight_initializer)
+        self.weight = self.params.get(
+            "weight", shape=(input_dim, output_dim), dtype=dtype,
+            init=weight_initializer, allow_deferred_init=True,
+            device=resolve(device))
 
     def forward(self, x):
         return F.embedding(x.long(), self.weight)
@@ -219,36 +217,30 @@ class BatchNorm(HybridBlock):
                         "fix_gamma": not scale,
                         "use_global_stats": use_global_stats}
         dev = resolve(device)
-        shape = (in_channels,) if in_channels > 0 else None
         _affine_params(self, in_channels, dev, center, scale,
                        beta_initializer, gamma_initializer)
         for name, init in (("running_mean", running_mean_initializer),
                            ("running_var", running_variance_initializer)):
-            b = torch.empty(shape, device=dev) if shape else \
-                torch.nn.parameter.UninitializedBuffer(device=dev)
-            b.init = init
-            self.register_buffer(name, b)
-            if shape:
-                _init.create(init)(name, b)
-                b._initialized = True
+            p = self.params.get(name, grad_req="null", shape=(in_channels,),
+                                init=init, allow_deferred_init=True,
+                                device=dev)
+            self._register_handle(name, p, buffer=True)
+            if in_channels > 0:
+                p.initialize()
+
+    _NAMES = ("gamma", "beta", "running_mean", "running_var")
 
     def _tensors(self):
         return (self.gamma, self.beta, self.running_mean, self.running_var)
 
+    def _shape_hint(self, x, *args):
+        if self._reg_params["gamma"].shape[0] == 0:
+            for name in self._NAMES:
+                self._reg_params[name].shape = (x.shape[self._axis],)
+
     def _materialize(self, channels):
-        if self._deferred_init is None:
-            raise MXNetError("BatchNorm: call initialize() before the first "
-                             "forward")
-        for name, t in zip(("gamma", "beta", "running_mean", "running_var"),
-                           self._tensors()):
-            init = t.init
-            t.materialize((channels,))
-            t.init = init
-            if name.startswith("running"):
-                _init.create(init)(name, t)
-                t._initialized = True
-            else:
-                fill_param(name, t, *self._deferred_init)
+        for name in self._NAMES:
+            self._finish_param(name, (channels,))
 
     def cast(self, dtype):
         """Cast to ``dtype``, but keep f32 under bf16 and f16: the
@@ -282,17 +274,13 @@ def _affine_params(block, in_channels, device, center, scale,
                    beta_initializer, gamma_initializer):
     """A norm's ``gamma`` and ``beta`` (``in_channels`` each, or deferred
     when it is 0), each taking a gradient only when ``scale`` or
-    ``center`` turns it on."""
+    ``center`` turns it on (else ``grad_req="null"``)."""
     for name, init, grad in (("gamma", gamma_initializer, scale),
                              ("beta", beta_initializer, center)):
-        if in_channels > 0:
-            p = new_param((in_channels,), device, init=init) \
-                .requires_grad_(grad)
-        else:
-            p = torch.nn.parameter.UninitializedParameter(
-                requires_grad=grad, device=device, dtype=torch.float32)
-            p.init = init
-        setattr(block, name, p)
+        setattr(block, name, block.params.get(
+            name, grad_req="write" if grad else "null",
+            shape=(in_channels,), init=init, allow_deferred_init=True,
+            device=device))
 
 
 class _Norm(HybridBlock):
@@ -307,20 +295,15 @@ class _Norm(HybridBlock):
         _affine_params(self, in_channels, resolve(device), center, scale,
                        beta_initializer, gamma_initializer)
 
-    def _materialize(self, channels):
-        if self._deferred_init is None:
-            raise MXNetError("%s: call initialize() before the first "
-                             "forward" % type(self).__name__)
-        for name in ("gamma", "beta"):
-            t = getattr(self, name)
-            init = t.init
-            t.materialize((channels,))
-            t.init = init
-            fill_param(name, t, *self._deferred_init)
+    def _shape_hint(self, x, *args):
+        if self._reg_params["gamma"].shape[0] == 0:
+            for name in ("gamma", "beta"):
+                self._reg_params[name].shape = (x.shape[self._axis],)
 
     def forward(self, x):
         if isinstance(self.gamma, _LAZY):
-            self._materialize(x.shape[self._axis])
+            for name in ("gamma", "beta"):
+                self._finish_param(name, (x.shape[self._axis],))
         return self._norm(x)
 
 

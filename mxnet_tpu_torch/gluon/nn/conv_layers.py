@@ -18,13 +18,15 @@ convolutions and ``ReflectionPad2D`` come with a later slice.
 """
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from ... import layout as _layout
 from ...base import MXNetError
 from ...context import resolve
 from ...ops import nn as _ops
-from ..block import HybridBlock, fill_param, new_param
+from ..block import HybridBlock
 from .activations import Activation
 
 _LAZY = torch.nn.parameter.UninitializedParameter
@@ -68,17 +70,22 @@ class _Conv(HybridBlock):
         self._layout = layout
         self._groups = groups
         self._nd = nd
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=self._weight_shape(in_channels),
+                init=weight_initializer, allow_deferred_init=True,
+                device=dev)
+            self.bias = self.params.get(
+                "bias", shape=(channels,), init=bias_initializer,
+                allow_deferred_init=True, device=dev) if use_bias else None
+            self.act = Activation(activation, prefix=activation + "_") \
+                if activation is not None else None
+        weight = self._reg_params["weight"]
+        weight._on_materialize = weakref.WeakMethod(self._set_format)
+        if _ops.channel_last(layout):
+            weight._file_layout = "hwio"
         if in_channels > 0:
-            self.weight = new_param(self._weight_shape(in_channels), dev,
-                                    init=weight_initializer)
             self._set_format()
-        else:
-            self.weight = _LAZY(device=dev, dtype=torch.float32)
-            self.weight.init = weight_initializer
-        self.bias = new_param((channels,), dev, init=bias_initializer) \
-            if use_bias else None
-        self.act = Activation(activation) if activation is not None \
-            else None
 
     def _weight_shape(self, in_channels):
         return (self._channels, in_channels // self._groups) \
@@ -89,21 +96,17 @@ class _Conv(HybridBlock):
         if fmt is not None:
             self.weight.data = self.weight.data.contiguous(memory_format=fmt)
 
-    def _materialize(self, in_channels):
-        init = self.weight.init
-        self.weight.materialize(self._weight_shape(in_channels))
-        self.weight.init = init
-        self._in_channels = in_channels
-        self._set_format()
-        if self._deferred_init is None:
-            raise MXNetError("%s: call initialize() before the first "
-                             "forward" % type(self).__name__)
-        fill_param("weight", self.weight, *self._deferred_init)
+    def _shape_hint(self, x, *args):
+        p = self._reg_params["weight"]
+        if p.shape and p.shape[1] == 0:
+            self._in_channels = x.shape[_layout.channel_axis(self._layout)]
+            p.shape = self._weight_shape(self._in_channels)
 
     def forward(self, x):
         if isinstance(self.weight, _LAZY):
-            self._materialize(
-                x.shape[_layout.channel_axis(self._layout)])
+            self._in_channels = x.shape[_layout.channel_axis(self._layout)]
+            self._finish_param("weight",
+                               self._weight_shape(self._in_channels))
         w = self.weight
         if _ops.channel_last(self._layout):
             w = w.permute(*range(2, self._nd + 2), 1, 0)     # HWIO view

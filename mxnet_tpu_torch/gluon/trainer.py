@@ -4,17 +4,25 @@
 The imperative form of training: ``loss.backward()`` fills each
 parameter's ``.grad`` and ``step(batch_size)`` applies the optimizer to
 every parameter in place, with ``rescale_grad = scale / batch_size``.
+``params`` is a ``ParameterDict`` (``net.collect_params()``), a dict or
+a list of ``gluon.Parameter``s, as in the JAX package; the optimizer
+gets them as its ``param_dict``, so each one's ``lr_mult`` and
+``wd_mult`` apply.  A dict or list of raw tensors is also taken (the
+port's own form: those read the optimizer's ``lr_mult``/``wd_mult`` by
+name or index).
 Gradients follow the JAX package's ``grad_req="write"``: each backward
 overwrites ``.grad`` and marks it fresh (``block.write_grads``: a
-block's calls arm its parameters; a tensor that no block owns is armed
-by a hook the Trainer puts on the tensor, which holds no autograd
-node); a step leaves the gradient readable and marks it stale, so a
-parameter that the next backward does not reach raises the JAX
-package's stale gradient error unless ``ignore_stale_grad=True``.
+block's calls arm its parameters; a tensor that no block owns, raw or
+a standalone Parameter's, is armed by a hook the Trainer puts on the
+tensor, which holds no autograd node); a step leaves the gradient
+readable and marks it stale, so a parameter that the next backward does
+not reach raises the JAX package's stale gradient error unless
+``ignore_stale_grad=True``.
 There is no kvstore: the only one accepted is the default ``"device"``;
-distributed training is slice S8 of the port.  ``params`` may hold tensors that take no
-gradient (``collect_params()``'s running statistics, the JAX package's
-``grad_req="null"``): a step leaves them alone.
+distributed training is slice S8 of the port.  A parameter with
+``grad_req="null"`` (``collect_params()``'s running statistics, or a
+frozen one) is left alone by a step; one with ``"add"`` keeps its
+accumulated gradient through the step.
 
 A step updates every parameter through the optimizer's
 ``_step_multi``: one call per update count (counts differ per index
@@ -36,6 +44,9 @@ from ..base import MXNetError
 from .. import optimizer as opt_mod
 from .. import sharding as _shd
 from .block import write_grads_when_reached
+from .parameter import Parameter, ParameterDict
+
+_LAZY = torch.nn.parameter.UninitializedTensorMixin
 
 
 class Trainer:
@@ -44,30 +55,40 @@ class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
                  update_on_kvstore=None):
-        if isinstance(params, dict):
+        if isinstance(params, (dict, ParameterDict)):
             params = list(params.items())
         elif isinstance(params, (list, tuple)):
             params = [("%d" % i, p) for i, p in enumerate(params)]
         else:
-            raise MXNetError("params should be a list or a dict, got %s"
-                             % type(params).__name__)
+            raise MXNetError("params should be a list, a dict or a "
+                             "ParameterDict, got %s" % type(params).__name__)
         if kvstore != "device" or compression_params is not None \
                 or update_on_kvstore:
             raise MXNetError(
                 "Trainer(kvstore=%r): only the single-device default "
                 "'device' is ported; distributed training is slice S8 of "
                 "the port (ROADMAP.md)" % (kvstore,))
+        self._handles = []       # a Parameter per entry (None: a tensor)
+        self._raw = []           # the raw tensors
         for name, p in params:
-            if not isinstance(p, torch.Tensor):
+            if isinstance(p, Parameter):
+                self._handles.append(p)
+                self._raw.append(None)
+                t = p._tensor
+            elif isinstance(p, torch.Tensor):
+                self._handles.append(None)
+                self._raw.append(p)
+                t = p
+            else:
                 raise MXNetError("invalid parameter %s of type %s"
                                  % (name, type(p).__name__))
-        self._names = [n for n, _ in params]
-        self._params = [p for _, p in params]
-        for p in self._params:
-            if not getattr(p, "_block_owned", False):
-                write_grads_when_reached(p)
-        self._states = [None] * len(self._params)
-        self._states_created = [False] * len(self._params)
+            if t is not None and not isinstance(t, _LAZY) \
+                    and not getattr(t, "_block_owned", False):
+                write_grads_when_reached(t)
+        self._names = [p.name if isinstance(p, Parameter) else n
+                       for n, p in params]
+        self._states = [None] * len(self._handles)
+        self._states_created = [False] * len(self._handles)
         if isinstance(optimizer, opt_mod.Optimizer):
             if optimizer_params:
                 raise MXNetError("optimizer_params must be None when "
@@ -77,8 +98,16 @@ class Trainer:
             self._optimizer = opt_mod.create(optimizer,
                                              **(optimizer_params or {}))
         self._optimizer.idx2name = dict(enumerate(self._names))
+        self._optimizer.param_dict = {
+            i: h for i, h in enumerate(self._handles) if h is not None}
         self._scale = self._optimizer.rescale_grad
         self._scalars = {}
+
+    @property
+    def _params(self):
+        """The tensors, in order (a Parameter's is made if need be)."""
+        return [h._ensure_tensor() if h is not None else t
+                for h, t in zip(self._handles, self._raw)]
 
     @property
     def learning_rate(self):
@@ -102,7 +131,8 @@ class Trainer:
 
     def _ensure_states(self):
         for i, p in enumerate(self._params):
-            if not self._states_created[i] and p.requires_grad:
+            if not self._states_created[i] and p.requires_grad \
+                    and not isinstance(p, _LAZY):
                 self._states[i] = self._optimizer.create_state(i, p.detach())
                 self._states_created[i] = True
 
@@ -121,10 +151,17 @@ class Trainer:
         one ``_step_multi`` per (device, update count, learning rate)."""
         opt = self._optimizer
         opt.rescale_grad = self._scale / batch_size
+        params = self._params
         active = []
-        for i, p in enumerate(self._params):
+        for i, p in enumerate(params):
             if not p.requires_grad:
                 continue
+            if isinstance(p, _LAZY) or (self._handles[i] is not None and
+                                        self._handles[i]._data is None):
+                if ignore_stale_grad:
+                    continue
+                raise MXNetError("parameter %s has not been initialized"
+                                 % self._names[i])
             if p.grad is None or not getattr(p, "_fresh_grad", False):
                 if ignore_stale_grad:
                     continue
@@ -139,7 +176,7 @@ class Trainer:
         groups = {}
         for i in active:
             opt._update_count(i)
-            key = (self._params[i].device, opt._index_update_count[i],
+            key = (params[i].device, opt._index_update_count[i],
                    opt.learning_rate)
             groups.setdefault(key, []).append(i)
         for (dev, t, lr), idx in groups.items():
@@ -147,13 +184,13 @@ class Trainer:
             lr_dev.fill_(lr)
             t_dev.fill_(t)
             opt._step_multi(
-                [self._params[i].detach() for i in idx],
-                [self._params[i].grad for i in idx],
+                [params[i].detach() for i in idx],
+                [params[i].grad for i in idx],
                 [self._states[i] for i in idx], lr_dev,
                 [opt._get_wd(i) for i in idx], t_dev,
-                [opt._mult(opt.lr_mult, i) for i in idx])
+                [opt._lr_mult(i) for i in idx])
         for i in active:
-            self._params[i]._fresh_grad = False
+            params[i]._fresh_grad = False
 
     # ------------------------------------------------------------------
     def save_states(self, fname):

@@ -10,8 +10,8 @@ from ..ops import nn as _nn  # noqa: F401  (registers the ops)
 from ..ops import optimizer_ops as _opt  # noqa: F401
 from ..ops import tensor as _t  # noqa: F401
 from .ndarray import (  # noqa: F401
-    NDArray, arange, array, concatenate, empty, full, moveaxis, ones,
-    ones_like, shard, waitall, zeros, zeros_like,
+    NDArray, arange, array, concatenate, empty, full, load, moveaxis, ones,
+    ones_like, save, shard, waitall, zeros, zeros_like,
 )
 from .register import populate as _populate
 

@@ -26,8 +26,7 @@ Where the port differs from the JAX package, deliberately:
 Not ported yet (a call raises ``MXNetError`` naming the slice in
 ``ROADMAP.md``): sharding (``reshard``, ``with_sharding_constraint``,
 ``shard``, S8), sparse storage (``tostype``, S7), dlpack (S7), and the
-methods over ops this slice leaves out (``softmax``/``log_softmax``,
-``one_hot``, ``sort``/``argsort``/``topk``, S7).
+methods over ops this slice leaves out (``one_hot``, ``sort``/``argsort``/``topk``, S7).
 """
 from __future__ import annotations
 
@@ -494,10 +493,13 @@ class NDArray:
                            {"transpose_a": transpose_a,
                             "transpose_b": transpose_b})
 
-    def softmax(self, axis=-1):
-        _not_ported("softmax (ops/nn.py)", "S6")
+    def softmax(self, axis=-1, temperature=None):
+        return _reg.invoke("softmax", [self], {"axis": axis,
+                                               "temperature": temperature})
 
-    log_softmax = softmax
+    def log_softmax(self, axis=-1, temperature=None):
+        return _reg.invoke("log_softmax", [self],
+                           {"axis": axis, "temperature": temperature})
 
     def one_hot(self, depth, **kwargs):
         _not_ported("one_hot", "S7")
@@ -785,3 +787,73 @@ def moveaxis(tensor, source, destination):
 
 def waitall():
     Engine.get().wait_for_all()
+
+
+# ----------------------------------------------------------------------------
+# .params files (parity: ndarray.py save/load over legacy_io)
+# ----------------------------------------------------------------------------
+
+
+def save_arrays(fname, data):
+    """Write numpy arrays (one, a list or a dict) as a ``.params`` file:
+    the reference's binary container (``legacy_io``), written atomically
+    through ``base.atomic_path``.  A bf16 array is written as f32 with
+    flag 0, as the JAX package writes it, so one set of values gives the
+    same bytes from either package."""
+    from ..base import atomic_path
+    from . import legacy_io
+
+    if isinstance(data, dict):
+        names = list(data.keys())
+        arrays = [data[k] for k in names]
+    elif isinstance(data, (list, tuple)):
+        arrays, names = list(data), []
+    else:
+        arrays, names = [data], []
+    with atomic_path(fname) as tmp:
+        legacy_io.save_params(tmp, arrays, names)
+
+
+def save(fname, data):
+    """Save an NDArray, a list or a dict of NDArrays (parity:
+    MXNDArraySave; files cross between the packages both ways)."""
+    if isinstance(data, NDArray):
+        save_arrays(fname, [data.asnumpy()])
+    elif isinstance(data, (list, tuple)):
+        save_arrays(fname, [a.asnumpy() for a in data])
+    elif isinstance(data, dict):
+        save_arrays(fname, {k: v.asnumpy() for k, v in data.items()})
+    else:
+        raise TypeError("unsupported save payload")
+
+
+def load_arrays(fname):
+    """What :func:`save_arrays` (or the JAX package's ``nd.save``, in
+    either of its containers: the reference binary one or the earlier
+    ``.npz``) wrote, as numpy arrays: a dict when the file names its
+    arrays, else a list (a single array for an ``.npz`` of one)."""
+    from . import legacy_io
+
+    if legacy_io.is_legacy_file(fname):
+        arrays, names = legacy_io.load_params(fname)
+        return dict(zip(names, arrays)) if names else arrays
+    with _np.load(fname, allow_pickle=False) as z:
+        kind = str(z["__kind__"])
+        if kind == "single":
+            return z["arr_0"]
+        if kind == "list":
+            n = len([k for k in z.files if k.startswith("arr_")])
+            return [z["arr_%d" % i] for i in range(n)]
+        return {k[4:]: z[k] for k in z.files if k.startswith("key:")}
+
+
+def load(fname, ctx=None):
+    """Load what :func:`save` wrote as NDArrays on ``ctx`` (default: the
+    current context)."""
+    out = load_arrays(fname)
+    if isinstance(out, dict):
+        return {k: NDArray(a, ctx=ctx) for k, a in out.items()}
+    if isinstance(out, list):
+        return [NDArray(a, ctx=ctx) if a is not None else None
+                for a in out]
+    return NDArray(out, ctx=ctx)

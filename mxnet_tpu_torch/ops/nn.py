@@ -372,6 +372,40 @@ _ACTIVATIONS = {
 }
 
 
+@register("softmax", inputs=("data", "length"))
+def _softmax(data, axis=-1, temperature=None, length=None, use_length=False,
+             dtype=None):
+    """Parity: ops/nn.py softmax (``temperature``, ``use_length`` with a
+    per-sample ``length`` along ``axis``, ``dtype``).  Under AMP it
+    computes in f32 (it is on AMP's f32 list)."""
+    (data,) = _amp.transform_inputs("softmax", (data,))
+    x = data if temperature in (None, 1.0) else data / temperature
+    if use_length and length is not None:
+        steps = torch.arange(x.shape[axis], device=x.device)
+        shape = [1] * x.dim()
+        shape[axis] = x.shape[axis]
+        mask = steps.reshape(shape) < length.reshape(
+            [x.shape[0]] + [1] * (x.dim() - 1))
+        x = torch.where(mask, x, float("-inf"))
+    out = torch.softmax(x, dim=axis)
+    return out if dtype is None else out.to(_tdtype(dtype))
+
+
+@register("log_softmax")
+def _log_softmax(data, axis=-1, temperature=None, dtype=None):
+    """Parity: ops/nn.py log_softmax."""
+    (data,) = _amp.transform_inputs("log_softmax", (data,))
+    x = data if temperature in (None, 1.0) else data / temperature
+    out = torch.log_softmax(x, dim=axis)
+    return out if dtype is None else out.to(_tdtype(dtype))
+
+
+def _tdtype(dtype):
+    from .tensor import to_torch_dtype
+
+    return to_torch_dtype(dtype)
+
+
 @register("Activation", aliases=("activation",))
 def _activation(data, act_type="relu"):
     """Parity: src/operator/nn/activation.cc (``gelu`` is the tanh

@@ -108,11 +108,26 @@ class Optimizer:
             return mults.get(self.idx2name[index], 1.0)
         return 1.0
 
+    def _lr_mult(self, index):
+        """``param_dict[index].lr_mult`` first (a ``gluon.Trainer``'s
+        Parameters), then ``lr_mult`` by index or name, as the JAX
+        package's ``_get_lr`` reads them."""
+        param = self.param_dict.get(index)
+        if param is not None:
+            return param.lr_mult
+        return self._mult(self.lr_mult, index)
+
+    def _wd_mult(self, index):
+        param = self.param_dict.get(index)
+        if param is not None:
+            return param.wd_mult
+        return self._mult(self.wd_mult, index)
+
     def _get_lr(self, index):
-        return self.learning_rate * self._mult(self.lr_mult, index)
+        return self.learning_rate * self._lr_mult(index)
 
     def _get_wd(self, index):
-        return self.wd * self._mult(self.wd_mult, index)
+        return self.wd * self._wd_mult(index)
 
     # -- state --------------------------------------------------------------
     def create_state(self, index, weight):

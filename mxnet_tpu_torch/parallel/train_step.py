@@ -31,7 +31,9 @@ pins them the same way).  The step runs in train mode (``autograd.train_mode()``
 a ``BatchNorm`` takes batch statistics and writes its running statistics
 in place, once a step; the JAX package returns them from its executable
 and writes them after the update, which reads the same.  The graph
-watches the net's buffers beside its parameters.  The loss comes back
+watches the net's buffers beside its parameters.  A hybridized net runs
+eagerly inside the step (``block.calls_inline``): the step is captured
+whole, and its capture must not replay the net's own graphs.  The loss comes back
 as a tensor on the device, without a sync.
 
 Single device only: ``mesh=``, ``rules=`` and ``param_rule=`` are
@@ -50,17 +52,14 @@ from .. import graph_cache as _graph_cache
 from .. import optimizer as _opt_mod
 from .. import sharding as _shd
 from ..gluon import block as _block
+from ..gluon import utils as _gluon_utils
 from ..gluon.trainer import _assign, _leaves
-from ..ops import optimizer_ops as _optimizer_ops
 
 
 def _global_norm_scale(grads, max_norm):
-    """The JAX package's global-norm clip: scale every gradient by
-    ``min(max_norm / (norm + 1e-8), 1)``; the per-gradient sums of
-    squares come from one O3 read (deterministic: no float atomics)."""
-    sums, _ = _optimizer_ops.multi_sum_sq(grads)
-    total = sums.sum()
-    scale = torch.clamp(max_norm / (total.sqrt() + 1e-8), max=1.0)
+    """The JAX package's global-norm clip (``gluon.utils``'s rule, the
+    norm from one O3 read) on new tensors."""
+    scale, _ = _gluon_utils.global_norm_scale(grads, max_norm)
     return [g * scale.to(g.dtype) for g in grads]
 
 
@@ -146,7 +145,8 @@ class JitTrainStep:
         and update; what the graph captures.  Returns the f32 loss."""
         data, labels = self._split(arrays)
         self._count.add_(1)
-        with _autograd.train_mode(), _block.grads_unwritten():
+        with _autograd.train_mode(), _block.grads_unwritten(), \
+                _block.calls_inline():
             out = self._net(*data)
             outs = [out] if isinstance(out, torch.Tensor) else list(out)
             loss = self._loss(outs[0], *labels) if self._loss is not None \
@@ -164,7 +164,7 @@ class JitTrainStep:
         opt._step_multi([self._params[i].detach() for i in idx], grads,
                         [self._opt_state[i] for i in idx], self._lr,
                         [opt._get_wd(i) for i in idx], self._count,
-                        [opt._mult(opt.lr_mult, i) for i in idx])
+                        [opt._lr_mult(i) for i in idx])
         del grads
         return loss_val.detach()
 

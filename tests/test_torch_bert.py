@@ -84,7 +84,7 @@ def _port_run(layer, x, head):
     with tautograd.record():
         out = layer(xt)
     out.backward(torch.from_numpy(head))
-    grads = {k: t.grad.numpy() for k, t in layer.collect_params().items()
+    grads = {k: t.grad.numpy() for k, t in layer._collect_params_with_prefix().items()
              if t.requires_grad}
     return out.detach().numpy(), xt.grad.numpy(), grads
 
@@ -230,8 +230,8 @@ def test_lazy_norm_and_dense_take_the_dtype_of_a_cast_before_the_fill():
         return block
 
     early, late = net(True), net(False)
-    for (name, a), b in zip(early.collect_params().items(),
-                            late.collect_params().values()):
+    for (name, a), b in zip(early._collect_params_with_prefix().items(),
+                            late._collect_params_with_prefix().values()):
         assert a.dtype == torch.bfloat16, name
         assert torch.equal(a, b), name
     assert early[0].weight.std() > 0

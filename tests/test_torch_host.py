@@ -427,6 +427,14 @@ names += ["mxnet_tpu_torch.lr_scheduler", "mxnet_tpu_torch.sharding",
           "mxnet_tpu_torch.sharding.checkpoint",
           "mxnet_tpu_torch.ops.optimizer_ops",
           "mxnet_tpu_torch.optimizer.optimizer"]
+names += ["mxnet_tpu_torch.gluon.parameter", "mxnet_tpu_torch.gluon.utils",
+          "mxnet_tpu_torch.gluon.data", "mxnet_tpu_torch.gluon.data.dataset",
+          "mxnet_tpu_torch.gluon.data.sampler",
+          "mxnet_tpu_torch.gluon.data.dataloader",
+          "mxnet_tpu_torch.gluon.data.vision.datasets",
+          "mxnet_tpu_torch.gluon.data.vision.transforms",
+          "mxnet_tpu_torch.ndarray.legacy_io", "mxnet_tpu_torch.metric",
+          "mxnet_tpu_torch.registry", "mxnet_tpu_torch.name"]
 names += ["chip_smoke", "tools.torch_paged_attention_sweep",
           "tools.torch_flash_attention_sweep", "tools.torch_mxfleet",
           "tools.torch_mxflight", "tools.torch_mxtrace",

@@ -1127,3 +1127,27 @@ def test_graphed_train_step_with_clip_global_norm_bitwise_equal_eager_on_card(
     assert all(torch.equal(a, b) for a, b in zip(e_loss, g_loss))
     for (name, a), b in zip(e_net.named_parameters(), g_net.parameters()):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_grad_req_add_accumulates_through_the_pair_on_card(card):
+    """``grad_req="add"`` at bert_small through the hybridized graph
+    pair: two half batches give the full batch's gradients within 1e-4,
+    and ``zero_grad()`` leaves zeros."""
+    assert chip_smoke.gluon_add_check(card) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_grad_req_null_change_after_a_capture_on_card(card):
+    """A ``grad_req="null"`` change after a capture takes a new capture
+    (its gradient signature changed); gradients bitwise equal to eager
+    and the frozen weight's ``None``."""
+    chip_smoke.gluon_null_change_check(card)
+
+
+@pytest.mark.cuda
+def test_graphed_train_step_over_a_pair_holding_nodes_on_card(card):
+    """A graphed ``JitTrainStep`` captured over a net whose hybridized
+    pair still holds its parameters' ``AccumulateGrad`` nodes: losses and
+    weights bitwise equal to the eager step's."""
+    chip_smoke.held_nodes_jit_check(card)

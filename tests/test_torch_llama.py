@@ -66,7 +66,7 @@ def test_state_dict_keys_are_the_jax_structural_names():
     names = list(_jax_params(jnet, toks))
     net = tllama.llama_small(device="cpu")
     assert sorted(net.state_dict()) == sorted(names)
-    assert sorted(net.collect_params()) == sorted(names)
+    assert sorted(net._collect_params_with_prefix()) == sorted(names)
     assert "blocks.1.ffn.down.weight" in names and "lm_head.weight" in names
 
 

@@ -79,7 +79,7 @@ def _port_run(layer, x, head, train=True):
     with tautograd.record(train_mode=train):
         out = layer(xt)
     out.backward(torch.from_numpy(head))
-    grads = {k: t.grad.numpy() for k, t in layer.collect_params().items()
+    grads = {k: t.grad.numpy() for k, t in layer._collect_params_with_prefix().items()
              if t.requires_grad}
     return out.detach().numpy(), xt.grad.numpy(), grads
 
@@ -413,7 +413,7 @@ def test_amp_casts_follow_the_jax_lists():
     finally:
         jamp.turn_off()
         tamp.turn_off()
-    dtypes = {k: t.dtype for k, t in net.collect_params().items()}
+    dtypes = {k: t.dtype for k, t in net._collect_params_with_prefix().items()}
     assert dtypes["0.weight"] == dtypes["4.weight"] == torch.bfloat16
     assert {dtypes["1." + n] for n in ("gamma", "beta", "running_mean",
                                        "running_var")} == {torch.float32}
@@ -495,8 +495,8 @@ def test_amp_loss_scaler_with_the_trainer():
     with tamp.scale_loss(loss_of(scaled), t_scaled) as big:
         big.backward()
     t_scaled.step(1)
-    for (k, a), b in zip(plain.collect_params().items(),
-                         scaled.collect_params().values()):
+    for (k, a), b in zip(plain._collect_params_with_prefix().items(),
+                         scaled._collect_params_with_prefix().values()):
         assert torch.equal(a, b), k
     before = scaler.loss_scale
     with tamp.scale_loss(loss_of(scaled), t_scaled) as big:
@@ -626,7 +626,7 @@ def _check_updates(net, want, start, lay, rel):
     change of any weight (the biases of convolutions before a BatchNorm
     take a gradient of zero up to rounding and barely move), and each
     running statistic within ``rel`` of its largest value."""
-    got = net.collect_params()
+    got = net._collect_params_with_prefix()
     assert sorted(got) == sorted(want)
     moved = {k: _jax_layout(k, got[k].detach().float().numpy(), lay)
              - start[k] for k in want}
@@ -652,7 +652,7 @@ def test_small_resnet_forward_and_loss_match_jax(version, lay):
             out, torch.from_numpy(y)).mean()
     _close(out.detach().numpy(), ref["logits"])
     np.testing.assert_allclose(loss.item(), ref["loss"], rtol=1e-5)
-    params = net.collect_params()
+    params = net._collect_params_with_prefix()
     for k, v in ref["stats1"].items():
         _close(params[k].numpy(), v)
         params[k].copy_(torch.from_numpy(ref["batch_stats"][k]))
@@ -673,7 +673,7 @@ def test_small_resnet_gradients_match_jax(version, lay):
         loss = gluon.loss.SoftmaxCrossEntropyLoss()(
             net(torch.from_numpy(x)), torch.from_numpy(y)).mean()
     loss.backward()
-    got = {k: t.grad.numpy() for k, t in net.collect_params().items()
+    got = {k: t.grad.numpy() for k, t in net._collect_params_with_prefix().items()
            if t.requires_grad}
     assert sorted(got) == sorted(ref["grads"])
     top = max(np.abs(g).max() for g in ref["grads"].values())
@@ -730,12 +730,12 @@ def test_small_resnet_hybridized_trainer_through_host_pairs(version, lay):
     st = hyb.stats()
     assert (st["captures"], st["replays"], st["backward_replays"]) \
         == (1, 2, 2), st
-    for (k, a), b in zip(eager.collect_params().items(),
-                         hyb.collect_params().values()):
+    for (k, a), b in zip(eager._collect_params_with_prefix().items(),
+                         hyb._collect_params_with_prefix().values()):
         assert torch.equal(a, b), k
     assert torch.equal(p_e, p_h)
     # the statistics moved from their initial values
-    first = next(t for k, t in eager.collect_params().items()
+    first = next(t for k, t in eager._collect_params_with_prefix().items()
                  if k.endswith("running_var"))
     assert not torch.equal(first, torch.ones_like(first))
 
@@ -744,7 +744,7 @@ def test_resnet50_v1_builds_with_the_reference_names():
     """Full ResNet-50 v1 (not run): the JAX package's 193 trainable
     parameters and 106 running statistics, under its names."""
     net = vision.resnet50_v1(device="cpu", layout="NCHW")
-    params = net.collect_params()
+    params = net._collect_params_with_prefix()
     trainable = [k for k, t in params.items() if t.requires_grad]
     stats = [k for k in params if "running" in k]
     assert (len(trainable), len(stats)) == (193, 106)
