@@ -202,7 +202,32 @@ Phases, each fatal on failure:
              ``word_embed.weight`` unchanged and left out of O1 under
              ``grad_req="null"``, and ``save_parameters`` /
              ``load_parameters`` into a fresh net giving bitwise equal
-             logits.
+             logits;
+16. vision — the other vision families and saved signatures.  First,
+             each family's representative (AlexNet, VGG-16, SqueezeNet
+             1.1, DenseNet-121, Inception-v3, MobileNet v1 and v2) at
+             full width, batch 2, f32 with TF32 off: the card's
+             (channels-last) predict-mode logits against the host's
+             (NCHW) from the same weights, each held to the host's f64
+             run (within 1e-3, or 3x the host f32 run's own error); a
+             hybridized DenseNet-121 bitwise equal to eager; then each
+             one's ``no_grad`` inference at batch 32 under ``amp`` bf16,
+             eager against hybridized; then a main path: Inception-v3 at
+             299 x 299, batch 128, ``amp`` bf16, sgd 0.1 momentum 0.9
+             through ``JitTrainStep`` on seeded images, eager, graphed
+             and ``step_n(10)``: losses finite and falling, O2 launched
+             for every step's update; images/s (beside ``BASELINE.md``'s
+             V100 figure), step ms, MFU, own peak memory, the p50 step's
+             idle share and kernels by kind; then three fresh processes
+             (``python3 chip_smoke.py vision-child export|load|plain
+             <dir>``): the hybridized Inception-v3 at batch 32, a causal
+             bf16 Llama (K1) and the graphed Inception-v3 step through
+             ``hybridize(aot=)``, ``.params``, ``save_executable`` and
+             ``save_states``, each loaded path bitwise equal to the
+             exporter's with no capture at call time, ``load_executable``
+             stepping on nothing, the loader's NVRTC compile of the K5
+             kernels a cache hit; the time to the first output and the
+             first replay with the bundles against the plain process's.
 
 Each phase logs the card's SM clock and its maximum when it starts.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -4208,17 +4233,17 @@ BERT_KINDS = (("flash (K1-K3)", ("flash_",)), ("adam (O1)", ("multi_adamw",)),
               ("elementwise", ("elementwise",)))
 
 
-def kernel_kinds(averages):
+def kernel_kinds(averages, kinds=BERT_KINDS):
     """Device ms of a profile's kernels by kind, each kernel counted in
-    the first kind whose pattern its name holds (BERT_KINDS; the rest
+    the first kind whose pattern its name holds (``kinds``; the rest
     under "other")."""
-    out = {name: 0.0 for name, _ in BERT_KINDS}
+    out = {name: 0.0 for name, _ in kinds}
     out["other"] = 0.0
     for e in averages:
         if e.self_device_time_total <= 0:
             continue
         key = e.key.lower()
-        kind = next((name for name, pats in BERT_KINDS
+        kind = next((name for name, pats in kinds
                      if any(p in key for p in pats)), "other")
         out[kind] += e.self_device_time_total / 1e3
     return out
@@ -5420,6 +5445,611 @@ def optimizer_phase(oo, dev, planted_path):
     return optimizer_timing(oo, dev)
 
 
+# -- phase 16: vision, the other families and saved signatures -------------
+
+VISION_NETS = (("alexnet", 224), ("vgg16", 224), ("squeezenet1.1", 224),
+               ("densenet121", 224), ("inceptionv3", 299),
+               ("mobilenet1.0", 224), ("mobilenetv2_1.0", 224))
+VISION_INFER_BATCH = 32          # BASELINE.md's inference row
+INCEPTION_IMAGE, INCEPTION_BATCH = 299, 128
+# BASELINE.md (perf.md:243-254): Inception-v3 training on one V100 at
+# batch 128, MXNet 1.2: a yardstick from another card, not this one
+INCEPTION_V100_IMAGES_S = 253.68
+AOT_INCEPTION_BATCH = 32
+AOT_LLAMA = dict(vocab=1000, units=1024, hidden_size=2816, num_layers=2,
+                 num_heads=8, num_kv_heads=8, tokens=(2, 256))
+VISION_KINDS = (("pooling", ("pool",)),
+                ("convolutions", ("conv", "cudnn", "xmma", "implicit",
+                                  "nhwc", "dgrad", "wgrad", "winograd")),
+                ("sgd (O2)", ("multi_sgd",)),
+                ("GEMMs", ("gemm", "nvjet", "cutlass", "sm90_")),
+                ("concat and copies", ("cat", "copy")),
+                ("reductions", ("reduce_kernel",)),
+                ("elementwise", ("elementwise",)))
+
+
+def vision_net(dev, name, seed, he=False, **kw):
+    """``vision.get_model(name)`` on ``dev`` with its deferred shapes,
+    filled from a seeded generator at the first forward: Xavier, or
+    with ``he`` the gaussian fan-in rule of magnitude 2, which keeps a
+    deep ReLU net's activations near 1 (Xavier's mean of fan-in and
+    fan-out shrinks them at every depthwise convolution: MobileNet's
+    logits come out near 1e-19); a layer's own initializer first."""
+    import torch
+
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    net = vision.get_model(name, device=dev, **kw)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    net.initialize(initializer.Xavier("gaussian", "in", 2) if he
+                   else initializer.Xavier(), generator=gen)
+    return net
+
+
+def vision_parity(dev):
+    """Each family's representative at full width, batch 2, f32, TF32
+    off, deterministic cuDNN: the card's predict-mode logits
+    (channels-last) against the host's (NCHW) from the same weights
+    (``load_jax_params`` permutes AlexNet's and VGG's flattened columns
+    across the layouts), each held to the host's f64 run: within 1e-3 of
+    the largest logit, or 3x the host f32 run's own error where that is
+    larger (R6)."""
+    import torch
+
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    ok = True
+    for i, (name, image) in enumerate(VISION_NETS):
+        rng = np.random.RandomState(10 + i)
+        x = rng.rand(2, 3, image, image).astype(np.float32)
+        host = vision_net("cpu", name, 20 + i, he=True)
+        resnet_shapes(host, torch.from_numpy(x))
+        params = {k: t.detach().numpy()
+                  for k, t in host._collect_params_with_prefix().items()}
+        card = vision.load_jax_params(vision.get_model(name, device=dev),
+                                      params, layout=host._layout)
+        wide = vision.load_jax_params(vision.get_model(name, device="cpu"),
+                                      params, layout=host._layout).double()
+        outs = []
+        with exact_convs(), torch.no_grad():
+            for net in (card, host, wide):
+                p = next(net.parameters())
+                outs.append(net(torch.from_numpy(x).to(p.device, p.dtype))
+                            .double().cpu())
+        c, h, w = outs
+        scale = w.abs().max().item() + 1e-30
+        e_card = (c - w).abs().max().item() / scale
+        e_host = (h - w).abs().max().item() / scale
+        bound = max(1e-3, 3 * e_host)
+        good = e_card <= bound and bool(torch.isfinite(c).all())
+        ok &= good
+        log("vision parity: %s at %d x %d, batch 2, f32: card (%s) %.3g, "
+            "host f32 (%s) %.3g of the largest logit (%.4g) from the host's "
+            "f64 run (bound %.3g) %s"
+            % (name, image, image, card._layout, e_card, host._layout,
+               e_host, scale, bound, "ok" if good else "FAIL"))
+        del host, card, wide, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not ok:
+        fail("a vision family's card logits disagree with the host's")
+
+
+def densenet_hybrid_check(dev):
+    """f32, TF32 off, deterministic cuDNN: a hybridized DenseNet-121
+    (channel concats kept channels-last) at batch 2: eager, captured and
+    replayed calls in predict and train mode, bitwise equal to the
+    eager net's, running statistics included."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+
+    x, _ = _resnet_batch(dev, 2, 224, 8)
+    outs = []
+    with exact_convs():
+        for hybrid in (False, True):
+            net = vision_net(dev, "densenet121", 8)
+            resnet_shapes(net, x)
+            if hybrid:
+                net.hybridize()
+            with torch.no_grad():
+                pred = [net(x).clone() for _ in range(3)]
+                with autograd.train_mode():
+                    train = [net(x).clone() for _ in range(3)]
+            outs.append((pred + train, _state(net),
+                         net.stats() if hybrid else None))
+            del net
+    (e_o, e_w, _), (h_o, h_w, st) = outs
+    same = all(torch.equal(a, b) for a, b in zip(e_o, h_o)) \
+        and _same(e_w, h_w)
+    log("vision graphs: densenet121, batch 2, f32: 3 predict-mode and 3 "
+        "train-mode hybridized calls against eager: outputs and running "
+        "statistics %s; %d captures, %d replays"
+        % ("bitwise equal" if same else "DIFFER", st["captures"],
+           st["replays"]))
+    if not same or (st["captures"], st["replays"]) != (2, 4):
+        fail("the hybridized DenseNet is not bitwise equal to eager")
+
+
+def vision_infer(dev):
+    """Each representative at batch 32 under amp bf16 (seeded Xavier
+    weights): the ``no_grad`` predict-mode forward, eager against
+    hybridized (wall p50 of 10 synchronised calls after 3 each, images/s),
+    the hybridized logits within 1e-2 of eager's largest."""
+    import torch
+
+    from mxnet_tpu_torch import amp
+
+    rows = {}
+    for i, (name, image) in enumerate(VISION_NETS):
+        net = vision_net(dev, name, 30 + i, he=True)
+        amp.convert_hybrid_block(net)
+        x, _ = _resnet_batch(dev, VISION_INFER_BATCH, image, 40 + i,
+                             torch.bfloat16)
+        resnet_shapes(net, x)
+        eager, want = timed_forward(net, x, 13)
+        net.hybridize()
+        hyb, got = timed_forward(net, x, 13)
+        eager, hyb = sorted(eager[3:]), sorted(hyb[3:])
+        err = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        st = net.stats()
+        b = VISION_INFER_BATCH
+        log("vision infer: %s, batch %d at %d x %d, bf16, no_grad: eager ms "
+            "p50 %.3f (min %.3f max %.3f), %.1f images/s; hybridized ms p50 "
+            "%.3f (min %.3f max %.3f), %.1f images/s; logits %s (%.3g of "
+            "the largest); %d capture, %d replays"
+            % (name, b, image, image, p50(eager), eager[0], eager[-1],
+               1e3 * b / p50(eager), p50(hyb), hyb[0], hyb[-1],
+               1e3 * b / p50(hyb), "bitwise equal" if err == 0 else "differ",
+               err, st["captures"], st["replays"]))
+        if not bool(torch.isfinite(got.float()).all()) or err > 1e-2:
+            fail("the hybridized %s forward disagrees with eager" % name)
+        rows[name] = (p50(eager), p50(hyb))
+        del net, want, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def inception_train_run(dev):
+    """Inception-v3 at 299 x 299, 1000 classes, amp bf16, sgd lr 0.1,
+    momentum 0.9, through ``JitTrainStep`` on seeded random images (as
+    ``bench.py`` makes them): every step eager, then graphed (2 warm-up,
+    8 timed and 1 profiled step each), then one ``step_n(10)`` window.
+    Returns O2's launches."""
+    import torch
+
+    from mxnet_tpu_torch import amp, gluon, parallel
+    from mxnet_tpu_torch.ops import optimizer_ops as oo
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    batch, image = INCEPTION_BATCH, INCEPTION_IMAGE
+    t0 = time.perf_counter()
+    net = vision_net(dev, "inceptionv3", 0)
+    amp.convert_hybrid_block(net)
+    x, y = _resnet_batch(dev, batch, image, 0, torch.bfloat16)
+    step_flops, _ = resnet_shapes(net, x)
+    n_params = sum(p.numel() for p in net.parameters())
+    step = parallel.JitTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                                 "sgd", {"learning_rate": 0.1,
+                                         "momentum": 0.9}, graphs=False)
+    log("inception train: Inception-v3, %.4g M parameters (bf16, BatchNorm "
+        "f32), %s, batch %d at %d x %d, %.4g TFLOP a step (3 x 2 x the conv "
+        "and dense multiply-adds), set-up %.1f s; cudnn.benchmark %s"
+        % (n_params / 1e6, net._layout, batch, image, image,
+           step_flops / 1e12, time.perf_counter() - t0,
+           torch.backends.cudnn.benchmark))
+    losses, rows = [], {}
+    n_warm, n_timed = 2, 8
+    reset_opt_counts(oo)
+    for mode in ("eager", "graphed"):
+        step.graphs = mode == "graphed"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, outs = timed_steps(lambda: step.step(x, y), n_warm, n_timed)
+        losses += [o.item() for o in outs]
+        out, wall, busy, averages = profiled_step(lambda: step.step(x, y))
+        losses.append(out.item())
+        rows[mode] = (times, wall, busy, averages,
+                      torch.cuda.max_memory_allocated(), step.stats())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    last = step.step_n(10, x, y)
+    torch.cuda.synchronize()
+    window = time.perf_counter() - t1
+    losses.append(last.item())
+    o2 = opt_counts(oo)["O2"]
+    n_steps = 2 * (n_warm + n_timed + 1) + 10
+    log("inception train: O2 launched %d times over %d steps" % (o2, n_steps))
+    if o2 < n_steps:
+        fail("the Inception-v3 SGD update launched O2 %d times over %d "
+             "steps" % (o2, n_steps))
+    log("inception train: losses %s" % ["%.4f" % v for v in losses])
+    if not all(math.isfinite(v) for v in losses):
+        fail("an Inception-v3 train loss is not finite")
+    log("inception train: loss at step 4 %.4f, at the last step %.4f, "
+        "against %.4f at the first" % (losses[3], losses[-1], losses[0]))
+    if not losses[3] < 0.9 * losses[0]:
+        fail("the Inception-v3 loss did not fall over the first steps on "
+             "the fixed batch")
+    st = step.stats()
+    if st["captures"] != 1 or st["replays"] != n_warm + n_timed + 10:
+        fail("the graphed Inception-v3 step did not capture once and "
+             "replay (%s)" % st)
+    for mode, (times, wall, busy, averages, peak, st) in rows.items():
+        p50_s = times[len(times) // 2]
+        top, _, kern_ms = kernel_rows(averages)
+        log("inception train: %s step ms p50 %.3f (min %.3f max %.3f over %d "
+            "timed steps), %.1f images/s (a V100's, BASELINE.md: %.2f), "
+            "%.1f%% MFU (%.4g model FLOP a step at 989 TFLOP/s bf16), own "
+            "peak device memory %.2f GB"
+            % (mode, 1e3 * p50_s, 1e3 * times[0], 1e3 * times[-1],
+               len(times), batch / p50_s, INCEPTION_V100_IMAGES_S,
+               100 * step_flops / p50_s / BF16_FLOPS, step_flops,
+               (peak - held) / 1e9))
+        log("inception train: %s profiled step: wall %.3f ms (the "
+            "profiler's own cost in it), kernels busy %.3f ms (union of "
+            "intervals): idle %.1f%% of the profiled step, %.1f%% of the "
+            "p50 step; kernels summed %.3f ms; by kind %s"
+            % (mode, wall * 1e3, busy, 100 * (1 - busy / (wall * 1e3)),
+               100 * max(0.0, 1 - busy / (p50_s * 1e3)), kern_ms,
+               ", ".join("%s %.3f" % kv for kv in kernel_kinds(
+                   averages, VISION_KINDS).items())))
+        for ms, n, key in top:
+            log("inception train:   %9.3f ms  x%-5d %s" % (ms, n, key[:100]))
+        if mode == "graphed":
+            log("inception train: graphed: %d capture in %.3f s, %d replays, "
+                "%.1f us host time a replay outside it, graph pool %.1f MB"
+                % (st["captures"], st["capture_s"], st["replays"],
+                   1e6 * st["host_s"] / max(st["replays"], 1),
+                   st["pool_bytes"] / 1e6))
+    log("inception train: step_n(10): %.3f s, %.1f images/s, %.3f ms a step"
+        % (window, 10 * batch / window, 100 * window))
+    del step, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return o2
+
+
+# What fresh processes do with saved signatures (``vision-child``): the
+# exporting process saves the weights and the bundles; the loading
+# process reads both; the plain process reads the weights only and runs
+# as a process without a bundle does (eager first call, then the
+# capture), the yardstick of what a bundle saves.
+
+def _synced_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _aot_block(net, x, role, tmp, name, before_call=lambda: None):
+    """``net``'s forward on ``x`` under ``no_grad``, hybridized: the
+    exporter (fresh weights) saves ``.params``, the bundle and its second
+    call's output; the loader reads both and hybridizes with ``aot=``
+    (``before_call`` runs just before its first call); the plain process
+    reads the weights and hybridizes without."""
+    import torch
+
+    from mxnet_tpu_torch import compile_cache
+
+    path = os.path.join(tmp, name + ".aot")
+    params = os.path.join(tmp, name + ".params")
+    res = {}
+    with torch.no_grad():
+        if role == "load":
+            net.load_parameters(params)
+            loads = compile_cache.stats()["aot_loads"]
+            _, res["prepare_ms"] = _synced_ms(lambda: net.hybridize(
+                aot=path))
+            res["aot_loads"] = compile_cache.stats()["aot_loads"] - loads
+            res["captures_before"] = net.stats()["captures"]
+            before_call()
+            out, res["first_ms"] = _synced_ms(lambda: net(x))
+            res["captures_after"] = net.stats()["captures"]
+            res["replays"] = net.stats()["replays"]
+        else:
+            if role == "plain":
+                net.load_parameters(params)
+            net.hybridize(aot=path if role == "export" else None)
+            first, res["first_ms"] = _synced_ms(lambda: net(x))
+            out, res["second_ms"] = _synced_ms(lambda: net(x))
+            res["first_equals_second"] = torch.equal(first, out)
+        if role == "export":
+            res["entries"] = len(compile_cache.load_bundle(path)["entries"])
+            net.save_parameters(params)
+            torch.save(out.cpu(), os.path.join(tmp, name + "_out.pt"))
+        else:
+            res["equal"] = torch.equal(out.cpu(), torch.load(
+                os.path.join(tmp, name + "_out.pt")))
+    res["finite"] = bool(torch.isfinite(out.float()).all())
+    return res
+
+
+def aot_llama(dev, role, tmp):
+    """A small bf16 causal Llama (D 128: K1's wgmma path), hybridized;
+    the loader's first call replays K1 once a layer."""
+    import torch
+
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import llama
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    cfg = dict(AOT_LLAMA)
+    vocab, shape = cfg.pop("vocab"), cfg.pop("tokens")
+    net = llama.LlamaModel(vocab, device=dev, **cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(70)
+    net.initialize(initializer.Xavier(), generator=gen)
+    net.cast("bfloat16")
+    toks = torch.from_numpy(np.random.RandomState(7).randint(
+        0, vocab, shape)).to(dev)
+    def reset():
+        fa.flash_attention.fwd_launches = 0
+
+    reset()
+    res = _aot_block(net, toks, role, tmp, "llama", reset)
+    res["k1_launches"] = fa.flash_attention.fwd_launches
+    return res
+
+
+def aot_inception_hybrid(dev, role, tmp):
+    """Hybridized Inception-v3 at batch 32, amp bf16 (the exporter's
+    deferred parameters are filled at its first call)."""
+    import torch
+
+    from mxnet_tpu_torch import amp
+
+    net = vision_net(dev, "inceptionv3", 50)
+    amp.convert_hybrid_block(net)
+    x, _ = _resnet_batch(dev, AOT_INCEPTION_BATCH, INCEPTION_IMAGE, 7,
+                         torch.bfloat16)
+    return _aot_block(net, x, role, tmp, "inception")
+
+
+def aot_inception_step(dev, role, tmp):
+    """The graphed Inception-v3 ``JitTrainStep`` (batch 128, amp bf16,
+    sgd 0.1 momentum 0.9).  The exporter: a first step (eager), then
+    ``save_executable``, ``save_states`` and ``save_parameters`` (the
+    running statistics), then a second (capture and replay).  The
+    loader: the parameters, ``load_executable`` (nothing stepped on:
+    weights, running statistics, momentum and count unchanged),
+    ``load_states``, and its first step, a replay, equal to the
+    exporter's second: the loss and every weight bitwise.  The plain
+    process: the parameters, then two steps (eager, then the capture).
+    Dropout draws from a generator seeded just before the compared
+    step."""
+    import torch
+
+    from mxnet_tpu_torch import amp, compile_cache, gluon, parallel
+
+    net = vision_net(dev, "inceptionv3", 60)
+    amp.convert_hybrid_block(net)
+    x, y = _resnet_batch(dev, INCEPTION_BATCH, INCEPTION_IMAGE, 0,
+                         torch.bfloat16)
+    step = parallel.JitTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                                 "sgd", {"learning_rate": 0.1,
+                                         "momentum": 0.9})
+    names = {k: os.path.join(tmp, "step" + k) for k in
+             (".aot", ".states", ".params", "_out.pt")}
+    if role != "export":
+        net.load_parameters(names[".params"])
+    resnet_shapes(net, x)
+    res = {}
+    if role == "load":
+        before = [t.clone() for t in net.state_dict().values()]
+        loads = compile_cache.stats()["aot_loads"]
+        _, res["prepare_ms"] = _synced_ms(lambda: step.load_executable(
+            names[".aot"], x, y))
+        res["aot_loads"] = compile_cache.stats()["aot_loads"] - loads
+        res["not_stepped"] = all(torch.equal(a, b) for a, b in zip(
+            before, net.state_dict().values())) \
+            and int(step._count) == 0 and step._t == 0 \
+            and not any(bool(s.any()) for s in step._opt_state
+                        if s is not None)
+        step.load_states(names[".states"])
+        res["captures_before"] = step.stats()["captures"]
+        torch.manual_seed(11)
+        loss, res["first_ms"] = _synced_ms(lambda: step.step(x, y))
+        res["captures_after"] = step.stats()["captures"]
+        res["replays"] = step.stats()["replays"]
+        ref = torch.load(names["_out.pt"])
+        res["equal"] = torch.equal(loss.cpu(), ref["loss"]) and all(
+            torch.equal(p.detach().cpu(), w)
+            for p, w in zip(step._params, ref["weights"]))
+    else:
+        _, res["first_ms"] = _synced_ms(lambda: step.step(x, y))
+        if role == "export":
+            step.save_executable(names[".aot"])
+            step.save_states(names[".states"])
+            net.save_parameters(names[".params"])
+        torch.manual_seed(11)
+        loss, res["second_ms"] = _synced_ms(lambda: step.step(x, y))
+        if role == "export":
+            torch.save({"loss": loss.cpu(),
+                        "weights": [p.detach().cpu() for p in step._params]},
+                       names["_out.pt"])
+    res["loss"] = float(loss)
+    return res
+
+
+def aot_nvrtc(role, tmp):
+    """NVRTC's compile of the SwiGLU user kernels (K5: both templates in
+    f32 and bf16) into a cache directory the exporter starts empty and
+    the loader reads.  Run last: the nvcc libraries are loaded by then."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import compile_cache
+
+    compile_cache.configure({"MXNET_COMPILE_CACHE":
+                             os.path.join(tmp, "nvrtc")})
+    before = compile_cache.stats()
+    t0 = time.perf_counter()
+    kern = SwigluKernels(mx)
+    for which in ("fwd", "bwd"):
+        for dt in (torch.float32, torch.bfloat16):
+            kern.kernel(which, dt)
+    ms = 1e3 * (time.perf_counter() - t0)
+    after = compile_cache.stats()
+    return {"ms": ms, "cached": kern.module.cached,
+            "hits": after["hits"] - before["hits"],
+            "writes": after["writes"] - before["writes"]}
+
+
+def vision_child(role, tmp):
+    """One fresh process of the round trips (``role`` export, load or
+    plain): CUDA, cuBLAS and cuDNN set up first, then the Llama, the
+    hybridized Inception-v3 and its graphed step under deterministic
+    cuDNN, then NVRTC (export and load); prints one ``VISION_CHILD
+    {...}`` line."""
+    import torch
+
+    from mxnet_tpu_torch import amp
+
+    dev = torch.device("cuda", 0)
+    a = torch.randn(256, 256, device=dev)
+    c = torch.nn.functional.conv2d(torch.randn(1, 3, 16, 16, device=dev),
+                                   torch.randn(8, 3, 3, 3, device=dev))
+    float((a @ a).sum() + c.sum())
+    out = {}
+    with exact_convs():
+        out["llama"] = aot_llama(dev, role, tmp)
+        amp.init("bfloat16")
+        try:
+            out["hybrid"] = aot_inception_hybrid(dev, role, tmp)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["step"] = aot_inception_step(dev, role, tmp)
+        finally:
+            amp.turn_off()
+    if role != "plain":
+        out["nvrtc"] = aot_nvrtc(role, tmp)
+    print("VISION_CHILD " + json.dumps(out), flush=True)
+    return 0
+
+
+def vision_round_trips(dev):
+    """The saved signatures through fresh processes on the card: the
+    exporting process, the loading one and the plain one
+    (``vision_child``); each loaded path is bitwise equal to the
+    exporter's with no capture at call time, ``load_executable`` steps
+    on nothing, and the loader's NVRTC compile of the K5 kernels is a
+    cache hit.  Logs what a bundle saves: the time to the first output,
+    and to the first replayed one, of the loading process against the
+    plain one's."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="vision_aot_")
+    res = {}
+    try:
+        for role in ("export", "load", "plain"):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable,
+                                os.path.join(REPO, "chip_smoke.py"),
+                                "vision-child", role, tmp], cwd=REPO,
+                               capture_output=True, text=True, timeout=900)
+            lines = [ln for ln in r.stdout.splitlines()
+                     if ln.startswith("VISION_CHILD ")]
+            if r.returncode != 0 or not lines:
+                fail("the %s process of the round trips failed (exit %d): "
+                     "%s" % (role, r.returncode, r.stderr[-3000:]))
+            res[role] = json.loads(lines[-1][len("VISION_CHILD "):])
+            log("vision aot: %s process: %.1f s wall, %s"
+                % (role, time.perf_counter() - t0, json.dumps(res[role])))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got, plain = res["load"], res["plain"]
+    ok = True
+    for path in ("llama", "hybrid", "step"):
+        g = got[path]
+        good = g["equal"] and g["captures_after"] == g["captures_before"] \
+            and g["aot_loads"] >= 1 and g["replays"] >= 1
+        ok &= good
+        log("vision aot: %s: the loaded process's first call a replay "
+            "(captures %d before it, %d after, %d replays, %d signatures "
+            "loaded), %s to the exporter's"
+            % (path, g["captures_before"], g["captures_after"],
+               g["replays"], g["aot_loads"],
+               "bitwise equal" if g["equal"] else "NOT EQUAL"))
+    k1 = got["llama"]["k1_launches"]
+    ok &= got["step"]["not_stepped"]
+    ok &= k1 == AOT_LLAMA["num_layers"]
+    log("vision aot: the loaded Llama's first call replayed K1 %d times "
+        "(%d layers); load_executable stepped on nothing: %s"
+        % (k1, AOT_LLAMA["num_layers"], got["step"]["not_stepped"]))
+    for path, what in (
+            ("hybrid", "hybridized Inception-v3, batch %d, bf16"
+             % AOT_INCEPTION_BATCH),
+            ("llama", "hybridized Llama (%d layers, %d x %d tokens, bf16)"
+             % ((AOT_LLAMA["num_layers"],) + AOT_LLAMA["tokens"])),
+            ("step", "graphed Inception-v3 step, batch %d, bf16"
+             % INCEPTION_BATCH)):
+        p, g = plain[path], got[path]
+        log("vision aot: %s: without a bundle the first output after %.1f "
+            "ms (eager) and the first replay %.1f ms later (capture + "
+            "replay): %.1f ms; with it the load takes %.1f ms (warm-up and "
+            "capture) and the first output, a replay, %.1f ms: %.1f ms, "
+            "%.1f ms sooner to the first replay, %.1f ms later to the "
+            "first output"
+            % (what, p["first_ms"], p["second_ms"],
+               p["first_ms"] + p["second_ms"], g["prepare_ms"],
+               g["first_ms"], g["prepare_ms"] + g["first_ms"],
+               p["first_ms"] + p["second_ms"] - g["prepare_ms"]
+               - g["first_ms"],
+               g["prepare_ms"] + g["first_ms"] - p["first_ms"]))
+    cold, warm = res["export"]["nvrtc"], got["nvrtc"]
+    ok &= warm["cached"] and warm["hits"] >= 1 and not cold["cached"] \
+        and cold["writes"] >= 1
+    log("vision aot: NVRTC, the SwiGLU user kernels (K5): cold %.1f ms (%d "
+        "written), warm %.1f ms in the second process (%d hits, from the "
+        "cache: %s)" % (cold["ms"], cold["writes"], warm["ms"],
+                        warm["hits"], warm["cached"]))
+    if not ok:
+        fail("a saved-signature round trip failed on the card")
+
+
+def vision_phase(dev):
+    """The card-against-host check of each family, the hybridized
+    DenseNet against eager, then under amp bf16 the families' inference
+    timing and the main path (Inception-v3 trained through
+    ``JitTrainStep``), then the round trips through fresh processes.
+    Returns O2's launches."""
+    import torch
+
+    from mxnet_tpu_torch import amp
+
+    start_profiler(dev)
+    vision_parity(dev)
+    densenet_hybrid_check(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    amp.init("bfloat16")
+    try:
+        vision_infer(dev)
+        o2 = inception_train_run(dev)
+    finally:
+        amp.turn_off()
+        torch.backends.cudnn.benchmark = False
+    vision_round_trips(dev)
+    return o2
+
+
 def clocks_line():
     """The card's SM clock and its maximum now (nvidia-smi)."""
     r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
@@ -5441,12 +6071,12 @@ def nvidia_smi_line():
 
 PHASES = ("kernel", "flash", "optimizer", "serve", "parity", "fleet",
           "train", "train_parity", "hybridize", "rtc", "imperative",
-          "imperative_parity", "resnet", "bert", "gluon")
+          "imperative_parity", "resnet", "bert", "gluon", "vision")
 # the phases that launch K1-K4 and O1-O3, whose libraries the smoke
 # builds first
 NVCC_PHASES = {"kernel", "flash", "optimizer", "serve", "parity", "fleet",
                "train", "train_parity", "hybridize", "resnet", "bert",
-               "gluon"}
+               "gluon", "vision"}
 
 
 def kernel_entry(name, source, replaces, launches, timing, extra=None):
@@ -5471,6 +6101,8 @@ def main(argv):
         print("chip_smoke: torch.cuda.is_available() is false — this "
               "smoke needs an NVIDIA card", file=sys.stderr)
         return 2
+    if argv and argv[0] == "vision-child":
+        return vision_child(*argv[1:3])
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import serve
     from mxnet_tpu_torch.ops import _build
@@ -5549,6 +6181,7 @@ def main(argv):
     bert_launches, bert_o1_err = timed("bert", bert_phase, dev) \
         or (None, None)
     gluon_launches = timed("gluon", gluon_phase, dev)
+    vision_o2 = timed("vision", vision_phase, dev)
     log("total: %.1f s" % (time.perf_counter() - t_all))
     if list(phases) != list(PHASES):
         log("ran phases %s only: no result lines" % ",".join(phases))
@@ -5586,8 +6219,8 @@ def main(argv):
                      sum(p["O1"] for p in paths), opt["O1"],
                      {"bert_max_abs_err": bert_o1_err}),
         kernel_entry("O2 multi_sgd (port-only)", opt_src,
-                     "mxnet_tpu/ops/optimizer_ops.py:314", resnet_o2,
-                     opt["O2"]),
+                     "mxnet_tpu/ops/optimizer_ops.py:314",
+                     resnet_o2 + vision_o2, opt["O2"]),
         kernel_entry("O3 multi_sum_sq (port-only)", opt_src,
                      "mxnet_tpu/ops/optimizer_ops.py:174",
                      flash_launches["O3"] + gluon_launches["O3"],

@@ -61,14 +61,20 @@ hybridized block runs each signature as one captured CUDA graph
 (``graph_cache.CapturedCall``), and the blocks it calls are captured
 with it.  A call that autograd records runs as a forward graph and a
 backward graph (``graph_cache.RecordedCall``), the counterpart of the
-reference's cached jitted vjp.
+reference's cached jitted vjp.  ``hybridize(aot=path)`` keeps the
+unrecorded signatures in a bundle (``compile_cache``) that a fresh
+process captures ahead of its first call, the counterpart of the
+reference's AOT warm start.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import json
+import os
 import re
 import threading
+import warnings
 import weakref
 from collections import OrderedDict
 
@@ -76,6 +82,7 @@ import numpy as np
 import torch
 
 from .. import autograd as _autograd
+from .. import compile_cache as _ccache
 from .. import graph_cache as _graph_cache
 from .. import initializer as _init
 from ..base import MXNetError
@@ -645,26 +652,43 @@ class HybridBlock(Block):
         self._active = False
         self._graphs = _graph_cache.CallCache()     # signature -> call
         self._watched = None    # (tree generation, parameters + buffers)
+        self._aot_path = None       # hybridize(aot=...) bundle file
+        self._aot_entries = None    # its entries, read once
+        self._aot_pending = False   # its signatures not captured yet
 
     def hybridize(self, active=True, static_alloc=False, static_shape=False,
                   lint=False, aot=None, **kwargs):
         """Arm or disarm graph capture (parity: HybridBlock.hybridize).
         ``static_alloc`` and ``static_shape`` are accepted for parity: a
-        graph's buffers are static by construction.  ``aot=`` (the
-        persistent compile cache) and ``lint=True`` (the mxlint passes)
-        are not ported and raise."""
-        if aot is not None:
-            raise MXNetError("hybridize(aot=...) is not ported yet: the "
-                             "persistent compile cache comes with slice S5c "
-                             "(ROADMAP.md)")
+        graph's buffers are static by construction.  ``lint=True`` (the
+        mxlint passes) is not ported and raises.
+
+        ``aot=path`` keeps the block's call signatures in a bundle
+        (``compile_cache.save_bundle``): each unrecorded signature is
+        written at its first call, with the parameters' names, the
+        auxiliary ones (running statistics) and the number of outputs.
+        A block armed with an existing bundle captures each saved
+        signature ahead of its first call, once its parameters are
+        initialized (here, or at the first call), so that call is a
+        replay; the parameters the bundle names must be this block's
+        (else ``MXNetError`` naming both lists).  A bundle that cannot
+        be read warns, is counted (``aot_unusable``) and the block
+        captures live.  Recorded calls are not saved: they run as
+        before.  On the CPU nothing is captured; the entries are written
+        and checked all the same."""
         if active and lint:
             raise MXNetError("hybridize(lint=True) is not ported yet: the "
                              "mxlint passes come with slice S9 (ROADMAP.md)")
         self._active = bool(active)
+        self._aot_path = aot if active else None
         if not active:
             self.clear_cache()
-        return super().hybridize(active, static_alloc=static_alloc,
-                                 static_shape=static_shape, **kwargs)
+        self._aot_entries = None
+        self._aot_pending = self._aot_path is not None
+        out = super().hybridize(active, static_alloc=static_alloc,
+                                static_shape=static_shape, **kwargs)
+        self._aot_prepare()
+        return out
 
     def infer_shape(self, *args):
         """Give the deferred parameters of this block their shapes from
@@ -677,15 +701,90 @@ class HybridBlock(Block):
         return None
 
     def clear_cache(self):
-        """Drop every captured graph of this block."""
+        """Drop every captured graph of this block (a bundle's signatures
+        are captured again at the next call)."""
         self._graphs.clear()
         self._watched = None
+        self._aot_pending = self._aot_path is not None
+
+    # -- saved signatures (hybridize(aot=path)) -----------------------------
+    def _aot_bundle(self):
+        """The bundle's entries, read once; an unusable bundle warns, is
+        counted, and gives none."""
+        if self._aot_entries is None:
+            self._aot_entries = {}
+            if os.path.exists(self._aot_path):
+                try:
+                    doc = _ccache.load_bundle(self._aot_path)
+                    self._aot_entries = dict(doc["entries"])
+                except MXNetError as e:
+                    _ccache.count_unusable()
+                    warnings.warn("hybridize(aot=%r): ignoring an unusable "
+                                  "bundle (%s); capturing live"
+                                  % (self._aot_path, e))
+        return self._aot_entries
+
+    def _aot_names(self):
+        params = list(self.collect_params().values())
+        return ([p.name for p in params],
+                [p.name for p in params if getattr(p, "_buffer", False)])
+
+    def _aot_prepare(self):
+        """Capture each signature of the bundle ahead of its first call,
+        once every parameter has its shape."""
+        if not self._aot_pending or any(
+                isinstance(t, _LAZY) for t in self._graph_tensors()):
+            return
+        self._aot_pending = False
+        names, _ = self._aot_names()
+        captured = 0
+        for entry in self._aot_bundle().values():
+            if entry["param_names"] != names:
+                raise MXNetError(
+                    "hybridize(aot=%r): the bundle entry was saved with "
+                    "parameters %s but this block has %s: the architecture "
+                    "changed since it was saved"
+                    % (self._aot_path, entry["param_names"], names))
+            wire = entry["signature"]
+            key = _graph_cache.signature_from_wire(wire)
+            args = _graph_cache.scratch_args(wire)
+            device = next(a.device for a in args
+                          if isinstance(a, torch.Tensor))
+            cc = self._graphs.get(key, self._nested_call, device,
+                                  self._graph_tensors, type(self).__name__)
+            mode = _autograd.train_mode if key[1] \
+                else _autograd.predict_mode
+            with torch.no_grad(), mode():
+                captured += cc.prepare(
+                    args, restore=list(self.buffers()) if key[1] else ())
+        _ccache.count_aot_loads(captured)
+
+    def _aot_export(self, key, out):
+        """Write ``key``'s entry into the bundle, unless it is there."""
+        wire = _graph_cache.signature_to_wire(key)
+        if wire is None:
+            warnings.warn("hybridize(aot=%r): a call with arguments that "
+                          "are neither tensors nor plain values is not "
+                          "saved" % self._aot_path)
+            return
+        entries = self._aot_bundle()
+        name = json.dumps(wire, sort_keys=True)
+        if name in entries:
+            return
+        names, aux = self._aot_names()
+        entries[name] = {"signature": wire, "param_names": names,
+                         "aux_names": aux,
+                         "n_outputs": len(_graph_cache._tensors(out))}
+        _ccache.save_bundle(self._aot_path, entries,
+                            meta={"block": self.name})
 
     def _call(self, *args, **kwargs):
         tensors = [a for a in args if isinstance(a, torch.Tensor)]
         if not self._active or kwargs or not tensors \
                 or getattr(_nesting, "depth", 0):
             return super()._call(*args, **kwargs)
+        if self._aot_pending:
+            self._aot_prepare()
         key = _graph_cache.signature(args, _autograd.is_training())
         watched = self._graph_tensors()
         if torch.is_grad_enabled() and any(
@@ -701,6 +800,8 @@ class HybridBlock(Block):
         cc = self._graphs.get(key, self._nested_call, tensors[0].device,
                               self._graph_tensors, type(self).__name__)
         out = cc(*args)
+        if self._aot_path is not None and cc.calls == 1:
+            self._aot_export(key, out)
         return _fresh(out) if cc.static else out
 
     def stats(self):

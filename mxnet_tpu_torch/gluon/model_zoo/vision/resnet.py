@@ -7,7 +7,9 @@ name scope for name scope, so both ``collect_params()`` (the prefixed
 names, ``resnetv10_stage1_conv0_weight``) and
 ``_collect_params_with_prefix()`` (the structural ones) name what the
 JAX package's do.  Every block takes ``device=`` (default ``cuda:0``).  No
-pretrained weights are shipped: ``pretrained=True`` raises.
+pretrained weights are shipped: ``pretrained=True`` loads
+``root/resnet<layers>_v<version>.params`` from a local directory into an
+NCHW net, and raises where there is no such file.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 from ....base import MXNetError
 from ...block import HybridBlock
 from ... import nn
-from ._base import _LayoutNet
+from ._base import _LayoutNet, load_pretrained, pretrained_kwargs
 
 
 def _conv3x3(channels, stride, in_channels, device):
@@ -246,23 +248,24 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
                **kwargs):
     """A ResNet by version (1, 2) and depth (18, 34, 50, 101, 152);
     ``kwargs`` go to the net (``classes``, ``thumbnail``, ``layout``,
-    ``device``).  ``ctx`` is taken as ``device``."""
+    ``device``).  ``ctx`` is taken as ``device``; ``pretrained`` loads
+    ``root``'s ``.params`` file (``_base.load_pretrained``)."""
     if num_layers not in resnet_spec:
         raise MXNetError("Invalid number of layers: %d. Options are %s"
                          % (num_layers, sorted(resnet_spec)))
     if version not in (1, 2):
         raise MXNetError("Invalid resnet version: %d. Options are 1 and 2."
                          % version)
-    if pretrained:
-        raise MXNetError("pretrained=True: the port ships no weights and "
-                         "downloads none; carry the JAX package's with "
-                         "vision.load_jax_params")
     if ctx is not None:
         kwargs.setdefault("device", ctx)
     block_type, layers, channels = resnet_spec[num_layers]
     block_class = resnet_block_versions[version - 1][block_type]
-    return resnet_net_versions[version - 1](block_class, layers, channels,
-                                            **kwargs)
+    net = resnet_net_versions[version - 1](
+        block_class, layers, channels, **pretrained_kwargs(pretrained,
+                                                           kwargs))
+    if pretrained:
+        load_pretrained(net, root, "resnet%d_v%d" % (num_layers, version))
+    return net
 
 
 def resnet18_v1(**kwargs):

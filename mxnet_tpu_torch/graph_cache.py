@@ -18,7 +18,12 @@ replay.  Tensors the graph uses in place (weights, the serve arena) are
 named by ``watched``; when one of them has moved since the capture, the
 next call captures again.  A capture that fails raises: nothing falls
 back to eager running.  On a device other than CUDA every call runs
-eagerly.
+eagerly.  A call signature (:func:`signature`) has a JSON form
+(:func:`signature_to_wire`), which ``compile_cache`` bundles keep: a
+fresh process makes scratch inputs of a saved signature
+(:func:`scratch_args`) and :meth:`CapturedCall.prepare` runs the
+warm-up and the capture on them before the first call, which is then a
+replay.
 
 Kernel wrappers count their launches through :func:`count`.  During a
 capture the launches are recorded into the graph being captured instead
@@ -127,14 +132,69 @@ class recording:
         _tls.recording, _capturing = self._prev
 
 
+def memory_format_of(t):
+    """``"channels_last"`` for a 4-d (``"channels_last_3d"`` for a 5-d)
+    tensor laid out channels-last and not contiguous, else
+    ``"contiguous"``."""
+    if t.dim() in (4, 5) and not t.is_contiguous():
+        fmt = torch.channels_last if t.dim() == 4 \
+            else torch.channels_last_3d
+        if t.is_contiguous(memory_format=fmt):
+            return "channels_last" if t.dim() == 4 else "channels_last_3d"
+    return "contiguous"
+
+
 def signature(args, training=False):
     """The cache key of one call: each tensor argument's ``(shape,
-    dtype, device)``, any other argument as it is, and the training
-    flag (the reference keys by shapes, dtypes and
+    dtype, device, memory format)``, any other argument as it is, and
+    the training flag (the reference keys by shapes, dtypes and
     ``autograd.is_training()``)."""
-    return (tuple((tuple(a.shape), a.dtype, a.device)
+    return (tuple((tuple(a.shape), a.dtype, a.device, memory_format_of(a))
                   if isinstance(a, torch.Tensor) else a for a in args),
             bool(training))
+
+
+def signature_to_wire(key):
+    """``signature(...)``'s key as JSON-ready data (a bundle's entry), or
+    None when an argument other than a tensor is not a plain value."""
+    args = []
+    for a in key[0]:
+        if isinstance(a, tuple) and len(a) == 4 \
+                and isinstance(a[1], torch.dtype):
+            shape, dtype, device, fmt = a
+            args.append({"shape": list(shape),
+                         "dtype": str(dtype).replace("torch.", ""),
+                         "device": str(device), "format": fmt})
+        elif a is None or isinstance(a, (bool, int, float, str)):
+            args.append({"value": a})
+        else:
+            return None
+    return {"args": args, "training": bool(key[1])}
+
+
+def signature_from_wire(doc):
+    """The key that :func:`signature_to_wire` wrote."""
+    return (tuple((tuple(a["shape"]), getattr(torch, a["dtype"]),
+                   torch.device(a["device"]), a["format"])
+                  if "shape" in a else a["value"] for a in doc["args"]),
+            bool(doc["training"]))
+
+
+def scratch_args(doc):
+    """Arguments of the signature ``doc`` (a wire form): zeros of each
+    tensor's shape, dtype, device and memory format, and the other
+    values as they are."""
+    out = []
+    for a in doc["args"]:
+        if "shape" not in a:
+            out.append(a["value"])
+            continue
+        t = torch.zeros(a["shape"], dtype=getattr(torch, a["dtype"]),
+                        device=a["device"])
+        if a["format"] != "contiguous":
+            t = t.contiguous(memory_format=getattr(torch, a["format"]))
+        out.append(t)
+    return tuple(out)
 
 
 def grad_signature(tensors):
@@ -454,7 +514,8 @@ class CapturedCall(_GraphCall):
 
     A replay returns the graph's static outputs, which the next replay
     overwrites; ``static`` says whether the last call returned them.
-    Off the card every call runs ``fn`` eagerly.
+    ``prepare`` captures ahead of the first call.  Off the card every
+    call runs ``fn`` eagerly.
     """
 
     def __init__(self, fn, device, watched=None, stream=None, pool=None,
@@ -469,7 +530,7 @@ class CapturedCall(_GraphCall):
         self.static = False
         if not self.graphed:
             return self.fn(*args)
-        if self.calls == 1:
+        if self.calls == 1 and not self.graphs:
             return self._warm_up(args)
         t0 = time.perf_counter()
         held = _held(self, args)
@@ -484,6 +545,27 @@ class CapturedCall(_GraphCall):
         self.static = True
         self.host_s += t1 - t0
         return graph.out
+
+    def prepare(self, args, restore=()):
+        """Warm up and capture ahead of the first call (a saved
+        signature, ``args`` standing in for its inputs), so that the
+        first call is a replay.  What the warm-up writes of ``restore``
+        (weights, optimizer state, running statistics) is put back after
+        it, in place; the capture writes nothing.  Off the card nothing
+        is captured: returns False."""
+        if not self.graphed or self.graphs:
+            return False
+        saved = [(t, t.detach().clone()) for t in restore]
+        self._warm_up(args)
+        with torch.no_grad():
+            for t, value in saved:
+                t.copy_(value)
+        del saved       # the copies' memory, free before the capture
+        with _capture_lock:
+            # the capture's pool needs the memory the warm-up cached
+            torch.cuda.empty_cache()
+        self._capture(args, _held(self, args))
+        return True
 
     def _build(self, args, pool, held):
         static = _static_args(args, self.device, self.inplace)

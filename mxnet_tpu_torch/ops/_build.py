@@ -2,10 +2,12 @@
 
 Each source in ``mxnet_tpu_torch/csrc`` compiles with ``nvcc`` for
 ``sm_90a`` into one shared library with a plain C interface, which the
-op module binds with ``ctypes``.  Libraries go to ``build/`` at the repo
-root (gitignored), named by a hash of the source and the flags, so an
-edit rebuilds and an unchanged source is built once.  ``build_all``
-starts one ``nvcc`` per source at once and waits for all of them.
+op module binds with ``ctypes``.  Libraries go to the compile cache's
+directory (``compile_cache.library_dir()``: ``build/`` at the repo root
+by default, gitignored), named by a hash of the source and the flags, so
+an edit rebuilds and an unchanged source is built once; the cache counts
+each request, hit and write.  ``build_all`` starts one ``nvcc`` per
+source at once and waits for all of them.
 """
 from __future__ import annotations
 
@@ -17,11 +19,12 @@ import subprocess
 import threading
 import time
 
+from .. import compile_cache as _ccache
 from ..base import MXNetError
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
+BUILD_DIR = _ccache.DEFAULT_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -60,8 +63,8 @@ def _flags(defines):
 
 def library_path(source, defines=()):
     """Where the library built from ``source`` (with the macros
-    ``defines``, ``"NAME=value"`` each) lives: ``build/`` at the repo
-    root, named by a hash of the source, the shared headers of
+    ``defines``, ``"NAME=value"`` each) lives: the compile cache's
+    library directory, named by a hash of the source, the shared headers of
     ``csrc`` (``*.cuh``) and the flags."""
     digest = hashlib.sha256()
     for path in [source] + sorted(
@@ -71,15 +74,15 @@ def library_path(source, defines=()):
             digest.update(f.read())
     digest.update(" ".join(_flags(defines)).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
-    return os.path.join(BUILD_DIR,
+    return os.path.join(_ccache.library_dir(),
                         "%s-%s.so" % (stem, digest.hexdigest()[:12]))
 
 
 def _start(source, verbose, defines=()):
     out = library_path(source, defines)
-    if os.path.exists(out):
+    if _ccache.library_request(out):
         return out, None
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = "%s.tmp.%d" % (out, os.getpid())
     cmd = [_nvcc(), *_flags(defines)]
     if verbose:
@@ -101,6 +104,7 @@ def _finish(source, out, pending, verbose):
     if verbose and (stdout or stderr):
         print(stdout + stderr, end="")
     os.replace(tmp, out)
+    _ccache.library_written()
     return out
 
 

@@ -1,6 +1,6 @@
 """Neural-network operators: ``Convolution``, ``Pooling``, ``BatchNorm``,
 ``LayerNorm``, ``InstanceNorm``, ``GroupNorm``, ``Activation``,
-``LeakyReLU`` and ``Dropout``.
+``LeakyReLU``, ``Dropout`` and ``CTCLoss``.
 
 The port's counterpart of the JAX package's ``ops/nn.py``, with the same
 names, attrs and semantics; the Gluon layers call these functions, so
@@ -470,3 +470,44 @@ def _dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
         .uniform_(generator=generator) < 1.0 - p
     return torch.where(keep, data / (1.0 - p), torch.zeros((), dtype=data.dtype,
                                                           device=data.device))
+
+
+# ----------------------------------------------------------------------------
+# Loss ops
+# ----------------------------------------------------------------------------
+
+
+@register("CTCLoss", aliases=("ctc_loss",),
+          inputs=("data", "label", "data_lengths", "label_lengths"))
+def _ctc_loss(data, label, data_lengths=None, label_lengths=None,
+              use_data_lengths=False, use_label_lengths=False,
+              blank_label="first"):
+    """Parity: CTCLoss (src/operator/nn/ctc_loss.cc): ``data`` (T, B, C)
+    logits, ``label`` (B, L) class indices; the blank is class 0
+    (``"first"``) or C-1 (``"last"``).  Without ``label_lengths`` a
+    sequence's length is its count of labels other than the padding,
+    0 with the blank first and -1 with it last; without
+    ``data_lengths`` every sequence has T frames.  Returns the negative
+    log-likelihood of each sequence, in ``data``'s dtype, and zeros of
+    ``data``'s shape (the JAX package's second output).  The sum over
+    paths is ``F.ctc_loss`` on the f32 log-softmax (the JAX package runs
+    its own scan; no Pallas kernel stands behind it).  A sequence no
+    path can emit gives inf, where the JAX package's -1e30 floor gives
+    a large finite value."""
+    t, b, c = data.shape
+    logp = F.log_softmax(data.float(), dim=-1)
+    blank = 0 if blank_label == "first" else c - 1
+    labels = label.long()
+    if use_label_lengths and label_lengths is not None:
+        lab_len = label_lengths.long()
+    else:
+        lab_len = (labels != (0 if blank_label == "first" else -1)).sum(1)
+    if use_data_lengths and data_lengths is not None:
+        dat_len = data_lengths.long()
+    else:
+        dat_len = torch.full((b,), t, dtype=torch.long, device=data.device)
+    # torch reads only each row's first lab_len labels: the padding is
+    # made a valid index, never used
+    loss = F.ctc_loss(logp, labels.clamp(0, c - 1), dat_len, lab_len,
+                      blank=blank, reduction="none")
+    return loss.to(data.dtype), torch.zeros_like(data)

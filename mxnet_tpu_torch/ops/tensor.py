@@ -562,6 +562,24 @@ def _clip(data, a_min=None, a_max=None):
     return torch.clamp(data, a_min, a_max)
 
 
+@register("where")
+def _where(condition, x, y):
+    """Parity: where: ``x`` where ``condition`` is non-zero, else ``y``."""
+    return torch.where(condition.bool(), x, y)
+
+
+@register("one_hot")
+def _one_hot(indices, depth=1, on_value=1.0, off_value=0.0,
+             dtype="float32"):
+    """Parity: one_hot: ``on_value`` at each index along a new last axis
+    of size ``depth`` (an index out of range gives a row of
+    ``off_value``), ``off_value`` elsewhere."""
+    idx = indices.long()
+    hot = (idx.unsqueeze(-1) == torch.arange(depth, device=idx.device))
+    dt = to_torch_dtype(dtype)
+    return hot.to(dt) * (on_value - off_value) + off_value
+
+
 # ----------------------------------------------------------------------------
 # indexing
 # ----------------------------------------------------------------------------

@@ -21,7 +21,10 @@ count by pointer, with each parameter's ``lr_mult`` a factor in its
 table; ``clip_global_norm`` takes its norm from O3.  The
 per-parameter ``lr_mult``/``wd_mult``, ``wd``, ``rescale_grad`` and the
 clips are constants of a captured step: changing one drops the graphs.
-``step_n(n)`` runs n steps as n replays.  ``save_states`` and
+``step_n(n)`` runs n steps as n replays.  ``save_executable`` and
+``load_executable`` write and check the step's signature in a bundle
+(``compile_cache``), and the loading process captures the step ahead of
+its first call, undoing the capture's warm-up.  ``save_states`` and
 ``load_states`` write and read the weights, the optimizer state and the
 step count as the JAX package's MXGC1 file (``sharding/checkpoint.py``)
 with its positional entry names (``weights/<i>``, ``opt/<i>/<j>``) and
@@ -48,6 +51,7 @@ import torch
 
 from .. import autograd as _autograd
 from ..base import MXNetError
+from .. import compile_cache as _ccache
 from .. import graph_cache as _graph_cache
 from .. import optimizer as _opt_mod
 from .. import sharding as _shd
@@ -95,6 +99,7 @@ class JitTrainStep:
         self._params = None
         self._t = 0
         self._last_loss = None
+        self._batch_key = None      # the last step's batch signature
         self.graphs = bool(graphs)
 
     def _ensure_init(self, data):
@@ -179,6 +184,7 @@ class JitTrainStep:
                 opt.rescale_grad, opt.clip_gradient, self._clip_global_norm)
 
     def _run(self, arrays):
+        self._batch_key = _graph_cache.signature(arrays)
         self._t += 1
         self._opt.num_update = self._t
         self._lr.fill_(self._opt.learning_rate)
@@ -221,6 +227,79 @@ class JitTrainStep:
     def stats(self):
         """The step's graphs (``graph_cache.CallCache.stats``)."""
         return self._graphs.stats() if self._params is not None else {}
+
+    # -- saved executables (the compile cache's bundles) -------------------
+    def _executable_entry(self, batch_key):
+        """What a bundle holds of this step: the parameters' names, the
+        weights' and the batch's signatures, the optimizer and the
+        constants of its update, and whether the step is graphed."""
+        opt = self._opt
+        hyper = {k: v for k, v in sorted(vars(opt).items())
+                 if not k.startswith("_") and k not in (
+                     "lr", "num_update", "begin_num_update")
+                 and (v is None or isinstance(v, (bool, int, float, str)))}
+        return {"param_names": list(self._names),
+                "weight_sig": [[list(p.shape), str(p.dtype),
+                                _graph_cache.memory_format_of(p)]
+                               for p in self._params],
+                "batch_sig": _graph_cache.signature_to_wire(batch_key),
+                "optimizer": type(opt).__name__.lower(),
+                "hyperparameters": hyper,
+                "constants": repr(self._constants()),
+                "graphed": self.graphs}
+
+    def save_executable(self, fname):
+        """Save this step's signature as a bundle (``compile_cache``): a
+        fresh process's ``load_executable`` checks it and captures the
+        step ahead of its first call, which is then a replay.  Run one
+        step first.  Pairs with ``save_states``: this file carries the
+        program's signature, the checkpoint the data."""
+        if self._params is None or self._batch_key is None:
+            raise MXNetError("save_executable before the first step: run "
+                             "one step so the step's signature exists")
+        _ccache.save_bundle(fname, {"step": self._executable_entry(
+            self._batch_key)}, meta={"kind": "train_step"})
+
+    def load_executable(self, fname, *batch):
+        """Check ``save_executable``'s bundle against this step and, on
+        the card with graphs on, capture the step for ``batch`` (one
+        example batch of the training shapes) ahead of the first
+        ``step``, which is then a replay.  Nothing is stepped on: the
+        weights, the optimizer state, the running statistics and the
+        count are as they were (the capture's warm-up is undone).  A
+        bundle of another net, batch signature, optimizer or graph
+        setting raises ``MXNetError`` here, as does a bad magic or
+        another card's capability."""
+        arrays = self._arrays(batch)
+        self._ensure_init(self._split(arrays)[0])
+        doc = _ccache.load_bundle(fname)
+        entry = doc["entries"].get("step")
+        if entry is None or doc.get("meta", {}).get("kind") != "train_step":
+            raise MXNetError("%s is not a JitTrainStep bundle" % fname)
+        key = _graph_cache.signature(arrays)
+        want = self._executable_entry(key)
+        for field, what in (("param_names", "parameters"),
+                            ("weight_sig", "weight signature"),
+                            ("batch_sig", "batch signature"),
+                            ("optimizer", "optimizer"),
+                            ("hyperparameters", "optimizer hyperparameters"),
+                            ("constants", "update constants"),
+                            ("graphed", "graph setting")):
+            if entry.get(field) != want[field]:
+                raise MXNetError(
+                    "load_executable: %s mismatch: the bundle %s has %s but "
+                    "this step has %s" % (what, fname, entry.get(field),
+                                          want[field]))
+        self._batch_key = key
+        if self.graphs:
+            self._consts = self._constants()
+            self._lr.fill_(self._opt.learning_rate)
+            self._net.train()
+            cc = self._graphs.get(key, self._body, self._lr.device,
+                                  self._watched, "JitTrainStep")
+            _ccache.count_aot_loads(int(cc.prepare(arrays,
+                                                   restore=self._watch)))
+        return self
 
     def sync_params(self):
         """Kept for parity.  The JAX package copies its jitted weights

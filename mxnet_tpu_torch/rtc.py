@@ -10,7 +10,10 @@ contract back:
 * ``CudaModule(source, options=(), exports=())`` compiles ``source``
   once with NVRTC for ``sm_90a`` (``-std=c++17``, the CUDA home's
   ``include/`` on the include path, so ``cuda_bf16.h`` resolves) and
-  keeps the CUBIN in memory; it is loaded into a device's primary
+  keeps the CUBIN in memory, and in the compile cache
+  (``compile_cache``: keyed by a hash of the source, the options, the
+  architecture and NVRTC's version; ``cached`` says whether this module
+  came from it, without a compile); it is loaded into a device's primary
   context at the first launch there.  ``exports`` are C++ name
   expressions (``"scale<float>"``) resolved to their mangled names;
   ``extern "C"`` kernels need none.
@@ -56,9 +59,11 @@ import itertools
 import os
 import re
 import threading
+import time
 
 import torch
 
+from . import compile_cache as _ccache
 from .base import MXNetError
 from .context import as_context
 from .engine import Engine
@@ -335,8 +340,18 @@ class CudaModule:
                              "host through mx.rtc.PallasKernel)")
         self.exports = tuple(exports)
         self.options = compile_options(options)
-        self.cubin, self._lowered, self.log = _nvrtc.compile_program(
-            source, "mxnet_rtc.cu", self.options, self.exports)
+        key = _ccache.cubin_key(source, "mxnet_rtc.cu", self.options,
+                                self.exports, _ARCH, _nvrtc.version())
+        got = _ccache.cubin_get(key)
+        self.cached = got is not None
+        if self.cached:
+            (self.cubin, self._lowered), self.log = got, ""
+        else:
+            t0 = time.perf_counter()
+            self.cubin, self._lowered, self.log = _nvrtc.compile_program(
+                source, "mxnet_rtc.cu", self.options, self.exports)
+            _ccache.cubin_put(key, self.cubin, self._lowered,
+                              time.perf_counter() - t0)
         self._modules = {}
         self._lock = threading.Lock()
 

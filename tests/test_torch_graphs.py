@@ -32,6 +32,7 @@ from mxnet_tpu.serve import arena as jax_arena
 from mxnet_tpu.serve import model as jm
 from mxnet_tpu.serve import server as jax_server
 from mxnet_tpu_torch import autograd as tag
+from mxnet_tpu_torch import compile_cache as tcc
 from mxnet_tpu_torch import graph_cache as gc
 from mxnet_tpu_torch import serve as ts
 from mxnet_tpu_torch.base import MXNetError
@@ -342,10 +343,20 @@ def test_create_graph_through_a_graphed_call_raises():
         torch.autograd.grad(out, params, create_graph=True)
 
 
-def test_hybridize_aot_and_lint_raise_naming_their_slice():
+def test_hybridize_aot_and_lint_raise_naming_their_slice(tmp_path):
+    """``aot=`` is ported (S5c): the block arms and saves its call
+    signatures; ``lint=True`` still raises, naming S9."""
     net = tllama.llama_small(device="cpu")
-    with pytest.raises(MXNetError, match="S5c"):
-        net.hybridize(aot="bundle.mxaot")
+    path = str(tmp_path / "bundle.mxaot")
+    assert net.hybridize(aot=path) is net
+    assert net._active and net._aot_path == path
+    toks = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 512, (1, 8)).astype(np.float32))
+    with torch.no_grad():
+        net(toks)
+    (entry,) = tcc.load_bundle(path)["entries"].values()
+    assert entry["signature"]["args"][0]["shape"] == [1, 8]
+    net.hybridize(False)
     with pytest.raises(MXNetError, match="S9"):
         net.hybridize(lint=True)
     assert not net._active

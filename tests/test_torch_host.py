@@ -435,6 +435,11 @@ names += ["mxnet_tpu_torch.gluon.parameter", "mxnet_tpu_torch.gluon.utils",
           "mxnet_tpu_torch.gluon.data.vision.transforms",
           "mxnet_tpu_torch.ndarray.legacy_io", "mxnet_tpu_torch.metric",
           "mxnet_tpu_torch.registry", "mxnet_tpu_torch.name"]
+names += ["mxnet_tpu_torch.compile_cache", "mxnet_tpu_torch.gluon.loss",
+          "mxnet_tpu_torch.initializer"] + [
+          "mxnet_tpu_torch.gluon.model_zoo.vision." + m
+          for m in ("alexnet", "vgg", "squeezenet", "densenet", "inception",
+                    "mobilenet", "_base")]
 names += ["chip_smoke", "tools.torch_paged_attention_sweep",
           "tools.torch_flash_attention_sweep", "tools.torch_mxfleet",
           "tools.torch_mxflight", "tools.torch_mxtrace",

@@ -1151,3 +1151,70 @@ def test_graphed_train_step_over_a_pair_holding_nodes_on_card(card):
     pair still holds its parameters' ``AccumulateGrad`` nodes: losses and
     weights bitwise equal to the eager step's."""
     chip_smoke.held_nodes_jit_check(card)
+
+
+# -- the vision families and saved signatures (S5c, S6b) ---------------------
+
+@pytest.mark.cuda
+def test_vision_families_agree_with_the_host_on_card(card):
+    chip_smoke.vision_parity(card)
+
+
+@pytest.mark.cuda
+def test_hybridized_densenet_bitwise_equal_eager_on_card(card):
+    chip_smoke.densenet_hybrid_check(card)
+
+
+@pytest.mark.cuda
+def test_aot_round_trips_through_fresh_processes_on_card(card):
+    """The hybridized Inception-v3, a causal bf16 Llama (K1 replayed)
+    and the graphed Inception-v3 step, each bitwise equal to the
+    exporting process's with no capture at call time; the loader's
+    NVRTC compile a cache hit."""
+    chip_smoke.vision_round_trips(card)
+
+
+@pytest.mark.cuda
+def test_load_executable_captures_ahead_and_steps_on_nothing_on_card(
+        card, tmp_path):
+    """In one process, a second step over a fresh net of the same
+    architecture: ``load_executable`` captures the step (one capture)
+    and leaves the weights, running statistics, momentum and count as
+    they were; after ``load_states`` its first step is a replay equal
+    to the first step's second, bitwise."""
+    from mxnet_tpu_torch import gluon, parallel
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    def make():
+        net = vision.DenseNet(16, 8, [2, 2], classes=10, device=card)
+        net.initialize(generator=torch.Generator(device=card).manual_seed(0))
+        return net, parallel.JitTrainStep(
+            net, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            {"learning_rate": 0.1, "momentum": 0.9})
+
+    x, y = chip_smoke._resnet_batch(card, 4, 56, 2)
+    paths = [str(tmp_path / n) for n in ("s.aot", "s.st", "s.params")]
+    with chip_smoke.exact_convs():
+        net, step = make()
+        chip_smoke.resnet_shapes(net, x)
+        step.step(x, y)
+        step.save_executable(paths[0])
+        step.save_states(paths[1])
+        net.save_parameters(paths[2])
+        want = step.step(x, y).clone()
+        weights = [p.detach().clone() for p in step._params]
+        net2, step2 = make()
+        net2.load_parameters(paths[2])
+        before = [t.clone() for t in net2.state_dict().values()]
+        step2.load_executable(paths[0], x, y)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(before, net2.state_dict().values()))
+        assert int(step2._count) == 0 and step2.stats()["captures"] == 1
+        assert not any(bool(s.any()) for s in step2._opt_state
+                       if s is not None)
+        step2.load_states(paths[1])
+        got = step2.step(x, y)
+        st = step2.stats()
+    assert (st["captures"], st["replays"]) == (1, 1)
+    assert torch.equal(got, want)
+    assert all(torch.equal(p, w) for p, w in zip(step2._params, weights))

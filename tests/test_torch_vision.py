@@ -529,9 +529,12 @@ def test_layout_policy_and_model_zoo_names():
         layout.layout_scope("NCHWX")
     net = vision.get_model("resnet18_v1", device="cpu", classes=7)
     assert net._layout == "NCHW" and net.output.weight.shape == (7, 512)
-    for name in ("vgg16", "densenet121", "mobilenet1.0", "alexnet"):
-        with pytest.raises(MXNetError, match="not ported yet"):
-            vision.get_model(name)
+    for name, cls in (("vgg16", vision.VGG),
+                      ("densenet121", vision.DenseNet),
+                      ("mobilenet1.0", vision.MobileNet),
+                      ("alexnet", vision.AlexNet)):
+        built = vision.get_model(name, device="cpu")
+        assert type(built) is cls and built._layout == "NCHW"
     with pytest.raises(MXNetError, match="not supported"):
         vision.get_model("resnet19_v1")
     with pytest.raises(MXNetError, match="no weights"):
