@@ -227,7 +227,39 @@ Phases, each fatal on failure:
              exporter's with no capture at call time, ``load_executable``
              stepping on nothing, the loader's NVRTC compile of the K5
              kernels a cache hit; the time to the first output and the
-             first replay with the bundles against the plain process's.
+             first replay with the bundles against the plain process's;
+17. gan    — DCGAN at the upstream example's widths (nz 100, ngf = ndf
+             = 64, 64 x 64 x 3; generator of ``Conv2DTranspose`` layers,
+             discriminator of ``Conv2D``, BatchNorm and LeakyReLU 0.2),
+             built with the port's ``gluon.nn`` and trained as a user's
+             script: two ``gluon.Trainer``s (adam 2e-4, beta1 0.5, O1),
+             one D step and one G step an iteration under ``record()``,
+             ``SigmoidBinaryCrossEntropyLoss``, ``fake.detach()``, the
+             noise from ``mx.nd.random.normal`` on the card, the example's
+             bright-square images made on the card from a seed.  First,
+             at batch 32, f32, TF32 off: one iteration on the card
+             against the host's f32 and f64 runs from the same weights,
+             noise and images (losses, then every weight after both
+             Trainer steps); then ``mx.random.seed(7)`` and 3 hybridized
+             iterations twice, bitwise equal; then the main path at batch
+             128: eager, then hybridized, 5 warm-up and 20 timed
+             iterations each: p50 ms, images/s, MFU from the shapes,
+             idle share, peak memory, kernels by kind with the transposed
+             convolutions timed alone, each net's replays and busy calls,
+             O1 launched for every Trainer step, every loss finite; then
+             one amp bf16 iteration whose transposed convolutions must
+             run in bf16;
+18. ops    — the op tail: every op the slice registers (but the
+             samplers) at small shapes on the card against the port on
+             the host, TF32 off: ordering, indexing and integer results
+             bitwise (ties and ``Embedding``'s out-of-range ids
+             included), f32 arithmetic within 1e-5 of the largest value,
+             ``_linalg_*`` within 1e-4; 2^22 draws of every sampler with
+             mean and variance within 5 standard errors and, where
+             continuous, the KS statistic under its critical value at
+             alpha 1e-6; seeded draws repeated bitwise; a hybridized
+             ``Dropout`` drawing new masks at each replay and the same
+             sequence after reseeding.
 
 Each phase logs the card's SM clock and its maximum when it starts.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -6050,6 +6082,983 @@ def vision_phase(dev):
     return o2
 
 
+# -- phase 17: DCGAN at full width -----------------------------------------
+
+# Apache MXNet's example/gluon/dc_gan/dcgan.py: nz 100, ngf = ndf = 64,
+# 64 x 64 x 3 images; Radford, Metz and Chintala 2016 (arXiv:1511.06434,
+# section 4): batch 128, Adam 2e-4 with beta1 0.5, weights from N(0, 0.02)
+GAN = dict(nz=100, ngf=64, ndf=64, nc=3, image=64, batch=128, lr=2e-4,
+           beta1=0.5, sigma=0.02, seed=0)
+GAN_PARITY_BATCH = 32
+GAN_KINDS = (("convolutions", ("conv", "cudnn", "xmma", "implicit",
+                               "dgrad", "wgrad", "winograd", "sm90_",
+                               "cutlass", "nchw", "nhwc")),
+             ("adam (O1)", ("multi_adamw",)),
+             ("batch-norm statistics", ("reduce_kernel",)),
+             ("copies", ("copy", "cat")),
+             ("elementwise", ("elementwise",)))
+
+
+def dcgan_nets(dev, g=GAN):
+    """The upstream DCGAN generator and discriminator on the port's
+    ``gluon.nn``, as a user's script builds them (deferred input widths,
+    channel-first)."""
+    from mxnet_tpu_torch.gluon import nn
+
+    ngf, ndf = g["ngf"], g["ndf"]
+    gen = nn.HybridSequential(prefix="gen_")
+    with gen.name_scope():
+        for i, (c, s, p) in enumerate(((ngf * 8, 1, 0), (ngf * 4, 2, 1),
+                                       (ngf * 2, 2, 1), (ngf, 2, 1))):
+            gen.add(nn.Conv2DTranspose(c, 4, s, p, use_bias=False,
+                                       device=dev),
+                    nn.BatchNorm(device=dev), nn.Activation("relu"))
+        gen.add(nn.Conv2DTranspose(g["nc"], 4, 2, 1, use_bias=False,
+                                   device=dev),
+                nn.Activation("tanh"))
+    disc = nn.HybridSequential(prefix="disc_")
+    with disc.name_scope():
+        for i, c in enumerate((ndf, ndf * 2, ndf * 4, ndf * 8)):
+            disc.add(nn.Conv2D(c, 4, 2, 1, use_bias=False, device=dev))
+            if i:
+                disc.add(nn.BatchNorm(device=dev))
+            disc.add(nn.LeakyReLU(0.2))
+        disc.add(nn.Conv2D(1, 4, 1, 0, use_bias=False, device=dev),
+                 nn.Flatten())
+    return gen, disc
+
+
+def gan_real(dev, n, seed, g=GAN):
+    """The example's bright-square images (``train_dcgan.py:33-41``)
+    scaled to 64 x 64 x 3, made on ``dev`` from ``seed``: -1 everywhere
+    but one axis-aligned square of 1 whose side is 16 to 32 pixels."""
+    import torch
+
+    size = g["image"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    w = torch.randint(16, 33, (n, 1, 1), generator=gen, device=dev)
+    x0 = (torch.rand((n, 1, 1), generator=gen, device=dev)
+          * (size - w + 1)).long()
+    y0 = (torch.rand((n, 1, 1), generator=gen, device=dev)
+          * (size - w + 1)).long()
+    r = torch.arange(size, device=dev)
+    rows = (r.view(1, -1, 1) >= y0) & (r.view(1, -1, 1) < y0 + w)
+    cols = (r.view(1, 1, -1) >= x0) & (r.view(1, 1, -1) < x0 + w)
+    img = torch.where(rows & cols, 1.0, -1.0)
+    return img.unsqueeze(1).expand(n, g["nc"], size, size).contiguous()
+
+
+class AdamF64:
+    """Adam over a net's trainable tensors in f64, the port's formula
+    (``g = grad / batch``; ``m`` and ``v`` from zero; ``w -= lr *
+    sqrt(1 - b2^t) / (1 - b1^t) * m / (sqrt(v) + eps)``): the f64
+    reference run's Trainer, where O1 and its plain version take f32,
+    bf16 and f16 weights only."""
+
+    def __init__(self, net, lr, beta1, beta2=0.999, eps=1e-8):
+        import torch
+
+        self.params = [p for p in net.parameters() if p.requires_grad]
+        self.m = [torch.zeros_like(p) for p in self.params]
+        self.v = [torch.zeros_like(p) for p in self.params]
+        self.lr, self.b1, self.b2, self.eps, self.t = lr, beta1, beta2, \
+            eps, 0
+
+    def step(self, batch):
+        import torch
+
+        self.t += 1
+        a = self.lr * math.sqrt(1 - self.b2 ** self.t) / (1 - self.b1
+                                                           ** self.t)
+        with torch.no_grad():
+            for p, m, v in zip(self.params, self.m, self.v):
+                g = p.grad / batch
+                m.mul_(self.b1).add_((1 - self.b1) * g)
+                v.mul_(self.b2).add_((1 - self.b2) * g * g)
+                p.sub_(a * m / (v.sqrt() + self.eps))
+
+
+class GanScript:
+    """The training loop of a user's DCGAN script on the port: two
+    hybridizable nets, two ``gluon.Trainer``s (adam), one D step and
+    one G step an iteration, ``SigmoidBinaryCrossEntropyLoss``, the
+    noise from ``mx.nd.random.normal`` on the context."""
+
+    def __init__(self, mx, ctx, gen, disc, batch, g=GAN):
+        from mxnet_tpu_torch import gluon
+
+        self.mx, self.ctx, self.gen, self.disc = mx, ctx, gen, disc
+        self.batch, self.nz = batch, g["nz"]
+        self.loss_fn = gluon.loss.SigmoidBinaryCrossEntropyLoss()
+        opts = {"learning_rate": g["lr"], "beta1": g["beta1"]}
+        self.d_tr = gluon.Trainer(disc.collect_params(), "adam", opts)
+        self.g_tr = gluon.Trainer(gen.collect_params(), "adam", opts)
+        self.ones = mx.nd.ones((batch,), ctx=ctx)
+        self.zeros = mx.nd.zeros((batch,), ctx=ctx)
+
+    def noise(self):
+        return self.mx.nd.random.normal(0, 1, shape=(self.batch, self.nz,
+                                                     1, 1), ctx=self.ctx)
+
+    def iteration(self, real, noise=None, tick=lambda part: None):
+        """One D step (real to 1, the detached fake to 0) and one G step
+        (the fake to 1); returns the two losses as NDArrays.  ``tick``
+        is called with each part's name as it ends."""
+        autograd = self.mx.autograd
+        noise = self.noise() if noise is None else noise
+        loss_fn, disc, gen = self.loss_fn, self.disc, self.gen
+        with autograd.record():
+            out_r = disc(real).reshape((-1,))
+            fake = gen(noise)
+            out_f = disc(fake.detach()).reshape((-1,))
+            errd = (loss_fn(out_r, self.ones)
+                    + loss_fn(out_f, self.zeros)).mean()
+        tick("D forward")
+        errd.backward()
+        tick("D backward")
+        self.d_tr.step(self.batch)
+        tick("D update")
+        with autograd.record():
+            out = disc(gen(noise)).reshape((-1,))
+            errg = loss_fn(out, self.ones).mean()
+        tick("G forward")
+        errg.backward()
+        tick("G backward")
+        self.g_tr.step(self.batch)
+        tick("G update")
+        return errd, errg
+
+
+def gan_weights(nets):
+    """Every parameter and running statistic of ``nets``, detached, by
+    name."""
+    out = {}
+    for tag, net in zip("GD", nets):
+        for k, t in net._collect_params_with_prefix().items():
+            out["%s.%s" % (tag, k)] = t.detach()
+    return out
+
+
+def gan_macs(gen, disc, noise, real):
+    """Multiply-adds of one forward of each net at these inputs (every
+    convolution and transposed convolution, from its shapes), and the
+    generator's transposed convolutions with their input shapes; the
+    nets are called eagerly here, before any ``hybridize()``."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.nn.conv_layers import _Conv, _ConvTranspose
+
+    macs = {"G": 0, "D": 0, "deconvs": []}
+    hooks = []
+
+    def counter(tag):
+        def hook(m, inp, out):
+            x = inp[0]
+            if isinstance(m, _ConvTranspose):
+                macs[tag] += x.numel() * math.prod(m.weight.shape[1:])
+                macs["deconvs"].append((m, tuple(x.shape)))
+            else:
+                macs[tag] += out.numel() * math.prod(m.weight.shape[1:])
+        return hook
+
+    for tag, net in (("G", gen), ("D", disc)):
+        for m in net.modules():
+            if isinstance(m, _Conv):
+                hooks.append(m.register_forward_hook(counter(tag)))
+    try:
+        with torch.no_grad(), autograd.predict_mode():
+            gen(noise)
+            disc(real)
+    finally:
+        for h in hooks:
+            h.detach()
+    return macs
+
+
+def gan_iteration_flops(macs):
+    """Model FLOP of one iteration: 2 x the multiply-adds of the passes
+    it runs.  The D step runs D forward twice (real, fake) and backward
+    twice, G forward once; the G step G forward, D forward and backward,
+    G backward; a backward counts twice its forward (input and weight
+    gradients): 4 G forwards and 9 D forwards in all."""
+    return 2 * (4 * macs["G"] + 9 * macs["D"])
+
+
+def gan_init(nets, sigma, generator=None):
+    import mxnet_tpu_torch as mx
+
+    for net in nets:
+        net.initialize(mx.init.Normal(sigma), generator=generator)
+
+
+def gan_parity(mx, dev):
+    """Full width at batch ``GAN_PARITY_BATCH``, f32, TF32 off,
+    deterministic cuDNN: one D-and-G iteration on the card against the
+    same iteration of the port on the host in f32 and in f64, from the
+    same weights, noise and images: the two losses, then every weight
+    and running statistic after both Trainer steps.  The card's error
+    (of the largest value, from the f64 run) must be within 1e-3, or 3x
+    the host f32 run's own error where that is larger.  A weight's
+    check allows the Adam coordinates whose gradient is so near zero
+    that an f32 rounding flips its sign (that weight then moves 2 x lr
+    the other way): at most 1e-5 of the elements, each within 2.5 x
+    lr."""
+    import torch
+
+    b = GAN_PARITY_BATCH
+    base = dcgan_nets("cpu")
+    gen_t = torch.Generator()
+    gen_t.manual_seed(GAN["seed"] + 1)
+    noise = torch.randn((b, GAN["nz"], 1, 1), generator=gen_t)
+    real = gan_real("cpu", b, GAN["seed"] + 2)
+    gan_init(base, GAN["sigma"], gen_t)
+    gan_macs(*base, noise, real)            # make the deferred shapes
+    state = [net.state_dict() for net in base]
+    runs = {}
+    with exact_convs():
+        for tag, where, dtype in (("card", dev, torch.float32),
+                                  ("host f32", "cpu", torch.float32),
+                                  ("host f64", "cpu", torch.float64)):
+            nets = dcgan_nets(where)
+            gan_init(nets, GAN["sigma"])
+            gan_macs(*nets, noise.to(where), real.to(where))
+            for net, st in zip(nets, state):
+                net.load_state_dict(st)
+                if dtype == torch.float64:
+                    net.double()
+            ctx = mx.gpu(0) if where != "cpu" else mx.cpu()
+            script = GanScript(mx, ctx, *nets, b)
+            if dtype == torch.float64:
+                script.g_tr = AdamF64(nets[0], GAN["lr"], GAN["beta1"])
+                script.d_tr = AdamF64(nets[1], GAN["lr"], GAN["beta1"])
+            t0 = time.perf_counter()
+            errd, errg = script.iteration(
+                mx.nd.array(real.to(dtype).numpy(), ctx=ctx, dtype=dtype),
+                mx.nd.array(noise.to(dtype).numpy(), ctx=ctx, dtype=dtype))
+            losses = torch.tensor([float(errd.asscalar()),
+                                   float(errg.asscalar())], dtype=torch.float64)
+            runs[tag] = (losses, {k: v.double().cpu() for k, v in
+                                  gan_weights(nets).items()})
+            log("gan parity: %s iteration %.2f s, losses D %.6f G %.6f"
+                % (tag, time.perf_counter() - t0, losses[0], losses[1]))
+    (cl, cw), (hl, hw), (wl, ww) = runs["card"], runs["host f32"], \
+        runs["host f64"]
+    scale = wl.abs().max().item()
+    e_card = (cl - wl).abs().max().item() / scale
+    e_host = (hl - wl).abs().max().item() / scale
+    bound = max(1e-3, 3 * e_host)
+    ok = e_card <= bound
+    log("gan parity: losses: card %.3g, host f32 %.3g of the largest (%.4g) "
+        "from the host's f64 run (bound %.3g) %s"
+        % (e_card, e_host, scale, bound, "ok" if ok else "FAIL"))
+    lr = GAN["lr"]
+    worst, flips, n_all = (0.0, 0.0, "", 0.0), 0, 0
+    for k in ww:
+        w = ww[k]
+        s = w.abs().max().item() + 1e-30
+        dc = (cw[k] - w).abs()
+        dh = (hw[k] - w).abs()
+        tensor_bound = max(1e-3, 3 * dh.max().item() / s)
+        off = dc / s > tensor_bound
+        flips += int(off.sum())
+        n_all += w.numel()
+        if bool(off.any()) and dc[off].max().item() > 2.5 * lr:
+            ok = False
+            log("gan parity: %s: %d elements off by up to %.3g (more than "
+                "2.5 x lr) FAIL" % (k, int(off.sum()), dc[off].max().item()))
+        e = (dc[~off].max().item() if bool((~off).any()) else 0.0) / s
+        if e > worst[0]:
+            worst = (e, dh.max().item() / s, k, tensor_bound)
+    ok &= flips <= 1e-5 * n_all
+    log("gan parity: %d weights and statistics (%d elements) after both "
+        "Trainer steps: worst card error %.3g of its tensor's largest "
+        "value (%s; host f32 %.3g, bound %.3g), %d elements past the bound "
+        "(Adam sign flips, each within 2.5 x lr; at most %d allowed) %s"
+        % (len(ww), n_all, worst[0], worst[2], worst[1], worst[3], flips,
+           int(1e-5 * n_all), "ok" if ok else "FAIL"))
+    if not ok:
+        fail("the card's DCGAN iteration disagrees with the host's")
+
+
+def gan_repro(mx, dev):
+    """``mx.random.seed(7)``, initialize and train 3 hybridized
+    iterations at full width (noise from ``nd.random.normal`` on the
+    card), twice, with deterministic cuDNN: every weight and running
+    statistic bitwise equal."""
+    import torch
+
+    ctx = mx.gpu(0)
+    results = []
+    real = mx.nd.array(gan_real(dev, GAN["batch"], GAN["seed"]), ctx=ctx)
+    with exact_convs():
+        for _ in range(2):
+            mx.random.seed(7)
+            nets = dcgan_nets(dev)
+            gan_init(nets, GAN["sigma"])
+            for net in nets:
+                net.hybridize()
+            script = GanScript(mx, ctx, *nets, GAN["batch"])
+            losses = [[float(l.asscalar()) for l in script.iteration(real)]
+                      for _ in range(3)]
+            results.append((losses, gan_weights(nets)))
+            del nets, script
+    (la, wa), (lb, wb) = results
+    same = la == lb and all(torch.equal(wa[k], wb[k]) for k in wa)
+    log("gan repro: mx.random.seed(7), 3 hybridized iterations twice: "
+        "losses %s; weights and statistics %s"
+        % (la, "bitwise equal" if same else "DIFFER"))
+    if not same:
+        fail("two seeded DCGAN runs differ")
+
+
+def gan_deconv_alone(deconvs):
+    """The generator's transposed convolutions (``(layer, input shape)``
+    from ``gan_macs``), each alone at its shape in the iteration (CUDA
+    events, 20 runs): forward ms and backward ms (data and weight
+    gradients), summed over the layers."""
+    import torch
+
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    fwd = bwd = 0.0
+    for m, shape in deconvs:
+        w = m.weight.detach().clone().requires_grad_()
+        x = torch.randn(shape, device=w.device, requires_grad=True)
+        kw = dict(m._kwargs)
+
+        def run(i):
+            return ops_nn._deconvolution(x, w, None, **kw)
+
+        head = torch.randn_like(run(0))
+        ms = cuda_ms(run, 20)
+        fwd += ms
+        bwd += cuda_ms(lambda i: torch.autograd.grad(run(i), (x, w), head),
+                       20) - ms
+    return fwd, bwd
+
+
+@contextlib.contextmanager
+def torch_defaults():
+    """PyTorch's own defaults for the convolutions and products (cuDNN
+    may use TF32, the f32 GEMMs do not; no autotuning, nothing forced
+    deterministic), whatever an earlier phase set: what a user's f32
+    script runs with."""
+    import torch
+
+    b = torch.backends
+    saved = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32,
+             b.cudnn.deterministic, b.cudnn.benchmark)
+    b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32 = False, True
+    b.cudnn.deterministic, b.cudnn.benchmark = False, False
+    try:
+        yield
+    finally:
+        (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32,
+         b.cudnn.deterministic, b.cudnn.benchmark) = saved
+
+
+def gan_timed(mx, dev):
+    """The main path: full width, batch 128, f32 (torch's defaults:
+    cuDNN's convolutions may use TF32), as a user's script:
+    eager, then both nets hybridized, 5 warm-up and 20 timed iterations
+    each (one more profiled): p50 iteration ms (min, max), images/s,
+    MFU from the shapes against 989 TFLOP/s, the idle share of the p50
+    iteration, peak memory, kernels by kind with the transposed
+    convolutions timed alone, and each net's replays and busy calls.
+    Returns O1's launches."""
+    import torch
+
+    from mxnet_tpu_torch.ops import optimizer_ops as oo
+
+    ctx = mx.gpu(0)
+    b = GAN["batch"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    mx.random.seed(GAN["seed"])
+    nets = dcgan_nets(dev)
+    gan_init(nets, GAN["sigma"])
+    real_t = gan_real(dev, b, GAN["seed"])
+    macs = gan_macs(*nets, torch.randn(b, GAN["nz"], 1, 1, device=dev),
+                    real_t)
+    flops = gan_iteration_flops(macs)
+    n_params = [sum(p.numel() for p in net.parameters()) for net in nets]
+    log("gan train: DCGAN at 64 x 64 x 3, nz %d, ngf = ndf = %d: G %.4g M "
+        "and D %.4g M parameters, f32, batch %d, adam %.0e beta1 %.1f; "
+        "one forward G %.4g and D %.4g GMAC, %.4g TFLOP an iteration "
+        "(4 G and 9 D forwards' worth)"
+        % (GAN["nz"], GAN["ngf"], n_params[0] / 1e6, n_params[1] / 1e6, b,
+           GAN["lr"], GAN["beta1"], macs["G"] / 1e9, macs["D"] / 1e9,
+           flops / 1e12))
+    real = mx.nd.array(real_t, ctx=ctx)
+    script = GanScript(mx, ctx, *nets, b)
+
+    def iteration():
+        # the losses without their graphs: an eager iteration's graph
+        # still held holds the parameters' AccumulateGrad nodes, made on
+        # the default stream, and the first capture after it fails
+        # (cudaErrorStreamCaptureImplicit; ROADMAP §1)
+        return tuple(t.detach() for t in script.iteration(real))
+
+    reset_opt_counts(oo)
+    rows, parts = {}, {}
+    losses = []
+    n_warm, n_timed = 5, 20
+    for mode in ("eager", "hybridized"):
+        if mode == "hybridized":
+            for net in nets:
+                net.hybridize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, outs = timed_steps(iteration, n_warm, n_timed)
+        parts[mode] = gan_parts(script, real)
+        losses += [(float(d.asscalar()), float(g.asscalar()))
+                   for d, g in outs]
+        out, wall, busy, averages = profiled_step(iteration)
+        losses.append(tuple(float(t.asscalar()) for t in out))
+        rows[mode] = (times, wall, busy, averages,
+                      torch.cuda.max_memory_allocated(),
+                      [net.stats() for net in nets])
+    o1 = opt_counts(oo)["O1"]
+    n_iters = 2 * (n_warm + n_timed + 1 + 7)
+    log("gan train: O1 launched %d times over %d iterations (two Trainers)"
+        % (o1, n_iters))
+    if o1 < 2 * n_iters:
+        fail("the DCGAN Adam updates launched O1 %d times over %d "
+             "iterations" % (o1, n_iters))
+    if not all(math.isfinite(v) for pair in losses for v in pair):
+        fail("a DCGAN loss is not finite")
+    log("gan train: losses (D, G) first %s, last %s"
+        % (["%.4f" % v for v in losses[0]], ["%.4f" % v for v in losses[-1]]))
+    fwd_ms, bwd_ms = gan_deconv_alone(macs["deconvs"])
+    for mode, (times, wall, busy, averages, peak, stats) in rows.items():
+        p50_s = times[len(times) // 2]
+        top, _, kern_ms = kernel_rows(averages)
+        log("gan train: %s iteration ms p50 %.3f (min %.3f max %.3f over %d "
+            "timed), %.1f images/s, %.2f%% MFU (%.4g model FLOP at 989 "
+            "TFLOP/s), own peak device memory %.3f GB"
+            % (mode, 1e3 * p50_s, 1e3 * times[0], 1e3 * times[-1],
+               len(times), b / p50_s, 100 * flops / p50_s / BF16_FLOPS, flops,
+               (peak - held) / 1e9))
+        log("gan train: %s profiled iteration: wall %.3f ms (the profiler's "
+            "own cost in it), kernels busy %.3f ms: idle %.1f%% of the "
+            "profiled iteration, %.1f%% of the p50 iteration; kernels "
+            "summed %.3f ms; by kind %s"
+            % (mode, wall * 1e3, busy, 100 * (1 - busy / (wall * 1e3)),
+               100 * max(0.0, 1 - busy / (p50_s * 1e3)), kern_ms,
+               ", ".join("%s %.3f" % kv for kv in kernel_kinds(
+                   averages, GAN_KINDS).items())))
+        for ms, n, key in top[:8]:
+            log("gan train:   %9.3f ms  x%-5d %s" % (ms, n, key[:100]))
+        log("gan train: %s parts of an iteration (ms, synchronised at each "
+            "end, median of 7): %s" % (mode, ", ".join(
+                "%s %.3f" % kv for kv in parts[mode].items())))
+        for tag, st in zip(("gen", "disc"), stats):
+            log("gan train: %s %s: %d captures, %d replays, %d backward "
+                "replays, %d busy calls run eagerly"
+                % (mode, tag, st["captures"], st["replays"],
+                   st.get("backward_replays", 0), st["busy_calls"]))
+    log("gan train: the generator's 5 transposed convolutions alone at the "
+        "iteration's shapes: forward %.3f ms, backward %.3f ms; an "
+        "iteration runs the forward twice and the backward once: %.3f ms"
+        % (fwd_ms, bwd_ms, 2 * fwd_ms + bwd_ms))
+    del script, nets
+    gc.collect()
+    torch.cuda.empty_cache()
+    return o1
+
+
+def gan_parts(script, real, n=7):
+    """Wall ms of each part of an iteration, the card synchronised at
+    each part's end (so a part's host and device time both count):
+    ``{part: median ms}`` over ``n`` iterations."""
+    import torch
+
+    rows = {}
+
+    def tick(part):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rows.setdefault(part, []).append(now - last[0])
+        last[0] = now
+
+    for _ in range(n):
+        torch.cuda.synchronize()
+        last = [time.perf_counter()]
+        script.iteration(real, tick=tick)
+    return {k: 1e3 * sorted(v)[len(v) // 2] for k, v in rows.items()}
+
+
+def gan_amp(mx, dev):
+    """One iteration under ``amp.init("bfloat16")`` at full width: the
+    generator's transposed convolutions must run in bf16 (a forward hook
+    reads each one's output dtype) and the losses must be finite."""
+    import torch
+
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon.nn.conv_layers import _ConvTranspose
+
+    ctx = mx.gpu(0)
+    mx.random.seed(GAN["seed"])
+    nets = dcgan_nets(dev)
+    gan_init(nets, GAN["sigma"])
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, i, o: seen.append(o.dtype))
+             for m in nets[0].modules() if isinstance(m, _ConvTranspose)]
+    script = GanScript(mx, ctx, *nets, GAN["batch"])
+    real = mx.nd.array(gan_real(dev, GAN["batch"], GAN["seed"]), ctx=ctx)
+    amp.init("bfloat16")
+    try:
+        errd, errg = script.iteration(real)
+        losses = (float(errd.asscalar()), float(errg.asscalar()))
+    finally:
+        amp.turn_off()
+        for h in hooks:
+            h.detach()
+    ok = seen and all(d == torch.bfloat16 for d in seen) \
+        and all(math.isfinite(v) for v in losses)
+    log("gan amp: bf16 iteration: %d Deconvolution calls in %s; losses D "
+        "%.4f G %.4f %s" % (len(seen), sorted({str(d) for d in seen}),
+                            losses[0], losses[1], "ok" if ok else "FAIL"))
+    if not ok:
+        fail("under amp the generator's Deconvolution did not run in bf16")
+
+
+def gan_phase(mx, dev):
+    """DCGAN's parity, reproducibility, timed main path and amp
+    iteration.  Returns O1's launches on the main path."""
+    start_profiler(dev)
+    gan_parity(mx, dev)
+    gan_repro(mx, dev)
+    with torch_defaults():
+        o1 = gan_timed(mx, dev)
+        gan_amp(mx, dev)
+    return o1
+
+
+# -- phase 18: the op tail on the card -------------------------------------
+
+# Each sampler of ops/random_ops.py with the scipy distribution its draws
+# follow: (label, op, attrs, scipy name, its arguments, continuous).
+SAMPLERS = (
+    ("uniform", "_random_uniform", dict(low=-1.0, high=3.0), "uniform",
+     dict(loc=-1.0, scale=4.0), True),
+    ("normal", "_random_normal", dict(loc=0.5, scale=2.0), "norm",
+     dict(loc=0.5, scale=2.0), True),
+    ("gamma", "_random_gamma", dict(alpha=2.5, beta=1.5), "gamma",
+     dict(a=2.5, scale=1.5), True),
+    ("gamma a<1", "_random_gamma", dict(alpha=0.5, beta=1.0), "gamma",
+     dict(a=0.5), True),
+    ("exponential", "_random_exponential", dict(lam=2.0), "expon",
+     dict(scale=0.5), True),
+    ("gumbel", "_random_gumbel", dict(loc=1.0, scale=2.0), "gumbel_r",
+     dict(loc=1.0, scale=2.0), True),
+    ("poisson", "_random_poisson", dict(lam=4.0), "poisson",
+     dict(mu=4.0), False),
+    ("negative_binomial", "_random_negative_binomial", dict(k=3, p=0.4),
+     "nbinom", dict(n=3, p=0.4), False),
+    ("randint", "_random_randint", dict(low=-3, high=7), "randint",
+     dict(low=-3, high=7), False),
+    ("bernoulli", "_random_bernoulli", dict(prob=0.3), "bernoulli",
+     dict(p=0.3), False),
+)
+# the _sample_* ops: parameter rows, each with its own distribution
+SAMPLE_ROWS = (
+    ("sample_uniform", "_sample_uniform", ([-1.0, 2.0], [3.0, 2.5]),
+     "uniform", lambda lo, hi: dict(loc=lo, scale=hi - lo), True),
+    ("sample_normal", "_sample_normal", ([0.0, -2.0], [1.0, 0.5]), "norm",
+     lambda mu, sigma: dict(loc=mu, scale=sigma), True),
+    ("sample_gamma", "_sample_gamma", ([2.5, 0.7], [1.5, 2.0]), "gamma",
+     lambda a, b: dict(a=a, scale=b), True),
+)
+MULTINOMIAL_P = (0.1, 0.2, 0.3, 0.4)
+KS_ALPHA = 1e-6
+
+
+def op_tail_cases():
+    """Every op of this slice but the samplers, at small shapes:
+    ``(label, op, numpy inputs, attrs, kind)``, where ``kind`` says how
+    the card's result is held to the host's: ``exact`` (bitwise, NaN
+    where NaN: ordering, indexing and integer results, ties included),
+    ``f32`` (within 1e-5 of the largest value), ``linalg`` (1e-4) or
+    ``recon`` (a factorization whose signs are free: its product within
+    1e-4)."""
+    rs = np.random.RandomState(0)
+
+    def f(*shape):
+        return rs.standard_normal(shape).astype(np.float32)
+
+    def pos(*shape, lo=0.2, hi=2.0):
+        return rs.uniform(lo, hi, shape).astype(np.float32)
+
+    def spd(n, batch=()):
+        a = f(*(batch + (n, n)))
+        return (a @ np.swapaxes(a, -1, -2) + n * np.eye(n)).astype(
+            np.float32)
+
+    low = (np.tril(f(5, 5)) + 4 * np.eye(5)).astype(np.float32)
+    ties = np.array([[3, 1, 3, 2, 1, 3, 0, 3], [0, 0, 5, 5, 0, 2, 5, 0],
+                     [7, 7, 7, 7, 7, 7, 7, 7]], np.float32)
+    counts = np.array([[0, 1, 3], [2, 5, 0]], np.float32)
+    qkv = f(6, 2, 3 * 4 * 8)
+    cases = [
+        ("Embedding F3", "Embedding",
+         [np.array([0, -1, 3, -4, 1.7], np.float32),
+          np.ones((3, 2), np.float32)], {}, "exact"),
+        ("Embedding", "Embedding", [rs.randint(-40, 40, (4, 6)).astype(
+            np.float32), f(32, 16)], {}, "exact"),
+        ("FullyConnected", "FullyConnected", [f(8, 3, 4), f(16, 12), f(16)],
+         {"num_hidden": 16}, "f32"),
+        ("Deconvolution", "Deconvolution", [f(2, 8, 5, 5), f(8, 4, 4, 4)],
+         {"kernel": (4, 4), "stride": (2, 2), "pad": (1, 1),
+          "num_filter": 4}, "f32"),
+        ("Deconvolution adj>=stride", "Deconvolution",
+         [f(2, 4, 5, 6), f(4, 3, 3, 3), f(3)],
+         {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1), "adj": (3, 2),
+          "num_filter": 3, "no_bias": False}, "f32"),
+        ("Deconvolution target_shape", "Deconvolution",
+         [f(2, 4, 5, 6), f(4, 3, 3, 3)],
+         {"kernel": (3, 3), "stride": (2, 1), "target_shape": (16, 11),
+          "num_filter": 3}, "f32"),
+        ("Deconvolution groups dilate", "Deconvolution",
+         [f(1, 6, 5, 5), f(6, 2, 3, 3)],
+         {"kernel": (3, 3), "dilate": (2, 3), "pad": (2, 1), "num_group": 3,
+          "num_filter": 6}, "f32"),
+        ("L2Normalization", "L2Normalization", [f(2, 3, 4, 5)],
+         {"mode": "channel"}, "f32"),
+        ("RMSNorm", "RMSNorm", [f(4, 16), pos(16)], {}, "f32"),
+        ("softmin", "softmin", [f(4, 9)], {}, "f32"),
+        ("SoftmaxActivation", "SoftmaxActivation", [f(2, 3, 4)],
+         {"mode": "channel"}, "f32"),
+        ("SoftmaxOutput", "SoftmaxOutput", [f(6, 5), np.array(
+            [0, 4, 1, 2, 3, 1], np.float32)], {}, "f32"),
+        ("smooth_l1", "smooth_l1", [f(5, 6)], {"scalar": 2.0}, "f32"),
+        ("softmax_cross_entropy", "softmax_cross_entropy",
+         [f(6, 5), np.array([0, 4, 1, 2, 3, 1], np.float32)], {}, "f32"),
+        ("selfatt_qk", "_contrib_interleaved_matmul_selfatt_qk", [qkv],
+         {"heads": 4}, "f32"),
+        ("selfatt_valatt", "_contrib_interleaved_matmul_selfatt_valatt",
+         [qkv, f(8, 6, 6)], {"heads": 4}, "f32"),
+        ("arange_like", "_contrib_arange_like", [f(3, 4)],
+         {"start": 2.0, "step": 0.5}, "exact"),
+        ("div_sqrt_dim", "_contrib_div_sqrt_dim", [f(3, 16)], {}, "f32"),
+        ("UpSampling", "UpSampling", [f(2, 3, 4, 5)], {"scale": 2},
+         "exact"),
+        ("BilinearSampler", "BilinearSampler",
+         [f(2, 3, 5, 6), rs.uniform(-1.2, 1.2, (2, 2, 4, 3)).astype(
+             np.float32)], {}, "f32"),
+        ("shape_array", "shape_array", [f(3, 4, 5)], {}, "exact"),
+        ("size_array", "size_array", [f(3, 4, 5)], {}, "exact"),
+        ("make_loss", "make_loss", [f(3, 4)], {}, "exact"),
+        ("amp_cast", "amp_cast", [f(3, 4)], {"dtype": "bfloat16"}, "exact"),
+        ("amp_multicast", "amp_multicast",
+         [f(3).astype(np.float16), f(3)], {"num_outputs": 2}, "exact"),
+        ("gather_nd", "gather_nd", [f(4, 5, 3), np.array(
+            [[0, 3, -1, 9], [4, 0, 1, -2]], np.float32)], {}, "exact"),
+        ("scatter_nd", "scatter_nd", [f(4, 3), np.array(
+            [[0, 2, -1, 7], [1, 0, 2, 2]], np.int32)], {"shape": (3, 3, 3)},
+         "exact"),
+        ("_scatter_set_nd", "_scatter_set_nd", [f(3, 4), f(2), np.array(
+            [[0, 2], [3, 1]], np.int32)], {"shape": (3, 4)}, "exact"),
+        ("boolean_mask_fill", "boolean_mask_fill",
+         [f(4, 3), np.array([1, 0, 0, 1], np.float32)], {"value": -2.0},
+         "exact"),
+        ("one_hot", "one_hot", [np.array([0, 2, 7, -1], np.float32)],
+         {"depth": 4}, "exact"),
+        ("sort ties", "sort", [ties], {"is_ascend": False}, "exact"),
+        ("argsort ties", "argsort", [ties], {"axis": 0, "is_ascend": False},
+         "exact"),
+        ("argsort ties asc", "argsort", [ties], {}, "exact"),
+        ("topk ties", "topk", [ties], {"k": 3, "ret_typ": "both"}, "exact"),
+        ("topk ties asc", "topk", [ties], {"k": 2, "is_ascend": True,
+                                          "axis": 0}, "exact"),
+        ("diag", "diag", [f(3, 4, 2)], {"k": 1}, "exact"),
+        ("einsum", "_npi_einsum", [f(3, 4), f(4, 5)],
+         {"subscripts": "ij,jk->ik"}, "f32"),
+        ("khatri_rao", "khatri_rao", [f(3, 4), f(2, 4)], {}, "f32"),
+        ("SequenceMask", "SequenceMask", [f(5, 3, 2), np.array(
+            [2, 5, 1], np.float32)], {"use_sequence_length": True},
+         "exact"),
+        ("SequenceLast", "SequenceLast", [f(3, 5, 2), np.array(
+            [2, 5, 1], np.float32)], {"use_sequence_length": True,
+                                      "axis": 1}, "exact"),
+        ("SequenceReverse", "SequenceReverse", [f(5, 3, 2), np.array(
+            [2, 5, 1], np.float32)], {"use_sequence_length": True},
+         "exact"),
+        ("_linalg_gemm2", "_linalg_gemm2", [f(2, 3, 4), f(2, 5, 4)],
+         {"transpose_b": True, "alpha": 0.5}, "linalg"),
+        ("_linalg_gemm", "_linalg_gemm", [f(3, 4), f(4, 2), f(3, 2)],
+         {"beta": 0.5}, "linalg"),
+        ("_linalg_syrk", "_linalg_syrk", [f(3, 4)], {}, "linalg"),
+        ("_linalg_potrf", "_linalg_potrf", [spd(5)], {}, "linalg"),
+        ("_linalg_trsm", "_linalg_trsm", [low, f(5, 3)], {}, "linalg"),
+        ("_linalg_trsm right", "_linalg_trsm", [low, f(3, 5)],
+         {"rightside": True, "transpose": True}, "linalg"),
+        ("_linalg_sumlogdiag", "_linalg_sumlogdiag", [spd(4, (2,))], {},
+         "linalg"),
+        ("_linalg_extractdiag", "_linalg_extractdiag", [f(2, 4, 4)],
+         {"offset": 1}, "exact"),
+        ("_linalg_makediag", "_linalg_makediag", [f(2, 4)], {}, "exact"),
+        ("_linalg_svd", "_linalg_svd", [f(2, 5, 3)], {}, "recon"),
+        ("_linalg_inverse", "_linalg_inverse", [spd(5)], {}, "linalg"),
+        ("_linalg_det", "_linalg_det", [spd(3, (2,))], {}, "linalg"),
+        ("_linalg_extracttrian", "_linalg_extracttrian", [f(2, 4, 4)],
+         {"offset": 1}, "exact"),
+        ("_linalg_maketrian", "_linalg_maketrian", [f(2, 10)], {},
+         "exact"),
+        ("_linalg_gelqf", "_linalg_gelqf", [f(3, 5)], {}, "recon"),
+        ("_linalg_potri", "_linalg_potri", [low], {}, "linalg"),
+        ("_linalg_slogdet", "_linalg_slogdet", [spd(3, (2,))], {},
+         "linalg"),
+        ("_linalg_syevd", "_linalg_syevd", [spd(5)], {}, "recon"),
+        ("_linalg_trmm", "_linalg_trmm", [f(4, 4), f(4, 3)],
+         {"alpha": 1.5}, "linalg"),
+    ]
+    pdf = [("_random_pdf_uniform", [pos(2, 3, lo=0.4, hi=0.6),
+                                    pos(2, lo=0.0, hi=0.3),
+                                    pos(2, lo=0.7, hi=1.0)]),
+           ("_random_pdf_normal", [pos(2, 3), f(2), pos(2)]),
+           ("_random_pdf_gamma", [pos(2, 3), pos(2), pos(2)]),
+           ("_random_pdf_exponential", [pos(2, 3), pos(2)]),
+           ("_random_pdf_poisson", [counts, pos(2)]),
+           ("_random_pdf_negative_binomial", [counts, pos(2),
+                                              pos(2, lo=0.2, hi=0.8)]),
+           ("_random_pdf_generalized_negative_binomial",
+            [counts, pos(2), pos(2)]),
+           ("_random_pdf_dirichlet", [
+               (lambda x: x / x.sum(-1, keepdims=True))(pos(2, 3, 4)),
+               pos(2, 4)])]
+    cases += [(name, name, ins, {"is_log": True}, "f32")
+              for name, ins in pdf]
+    return cases
+
+
+def _recon(name, outs):
+    """The product a sign-free factorization must give back."""
+    if name == "_linalg_svd":
+        u, s, vt = outs
+        return [u @ (s.unsqueeze(-1) * vt), s]
+    if name == "_linalg_syevd":
+        u, lam = outs
+        return [u.transpose(-1, -2) @ (lam.unsqueeze(-1) * u), lam]
+    lq, q = outs
+    return [lq @ q, q @ q.transpose(-1, -2)]
+
+
+def op_tail_checks(dev):
+    """Each case of ``op_tail_cases`` on the card against the port on the
+    host (TF32 off): ``[(label, kind, error, bound, ok)]``; an ``exact``
+    case's error is its count of differing elements."""
+    import torch
+
+    from mxnet_tpu_torch.ops import registry
+
+    rows = []
+    with exact_convs():
+        for label, op, inputs, attrs, kind in op_tail_cases():
+            fwd = registry.get(op).forward
+            outs = {}
+            for where in ("cpu", dev):
+                ts = [torch.from_numpy(x).to(where) for x in inputs]
+                out = fwd(*ts, **attrs)
+                out = list(out) if isinstance(out, (tuple, list)) else [out]
+                if kind == "recon":
+                    out = _recon(op, out)
+                outs[str(where)] = [o.detach().cpu() for o in out]
+            host, card = outs["cpu"], outs[str(dev)]
+            if kind == "exact":
+                err = sum(int((~((h == c) | (h.isnan() & c.isnan()))).sum())
+                          if h.is_floating_point() else int((h != c).sum())
+                          for h, c in zip(host, card))
+                err += sum(h.dtype != c.dtype or h.shape != c.shape
+                           for h, c in zip(host, card))
+                bound = 0
+            else:
+                bound = 1e-5 if kind == "f32" else 1e-4
+                err = max(((c.double() - h.double()).abs().max()
+                           / h.double().abs().max().clamp_min(1e-30)).item()
+                          for h, c in zip(host, card))
+                err = err if all(h.shape == c.shape and h.dtype == c.dtype
+                                 for h, c in zip(host, card)) else math.inf
+            rows.append((label, kind, err, bound, err <= bound))
+    return rows
+
+
+def seeded_draws_repeat(mx, dev):
+    """After ``mx.random.seed(s)`` the same op sequence on the card gives
+    bitwise-equal draws twice, and another seed other draws."""
+    import torch
+
+    ctx = mx.context.as_context(dev)
+
+    def run(s):
+        mx.random.seed(s)
+        return [mx.nd.random.normal(0, 1, shape=(1000,), ctx=ctx).data(),
+                mx.nd.random.uniform(-1, 1, shape=(77,), ctx=ctx).data(),
+                mx.nd.random.gamma(0.7, 2.0, shape=(500,), ctx=ctx).data(),
+                mx.nd.random.poisson(3.0, shape=(300,), ctx=ctx).data(),
+                mx.nd.random.randint(0, 9, shape=(64,), ctx=ctx).data(),
+                mx.nd.random.multinomial(mx.nd.array(
+                    [MULTINOMIAL_P] * 3, ctx=ctx), shape=(40,)).data(),
+                mx.nd.random.shuffle(mx.nd.arange(50, ctx=ctx)).data()]
+    a, b, c = run(5), run(5), run(6)
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    differ = not torch.equal(a[0], c[0])
+    return same, differ
+
+
+def dropout_graph_masks(mx, dev):
+    """A hybridized block with ``Dropout`` in train mode: 4 calls (eager,
+    capture, replays) after ``mx.random.seed(9)``, twice.  Returns
+    whether successive masks differ, whether the two sequences are
+    bitwise equal, and the block's stats."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn
+
+    net = nn.HybridSequential()
+    net.add(nn.Dropout(0.5))
+    net.hybridize()
+    x = torch.ones(256, 64, device=dev)
+    seqs = []
+    for _ in range(2):
+        mx.random.seed(9)
+        with autograd.train_mode():
+            seqs.append([net(x).clone() for _ in range(4)])
+    a, b = seqs
+    differ = all(not torch.equal(a[i], a[i + 1]) for i in range(3))
+    same = all(torch.equal(p, q) for p, q in zip(a, b))
+    return differ, same, net.stats()
+
+
+def ops_phase(mx, dev):
+    """Every op of the op tail on the card against the host, every
+    sampler's 2^22 draws against its distribution, seeded draws
+    repeated, and a hybridized Dropout's masks through its replays."""
+    ok = True
+    for label, kind, err, bound, good in op_tail_checks(dev):
+        ok &= good
+        log("ops: %-28s %-6s %s %s" % (
+            label, kind, ("%d elements differ" % err) if kind == "exact"
+            else "%.3g of the largest (bound %.0e)" % (err, bound),
+            "ok" if good else "FAIL"))
+    t0 = time.perf_counter()
+    n = 1 << 22
+    for label, r in draw_readings(dev, n, 17).items():
+        if label == "shuffle":
+            good = r["permutes"] and r["moved"] > 0.99
+            log("ops: draws shuffle: %d rows permuted %s, %.4f moved %s"
+                % (n, r["permutes"], r["moved"], "ok" if good else "FAIL"))
+        else:
+            good = draw_ok(r)
+            log("ops: draws %-18s n %d: mean %.6g (want %.6g, %+.2f se), var "
+                "%.6g (want %.6g, %+.2f se)%s %s"
+                % (label, r["n"], r["mean"], r["want_mean"], r["mean_z"],
+                   r["var"], r["want_var"], r["var_z"],
+                   "" if r["ks"] is None else ", KS %.3g (critical %.3g at "
+                   "alpha %.0e)" % (r["ks"], r["ks_crit"], KS_ALPHA),
+                   "ok" if good else "FAIL"))
+        ok &= good
+    log("ops: the draws and their readings took %.1f s"
+        % (time.perf_counter() - t0))
+    same, differ = seeded_draws_repeat(mx, dev)
+    log("ops: seeded draws: two runs after mx.random.seed(5) %s; seed 6 "
+        "draws %s" % ("bitwise equal" if same else "DIFFER",
+                      "others" if differ else "THE SAME"))
+    ok &= same and differ
+    differ, same, st = dropout_graph_masks(mx, dev)
+    good = differ and same and st["replays"] >= 4
+    log("ops: hybridized Dropout: successive masks %s, the sequence after "
+        "reseeding %s; %d captures, %d replays %s"
+        % ("differ" if differ else "REPEAT",
+           "bitwise equal" if same else "DIFFERS", st["captures"],
+           st["replays"], "ok" if good else "FAIL"))
+    ok &= good
+    if not ok:
+        fail("an op of the op tail, a sampler or a draw check missed")
+
+
+def scipy_dist(name, args):
+    import scipy.stats
+
+    if name == "categorical":
+        p = np.asarray(args["p"], np.float64)
+        return scipy.stats.rv_discrete(values=(np.arange(len(p)), p))
+    return getattr(scipy.stats, name)(**args)
+
+
+def draw_reading(values, dist, continuous):
+    """The draws' mean and variance, each as standard errors from the
+    distribution's (the variance's from its fourth moment), and for a
+    continuous distribution the KS statistic beside its critical value
+    at ``KS_ALPHA``."""
+    import scipy.special
+    import scipy.stats
+
+    v = np.asarray(values, np.float64).ravel()
+    n = v.size
+    m, var, kurt = (float(x) for x in dist.stats(moments="mvk"))
+    mu4 = (kurt + 3.0) * var * var
+    r = dict(n=n, mean=float(v.mean()), want_mean=m,
+             mean_z=float((v.mean() - m) / math.sqrt(var / n)),
+             var=float(v.var()), want_var=var,
+             var_z=float((v.var() - var) / math.sqrt((mu4 - var * var) / n)),
+             ks=None, ks_crit=None)
+    if continuous:
+        r["ks"] = float(scipy.stats.kstest(v, dist.cdf).statistic)
+        r["ks_crit"] = float(scipy.special.kolmogi(KS_ALPHA) / math.sqrt(n))
+    return r
+
+
+def draw_ok(r, z=5.0):
+    return abs(r["mean_z"]) <= z and abs(r["var_z"]) <= z and (
+        r["ks"] is None or r["ks"] < r["ks_crit"])
+
+
+def draw_readings(device, n, seed):
+    """Every sampler's draws on ``device`` (``n`` values each; the
+    ``_sample_*`` ops ``n`` a parameter row, the multinomial ``n``
+    indices) with ``mx.random.seed(seed)`` first: ``{label: reading}``.
+    The shuffle's reading is whether it permuted its rows."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry
+
+    mx.random.seed(seed)
+    out = {}
+    for label, op, attrs, name, args, cont in SAMPLERS:
+        (v,), _, _ = registry.invoke_raw(op, (), dict(attrs, shape=(n,),
+                                                      ctx=device))
+        out[label] = draw_reading(v.cpu().numpy(), scipy_dist(name, args),
+                                  cont)
+    for label, op, params, name, args_of, cont in SAMPLE_ROWS:
+        a, b = (torch.tensor(x, dtype=torch.float32, device=device)
+                for x in params)
+        (v,), _, _ = registry.invoke_raw(op, (a, b), dict(shape=(n,)))
+        v = v.cpu().numpy()
+        for i, (pa, pb) in enumerate(zip(*params)):
+            out["%s[%d]" % (label, i)] = draw_reading(
+                v[i], scipy_dist(name, args_of(pa, pb)), cont)
+    probs = torch.tensor(MULTINOMIAL_P, device=device)
+    (v,), _, _ = registry.invoke_raw("_sample_multinomial", (probs,),
+                                     dict(shape=(n,)))
+    out["multinomial"] = draw_reading(
+        v.cpu().numpy(), scipy_dist("categorical", dict(p=MULTINOMIAL_P)),
+        False)
+    rows = torch.arange(n, dtype=torch.float32, device=device)
+    (v,), _, _ = registry.invoke_raw("_shuffle", (rows.reshape(-1, 1),))
+    v = v.reshape(-1)
+    out["shuffle"] = dict(
+        n=n, permutes=bool(torch.equal(torch.sort(v).values, rows)),
+        moved=float((v != rows).float().mean()))
+    return out
+
+
 def clocks_line():
     """The card's SM clock and its maximum now (nvidia-smi)."""
     r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
@@ -6071,12 +7080,13 @@ def nvidia_smi_line():
 
 PHASES = ("kernel", "flash", "optimizer", "serve", "parity", "fleet",
           "train", "train_parity", "hybridize", "rtc", "imperative",
-          "imperative_parity", "resnet", "bert", "gluon", "vision")
+          "imperative_parity", "resnet", "bert", "gluon", "vision", "gan",
+          "ops")
 # the phases that launch K1-K4 and O1-O3, whose libraries the smoke
 # builds first
 NVCC_PHASES = {"kernel", "flash", "optimizer", "serve", "parity", "fleet",
                "train", "train_parity", "hybridize", "resnet", "bert",
-               "gluon", "vision"}
+               "gluon", "vision", "gan"}
 
 
 def kernel_entry(name, source, replaces, launches, timing, extra=None):
@@ -6182,6 +7192,8 @@ def main(argv):
         or (None, None)
     gluon_launches = timed("gluon", gluon_phase, dev)
     vision_o2 = timed("vision", vision_phase, dev)
+    gan_o1 = timed("gan", gan_phase, mx, dev)
+    timed("ops", ops_phase, mx, dev)
     log("total: %.1f s" % (time.perf_counter() - t_all))
     if list(phases) != list(PHASES):
         log("ran phases %s only: no result lines" % ",".join(phases))
@@ -6216,7 +7228,7 @@ def main(argv):
         # the counterpart of a registered op of the JAX package
         kernel_entry("O1 multi_adamw (port-only)", opt_src,
                      "mxnet_tpu/ops/optimizer_ops.py:479",
-                     sum(p["O1"] for p in paths), opt["O1"],
+                     sum(p["O1"] for p in paths) + gan_o1, opt["O1"],
                      {"bert_max_abs_err": bert_o1_err}),
         kernel_entry("O2 multi_sgd (port-only)", opt_src,
                      "mxnet_tpu/ops/optimizer_ops.py:314",

@@ -34,6 +34,10 @@ Ported so far:
   files), NDArrays through Gluon blocks, ``gluon.data`` (datasets,
   samplers, ``DataLoader``, vision transforms), ``gluon.utils`` and
   ``metric``;
+* DCGAN's layers and the op tail: ``Deconvolution`` and the transposed
+  convolution layers, ``ReflectionPad2D``, ``mx.random`` and
+  ``nd.random`` over the samplers of ``ops.random_ops``, and the rest of
+  the JAX package's ``ops/nn.py`` and ``ops/tensor.py`` (``RNN`` aside);
 * the telemetry and testing modules these tiers use.
 
 The port's own kernels are CUDA C++ for sm_90a in ``csrc/``.  Entry
@@ -45,7 +49,7 @@ from . import telemetry, testing  # noqa: F401
 from . import gluon, initializer, optimizer, parallel  # noqa: F401
 from . import lr_scheduler, sharding  # noqa: F401
 from . import metric, name, registry  # noqa: F401
-from . import autograd, engine, ndarray, rtc  # noqa: F401
+from . import autograd, engine, ndarray, random, rtc  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from .base import MXNetError  # noqa: F401

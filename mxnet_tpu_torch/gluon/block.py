@@ -497,8 +497,15 @@ class Block(torch.nn.Module):
 
     def _apply(self, fn, *args, **kwargs):
         # ``to()``, ``float()`` and the like may put new tensors in the
-        # tree's dicts without registering them
+        # tree's dicts without registering them: each handle follows its
+        # name to the tensor there now (a buffer is always a new one)
         out = super()._apply(fn, *args, **kwargs)
+        for name, handle in self._reg_params.items():
+            t = self._buffers.get(name, self._parameters.get(name))
+            if t is not None and handle._tensor is not t:
+                t._initialized = getattr(handle._tensor, "_initialized",
+                                         False)
+                handle._attach(t)
         _graph_cache.tree_changed()
         return out
 

@@ -7,7 +7,8 @@ from .basic_layers import (BatchNorm, Concurrent, Dense,  # noqa: F401
                            Identity, InstanceNorm, Lambda, LayerNorm,
                            Sequential)
 from .conv_layers import (AvgPool1D, AvgPool2D, AvgPool3D,  # noqa: F401
-                          Conv1D, Conv2D, Conv3D, GlobalAvgPool1D,
+                          Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose,
+                          Conv3D, Conv3DTranspose, GlobalAvgPool1D,
                           GlobalAvgPool2D, GlobalAvgPool3D, GlobalMaxPool1D,
                           GlobalMaxPool2D, GlobalMaxPool3D, MaxPool1D,
-                          MaxPool2D, MaxPool3D)
+                          MaxPool2D, MaxPool3D, ReflectionPad2D)

@@ -133,16 +133,20 @@ class Dense(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Parity: nn.Embedding — rows of an (input_dim, output_dim) table.
-    Float indices (as the JAX package's ``nd.array`` batches carry them)
-    are taken as integers."""
+    """Parity: nn.Embedding — rows of an (input_dim, output_dim) table
+    through the ``Embedding`` op: float indices (as the JAX package's
+    ``nd.array`` batches carry them) are truncated to integers, a
+    negative one counts from the end, and one out of range gives a row
+    of NaN, as in the JAX package.  ``sparse_grad=True`` raises (sparse
+    storage is S7)."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, prefix=None,
                  params=None, device=None):
         super().__init__(prefix=prefix, params=params)
         if sparse_grad:
-            raise MXNetError("Embedding(sparse_grad=True) is not ported")
+            raise MXNetError("Embedding(sparse_grad=True) is not ported "
+                             "yet (S7, sparse storage)")
         self._input_dim = input_dim
         self._output_dim = output_dim
         self.weight = self.params.get(
@@ -151,7 +155,7 @@ class Embedding(HybridBlock):
             device=resolve(device))
 
     def forward(self, x):
-        return F.embedding(x.long(), self.weight)
+        return _ops._embedding(x, self.weight)
 
     def __repr__(self):
         return "Embedding(%s -> %s)" % (self._input_dim, self._output_dim)

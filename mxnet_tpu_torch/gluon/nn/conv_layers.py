@@ -13,8 +13,17 @@ view, which is what the JAX package stores (``load_jax_params`` of the
 vision zoo takes either).  With ``in_channels=0`` the weight's shape is
 taken from the first input and the weight is filled then, with the
 initializer ``initialize`` was given, as ``nn.Dense`` does.  Every
-layer takes ``device=`` (default ``cuda:0``).  The transposed
-convolutions and ``ReflectionPad2D`` come with a later slice.
+layer takes ``device=`` (default ``cuda:0``).
+
+The transposed convolutions (``Conv1DTranspose``, ``Conv2DTranspose``,
+``Conv3DTranspose``) run the ``Deconvolution`` op with their
+``output_padding`` as its ``adj``; their weight is (in_channels,
+channels / groups) + kernel, the JAX package's and the ``.params``
+file's layout, deferred while ``in_channels=0``.  Their layout defaults
+to the channel-first one, whatever the policy, as in the JAX package;
+an explicit channels-last layout raises ``ValueError`` at the first
+forward, as the JAX package's op does.  ``ReflectionPad2D`` is the
+``pad`` op in ``reflect`` mode.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from ... import layout as _layout
 from ...base import MXNetError
 from ...context import resolve
 from ...ops import nn as _ops
+from ...ops import tensor as _tensor_ops
 from ..block import HybridBlock
 from .activations import Activation
 
@@ -158,6 +168,81 @@ class Conv3D(_Conv):
                          weight_initializer, bias_initializer, **kwargs)
 
 
+class _ConvTranspose(_Conv):
+    """What the transposed convolution layers share: the ``Deconvolution``
+    op with ``adj``, weight (in_channels, channels / groups) + kernel."""
+
+    def __init__(self, channels, kernel_size, strides, padding,
+                 output_padding, dilation, groups, layout, in_channels=0,
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", **kwargs):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer, **kwargs)
+        self._kwargs["adj"] = _pair(output_padding, len(kernel_size))
+
+    def _weight_shape(self, in_channels):
+        return (in_channels, self._channels // self._groups) \
+            + self._kwargs["kernel"]
+
+    def _shape_hint(self, x, *args):
+        p = self._reg_params["weight"]
+        if p.shape and p.shape[0] == 0:
+            self._in_channels = x.shape[_layout.channel_axis(self._layout)]
+            p.shape = self._weight_shape(self._in_channels)
+
+    def forward(self, x):
+        if isinstance(self.weight, _LAZY):
+            self._in_channels = x.shape[_layout.channel_axis(self._layout)]
+            self._finish_param("weight",
+                               self._weight_shape(self._in_channels))
+        out = _ops._deconvolution(x, self.weight, self.bias, **self._kwargs)
+        if self.act is not None:
+            out = self.act(out)
+        return out
+
+
+class Conv1DTranspose(_ConvTranspose):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout="NCW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        if isinstance(kernel_size, int):
+            kernel_size = (kernel_size,)
+        super().__init__(channels, kernel_size, strides, padding,
+                         output_padding, dilation, groups, layout,
+                         in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer, **kwargs)
+
+
+class Conv2DTranspose(_ConvTranspose):
+    def __init__(self, channels, kernel_size, strides=(1, 1),
+                 padding=(0, 0), output_padding=(0, 0), dilation=(1, 1),
+                 groups=1, layout="NCHW", activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, **kwargs):
+        if isinstance(kernel_size, int):
+            kernel_size = (kernel_size,) * 2
+        super().__init__(channels, kernel_size, strides, padding,
+                         output_padding, dilation, groups, layout,
+                         in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer, **kwargs)
+
+
+class Conv3DTranspose(_ConvTranspose):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), output_padding=(0, 0, 0),
+                 dilation=(1, 1, 1), groups=1, layout="NCDHW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        if isinstance(kernel_size, int):
+            kernel_size = (kernel_size,) * 3
+        super().__init__(channels, kernel_size, strides, padding,
+                         output_padding, dilation, groups, layout,
+                         in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer, **kwargs)
+
+
 class _Pooling(HybridBlock):
     """What the pooling layers share (parity: conv_layers.py _Pooling)."""
 
@@ -271,3 +356,19 @@ class GlobalAvgPool2D(_Pooling):
 class GlobalAvgPool3D(_Pooling):
     def __init__(self, layout=None, **kwargs):
         super().__init__((1, 1, 1), None, 0, True, "avg", layout, **kwargs)
+
+
+class ReflectionPad2D(HybridBlock):
+    """Parity: nn.ReflectionPad2D: an int pads the last two axes by that
+    much on each side; else an 8-tuple of (before, after) per axis."""
+
+    def __init__(self, padding=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        if isinstance(padding, int):
+            padding = (0, 0, 0, 0, padding, padding, padding, padding)
+        if len(padding) != 8:
+            raise MXNetError("padding must be int or length-8 tuple")
+        self._padding = tuple(padding)
+
+    def forward(self, x):
+        return _tensor_ops._pad(x, mode="reflect", pad_width=self._padding)

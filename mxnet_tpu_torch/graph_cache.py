@@ -636,7 +636,8 @@ class RecordedCall(_GraphCall):
     parameters are: their storage is part of the capture's check, and
     none of them may change in place between a forward and its
     backward (that raises, where eager autograd raises for saved
-    tensors).  Off the card the graphs are their host doubles.
+    tensors), but those the forward writes itself (running statistics).
+    Off the card the graphs are their host doubles.
     """
 
     def __init__(self, fn, device, params=None, watched=None, stream=None,
@@ -649,6 +650,7 @@ class RecordedCall(_GraphCall):
         self._static_in = self._tensor_mask = self._diff = None
         self._gout = self._targets = None
         self._reads = ()
+        self._written = set()
         self._generation = 0
         self._holds = itertools.count(1)
         self._holder = None
@@ -675,14 +677,19 @@ class RecordedCall(_GraphCall):
         that backward or when the forward's autograd node is freed.
         What the graphs read in place must not change before the
         backward reads it (eager autograd's saved-tensor check): their
-        versions are taken after the forward, which may write some of
-        them itself (a ``BatchNorm``'s running statistics; a replay
-        bumps no version, the host double's run does)."""
+        versions are taken after the forward.  The tensors the forward
+        writes in place itself (a ``BatchNorm``'s running statistics,
+        found at the capture: a replay bumps no version, the host
+        double's run does) are left out: the backward reads none of
+        them, and another call of the net may write them again before
+        this backward (a GAN's discriminator on real, then fake
+        images, in one ``record()``)."""
         hold = next(self._holds)
         self.busy, self._holder = True, hold
         token = _Token()
         weakref.finalize(token, self._free, hold)
-        versions = (self._reads, [t._version for t in self._reads])
+        reads = [t for t in self._reads if id(t) not in self._written]
+        versions = (reads, [t._version for t in reads])
         return self._generation, (hold, token, versions)
 
     def _free(self, hold):
@@ -746,7 +753,12 @@ class RecordedCall(_GraphCall):
             with torch.enable_grad():
                 return self.fn(*static)
 
+        before = [t._version for t in held]
         fwd = self._graph(pool, self.label, forward, held)
+        # what the forward writes in place itself (a BatchNorm's running
+        # statistics), which its backward never reads
+        self._written = {id(t) for t, v in zip(held, before)
+                         if t._version != v}
         outs = _tensors(fwd.out)
         diff = tuple(o.requires_grad for o in outs)
         gout = [torch.zeros_like(o) if d else None

@@ -502,15 +502,21 @@ class NDArray:
                            {"axis": axis, "temperature": temperature})
 
     def one_hot(self, depth, **kwargs):
-        _not_ported("one_hot", "S7")
+        kwargs["depth"] = depth
+        return _reg.invoke("one_hot", [self], kwargs)
 
     def topk(self, axis=-1, k=1, ret_typ="indices", is_ascend=False):
-        _not_ported("topk", "S7")
+        return _reg.invoke("topk", [self],
+                           {"axis": axis, "k": k, "ret_typ": ret_typ,
+                            "is_ascend": is_ascend})
 
     def sort(self, axis=-1, is_ascend=True):
-        _not_ported("sort", "S7")
+        return _reg.invoke("sort", [self], {"axis": axis,
+                                            "is_ascend": is_ascend})
 
-    argsort = sort
+    def argsort(self, axis=-1, is_ascend=True):
+        return _reg.invoke("argsort", [self], {"axis": axis,
+                                               "is_ascend": is_ascend})
 
     # ------------------------------------------------------------------
     # arithmetic operators

@@ -1,13 +1,17 @@
-"""Neural-network operators: ``Convolution``, ``Pooling``, ``BatchNorm``,
-``LayerNorm``, ``InstanceNorm``, ``GroupNorm``, ``Activation``,
-``LeakyReLU``, ``Dropout`` and ``CTCLoss``.
+"""Neural-network operators: ``FullyConnected``, ``Convolution``,
+``Deconvolution``, ``Pooling``, the norms, the activations and softmaxes,
+``SoftmaxOutput``, ``Dropout``, ``Embedding``, the loss ops, the
+``_contrib_*`` attention helpers, ``UpSampling`` and
+``BilinearSampler``: every op of the JAX package's ``ops/nn.py`` but
+``RNN`` (it comes with ``gluon/rnn/``).
 
 The port's counterpart of the JAX package's ``ops/nn.py``, with the same
 names, attrs and semantics; the Gluon layers call these functions, so
 each op's rules live here once.  The JAX package runs these as plain
 XLA (``lax.conv_general_dilated``, ``lax.reduce_window``, ``jnp``): no
-Pallas kernel lies on this path, and the port's convolutions run through
-cuDNN (``torch.nn.functional.conv*d``).
+Pallas kernel lies on this path, and the port's convolutions, transposed
+ones included, run through cuDNN (``torch.nn.functional.conv*d`` and
+``conv_transpose*d``).
 
 Layout: every spatial op takes ``layout``.  A channel-first layout
 (``NCW``/``NCHW``/``NCDHW``) takes OIHW-style weights; a channels-last
@@ -15,13 +19,18 @@ one (``NWC``/``NHWC``/``NDHWC``) takes channels-last data and HWIO-style
 weights, as the JAX package's dimension numbers say.  A channels-last
 operand is permuted to its channel-first view (no copy: contiguous NHWC
 memory is ``torch.channels_last``), computed there and permuted back.
+``Deconvolution`` takes the channel-first layouts only and raises
+``ValueError`` on the others, as the JAX package does.
 
-AMP: ``Convolution`` passes its inputs through ``amp.transform_inputs``
-(it is on the target-dtype list); off AMP it runs in its weight's
-dtype, as ``nn.Dense`` does.  ``BatchNorm`` runs in its input's dtype.
-The other norms are on AMP's f32 list: under AMP their inputs are cast
-to f32, so they return f32; off AMP they take their statistics and
-affine in f32 and return the input's dtype (the JAX package's rule).
+AMP: every op on one of AMP's lists passes its inputs through
+``amp.transform_inputs``, as the JAX package's dispatcher does for every
+op.  ``Convolution``, ``Deconvolution`` and ``FullyConnected`` are on the
+target-dtype list; off AMP a convolution runs in its weight's dtype, as
+``nn.Dense`` does.  ``BatchNorm`` runs in its input's dtype.  The other
+norms, the softmaxes and the loss ops are on AMP's f32 list: under AMP
+their inputs are cast to f32, so they return f32; off AMP the norms take
+their statistics and affine in f32 and return the input's dtype (the JAX
+package's rule).
 
 ``BatchNorm`` is the JAX package's formula, not ``F.batch_norm``'s: in
 train mode the statistics are taken in one pass in f32, shifted by the
@@ -70,6 +79,33 @@ def to_channel_last(x):
 
 
 # ----------------------------------------------------------------------------
+# FullyConnected
+# ----------------------------------------------------------------------------
+
+
+@register("FullyConnected", aliases=("fully_connected",),
+          inputs=("data", "weight", "bias"))
+def _fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
+                     flatten=True):
+    """Parity: src/operator/nn/fully_connected.cc: ``y = x W^T + b`` with
+    W (num_hidden, in_units), ``flatten`` folding every axis after the
+    first.  The product is taken in the promoted dtype (a bf16 product
+    accumulates in f32) and returned in the data's, as the JAX
+    package's ``preferred_element_type=f32`` then ``astype`` does; a
+    bias of the same dtype is added in the product's epilogue."""
+    data, weight, bias = _amp.transform_inputs("FullyConnected",
+                                               (data, weight, bias))
+    x = data.reshape(data.shape[0], -1) if flatten else data
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    if no_bias:
+        bias = None
+    if bias is not None and bias.dtype == x.dtype == weight.dtype:
+        return F.linear(x, weight, bias)
+    y = F.linear(x.to(dt), weight.to(dt)).to(x.dtype)
+    return y if bias is None else y + bias
+
+
+# ----------------------------------------------------------------------------
 # Convolution
 # ----------------------------------------------------------------------------
 
@@ -99,6 +135,76 @@ def _convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
         bias = bias.to(weight.dtype)
     out = _CONV[nd](data, weight, bias, stride, pad, dilate, num_group)
     return to_channel_last(out) if last else out
+
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def deconv_geometry(in_shape, kernel, stride, dilate, pad, adj,
+                    target_shape):
+    """``(pad, adj)`` of a transposed convolution, solved from
+    ``target_shape`` where it is given (deconvolution-inl.h InferPad:
+    ``pad = (total + 1) // 2``, ``adj = total % 2``, as the JAX package
+    does; a target larger than the full output gives a negative pad)."""
+    if not target_shape:
+        return pad, adj
+    nd = len(kernel)
+    target = _as_tuple(target_shape, nd)
+    total = [dilate[i] * (kernel[i] - 1) + stride[i] * (in_shape[i] - 1)
+             + 1 - target[i] for i in range(nd)]
+    return tuple((t + 1) // 2 for t in total), tuple(t % 2 for t in total)
+
+
+@register("Deconvolution", aliases=("deconvolution",),
+          inputs=("data", "weight", "bias"))
+def _deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                   pad=(), adj=(), target_shape=(), num_filter=0,
+                   num_group=1, no_bias=True, layout="NCHW", cudnn_tune=None,
+                   cudnn_off=False, workspace=1024):
+    """Transposed convolution (parity: src/operator/nn/deconvolution.cc):
+    ``weight`` is (C_in, C_out / num_group, *kernel); each spatial size
+    is ``(in - 1) * stride - 2 * pad + dilate * (kernel - 1) + 1 + adj``.
+
+    The JAX package's result is the full transposed output (pad 0) cut
+    from ``pad`` on, with zeros where the cut runs past it.  Where torch
+    takes the geometry (``pad >= 0`` and ``adj < max(stride, dilate)``)
+    that is ``F.conv_transpose*d`` with ``output_padding=adj``; elsewhere
+    (a larger ``adj``, or the negative ``pad`` of a large
+    ``target_shape``) it is the full output cut and padded with zeros."""
+    if layout not in ("NCHW", "NCW", "NCDHW"):
+        raise ValueError("Deconvolution: channel-first layouts only")
+    data, weight, bias = _amp.transform_inputs("Deconvolution",
+                                               (data, weight, bias))
+    in_dtype = data.dtype
+    data = data.to(weight.dtype)
+    nd = weight.dim() - 2
+    kernel = tuple(kernel) if kernel else tuple(weight.shape[2:])
+    stride = _as_tuple(stride, nd) if stride else (1,) * nd
+    dilate = _as_tuple(dilate, nd) if dilate else (1,) * nd
+    pad = _as_tuple(pad, nd) if pad else (0,) * nd
+    adj = _as_tuple(adj, nd) if adj else (0,) * nd
+    pad, adj = deconv_geometry(data.shape[2:], kernel, stride, dilate, pad,
+                               adj, target_shape)
+    if no_bias or bias is None:
+        bias = None
+    else:
+        bias = bias.to(weight.dtype)
+    conv = _CONV_T[nd]
+    if all(p >= 0 and 0 <= a < max(s, d)
+           for p, a, s, d in zip(pad, adj, stride, dilate)):
+        out = conv(data, weight, bias, stride, pad, adj, num_group, dilate)
+        return out.to(in_dtype)
+    full = conv(data, weight, None, stride, 0, 0, num_group, dilate)
+    flat = []
+    for i in reversed(range(nd)):
+        size = (data.shape[2 + i] - 1) * stride[i] - 2 * pad[i] \
+            + dilate[i] * (kernel[i] - 1) + 1 + adj[i]
+        flat += [-pad[i], size - (full.shape[2 + i] - pad[i])]
+    out = F.pad(full, flat)
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out.to(in_dtype)
 
 
 # ----------------------------------------------------------------------------
@@ -356,6 +462,35 @@ def _group_norm(data, gamma, beta, num_groups=1, eps=1e-5):
     return out.to(data.dtype)
 
 
+@register("L2Normalization", aliases=("l2_normalization",))
+def _l2_normalization(data, eps=1e-10, mode="instance"):
+    """Parity: src/operator/l2_normalization.cc: ``data`` over the
+    square root of its sum of squares (plus ``eps``) over every axis
+    after the first (``instance``), the channel axis (``channel``) or
+    the axes after it (``spatial``), in the data's dtype."""
+    (data,) = _amp.transform_inputs("L2Normalization", (data,))
+    if mode == "instance":
+        axes = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        axes = (1,)
+    else:
+        axes = tuple(range(2, data.dim()))
+    norm = torch.sqrt(torch.sum(torch.square(data), axes, keepdim=True)
+                      + eps)
+    return data / norm
+
+
+@register("RMSNorm", aliases=("rms_norm",))
+def _rms_norm(data, gamma, axis=-1, eps=1e-6):
+    """The JAX package's RMSNorm (no reference counterpart): ``x *
+    rsqrt(mean(x^2) + eps) * gamma`` over ``axis`` in f32, returned in
+    the data's dtype."""
+    data, gamma = _amp.transform_inputs("RMSNorm", (data, gamma))
+    x = data.float()
+    ms = torch.mean(torch.square(x), axis, keepdim=True)
+    return (x * torch.rsqrt(ms + eps) * gamma.float()).to(data.dtype)
+
+
 # ----------------------------------------------------------------------------
 # Activations
 # ----------------------------------------------------------------------------
@@ -404,6 +539,80 @@ def _tdtype(dtype):
     from .tensor import to_torch_dtype
 
     return to_torch_dtype(dtype)
+
+
+@register("softmin")
+def _softmin(data, axis=-1):
+    """Parity: softmin: the softmax of ``-data`` along ``axis``."""
+    (data,) = _amp.transform_inputs("softmin", (data,))
+    return torch.softmax(-data, dim=axis)
+
+
+@register("SoftmaxActivation")
+def _softmax_activation(data, mode="instance"):
+    """Parity: SoftmaxActivation: over axis 1 (``channel``) or over every
+    axis after the first (``instance``)."""
+    (data,) = _amp.transform_inputs("SoftmaxActivation", (data,))
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    flat = data.reshape(data.shape[0], -1)
+    return torch.softmax(flat, dim=-1).reshape(data.shape)
+
+
+def _hot(label, k, dtype):
+    """One-hot rows of ``label`` (truncated to integers) over ``k``
+    classes, a row of zeros for a label outside ``[0, k)``, as
+    ``jax.nn.one_hot`` gives."""
+    idx = label.to(torch.int32).unsqueeze(-1)
+    return (idx == torch.arange(k, device=label.device)).to(dtype)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """The legacy fused softmax and cross-entropy head: the forward is
+    the softmax over the last axis; the backward ignores the incoming
+    gradient and gives ``(p - onehot(label)) * scale`` (parity:
+    src/operator/softmax_output-inl.h), with ``scale`` the JAX
+    package's: ``grad_scale``, over the batch under ``normalization=
+    "batch"``, over the labels other than ``ignore_label`` under
+    ``"valid"`` with ``use_ignore``; with ``use_ignore`` the ignored
+    rows get no gradient.  The label gets none."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, use_ignore,
+                normalization):
+        prob = torch.softmax(data, dim=-1)
+        ctx.save_for_backward(prob, label)
+        ctx.args = (grad_scale, ignore_label, use_ignore, normalization)
+        return prob
+
+    @staticmethod
+    def backward(ctx, _grad):
+        prob, label = ctx.saved_tensors
+        grad_scale, ignore_label, use_ignore, normalization = ctx.args
+        scale = grad_scale
+        if normalization == "batch":
+            scale = scale / prob.shape[0]
+        keep = (label != ignore_label).to(prob.dtype)
+        if normalization == "valid" and use_ignore:
+            scale = scale / torch.clamp(keep.sum(), min=1.0)
+        grad = (prob - _hot(label, prob.shape[-1], prob.dtype)) * scale
+        if use_ignore:
+            grad = grad * keep.unsqueeze(-1)
+        return grad.to(prob.dtype), None, None, None, None, None
+
+
+@register("SoftmaxOutput", aliases=("softmax_output",))
+def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                    multi_output=False, use_ignore=False,
+                    preserve_shape=False, normalization="null",
+                    out_grad=False, smooth_alpha=0.0):
+    """Parity: src/operator/softmax_output.cc, as the JAX package keeps
+    it: ``multi_output``, ``preserve_shape``, ``out_grad`` and
+    ``smooth_alpha`` are accepted and ignored."""
+    data, label = _amp.transform_inputs("SoftmaxOutput", (data, label))
+    return _SoftmaxOutput.apply(data, label, float(grad_scale),
+                                float(ignore_label), bool(use_ignore),
+                                normalization)
 
 
 @register("Activation", aliases=("activation",))
@@ -473,8 +682,78 @@ def _dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
 
 
 # ----------------------------------------------------------------------------
+# Embedding
+# ----------------------------------------------------------------------------
+
+
+def _fill_value(dtype):
+    """What ``jnp.take`` gives for an index out of range: NaN for a
+    floating table, the lowest value for a signed one, the highest for
+    an unsigned one."""
+    if dtype.is_floating_point or dtype.is_complex:
+        return math.nan
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
+@register("Embedding", aliases=("embedding",))
+def _embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
+               sparse_grad=False):
+    """Parity: src/operator/tensor/indexing_op.cc Embedding, as the JAX
+    package computes it (``jnp.take(weight, ids, axis=0)``): float ids
+    are truncated to integers, an id in ``[-n, 0)`` counts from the end
+    of the ``n``-row table, and any other id outside ``[0, n)`` gives a
+    row of the fill value (NaN for a float table).  The ids are clamped
+    and the rows masked on the device, so no id reaches the gather out
+    of range and nothing waits on the host; the gradient reaches the
+    rows of ids in range only.  ``sparse_grad=True`` (a row-sparse
+    gradient) raises: sparse storage is not ported yet (S7)."""
+    if sparse_grad:
+        from ..base import MXNetError
+
+        raise MXNetError("Embedding(sparse_grad=True) is not ported yet "
+                         "(S7, sparse storage)")
+    n = weight.shape[0]
+    ids = data.to(torch.int32).long() if data.is_floating_point() \
+        else data.long()
+    valid = (ids >= -n) & (ids < n)
+    ids = torch.where(ids < 0, ids + n, ids).clamp(0, max(n - 1, 0))
+    if weight.dim() == 2:
+        rows = F.embedding(ids, weight)
+    else:
+        rows = torch.index_select(weight, 0, ids.reshape(-1)).reshape(
+            ids.shape + weight.shape[1:])
+    mask = valid.reshape(valid.shape + (1,) * (weight.dim() - 1))
+    return torch.where(mask, rows,
+                       rows.new_full((), _fill_value(weight.dtype)))
+
+
+# ----------------------------------------------------------------------------
 # Loss ops
 # ----------------------------------------------------------------------------
+
+
+@register("smooth_l1")
+def _smooth_l1(data, scalar=1.0):
+    """Parity: smooth_l1: ``0.5 * s^2 * x^2`` where ``|x| < 1 / s^2``,
+    ``|x| - 0.5 / s^2`` elsewhere (``s`` is ``scalar``)."""
+    (data,) = _amp.transform_inputs("smooth_l1", (data,))
+    s2 = scalar * scalar
+    return torch.where(torch.abs(data) < 1.0 / s2,
+                       0.5 * s2 * torch.square(data),
+                       torch.abs(data) - 0.5 / s2)
+
+
+@register("softmax_cross_entropy")
+def _softmax_cross_entropy(data, label):
+    """Parity: softmax_cross_entropy: the sum over the batch of each
+    row's cross-entropy against its (truncated) label."""
+    data, label = _amp.transform_inputs("softmax_cross_entropy",
+                                        (data, label))
+    logp = torch.log_softmax(data, dim=-1)
+    return torch.sum(-_hot(label, data.shape[-1], logp.dtype) * logp)
 
 
 @register("CTCLoss", aliases=("ctc_loss",),
@@ -511,3 +790,106 @@ def _ctc_loss(data, label, data_lengths=None, label_lengths=None,
     loss = F.ctc_loss(logp, labels.clamp(0, c - 1), dat_len, lab_len,
                       blank=blank, reduction="none")
     return loss.to(data.dtype), torch.zeros_like(data)
+
+
+# ----------------------------------------------------------------------------
+# Attention helpers (reference: src/operator/contrib/transformer.cc)
+# ----------------------------------------------------------------------------
+
+
+def _heads(qkv, heads, which):
+    """Part ``which`` (0 q, 1 k, 2 v) of an interleaved (T, B, 3*H*D)
+    projection as (B*H, T, D)."""
+    t, b, _ = qkv.shape
+    x = qkv.reshape(t, b, heads, 3, -1)[:, :, :, which, :]
+    return x.permute(1, 2, 0, 3).reshape(b * heads, t, x.shape[-1])
+
+
+@register("_contrib_interleaved_matmul_selfatt_qk")
+def _interleaved_matmul_selfatt_qk(queries_keys_values, heads=1):
+    """(T, B, 3*H*D) interleaved q, k, v → the scaled ``q k^T`` (B*H, T,
+    T); the scale ``1 / sqrt(D)`` is formed in f32 and rounded to the
+    data's dtype, as the JAX package does."""
+    (qkv,) = _amp.transform_inputs(
+        "_contrib_interleaved_matmul_selfatt_qk", (queries_keys_values,))
+    q, k = _heads(qkv, heads, 0), _heads(qkv, heads, 1)
+    inv = 1.0 / torch.tensor(float(q.shape[-1])).sqrt()       # f32
+    scale = inv.to(q.dtype).item()
+    return torch.matmul(q * scale, k.transpose(-1, -2))
+
+
+@register("_contrib_interleaved_matmul_selfatt_valatt")
+def _interleaved_matmul_selfatt_valatt(queries_keys_values, attention,
+                                       heads=1):
+    """The attention (B*H, T, T) applied to the interleaved v → (T, B,
+    H*D)."""
+    qkv, attention = _amp.transform_inputs(
+        "_contrib_interleaved_matmul_selfatt_valatt",
+        (queries_keys_values, attention))
+    t, b, _ = qkv.shape
+    v = _heads(qkv, heads, 2)
+    d = v.shape[-1]
+    out = torch.matmul(attention, v).reshape(b, heads, t, d)
+    return out.permute(2, 0, 1, 3).reshape(t, b, heads * d)
+
+
+@register("_contrib_arange_like")
+def _arange_like(data, start=0.0, step=1.0, axis=None):
+    """``start + step * i`` in the data's dtype over every element of
+    ``data`` (in its shape), or along ``axis``."""
+    n = data.numel() if axis is None else data.shape[axis]
+    out = (start + step * torch.arange(n, dtype=torch.float64,
+                                       device=data.device)).to(data.dtype)
+    return out.reshape(data.shape) if axis is None else out
+
+
+@register("_contrib_div_sqrt_dim")
+def _div_sqrt_dim(data):
+    """``data`` over the square root of its last axis's size, formed in
+    the data's dtype."""
+    return data / torch.sqrt(torch.tensor(float(data.shape[-1]),
+                                          dtype=data.dtype)).item()
+
+
+# ----------------------------------------------------------------------------
+# UpSampling, BilinearSampler
+# ----------------------------------------------------------------------------
+
+
+@register("UpSampling", aliases=("upsampling",))
+def _upsampling(*data, scale=2, sample_type="nearest", num_args=1,
+                num_filter=0, multi_input_mode="concat", workspace=512):
+    """Parity: src/operator/nn/upsampling.cc, nearest only, as the JAX
+    package computes it: the first input's rows and columns each
+    repeated ``scale`` times; ``sample_type`` and the other inputs are
+    ignored."""
+    x = data[0]
+    return torch.repeat_interleave(
+        torch.repeat_interleave(x, scale, dim=2), scale, dim=3)
+
+
+@register("BilinearSampler", aliases=("bilinear_sampler",))
+def _bilinear_sampler(data, grid, cudnn_off=False):
+    """Parity: src/operator/bilinear_sampler.cc: ``data`` (N, C, H, W)
+    sampled at ``grid`` (N, 2, Ho, Wo) of x, y in [-1, 1]; the four
+    neighbours' indices are clamped to the map, their weights are not
+    (the JAX package's formula)."""
+    n, c, h, w = data.shape
+    gx = (grid[:, 0] + 1.0) * (w - 1) / 2.0
+    gy = (grid[:, 1] + 1.0) * (h - 1) / 2.0
+    x0 = torch.floor(gx)
+    y0 = torch.floor(gy)
+    wx = (gx - x0).unsqueeze(-1)
+    wy = (gy - y0).unsqueeze(-1)
+    b = torch.arange(n, device=data.device).reshape(n, 1, 1)
+
+    def gather(yy, xx):
+        yy = yy.to(torch.int32).long().clamp(0, h - 1)
+        xx = xx.to(torch.int32).long().clamp(0, w - 1)
+        return data[b, :, yy, xx]                   # (n, ho, wo, c)
+
+    out = (gather(y0, x0) * (1 - wx) * (1 - wy)
+           + gather(y0, x0 + 1) * wx * (1 - wy)
+           + gather(y0 + 1, x0) * (1 - wx) * wy
+           + gather(y0 + 1, x0 + 1) * wx * wy)
+    return out.permute(0, 3, 1, 2)

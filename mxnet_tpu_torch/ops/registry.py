@@ -20,9 +20,10 @@ is positive, an op on NDArrays joins this thread's open
 ``engine.BulkSegment`` and returns lazy NDArrays; their shapes, dtypes
 and grad flags come from one run of the op on the ``meta`` device
 (cached per signature).  Ops the reference does not defer flush the
-open segment and run eagerly: RNG ops, ops without NDArray inputs,
-unhashable attrs, ``out=`` (the port writes it in place) and ops with
-no meta run (the reference's ``eval_shape`` failure).
+open segment and run eagerly: RNG ops, ops without NDArray inputs, every
+op while AMP is on (its dtypes are fixed when it runs), unhashable
+attrs, ``out=`` (the port writes it in place) and ops with no meta run
+(the reference's ``eval_shape`` failure).
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import inspect
 
 import torch
 
+from .. import amp as _amp
 from .. import autograd
 from ..base import MXNetError
 from ..engine import Engine
@@ -43,10 +45,10 @@ class OpReg:
     """A registered op: its forward, its tensor inputs (the leading
     parameters without defaults, unless ``inputs=`` names them) and its
     attrs (the other named parameters).  The JAX package's
-    ``needs_rng`` flag marks an op that draws random numbers (the random
-    ops come with S7): bulking never defers it.  A ``needs_mode`` op
-    (``BatchNorm``, ``Dropout``) gets ``_mode="train"`` or ``"predict"``
-    from ``autograd.is_training()`` unless the caller sets it.  An
+    ``needs_rng`` flag marks an op that draws random numbers: bulking
+    never defers it.  A ``needs_mode`` op (``BatchNorm``, ``Dropout``)
+    gets ``_mode="train"`` or ``"predict"`` from
+    ``autograd.is_training()`` unless the caller sets it.  An
     ``inplace`` op (the optimizer updates) writes its tensor inputs: it
     is never deferred, and its inputs' versions move."""
 
@@ -267,6 +269,10 @@ def _try_bulk(reg, inputs, attrs, out, fields, eng):
     if out is not None or not inputs \
             or any(not isinstance(x, NDArray) for x in inputs):
         eng.flush_bulk("nondeferrable:%s" % reg.name)
+        return NotImplemented
+    if _amp.is_active():
+        # an op's dtypes under AMP are fixed when it runs: never deferred
+        eng.flush_bulk("amp:%s" % reg.name)
         return NotImplemented
     attrs, fields, _ = _prep(reg, len(inputs), attrs, fields)
     try:

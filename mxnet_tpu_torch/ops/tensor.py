@@ -1,24 +1,31 @@
 """Tensor operators: elementwise, broadcast, scalar, unary, reductions,
-shape manipulation, creation, ``dot`` and ``batch_dot``.
+shape manipulation, creation, indexing, ordering, the sequence ops,
+``dot``, ``batch_dot``, ``einsum`` and the ``_linalg_*`` family.
 
 The port's counterpart of the JAX package's ``ops/tensor.py``, op for op
 in PyTorch, with the same names, attrs and MXNet semantics where they
 differ from NumPy's: ``sum``/``mean``/... take ``axis=()`` for all axes
 and ``exclude`` to invert the axis set; ``elemwise_*`` want equal shapes
 and ``broadcast_*`` broadcast; ``reshape`` takes the codes 0/-1/-2/-3/-4;
-comparisons return the input's dtype; ``argmax``/``argmin`` return
-float32.  Not ported yet (``ROADMAP.md`` S7): ``_linalg_*``,
-``khatri_rao``, the ``Sequence*`` ops, ``_npi_einsum``, ``sort``,
-``argsort``, ``topk``, and the gather/scatter family (``gather_nd``,
-``scatter_nd``, ``_scatter_set_nd``, ``one_hot``, ``where``,
-``boolean_mask_fill``), ``amp_cast``/``amp_multicast``, ``shape_array``,
-``size_array``, ``make_loss`` and ``diag``.
+comparisons return the input's dtype; ``argmax``/``argmin``,
+``argsort`` and ``topk``'s indices return float32 by default.
+
+``sort``, ``argsort`` and ``topk`` run on torch's stable sort, so ties
+come out as the JAX package's do: ``topk`` takes the lower index first
+among equal values (``lax.top_k``), and a descending ``sort`` or
+``argsort`` is the ascending one reversed (ties in reverse index
+order).  The scatter ops send an index out of range to a spare row that
+is dropped, as XLA's scatter drops it.  The ``_linalg_*`` ops run on
+``torch.linalg`` (cuSOLVER and cuBLAS on the card).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
+from .. import amp as _amp
 from .registry import alias, register
 
 _DTYPES = {
@@ -245,6 +252,34 @@ alias("_copy", "identity")
 register("identity")(lambda data: data.clone())
 register("stop_gradient", aliases=("BlockGrad", "make_loss_grad_stop"))(
     lambda data: data.detach())
+register("make_loss")(lambda data: data.clone())
+
+
+def _index_dtype():
+    """int64 under ``MXNET_INT64_TENSOR_SIZE=1`` (the JAX package turns
+    on x64 for it), int32 otherwise."""
+    wide = os.environ.get("MXNET_INT64_TENSOR_SIZE", "0") in ("1", "true")
+    return torch.int64 if wide else torch.int32
+
+
+def _filled(values, dtype, device):
+    """A 1-d tensor of ``values`` made by fills on ``device`` (no host
+    copy: a captured graph may hold it)."""
+    return torch.stack([torch.full((), v, dtype=dtype, device=device)
+                        for v in values]) if values else \
+        torch.zeros((0,), dtype=dtype, device=device)
+
+
+@register("shape_array")
+def _shape_array(data):
+    """Parity: shape_array: the shape as a 1-d integer tensor."""
+    return _filled(list(data.shape), _index_dtype(), data.device)
+
+
+@register("size_array")
+def _size_array(data):
+    """Parity: size_array: the number of elements as a (1,) tensor."""
+    return _filled([data.numel()], _index_dtype(), data.device)
 
 # ----------------------------------------------------------------------------
 # casts
@@ -254,6 +289,22 @@ register("stop_gradient", aliases=("BlockGrad", "make_loss_grad_stop"))(
 @register("cast", aliases=("Cast",))
 def _cast(data, dtype="float32"):
     return data.to(to_torch_dtype(dtype))
+
+
+@register("amp_cast")
+def _amp_cast(data, dtype="float16"):
+    """Parity: amp_cast: a cast AMP puts into a graph."""
+    return data.to(to_torch_dtype(dtype))
+
+
+@register("amp_multicast")
+def _amp_multicast(*data, num_outputs=1):
+    """Parity: amp_multicast: every input cast to the widest of their
+    dtypes (the promoted type, as ``jnp.result_type`` gives it)."""
+    widest = data[0].dtype
+    for d in data[1:]:
+        widest = torch.promote_types(widest, d.dtype)
+    return tuple(d.to(widest) for d in data)
 
 
 # ----------------------------------------------------------------------------
@@ -564,8 +615,20 @@ def _clip(data, a_min=None, a_max=None):
 
 @register("where")
 def _where(condition, x, y):
-    """Parity: where: ``x`` where ``condition`` is non-zero, else ``y``."""
+    """Parity: where: ``x`` where ``condition`` is non-zero, else ``y``
+    (under AMP both in the wider of their dtypes)."""
+    x, y = _amp.transform_inputs("where", (x, y))
     return torch.where(condition.bool(), x, y)
+
+
+@register("boolean_mask_fill")
+def _boolean_mask_fill(data, mask, value=0.0):
+    """Parity: boolean_mask_fill, the JAX package's static-shape stand-in
+    for boolean_mask: ``data`` where ``mask`` (over the leading axes) is
+    non-zero, ``value`` elsewhere."""
+    m = mask.bool().reshape(mask.shape + (1,) * (data.dim() - mask.dim()))
+    return torch.where(m, data, torch.full((), value, dtype=data.dtype,
+                                           device=data.device))
 
 
 @register("one_hot")
@@ -600,6 +663,106 @@ def _pick(data, index, axis=-1, keepdims=False, mode="clip"):
     idx = index.to(torch.int32).to(torch.int64).clamp(0, data.shape[axis] - 1)
     out = torch.take_along_dim(data, torch.unsqueeze(idx, axis), axis)
     return out if keepdims else torch.squeeze(out, axis)
+
+
+def _nd_index(indices, shape):
+    """The (M, ...) integer ``indices`` into the leading M axes of
+    ``shape``, negative ones counted from the end: the flat index into
+    those axes, and whether each is in range."""
+    idx = indices.to(torch.int32).long()
+    m = idx.shape[0]
+    flat = torch.zeros(idx.shape[1:], dtype=torch.long, device=idx.device)
+    ok = torch.ones(idx.shape[1:], dtype=torch.bool, device=idx.device)
+    for i in range(m):
+        n = shape[i]
+        j = torch.where(idx[i] < 0, idx[i] + n, idx[i])
+        ok = ok & (j >= 0) & (j < n)
+        flat = flat * n + j.clamp(0, max(n - 1, 0))
+    return flat, ok, int(np.prod(shape[:m], dtype=np.int64))
+
+
+@register("gather_nd")
+def _gather_nd(data, indices):
+    """Parity: gather_nd: ``data[indices[0], ..., indices[M-1]]``; an
+    index out of range is clamped, as an XLA gather clamps it."""
+    flat, _, rows = _nd_index(indices, data.shape)
+    m = indices.shape[0]
+    src = data.reshape((rows,) + tuple(data.shape[m:]))
+    out = torch.index_select(src, 0, flat.reshape(-1))
+    return out.reshape(tuple(flat.shape) + tuple(data.shape[m:]))
+
+
+def _scatter_into(base, flat, ok, rows, values):
+    """``base`` (rows, ...) with ``values`` written at ``flat``; the
+    writes out of range go to a spare last row, then dropped."""
+    tail = tuple(base.shape[1:])
+    spare = torch.cat([base, base.new_zeros((1,) + tail)])
+    dest = torch.where(ok, flat, torch.full_like(flat, rows))
+    vals = values.expand(tuple(flat.shape) + tail).reshape((-1,) + tail)
+    return spare.index_put((dest.reshape(-1),), vals.to(base.dtype))[:rows]
+
+
+@register("scatter_nd")
+def _scatter_nd(data, indices, shape=()):
+    """Parity: scatter_nd: zeros of ``shape`` with ``data`` written at
+    ``indices`` (duplicates: one of the writes lands, as in XLA)."""
+    shape = tuple(shape)
+    flat, ok, rows = _nd_index(indices, shape)
+    m = indices.shape[0]
+    base = data.new_zeros((rows,) + shape[m:])
+    return _scatter_into(base, flat, ok, rows, data).reshape(shape)
+
+
+@register("_scatter_set_nd")
+def _scatter_set_nd(lhs, rhs, indices, shape=()):
+    """Parity: _scatter_set_nd: ``lhs`` with ``rhs`` written at
+    ``indices``."""
+    flat, ok, rows = _nd_index(indices, lhs.shape)
+    m = indices.shape[0]
+    base = lhs.reshape((rows,) + tuple(lhs.shape[m:]))
+    return _scatter_into(base, flat, ok, rows, rhs).reshape(lhs.shape)
+
+
+# ----------------------------------------------------------------------------
+# ordering
+# ----------------------------------------------------------------------------
+
+
+@register("sort")
+def _sort(data, axis=-1, is_ascend=True):
+    """Parity: sort: ascending along ``axis``; descending is the
+    ascending result reversed, as the JAX package gives it."""
+    out = torch.sort(data, dim=axis, stable=True).values
+    return out if is_ascend else torch.flip(out, (axis,))
+
+
+@register("argsort")
+def _argsort(data, axis=-1, is_ascend=True, dtype="float32"):
+    """Parity: argsort: the stable ascending order along ``axis`` (ties
+    by index), reversed when descending; indices in ``dtype``."""
+    out = torch.sort(data, dim=axis, stable=True).indices
+    if not is_ascend:
+        out = torch.flip(out, (axis,))
+    return out.to(to_torch_dtype(dtype))
+
+
+@register("topk")
+def _topk(data, axis=-1, k=1, ret_typ="indices", is_ascend=False,
+          dtype="float32"):
+    """Parity: topk: the ``k`` largest (``is_ascend``: smallest) along
+    ``axis``, the lower index first among equal values (``lax.top_k``'s
+    order, from a stable sort).  ``ret_typ`` is ``value``, ``both`` or
+    ``indices`` (any other value gives the indices, as in the JAX
+    package); indices in ``dtype``."""
+    x = torch.movedim(data, axis, -1)
+    vals, idx = torch.sort(x, dim=-1, descending=not is_ascend, stable=True)
+    vals = torch.movedim(vals[..., :k], -1, axis)
+    idx = torch.movedim(idx[..., :k], -1, axis).to(to_torch_dtype(dtype))
+    if ret_typ == "value":
+        return (vals,)
+    if ret_typ == "both":
+        return (vals, idx)
+    return (idx,)
 
 
 # ----------------------------------------------------------------------------
@@ -678,6 +841,16 @@ def _full_like(data, fill_value=0.0):
     return torch.full_like(data, fill_value)
 
 
+@register("diag")
+def _diag(data, k=0):
+    """Parity: diag: a 1-d input's diagonal matrix or a 2-d input's
+    diagonal (offset ``k``); for more axes the diagonal of the first two
+    moved last, as ``jnp.diagonal`` gives it."""
+    if data.dim() <= 2:
+        return torch.diag(data, k)
+    return torch.diagonal(data, offset=k, dim1=0, dim2=1)
+
+
 # ----------------------------------------------------------------------------
 # dot / batch_dot
 # ----------------------------------------------------------------------------
@@ -702,3 +875,233 @@ def _batch_dot(lhs, rhs, transpose_a=False, transpose_b=False):
     a = torch.swapaxes(lhs, -1, -2) if transpose_a else lhs
     b = torch.swapaxes(rhs, -1, -2) if transpose_b else rhs
     return torch.matmul(a, b)
+
+
+@register("_npi_einsum", aliases=("einsum",))
+def _einsum(*operands, subscripts=""):
+    """Parity: einsum over ``subscripts``."""
+    operands = _amp.transform_inputs("_npi_einsum", operands)
+    return torch.einsum(subscripts, *operands)
+
+
+@register("khatri_rao")
+def _khatri_rao(*args, num_args=None):
+    """Parity: khatri_rao: the column-wise Kronecker product of the
+    (I_n, R) inputs, (prod I_n, R)."""
+    out = args[0]
+    for m in args[1:]:
+        out = torch.einsum("ir,jr->ijr", out, m).reshape(-1, out.shape[-1])
+    return out
+
+
+# ----------------------------------------------------------------------------
+# sequence ops (reference: src/operator/sequence_*.cc)
+# ----------------------------------------------------------------------------
+
+
+@register("SequenceMask", aliases=("sequence_mask",),
+          inputs=("data", "sequence_length"))
+def _sequence_mask(data, sequence_length=None, use_sequence_length=False,
+                   value=0.0, axis=0):
+    """Parity: SequenceMask: the steps of each sequence at or past its
+    length (``axis`` 0 is time, the other of axes 0 and 1 the batch) set
+    to ``value``."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    steps = torch.arange(data.shape[axis], device=data.device)
+    mask = steps[:, None] < sequence_length[None, :]            # (T, B)
+    if axis == 1:
+        mask = mask.T
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    shape[1 - axis] = data.shape[1 - axis]
+    return torch.where(mask.reshape(shape), data,
+                       torch.full((), value, dtype=data.dtype,
+                                  device=data.device))
+
+
+@register("SequenceLast", aliases=("sequence_last",),
+          inputs=("data", "sequence_length"))
+def _sequence_last(data, sequence_length=None, use_sequence_length=False,
+                   axis=0):
+    """Parity: SequenceLast: each sequence's last step (at its length)
+    along ``axis``."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.select(data, axis, data.shape[axis] - 1)
+    idx = (sequence_length - 1).to(torch.int32).long()
+    moved = torch.movedim(data, axis, 0)                        # (T, B, ...)
+    idx = idx.reshape((1, -1) + (1,) * (moved.dim() - 2))
+    return torch.take_along_dim(moved, idx, 0)[0]
+
+
+@register("SequenceReverse", aliases=("sequence_reverse",),
+          inputs=("data", "sequence_length"))
+def _sequence_reverse(data, sequence_length=None, use_sequence_length=False,
+                      axis=0):
+    """Parity: SequenceReverse: each sequence's first ``length`` steps of
+    axis 0 reversed, the rest kept (axis 0 in every case, as in the JAX
+    package)."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, (0,))
+    t = data.shape[0]
+    steps = torch.arange(t, device=data.device)[:, None]
+    lengths = sequence_length[None, :].to(torch.int32).long()
+    rev = torch.where(steps < lengths, lengths - 1 - steps, steps)
+    idx = rev.reshape((t, -1) + (1,) * (data.dim() - 2)).expand(data.shape)
+    return torch.take_along_dim(data, idx, 0)
+
+
+# ----------------------------------------------------------------------------
+# linalg (parity: src/operator/tensor/la_op.cc), over torch.linalg
+# ----------------------------------------------------------------------------
+
+
+def _t(a):
+    return a.transpose(-1, -2)
+
+
+@register("_linalg_gemm2", aliases=("linalg_gemm2",))
+def _linalg_gemm2(A, B, transpose_a=False, transpose_b=False, alpha=1.0,
+                  axis=-2):
+    A, B = _amp.transform_inputs("_linalg_gemm2", (A, B))
+    a = _t(A) if transpose_a else A
+    b = _t(B) if transpose_b else B
+    return alpha * torch.matmul(a, b)
+
+
+@register("_linalg_gemm", aliases=("linalg_gemm",))
+def _linalg_gemm(A, B, C, transpose_a=False, transpose_b=False, alpha=1.0,
+                 beta=1.0, axis=-2):
+    A, B, C = _amp.transform_inputs("_linalg_gemm", (A, B, C))
+    a = _t(A) if transpose_a else A
+    b = _t(B) if transpose_b else B
+    return alpha * torch.matmul(a, b) + beta * C
+
+
+@register("_linalg_syrk", aliases=("linalg_syrk",))
+def _linalg_syrk(A, transpose=False, alpha=1.0):
+    return alpha * (torch.matmul(_t(A), A) if transpose
+                    else torch.matmul(A, _t(A)))
+
+
+@register("_linalg_potrf", aliases=("linalg_potrf",))
+def _linalg_potrf(A):
+    """The lower Cholesky factor."""
+    return torch.linalg.cholesky(A)
+
+
+@register("_linalg_trsm", aliases=("linalg_trsm",))
+def _linalg_trsm(A, B, transpose=False, rightside=False, lower=True,
+                 alpha=1.0):
+    """``alpha * op(A)^-1 B`` (or ``B op(A)^-1`` with ``rightside``) for a
+    triangular ``A``."""
+    a = _t(A) if transpose else A
+    low = lower != transpose
+    if rightside:
+        x = torch.linalg.solve_triangular(_t(a), _t(alpha * B),
+                                          upper=low)
+        return _t(x)
+    return torch.linalg.solve_triangular(a, alpha * B, upper=not low)
+
+
+@register("_linalg_sumlogdiag", aliases=("linalg_sumlogdiag",))
+def _linalg_sumlogdiag(A):
+    return torch.sum(torch.log(torch.diagonal(A, dim1=-2, dim2=-1)), -1)
+
+
+@register("_linalg_extractdiag", aliases=("linalg_extractdiag",))
+def _linalg_extractdiag(A, offset=0):
+    return torch.diagonal(A, offset=offset, dim1=-2, dim2=-1)
+
+
+@register("_linalg_makediag", aliases=("linalg_makediag",))
+def _linalg_makediag(A, offset=0):
+    """The diagonal matrices of the last axis; a non-zero ``offset``
+    gives a scalar zero, as the JAX package's op does."""
+    if offset != 0:
+        return torch.zeros((), dtype=A.dtype, device=A.device)
+    return torch.diag_embed(A)
+
+
+@register("_linalg_svd", aliases=("linalg_svd",))
+def _linalg_svd(A):
+    """``(U, S, V^T)`` of the reduced SVD."""
+    u, s, vt = torch.linalg.svd(A, full_matrices=False)
+    return u, s, vt
+
+
+@register("_linalg_inverse", aliases=("linalg_inverse",))
+def _linalg_inverse(A):
+    return torch.linalg.inv(A)
+
+
+@register("_linalg_det", aliases=("linalg_det",))
+def _linalg_det(A):
+    return torch.linalg.det(A)
+
+
+def _trian_indices(n, offset, lower, device):
+    k = -int(offset) if lower else int(offset)
+    fn = torch.tril_indices if lower else torch.triu_indices
+    return fn(n, n, k, device=device)
+
+
+@register("_linalg_extracttrian")
+def _linalg_extracttrian(A, offset=0, lower=True):
+    """The lower (upper) triangle from diagonal ``offset`` in row-major
+    order."""
+    r, c = _trian_indices(A.shape[-1], offset, lower, A.device)
+    return A[..., r, c]
+
+
+@register("_linalg_maketrian")
+def _linalg_maketrian(A, offset=0, lower=True):
+    """The (n, n) triangular matrices whose triangle from diagonal
+    ``offset`` is the last axis, in row-major order."""
+    size = A.shape[-1]
+    m = int(round(((8 * size + 1) ** 0.5 - 1) / 2))
+    if m * (m + 1) // 2 != size:
+        raise ValueError("cannot infer triangular size from %d" % size)
+    n = m + abs(int(offset))
+    r, c = _trian_indices(n, offset, lower, A.device)
+    flat = A.new_zeros(A.shape[:-1] + (n * n,))
+    return flat.index_copy(-1, r * n + c, A).reshape(A.shape[:-1] + (n, n))
+
+
+@register("_linalg_gelqf")
+def _linalg_gelqf(A):
+    """LQ: ``A = L Q`` with Q's rows orthonormal, from the QR of A^T."""
+    q, r = torch.linalg.qr(_t(A), mode="reduced")
+    return _t(r), _t(q)
+
+
+@register("_linalg_potri")
+def _linalg_potri(A, lower=True):
+    """The inverse of ``L L^T`` (``U^T U``) from its Cholesky factor."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device) \
+        .expand(A.shape)
+    linv = torch.linalg.solve_triangular(A, eye, upper=not lower)
+    return _t(linv) @ linv if lower else linv @ _t(linv)
+
+
+@register("_linalg_slogdet")
+def _linalg_slogdet(A):
+    sign, logdet = torch.linalg.slogdet(A)
+    return sign, logdet
+
+
+@register("_linalg_syevd")
+def _linalg_syevd(A):
+    """``(U, L)`` with ``A = U^T diag(L) U``: the rows of U are the
+    eigenvectors."""
+    w, v = torch.linalg.eigh(A)
+    return _t(v), w
+
+
+@register("_linalg_trmm")
+def _linalg_trmm(A, B, transpose=False, rightside=False, lower=True,
+                 alpha=1.0):
+    tri = torch.tril(A) if lower else torch.triu(A)
+    if transpose:
+        tri = _t(tri)
+    return alpha * (B @ tri if rightside else tri @ B)

@@ -440,6 +440,9 @@ names += ["mxnet_tpu_torch.compile_cache", "mxnet_tpu_torch.gluon.loss",
           "mxnet_tpu_torch.gluon.model_zoo.vision." + m
           for m in ("alexnet", "vgg", "squeezenet", "densenet", "inception",
                     "mobilenet", "_base")]
+names += ["mxnet_tpu_torch.random", "mxnet_tpu_torch.ndarray.random",
+          "mxnet_tpu_torch.ops.random_ops", "mxnet_tpu_torch.ops.tensor",
+          "mxnet_tpu_torch.gluon.nn.basic_layers"]
 names += ["chip_smoke", "tools.torch_paged_attention_sweep",
           "tools.torch_flash_attention_sweep", "tools.torch_mxfleet",
           "tools.torch_mxflight", "tools.torch_mxtrace",

@@ -1218,3 +1218,78 @@ def test_load_executable_captures_ahead_and_steps_on_nothing_on_card(
     assert (st["captures"], st["replays"]) == (1, 1)
     assert torch.equal(got, want)
     assert all(torch.equal(p, w) for p, w in zip(step2._params, weights))
+
+
+# -- the op tail: DCGAN, the ops and the samplers on the card -------------
+
+
+@pytest.mark.cuda
+def test_op_tail_matches_host_on_card(card):
+    """Every op of the op tail but the samplers: ordering, indexing and
+    integer results bitwise (ties, Embedding's out-of-range ids), f32
+    within 1e-5, linalg within 1e-4 of the host's."""
+    rows = chip_smoke.op_tail_checks(card)
+    bad = [r for r in rows if not r[4]]
+    assert len(rows) > 60 and not bad, bad
+
+
+@pytest.mark.cuda
+def test_embedding_ids_out_of_range_leave_the_context_usable_on_card(card):
+    """F3 on the card: no device-side assert; NaN rows, and the process's
+    CUDA context takes further work."""
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    ids = torch.tensor([0, -1, 3, -4, 1.7], device=card)
+    got = ops_nn._embedding(ids, torch.ones(3, 2, device=card))
+    torch.cuda.synchronize()
+    assert torch.isnan(got[2:4]).all() and (got[[0, 1, 4]] == 1).all()
+    assert float(torch.ones(4, device=card).sum()) == 4.0
+
+
+@pytest.mark.cuda
+def test_samplers_match_their_distributions_on_card(card):
+    readings = chip_smoke.draw_readings(card, 1 << 20, 23)
+    bad = {k: r for k, r in readings.items() if k != "shuffle"
+           and not chip_smoke.draw_ok(r)}
+    assert not bad, bad
+    assert readings["shuffle"]["permutes"]
+
+
+@pytest.mark.cuda
+def test_seeded_draws_repeat_bitwise_on_card(card):
+    import mxnet_tpu_torch as mx
+
+    same, differ = chip_smoke.seeded_draws_repeat(mx, card)
+    assert same and differ
+
+
+@pytest.mark.cuda
+def test_hybridized_dropout_draws_afresh_at_each_replay_on_card(card):
+    import mxnet_tpu_torch as mx
+
+    differ, same, st = chip_smoke.dropout_graph_masks(mx, card)
+    assert st["captures"] == 1 and st["replays"] >= 4, st
+    assert differ and same
+
+
+@pytest.mark.cuda
+def test_dcgan_iteration_matches_host_on_card(card):
+    """Full width at batch 32, f32, TF32 off: one D-and-G iteration on
+    the card held to the host's f64 run (``chip_smoke.gan_parity``)."""
+    import mxnet_tpu_torch as mx
+
+    chip_smoke.gan_parity(mx, card)
+
+
+@pytest.mark.cuda
+def test_dcgan_seeded_runs_bitwise_equal_on_card(card):
+    import mxnet_tpu_torch as mx
+
+    chip_smoke.gan_repro(mx, card)
+
+
+@pytest.mark.cuda
+def test_dcgan_transposed_convolutions_run_in_bf16_under_amp_on_card(card):
+    import mxnet_tpu_torch as mx
+
+    chip_smoke.gan_amp(mx, card)
