@@ -259,7 +259,39 @@ Phases, each fatal on failure:
              continuous, the KS statistic under its critical value at
              alpha 1e-6; seeded draws repeated bitwise; a hybridized
              ``Dropout`` drawing new masks at each replay and the same
-             sequence after reseeding.
+             sequence after reseeding; then every op of ``ops/contrib.py``,
+             ``ops/vision.py`` and ``ops/misc.py`` the same way (NMS,
+             matching, anchors and ROI max pooling bitwise; MultiBoxTarget's
+             masks and classes and MultiBoxDetection's classes, scores and
+             kept rows bitwise, their boxes within 1e-5);
+             ``nd.contrib.flash_attention`` and ``nd.contrib.paged_attention``
+             on CUDA arrays launching K1 (K2, K3 in the backward) and K4,
+             held against their plain versions; a ``CustomOp`` and a
+             ``while_loop`` under ``record()`` with a backward against the
+             host; ``boolean_mask``, ``cond`` and a recorded ``while_loop``
+             inside a captured call raising ``MXNetError``;
+19. ssd    — the JAX package's detection example
+             (``examples/detection/train_ssd.py``) in the port, written as
+             the example writes it (``hybrid_forward`` blocks, ``F.contrib``
+             ops): first O4 (``csrc/box_nms.cu``) against its plain version,
+             keep masks bit for bit (random, repeated boxes, one box
+             repeated, IoU exactly at the threshold, more than one 64-box
+             word kept); then ``SSDNet`` at full width (ResNet-18's
+             ``features[:6]``, 20 classes) at 300 x 300, batch 2, f32, TF32
+             off: 3 graphed ``JitTrainStep`` adam steps on the card against
+             the host's f32 and f64 runs (losses, held as the gan phase
+             holds DCGAN); then the main path at batch 32 (7,220 anchors,
+             labels (32, 8, 5)) on seeded images made on the card:
+             ``JitTrainStep(SSDTrainLoss(net), None, "adam")`` graphed (the
+             whole step, ``MultiBoxTarget`` included, one capture), the same
+             steps eagerly under ``record()`` with a ``gluon.Trainer``, and
+             through the hybridized loss block: p50 step ms, images/s, MFU,
+             idle share, own peak memory, kernels by kind; O1 every step;
+             then one inference batch through ``MultiBoxPrior``, softmax and
+             ``MultiBoxDetection(nms_threshold=0.45)`` (O4): its detections
+             against the host's on the same inputs, the decode timed with
+             O4 and with the plain version (outputs bitwise equal), and O4
+             alone beside its plain version and its bound.
 
 Each phase logs the card's SM clock and its maximum when it starts.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -3286,11 +3318,14 @@ def resnet_shapes(net, x):
 
     macs, bns, hooks = [0], [], []
 
+    def numel(out):      # a tensor, or an NDArray where one came in
+        return out.numel() if isinstance(out, torch.Tensor) else out.size
+
     def conv(m, inp, out):
-        macs[0] += out.numel() * math.prod(m.weight.shape[1:])
+        macs[0] += numel(out) * math.prod(m.weight.shape[1:])
 
     def dense(m, inp, out):
-        macs[0] += out.numel() * m.weight.shape[1]
+        macs[0] += numel(out) * m.weight.shape[1]
 
     def bn(m, inp, out):
         bns.append((tuple(inp[0].shape), m._axis))
@@ -6836,6 +6871,395 @@ def op_tail_cases():
     return cases
 
 
+def contrib_tail_cases():
+    """Every op of ``ops/contrib.py``, ``ops/vision.py`` and
+    ``ops/misc.py`` (the slice after the op tail), at small shapes, as
+    ``op_tail_cases`` gives them; two more kinds: ``targets`` (the first
+    output within 1e-5, the others bitwise: MultiBoxTarget's regression
+    targets take a log, its masks and classes are the matching) and
+    ``dets`` (classes, scores and kept rows bitwise, boxes within
+    1e-5)."""
+    rs = np.random.RandomState(1)
+
+    def f(*shape):
+        return rs.standard_normal(shape).astype(np.float32)
+
+    def boxes(n, scale=1.0):
+        xy = rs.uniform(0, 0.7 * scale, (n, 2))
+        wh = rs.uniform(0.02 * scale, 0.3 * scale, (n, 2))
+        return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+    def dets(b, n):
+        cid = rs.randint(0, 3, (b, n, 1)).astype(np.float32)
+        score = rs.uniform(0, 1, (b, n, 1)).astype(np.float32)
+        return np.concatenate([cid, score, np.stack(
+            [boxes(n) for _ in range(b)])], 2)
+
+    def rois(n, batch, size):
+        b = rs.randint(0, batch, (n, 1))
+        xy = rs.uniform(0, size * 0.6, (n, 2))
+        wh = rs.uniform(1, size * 0.4, (n, 2))
+        return np.concatenate([b, xy, xy + wh], 1).astype(np.float32)
+
+    tied = dets(2, 300)
+    tied[:, :, 1] = np.round(tied[:, :, 1] * 4) / 4
+    tied[0, 10:20] = tied[0, 9]
+    anchors = np.concatenate([boxes(6 * 6 * 5)])[None]
+    labels = np.full((3, 4, 5), -1, np.float32)
+    for i, n in enumerate((2, 4, 1)):
+        for j in range(n):
+            xy = rs.uniform(0, 0.6, 2)
+            labels[i, j] = [rs.randint(0, 3), *xy,
+                            *(xy + rs.uniform(0.1, 0.4, 2))]
+    pred = f(3, 4, anchors.shape[1])
+    pred[:, 1:, ::7] = 0.75
+    logits = f(2, 4, anchors.shape[1])
+    prob = (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)).astype(
+        np.float32)
+    kv = f(7, 2, 2 * 2 * 4)
+    lda, st = rs.uniform(0.5, 1.5, (3, 2)), rs.uniform(0, 1, (3, 2))
+    lags = rs.uniform(0.1, 1.0, (3, 6))
+    hawkes = [a.astype(np.float32) for a in (
+        lda, rs.uniform(0.1, 0.5, 2), rs.uniform(0.5, 2.0, 2), st, lags,
+        rs.randint(0, 2, (3, 6)), np.array([6, 3, 0]), lags.sum(1) + 1)]
+    img = rs.randint(0, 256, (6, 5, 3)).astype(np.uint8)
+    return [
+        ("box_iou", "_contrib_box_iou", [boxes(40), boxes(30)], {}, "f32"),
+        ("box_nms", "_contrib_box_nms", [dets(2, 500)],
+         {"overlap_thresh": 0.4}, "exact"),
+        ("box_nms ties", "_contrib_box_nms", [tied],
+         {"overlap_thresh": 0.3, "valid_thresh": 0.2}, "exact"),
+        ("box_nms center", "_contrib_box_nms", [dets(1, 200)],
+         {"in_format": "center"}, "exact"),
+        ("fft", "_contrib_fft", [f(3, 64)], {}, "f32"),
+        ("ifft", "_contrib_ifft", [f(3, 64)], {}, "f32"),
+        ("index_copy", "_contrib_index_copy",
+         [f(6, 3), np.array([4, 0, -1], np.float32), f(3, 3)], {}, "exact"),
+        ("index_array", "_contrib_index_array", [f(2, 3, 4)],
+         {"axes": (0, 2)}, "exact"),
+        ("getnnz", "_contrib_getnnz", [np.where(f(5, 6) > 0.3, 1.0, 0.0)
+                                       .astype(np.float32)], {"axis": 1},
+         "exact"),
+        ("gradientmultiplier", "_contrib_gradientmultiplier", [f(3, 4)],
+         {"scalar": 2.0}, "exact"),
+        ("quantize", "_contrib_quantize",
+         [f(4, 5) * 3, np.array([-3.0], np.float32),
+          np.array([2.5], np.float32)], {"out_type": "int8"}, "exact"),
+        ("dequantize", "_contrib_dequantize",
+         [rs.randint(0, 256, (4, 5)).astype(np.uint8),
+          np.array([-3.0], np.float32), np.array([2.5], np.float32)], {},
+         "f32"),
+        ("count_sketch", "_contrib_count_sketch",
+         [f(3, 10), rs.randint(0, 6, (1, 10)).astype(np.float32),
+          np.sign(f(1, 10))], {"out_dim": 6}, "f32"),
+        ("encdec_qk", "_contrib_interleaved_matmul_encdec_qk",
+         [f(5, 2, 8), kv], {"heads": 2}, "f32"),
+        ("encdec_valatt", "_contrib_interleaved_matmul_encdec_valatt",
+         [kv, f(4, 5, 7)], {"heads": 2}, "f32"),
+        ("hawkesll", "_contrib_hawkesll", hawkes, {}, "f32"),
+        ("boolean_mask", "_contrib_boolean_mask",
+         [f(6, 3), np.array([1, 0, 1, 1, 0, 0.5], np.float32)], {}, "exact"),
+        ("ROIPooling", "ROIPooling", [f(2, 3, 12, 10), rois(5, 2, 10)],
+         {"pooled_size": (3, 2), "spatial_scale": 0.8}, "exact"),
+        ("ROIAlign", "_contrib_ROIAlign", [f(2, 8, 9, 11), rois(4, 2, 9)],
+         {"pooled_size": (2, 2), "sample_ratio": 3}, "f32"),
+        ("PSROIPooling", "_contrib_PSROIPooling",
+         [f(2, 18, 10, 10), rois(4, 2, 9)],
+         {"output_dim": 2, "pooled_size": 3}, "f32"),
+        ("DeformablePSROIPooling", "_contrib_DeformablePSROIPooling",
+         [f(2, 8, 9, 9), rois(3, 2, 8)],
+         {"output_dim": 2, "group_size": 2, "pooled_size": 2,
+          "no_trans": True}, "f32"),
+        ("RROIAlign", "_contrib_RROIAlign",
+         [f(2, 3, 10, 10), np.concatenate(
+             [rs.randint(0, 2, (4, 1)), rs.uniform(3, 7, (4, 2)),
+              rs.uniform(2, 5, (4, 2)), rs.uniform(-90, 90, (4, 1))],
+             1).astype(np.float32)], {"pooled_size": (2, 3)}, "f32"),
+        ("DeformableConvolution", "_contrib_DeformableConvolution",
+         [f(2, 4, 7, 7), f(2, 36, 5, 5) * 0.7, f(6, 2, 3, 3), f(6)],
+         {"kernel": (3, 3), "num_filter": 6, "num_group": 2,
+          "num_deformable_group": 2}, "f32"),
+        ("MultiBoxPrior", "_contrib_MultiBoxPrior",
+         [np.zeros((1, 3, 38, 38), np.float32)],
+         {"sizes": SSD_SIZES, "ratios": SSD_RATIOS, "clip": True}, "exact"),
+        ("MultiBoxTarget", "_contrib_MultiBoxTarget",
+         [anchors, labels, pred], {"negative_mining_ratio": 3.0},
+         "targets"),
+        ("MultiBoxDetection", "_contrib_MultiBoxDetection",
+         [prob, (f(2, anchors.shape[1] * 4) * 0.2).astype(np.float32),
+          anchors], {"nms_threshold": 0.45, "threshold": 0.2}, "dets"),
+        ("box_encode", "_contrib_box_encode",
+         [rs.uniform(0, 1, (2, 6)).astype(np.float32),
+          rs.randint(-1, 3, (2, 6)).astype(np.float32),
+          np.stack([boxes(6), boxes(6)]), np.stack([boxes(3), boxes(3)])],
+         {}, "f32"),
+        ("box_decode", "_contrib_box_decode",
+         [f(2, 6, 4) * 0.3, boxes(6)], {"clip": 0.25}, "f32"),
+        ("bipartite_matching", "_contrib_bipartite_matching",
+         [rs.uniform(0, 1, (2, 5, 4)).astype(np.float32)],
+         {"threshold": 0.1}, "exact"),
+        ("Proposal", "_contrib_Proposal",
+         [rs.uniform(0, 1, (2, 12, 4, 5)).astype(np.float32),
+          f(2, 24, 4, 5) * 0.2,
+          np.array([[64, 80, 1.0], [60, 70, 0.8]], np.float32)],
+         {"rpn_pre_nms_top_n": 50, "rpn_post_nms_top_n": 12,
+          "threshold": 0.6, "rpn_min_size": 4, "scales": (2, 4)}, "f32"),
+        ("mrcnn_mask_target", "_contrib_mrcnn_mask_target",
+         [np.stack([boxes(4, 12), boxes(4, 12)]),
+          (rs.uniform(0, 1, (2, 3, 12, 12)) > 0.5).astype(np.float32),
+          rs.randint(0, 3, (2, 4)).astype(np.float32),
+          rs.randint(0, 3, (2, 4)).astype(np.float32)],
+         {"num_classes": 3, "mask_size": (5, 4)}, "f32"),
+        ("SyncBatchNorm", "_contrib_SyncBatchNorm",
+         [f(4, 3, 5, 5), rs.uniform(0.5, 1.5, 3).astype(np.float32), f(3),
+          f(3) * 0.1, rs.uniform(0.5, 2, 3).astype(np.float32)],
+         {"_mode": "train", "fix_gamma": False}, "f32"),
+        ("SparseEmbedding", "_contrib_SparseEmbedding",
+         [np.array([[0, 3], [2, 1]], np.float32), f(4, 5)], {}, "exact"),
+        ("add_n", "add_n", [f(3, 4), f(3, 4), f(3, 4)], {}, "exact"),
+        ("hard_sigmoid", "hard_sigmoid", [f(4, 5)], {}, "f32"),
+        ("moments", "moments", [f(3, 4, 5)], {"axes": (0, 2)}, "f32"),
+        ("_square_sum", "_square_sum", [f(3, 4)], {"axis": 1}, "f32"),
+        ("_hypot_scalar", "_hypot_scalar", [f(3, 4)], {"scalar": 1.5},
+         "f32"),
+        ("batch_take", "batch_take",
+         [f(4, 5), np.array([0, 4, 2, 1], np.float32)], {}, "exact"),
+        ("_unravel_index", "_unravel_index",
+         [np.array([[0, 7, 23], [11, 5, 19]], np.float32)],
+         {"shape": (2, 3, 4)}, "exact"),
+        ("_ravel_multi_index", "_ravel_multi_index",
+         [np.array([[0, 1, 2], [2, 0, 1], [3, 3, 0]], np.float32)],
+         {"shape": (2, 3, 4)}, "exact"),
+        ("_histogram", "_histogram", [f(500)], {"bin_cnt": 9,
+                                               "range": (-2.0, 2.0)}, "f32"),
+        ("_sparse_retain", "_sparse_retain",
+         [f(6, 3), np.array([4, 0, -1], np.float32)], {}, "exact"),
+        ("_slice_assign", "_slice_assign", [f(6, 4), f(3, 2)],
+         {"begin": (5, None), "end": (0, None), "step": (-2, 2)}, "exact"),
+        ("_slice_assign_scalar", "_slice_assign_scalar", [f(6, 4)],
+         {"scalar": 7.0, "begin": (1, 0), "end": (4, 3)}, "exact"),
+        ("LinearRegressionOutput", "LinearRegressionOutput",
+         [f(4, 3), f(4, 3)], {}, "exact"),
+        ("LogisticRegressionOutput", "LogisticRegressionOutput",
+         [f(4, 3), f(4, 3)], {}, "f32"),
+        ("SVMOutput", "SVMOutput",
+         [f(5, 4), np.array([0, 3, 1, 1, 2], np.float32)], {}, "exact"),
+        ("MakeLoss", "MakeLoss", [f(4, 3)], {"normalization": "valid"},
+         "exact"),
+        ("round_ste", "_contrib_round_ste", [f(3, 5) * 3], {}, "exact"),
+        ("quadratic", "_contrib_quadratic", [f(3, 5)],
+         {"a": 0.5, "b": -1.0, "c": 2.0}, "f32"),
+        ("allclose", "_contrib_allclose", [f(3, 5), f(3, 5)],
+         {"atol": 5.0}, "exact"),
+        ("im2col", "im2col", [f(2, 3, 6, 7)],
+         {"kernel": (2, 3), "stride": (2, 1), "dilate": (1, 2),
+          "pad": (0, 1)}, "exact"),
+        ("col2im", "col2im", [f(2, 27, 42)],
+         {"output_size": (6, 7), "kernel": (3, 3), "pad": (1, 1)}, "f32"),
+        ("LRN", "LRN", [f(2, 7, 4, 5)], {"nsize": 3}, "f32"),
+        ("Crop", "Crop", [f(2, 3, 6, 7)], {"h_w": (3, 3),
+                                           "center_crop": True}, "exact"),
+        # x / 255: the card multiplies by the reciprocal, an ulp apart
+        ("_image_to_tensor", "_image_to_tensor", [img], {}, "f32"),
+        ("_image_normalize", "_image_normalize",
+         [rs.uniform(0, 1, (3, 6, 5)).astype(np.float32)],
+         {"mean": (0.4, 0.5, 0.6), "std": (0.2, 0.25, 0.3)}, "f32"),
+        ("_image_crop", "_image_crop", [img],
+         {"x": 1, "y": 2, "width": 3, "height": 2}, "exact"),
+        ("_image_adjust_lighting", "_image_adjust_lighting", [img],
+         {"alpha": (2.0, -1.0, 3.0)}, "exact"),
+        ("_image_resize", "_image_resize",
+         [rs.uniform(0, 255, (6, 5, 3)).astype(np.float32)],
+         {"size": (8, 9)}, "f32"),
+        ("GridGenerator", "GridGenerator", [f(2, 6) * 0.5],
+         {"target_shape": (4, 6)}, "f32"),
+        ("SpatialTransformer", "SpatialTransformer",
+         [f(2, 3, 6, 7), (np.array([[1, 0, 0, 0, 1, 0]] * 2) + f(2, 6) * 0.2)
+          .astype(np.float32)], {"target_shape": (5, 4)}, "f32"),
+        ("BilinearResize2D", "_contrib_BilinearResize2D", [f(2, 3, 6, 7)],
+         {"height": 9, "width": 5}, "f32"),
+        ("AdaptiveAvgPooling2D", "_contrib_AdaptiveAvgPooling2D",
+         [f(2, 3, 7, 9)], {"output_size": (3, 2)}, "f32"),
+        ("Correlation", "Correlation", [f(2, 3, 8, 9), f(2, 3, 8, 9)],
+         {"kernel_size": 3, "max_displacement": 2, "stride2": 2,
+          "pad_size": 2}, "f32"),
+    ]
+
+
+def attention_op_checks(mx, dev):
+    """``nd.contrib.flash_attention`` and ``nd.contrib.paged_attention``
+    on CUDA arrays launch K1 (K2 and K3 in the backward under
+    ``record()``) and K4, held against their plain versions on the same
+    arrays: K1's output and the gradients within 1e-5 of the largest
+    (f32), K4's output within 1e-5."""
+    import torch
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import paged_attention as pa
+
+    ctx = mx.gpu(0)
+    rng = np.random.default_rng(3)
+    q, k, v = (mx.nd.array(rng.standard_normal((2, 4, 100, 64)).astype(
+        np.float32), ctx=ctx) for _ in range(3))
+    for a in (q, k, v):
+        a.attach_grad()
+    before = (fa.flash_attention.fwd_launches, fa.flash_attention.dq_launches,
+              fa.flash_attention.dkv_launches)
+    with mx.autograd.record():
+        out = mx.nd.contrib.flash_attention(q, k, v, causal=True)
+    out.backward(mx.nd.ones_like(out))
+    after = (fa.flash_attention.fwd_launches, fa.flash_attention.dq_launches,
+             fa.flash_attention.dkv_launches)
+    qt, kt, vt = (a.data().detach().cpu().requires_grad_() for a in (q, k, v))
+    want = fa.flash_attention(qt, kt, vt, causal=True)
+    want.backward(torch.ones_like(want))
+    errs = [((g.data() if hasattr(g, "data") else g).detach().cpu().double()
+             - w.detach().double()).abs().max().item()
+            / max(w.detach().abs().max().item(), 1e-30)
+            for g, w in ((out, want), (q.grad, qt.grad), (k.grad, kt.grad),
+                         (v.grad, vt.grad))]
+    launched = all(a > b for a, b in zip(after, before))
+    ok = launched and max(errs) <= 1e-5
+    log("ops: nd.contrib.flash_attention on the card: K1, K2, K3 launched "
+        "%s; out and dq, dk, dv against the plain version %s %s"
+        % (tuple(a - b for a, b in zip(after, before)),
+           ["%.3g" % e for e in errs], "ok" if ok else "FAIL"))
+    b, h, kvh, d, s_page, pages = 3, 8, 2, 64, 16, 12
+    qp = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    kp, vp = (rng.standard_normal((pages, s_page, kvh, d)).astype(np.float32)
+              for _ in range(2))
+    table = np.array([[1, 2, 3], [4, 5, 0], [6, 0, 0]], np.float32)
+    pos = np.array([40, 20, 3], np.float32)
+    args = [mx.nd.array(a, ctx=ctx) for a in (qp, kp, vp, table, pos)]
+    n0 = pa.paged_attention.launches
+    got = mx.nd.contrib.paged_attention(*args).data()
+    n1 = pa.paged_attention.launches
+    want = pa._paged_ref(*(torch.from_numpy(a) for a in (qp, kp, vp)),
+                         torch.from_numpy(table).int(),
+                         torch.from_numpy(pos).int(), scale=d ** -0.5)
+    err = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+    good = n1 == n0 + 1 and err <= 1e-5
+    log("ops: nd.contrib.paged_attention on the card: K4 launched %d, "
+        "against the plain version %.3g %s" % (n1 - n0, err,
+                                                "ok" if good else "FAIL"))
+    return ok and good
+
+
+def recorded_control_checks(mx, dev):
+    """A ``CustomOp`` and a ``while_loop`` under ``record()`` with a
+    backward, on the card against the same code on the host: outputs
+    and input gradients within 1e-5 of the largest."""
+    import torch
+
+    if "smoke_sigmoid" not in mx.operator._CUSTOM_REGISTRY:
+        class Sigmoid(mx.operator.CustomOp):
+            def forward(self, is_train, req, in_data, out_data, aux):
+                self.assign(out_data[0], req[0],
+                            1.0 / (1.0 + mx.nd.exp(-in_data[0])))
+
+            def backward(self, req, out_grad, in_data, out_data, in_grad,
+                         aux):
+                y = out_data[0]
+                self.assign(in_grad[0], req[0], out_grad[0] * y * (1.0 - y))
+
+        @mx.operator.register("smoke_sigmoid")
+        class SigmoidProp(mx.operator.CustomOpProp):
+            def create_operator(self, ctx, in_shapes, in_dtypes):
+                return Sigmoid()
+
+    def run(ctx):
+        rs = np.random.RandomState(4)
+        x = mx.nd.array(rs.standard_normal((64, 33)).astype(np.float32),
+                        ctx=ctx)
+        s = mx.nd.array(rs.standard_normal((33,)).astype(np.float32),
+                        ctx=ctx)
+        for a in (x, s):
+            a.attach_grad()
+        with mx.autograd.record():
+            y = mx.nd.Custom(x, op_type="smoke_sigmoid")
+            outs, final = mx.nd.contrib.while_loop(
+                lambda i, h: i < 5,
+                lambda i, h: (mx.nd.tanh(h * s), [i + 1, h * 0.5 + y[0]]),
+                [mx.nd.zeros((1,), ctx=ctx), y[1]], max_iterations=9)
+            loss = (outs * outs).sum() + final[1].sum() + y.sum()
+        loss.backward()
+        return [t.asnumpy() for t in (y, outs, final[1], x.grad, s.grad)]
+
+    with exact_convs():
+        card, host = run(mx.gpu(0)), run(mx.cpu())
+    errs = [float(np.abs(c - h).max() / max(np.abs(h).max(), 1e-30))
+            for c, h in zip(card, host)]
+    ok = card[1].shape == (5, 33) and max(errs) <= 1e-5
+    log("ops: a CustomOp and a while_loop under record() with a backward: "
+        "%d loop rows; outputs and gradients against the host %s %s"
+        % (card[1].shape[0], ["%.3g" % e for e in errs],
+           "ok" if ok else "FAIL"))
+    return ok
+
+
+def capture_refusal_checks(mx, dev):
+    """Under a CUDA graph capture, ``boolean_mask``, a recorded
+    ``while_loop`` and ``cond`` (which read the device on the host) raise
+    ``MXNetError`` rather than break the capture or replay a stale
+    answer; the card stays usable after each."""
+    import torch
+
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.base import MXNetError
+
+    def block(fn, with_param):
+        class B(gluon.HybridBlock):
+            def __init__(self):
+                super().__init__()
+                if with_param:
+                    with self.name_scope():
+                        self.w = self.params.get("w", shape=(4,))
+
+            def hybrid_forward(self, F, x, **params):
+                return fn(F, x, *params.values())
+
+        net = B()
+        net.initialize(device=dev)
+        net.hybridize()
+        return net
+
+    cases = [
+        ("boolean_mask", False, lambda F, x: F.contrib.boolean_mask(
+            x, x[:, 0] > 0)),
+        ("cond", False, lambda F, x: F.contrib.cond(
+            x.sum() > 0, lambda: x * 2, lambda: x * 3)),
+        ("while_loop in record()", True, lambda F, x, w: F.contrib.while_loop(
+            lambda i: (i < 3), lambda i: (i * w.sum(), [i + 1]),
+            [x[0, :1] * 0], max_iterations=4)[0]),
+    ]
+    ok = True
+    x = torch.ones(4, 4, device=dev)
+    for label, with_param, fn in cases:
+        net = block(fn, with_param)
+        raised = None
+        for _ in range(3):
+            try:
+                if with_param:
+                    with mx.autograd.record():
+                        out = net(mx.nd.NDArray(x, ctx=mx.gpu(0)))
+                    out.backward()
+                else:
+                    with torch.no_grad():
+                        net(x)
+            except MXNetError as e:
+                raised = e
+                break
+        torch.cuda.synchronize()
+        usable = bool((torch.randint(0, 5, (8,), device=dev) < 5).all())
+        good = raised is not None and usable
+        ok &= good
+        log("ops: %s inside a captured call: %s; the card usable after %s %s"
+            % (label, ("MXNetError: %s" % str(raised).splitlines()[0][:90])
+               if raised is not None else "NOTHING RAISED", usable,
+               "ok" if good else "FAIL"))
+    return ok
+
+
 def _recon(name, outs):
     """The product a sign-free factorization must give back."""
     if name == "_linalg_svd":
@@ -6849,16 +7273,18 @@ def _recon(name, outs):
 
 
 def op_tail_checks(dev):
-    """Each case of ``op_tail_cases`` on the card against the port on the
-    host (TF32 off): ``[(label, kind, error, bound, ok)]``; an ``exact``
-    case's error is its count of differing elements."""
+    """Each case of ``op_tail_cases`` and ``contrib_tail_cases`` on the
+    card against the port on the host (TF32 off): ``[(label, kind, error,
+    bound, ok)]``; an ``exact`` case's error is its count of differing
+    elements."""
     import torch
 
     from mxnet_tpu_torch.ops import registry
 
     rows = []
     with exact_convs():
-        for label, op, inputs, attrs, kind in op_tail_cases():
+        for label, op, inputs, attrs, kind in (op_tail_cases()
+                                               + contrib_tail_cases()):
             fwd = registry.get(op).forward
             outs = {}
             for where in ("cpu", dev):
@@ -6869,7 +7295,20 @@ def op_tail_checks(dev):
                     out = _recon(op, out)
                 outs[str(where)] = [o.detach().cpu() for o in out]
             host, card = outs["cpu"], outs[str(dev)]
-            if kind == "exact":
+            rule = kind
+            if kind in ("targets", "dets"):
+                # the matching bitwise (the targets' masks and classes,
+                # the detections' classes and scores), the rest as f32
+                if kind == "targets":
+                    pairs = list(zip(host[1:], card[1:]))
+                    host, card = host[:1], card[:1]
+                else:
+                    pairs = [(host[0][..., :2], card[0][..., :2])]
+                if not all(torch.equal(h, c) for h, c in pairs):
+                    rows.append((label, kind, math.inf, 1e-5, False))
+                    continue
+                rule = "f32"
+            if rule == "exact":
                 err = sum(int((~((h == c) | (h.isnan() & c.isnan()))).sum())
                           if h.is_floating_point() else int((h != c).sum())
                           for h, c in zip(host, card))
@@ -6877,7 +7316,7 @@ def op_tail_checks(dev):
                            for h, c in zip(host, card))
                 bound = 0
             else:
-                bound = 1e-5 if kind == "f32" else 1e-4
+                bound = 1e-5 if rule == "f32" else 1e-4
                 err = max(((c.double() - h.double()).abs().max()
                            / h.double().abs().max().clamp_min(1e-30)).item()
                           for h, c in zip(host, card))
@@ -6936,9 +7375,12 @@ def dropout_graph_masks(mx, dev):
 
 
 def ops_phase(mx, dev):
-    """Every op of the op tail on the card against the host, every
-    sampler's 2^22 draws against its distribution, seeded draws
-    repeated, and a hybridized Dropout's masks through its replays."""
+    """Every op of the op tail and of the contrib, vision and misc ops on
+    the card against the host, every sampler's 2^22 draws against its
+    distribution, seeded draws repeated, a hybridized Dropout's masks
+    through its replays, the attention ops through ``nd.contrib``, a
+    ``CustomOp`` and a ``while_loop`` recorded, and the host reads
+    refused under a capture."""
     ok = True
     for label, kind, err, bound, good in op_tail_checks(dev):
         ok &= good
@@ -6978,6 +7420,9 @@ def ops_phase(mx, dev):
            "bitwise equal" if same else "DIFFERS", st["captures"],
            st["replays"], "ok" if good else "FAIL"))
     ok &= good
+    ok &= attention_op_checks(mx, dev)
+    ok &= recorded_control_checks(mx, dev)
+    ok &= capture_refusal_checks(mx, dev)
     if not ok:
         fail("an op of the op tail, a sampler or a draw check missed")
 
@@ -7059,6 +7504,595 @@ def draw_readings(device, n, seed):
     return out
 
 
+# -- phase 19: ssd, the detection example trained and decoded on the card -------
+
+# examples/detection/train_ssd.py's anchors: 5 a cell
+SSD_SIZES = (0.3, 0.55, 0.8)
+SSD_RATIOS = (1.0, 2.0, 0.5)
+SSD_ANCHORS = len(SSD_SIZES) + len(SSD_RATIOS) - 1
+SSD = dict(classes=20, image=300, batch=32, objects=8, lr=2e-3)
+
+
+def ssd_blocks():
+    """The JAX package's detection example's two blocks
+    (``examples/detection/train_ssd.py:105-198``) written for the port as
+    the example writes them: ``hybrid_forward(self, F, ...)`` with
+    ``F.contrib.*`` ops.  Returns ``(SSDNet, SSDTrainLoss)``."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch import layout as layout_mod
+    from mxnet_tpu_torch.gluon import nn
+
+    class SSDNet(gluon.HybridBlock):
+        """One-scale SSD head on a truncated model-zoo backbone, built
+        under the policy layout (channels-last on the card); the input
+        contract stays NCHW."""
+
+        def __init__(self, num_classes, num_anchors, backbone="resnet18_v1",
+                     cut=6, device=None, **kwargs):
+            super().__init__(**kwargs)
+            self._layout = layout_mod.preferred_layout(2, device)
+            self._channel_last = not self._layout.startswith("NC")
+            zoo = gluon.model_zoo.vision.get_model(
+                backbone, pretrained=False, device=device)
+            with layout_mod.layout_scope(self._layout), self.name_scope():
+                self.features = nn.HybridSequential()
+                for layer in list(zoo.features)[:cut]:
+                    self.features.add(layer)
+                self.cls_pred = nn.Conv2D(num_anchors * (num_classes + 1),
+                                          kernel_size=3, padding=1,
+                                          device=device)
+                self.loc_pred = nn.Conv2D(num_anchors * 4, kernel_size=3,
+                                          padding=1, device=device)
+            self.num_classes = num_classes
+            self.num_anchors = num_anchors
+
+        def hybrid_forward(self, F, x):
+            if self._channel_last:
+                x = F.transpose(x, axes=(0, 2, 3, 1))
+            feat = self.features(x)
+            cls = self.cls_pred(feat)
+            loc = self.loc_pred(feat)
+            if not self._channel_last:
+                feat = F.transpose(feat, axes=(0, 2, 3, 1))
+                cls = F.transpose(cls, axes=(0, 2, 3, 1))
+                loc = F.transpose(loc, axes=(0, 2, 3, 1))
+            b = x.shape[0]
+            cls = F.transpose(F.reshape(cls, shape=(b, -1,
+                                                    self.num_classes + 1)),
+                              axes=(0, 2, 1))
+            loc = F.reshape(loc, shape=(b, -1))
+            feat_sh = F.transpose(feat, axes=(0, 3, 1, 2))
+            return feat_sh, cls, loc
+
+    class SSDTrainLoss(gluon.HybridBlock):
+        """Forward, target assignment and the masked objectives as one
+        block: ``JitTrainStep(SSDTrainLoss(net), None, ...)`` captures
+        the whole step."""
+
+        def __init__(self, ssd, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.ssd = ssd
+
+        def hybrid_forward(self, F, x, label):
+            feat_sh, cls_preds, loc_preds = self.ssd(x)
+            anchors = F.contrib.MultiBoxPrior(
+                feat_sh, sizes=SSD_SIZES, ratios=SSD_RATIOS, clip=True)
+            loc_t, loc_m, cls_t = F.contrib.MultiBoxTarget(
+                F.BlockGrad(anchors), label, F.BlockGrad(cls_preds),
+                negative_mining_ratio=3.0)
+            nc = self.ssd.num_classes
+            cp = F.reshape(F.transpose(cls_preds, axes=(0, 2, 1)),
+                           shape=(-1, nc + 1))
+            ct = F.reshape(cls_t, shape=(-1,))
+            valid = F.BlockGrad((ct >= 0).astype("float32"))
+            tgt = F.BlockGrad(F.relu(ct))
+            logp = F.log_softmax(cp, axis=-1)
+            lc = -F.pick(logp, tgt, axis=-1) * valid
+            ls = F.smooth_l1(loc_preds * loc_m - loc_t * loc_m, scalar=1.0)
+            denom = F.broadcast_maximum(F.reshape(F.sum(valid), shape=(1,)),
+                                        F.ones(shape=(1,)))
+            return F.sum(lc) / denom + F.mean(F.sum(ls, axis=-1)) / 100.0
+
+    return SSDNet, SSDTrainLoss
+
+
+def ssd_batch(dev, batch, image, objects, classes, seed):
+    """Seeded images (B, 3, H, W) and labels (B, objects, 5) padded with
+    -1, made on ``dev``: 1 to ``objects`` boxes an image, each a bright
+    rectangle of its class's colour on noise, as the example draws
+    them."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(*shape, generator=gen, device=dev)
+
+    img = u(batch, 3, image, image) * 0.25
+    n_obj = (u(batch) * objects).floor().long() + 1          # 1..objects
+    cls = (u(batch, objects) * classes).floor()
+    x0y0 = u(batch, objects, 2) * 0.6
+    wh = 0.1 + u(batch, objects, 2) * 0.3
+    boxes = torch.cat([x0y0, (x0y0 + wh).clamp(max=1.0)], dim=2)
+    live = torch.arange(objects, device=dev)[None, :] < n_obj[:, None]
+    label = torch.where(live[..., None], torch.cat([cls[..., None], boxes], 2),
+                        torch.full((batch, objects, 5), -1.0, device=dev))
+    pix = (torch.arange(image, device=dev).float() + 0.5) / image
+    colour = (cls[..., None] + 1) / (classes + 1)            # (B, O, 1)
+    for o in range(objects):
+        inside = ((pix[None, :, None] >= boxes[:, o, 1, None, None])
+                  & (pix[None, :, None] < boxes[:, o, 3, None, None])
+                  & (pix[None, None, :] >= boxes[:, o, 0, None, None])
+                  & (pix[None, None, :] < boxes[:, o, 2, None, None])
+                  & live[:, o, None, None])                  # (B, H, W)
+        paint = torch.stack([colour[:, o], 1 - colour[:, o],
+                             0.5 * torch.ones_like(colour[:, o])], 1)
+        img = torch.where(inside[:, None], paint[..., None], img)
+    return img, label
+
+
+SSD_PARITY_BATCH = 2
+SSD_PARITY_STEPS = 3
+SSD_KINDS = (("convolutions", ("conv", "cudnn", "xmma", "implicit", "nhwc",
+                               "dgrad", "wgrad", "winograd")),
+             ("box_nms (O4)", ("nms_",)),
+             ("adam (O1)", ("multi_adamw",)),
+             ("sorts", ("sort", "radix")),
+             ("pooling", ("pool",)),
+             ("reductions", ("reduce_kernel",)),
+             ("elementwise", ("elementwise",)))
+# the f32 operations of one IoU and its comparison (2 max, 2 min, 2 sub,
+# 2 clamps, the product, the union's add and sub, the floor, the divide,
+# the compare), per pair the greedy walk must decide
+NMS_OPS_A_PAIR = 14
+F32_FLOPS = 67e12                  # H100 SXM, outside the tensor cores
+
+
+def ssd_net(dev, seed, classes=None):
+    """The example's ``SSDNet`` on ``dev``: Xavier from a seeded
+    generator (the layers' own initializers first), the heads' deferred
+    shapes filled at the first forward."""
+    import torch
+
+    from mxnet_tpu_torch import initializer
+
+    ssd_net_cls, _ = ssd_blocks()
+    net = ssd_net_cls(classes or SSD["classes"], SSD_ANCHORS, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    net.initialize(initializer.Xavier(), generator=gen)
+    return net
+
+
+@contextlib.contextmanager
+def plain_nms():
+    """``box_nms.nms_keep`` replaced by its plain version (on the card
+    too), for the yardstick and the bitwise check of the decode."""
+    from mxnet_tpu_torch.ops import box_nms
+
+    kernel = box_nms.nms_keep
+    box_nms.nms_keep = lambda boxes, valid, t: box_nms.nms_keep_ref(
+        boxes, valid, t)
+    try:
+        yield
+    finally:
+        box_nms.nms_keep = kernel
+
+
+def ssd_parity(mx, dev):
+    """Full width (ResNet-18's 64 and 128 channels, 20 classes) at 300 x
+    300, batch ``SSD_PARITY_BATCH``, f32, TF32 off, deterministic cuDNN:
+    ``SSD_PARITY_STEPS`` adam steps of ``JitTrainStep(SSDTrainLoss(net),
+    None, "adam")`` on the card (graphed: the second step is the
+    capture) against the same steps of the port on the host in f32 (its
+    eager step) and in f64 (``record()``, ``backward()`` and
+    ``AdamF64``), from the same weights and batch: each step's loss.
+    The card's error (of the largest loss, from the f64 run) must be
+    within 1e-3, or 3x the host f32 run's own error where that is
+    larger, as the gan phase holds DCGAN."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+
+    b, n = SSD_PARITY_BATCH, SSD_PARITY_STEPS
+    _, loss_cls = ssd_blocks()
+    x, label = ssd_batch("cpu", b, SSD["image"], SSD["objects"],
+                         SSD["classes"], 11)
+    base = ssd_net("cpu", 1)
+    with torch.no_grad(), autograd.predict_mode():
+        base(x)                                 # the deferred shapes
+    state = base.state_dict()
+    runs = {}
+    with exact_convs():
+        for tag, where, dtype in (("card", dev, torch.float32),
+                                  ("host f32", "cpu", torch.float32),
+                                  ("host f64", "cpu", torch.float64)):
+            net = ssd_net(where, 1)
+            with torch.no_grad(), autograd.predict_mode():
+                net(x.to(where))
+            net.load_state_dict(state)
+            blk = loss_cls(net)
+            xs, ls = x.to(where, dtype), label.to(where)
+            t0 = time.perf_counter()
+            with mx.cpu() if where == "cpu" else mx.gpu(0):
+                losses = ssd_parity_steps(mx, blk, net, xs, ls, n, dtype)
+            runs[tag] = torch.tensor(losses, dtype=torch.float64)
+            log("ssd parity: %s, %d steps %.2f s, losses %s"
+                % (tag, n, time.perf_counter() - t0,
+                   ["%.6f" % v for v in losses]))
+    card, host, want = runs["card"], runs["host f32"], runs["host f64"]
+    scale = want.abs().max().item()
+    e_card = (card - want).abs().max().item() / scale
+    e_host = (host - want).abs().max().item() / scale
+    bound = max(1e-3, 3 * e_host)
+    ok = e_card <= bound and bool(torch.isfinite(card).all())
+    log("ssd parity: losses of %d steps: card %.3g, host f32 %.3g of the "
+        "largest (%.4g) from the host's f64 run (bound %.3g) %s"
+        % (n, e_card, e_host, scale, bound, "ok" if ok else "FAIL"))
+    if not ok:
+        fail("the card's SSD steps disagree with the host's")
+
+
+def ssd_parity_steps(mx, blk, net, x, label, n, dtype):
+    """``n`` steps' losses: ``JitTrainStep`` (graphed on the card: the
+    second step is the capture), or in f64 ``record()``,
+    ``backward()`` and ``AdamF64``."""
+    import torch
+
+    from mxnet_tpu_torch import autograd, parallel
+
+    losses = []
+    if dtype == torch.float64:
+        net.double()
+        adam = AdamF64(net, SSD["lr"], 0.9)
+        xn = mx.nd.array(x, dtype="float64")
+        ln = mx.nd.array(label)
+        for _ in range(n):
+            with autograd.record():
+                loss = blk(xn, ln)
+            loss.backward()
+            adam.step(1)
+            losses.append(float(loss.asscalar()))
+        return losses
+    step = parallel.JitTrainStep(blk, None, "adam",
+                                 {"learning_rate": SSD["lr"]})
+    for _ in range(n):
+        losses.append(float(step.step(x, label).item()))
+    if x.is_cuda and step.stats()["captures"] != 1:
+        fail("the parity SSD step was not captured on the card (%s)"
+             % step.stats())
+    return losses
+
+
+def ssd_decode(mx, net, xn):
+    """The example's inference: ``MultiBoxPrior`` over the feature map,
+    the class softmax and ``MultiBoxDetection(nms_threshold=0.45)``;
+    returns the detections and the detection op's inputs."""
+    feat, cls, loc = net(xn)
+    anchors = mx.nd.contrib.MultiBoxPrior(feat, sizes=SSD_SIZES,
+                                          ratios=SSD_RATIOS, clip=True)
+    probs = mx.nd.softmax(cls.transpose((0, 2, 1))).transpose((0, 2, 1))
+    dets = mx.nd.contrib.MultiBoxDetection(probs, loc, anchors,
+                                           nms_threshold=0.45,
+                                           threshold=0.01)
+    return dets, (probs, loc, anchors)
+
+
+def o4_inputs(probs, loc, anchors):
+    """What ``MultiBoxDetection`` hands O4: the decoded boxes sorted by
+    score (a stable sort of the negated scores) and ``score > 0``."""
+    import torch
+
+    from mxnet_tpu_torch.ops.vision import _decode_dets
+
+    dets = _decode_dets(probs.data(), loc.data(), anchors.data(), True, 0.01,
+                        (0.1, 0.1, 0.2, 0.2))
+    order = torch.sort(-dets[:, :, 1], dim=1, stable=True).indices
+    srt = torch.gather(dets, 1, order[..., None].expand(-1, -1, 6))
+    return srt[:, :, 2:6].contiguous(), srt[:, :, 1] > 0.0
+
+
+def o4_bound(keep, n_boxes):
+    """O4's least time for this run's data, in ms, and what bounds it:
+    the IoUs the greedy walk must compute (each kept box against every
+    later box) at the f32 peak, against the bytes (each box and its
+    valid flag read once, each keep flag written once) at HBM's rate."""
+    import torch
+
+    pos = torch.arange(keep.shape[1], device=keep.device)
+    pairs = ((keep.shape[1] - 1 - pos) * keep).sum().item()
+    ops_ms = 1e3 * NMS_OPS_A_PAIR * pairs / F32_FLOPS
+    bytes_ms = 1e3 * n_boxes * (16 + 1 + 1) / HBM_BYTES_PER_S
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes"), pairs
+
+
+def o4_checks(dev):
+    """O4 against its plain version on the card, keep masks bit for bit:
+    random boxes, tied scores with repeated boxes, one box repeated (all
+    but one suppressed), pairs whose IoU is exactly the threshold, and a
+    set past one 64-box word of kept rows."""
+    import torch
+
+    from mxnet_tpu_torch.ops import box_nms
+
+    g = torch.Generator(device="cpu")
+    g.manual_seed(5)
+
+    def boxes(b, n):
+        xy = torch.rand(b, n, 2, generator=g) * 0.7
+        wh = 0.02 + torch.rand(b, n, 2, generator=g) * 0.3
+        return torch.cat([xy, xy + wh], 2)
+
+    cases = []
+    bx = boxes(4, 3000)
+    cases.append(("random 4 x 3000 t 0.5", bx, torch.rand(4, 3000,
+                                                          generator=g) > 0.1,
+                  0.5))
+    rep = boxes(2, 500)
+    rep[:, 1::3] = rep[:, 0::3][:, :rep[:, 1::3].shape[1]]
+    cases.append(("repeated rows 2 x 500 t 0.45", rep,
+                  torch.ones(2, 500, dtype=torch.bool), 0.45))
+    one = boxes(1, 1).expand(3, 777, 4).contiguous()
+    cases.append(("one box 3 x 777 t 0.1", one,
+                  torch.ones(3, 777, dtype=torch.bool), 0.1))
+    base = torch.tensor([[0, 0, 2, 1], [0, 0, 2, 2], [0, 0, 1, 1],
+                         [0, 0, 4, 1], [0, 0, 2, 1]], dtype=torch.float32)
+    thr = torch.cat([base * 2.0 ** -k for k in range(40)])[None]
+    cases.append(("IoU exactly 0.5, t 0.5", thr,
+                  torch.ones(1, thr.shape[1], dtype=torch.bool), 0.5))
+    sparse = boxes(2, 4100) * 0.2 + torch.rand(2, 4100, 1, generator=g) * 0.8
+    cases.append(("sparse 2 x 4100 t 0.7", sparse,
+                  torch.ones(2, 4100, dtype=torch.bool), 0.7))
+    ok = True
+    for label, bx, valid, t in cases:
+        bx, valid = bx.to(dev), valid.to(dev)
+        got = box_nms.nms_keep(bx, valid, t)
+        want = box_nms.nms_keep_ref(bx, valid, t)
+        diff = int((got != want).sum())
+        good = diff == 0 and got.dtype == torch.bool
+        ok &= good
+        log("ssd o4: %-30s kept %d of %d, %d keep flags differ from the "
+            "plain version %s" % (label, int(got.sum()), got.numel(), diff,
+                                  "ok" if good else "FAIL"))
+    if not ok:
+        fail("O4's keep mask differs from its plain version's")
+
+
+def ssd_train_run(mx, dev):
+    """The main path at SSD300's input: ``SSDNet`` (ResNet-18's
+    ``features[:6]``, 64 and 128 channels, 38 x 38 x 128 map, 5 anchors
+    a cell: 7,220 anchors; 20 classes + background, 105 class
+    channels), f32 with torch's defaults, batch 32 of seeded images with
+    (32, 8, 5) labels, adam: ``JitTrainStep(SSDTrainLoss(net), None,
+    "adam")`` graphed (2 warm-up steps, the second the capture of the
+    whole step with ``MultiBoxTarget`` in it, 8 timed, 1 profiled); the
+    same steps eagerly under ``record()`` with a ``gluon.Trainer`` (2 + 6
+    + 1), then through the hybridized loss block (3 + 6 + 1); then one
+    inference batch: ``MultiBoxPrior``, softmax, ``MultiBoxDetection``
+    (O4).  Returns the counts and O4's readings at the decode's shape."""
+    import torch
+
+    from mxnet_tpu_torch import autograd, gluon, parallel
+    from mxnet_tpu_torch.ops import box_nms
+    from mxnet_tpu_torch.ops import optimizer_ops as oo
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    b = SSD["batch"]
+    ctx = mx.gpu(0)
+    t0 = time.perf_counter()
+    _, loss_cls = ssd_blocks()
+    net = ssd_net(dev, 0)
+    x, label = ssd_batch(dev, b, SSD["image"], SSD["objects"],
+                         SSD["classes"], 0)
+    step_flops, _ = resnet_shapes(net, x)
+    with torch.no_grad(), autograd.predict_mode():
+        feat, cls, _ = net(x)
+    n_anchors = feat.shape[2] * feat.shape[3] * SSD_ANCHORS
+    n_params = sum(p.numel() for p in net.parameters())
+    log("ssd train: SSDNet on resnet18_v1.features[:6] (%s), %.4g M "
+        "parameters, f32; batch %d at %d x %d; feature map %s, %d anchors, "
+        "%d class channels; labels %s; %.4g TFLOP a step (3 x 2 x the "
+        "convolutions' multiply-adds); set-up %.1f s"
+        % (net._layout, n_params / 1e6, b, SSD["image"], SSD["image"],
+           tuple(feat.shape[1:]), n_anchors, cls.shape[1] * SSD_ANCHORS,
+           tuple(label.shape), step_flops / 1e12, time.perf_counter() - t0))
+    side = -(-SSD["image"] // 8)              # the stride-8 map: 38
+    if n_anchors != side * side * SSD_ANCHORS \
+            or cls.shape[1] != SSD["classes"] + 1:
+        fail("the SSD is not at its input's shapes: %d anchors, %d class "
+             "channels" % (n_anchors, cls.shape[1] * SSD_ANCHORS))
+    blk = loss_cls(net)
+    xn, ln = mx.nd.NDArray(x, ctx=ctx), mx.nd.NDArray(label, ctx=ctx)
+    rows, losses = {}, {}
+    # the main path: every count from 0 here to the decode's end
+    reset_opt_counts(oo)
+    box_nms.nms_keep.launches = 0
+
+    def record(mode, fn, n_warm, n_timed):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, outs = timed_steps(fn, n_warm, n_timed)
+        out, wall, busy, averages = profiled_step(fn)
+        losses[mode] = [float(o.item()) for o in outs + [out]]
+        rows[mode] = (times, wall, busy, averages,
+                      torch.cuda.max_memory_allocated())
+
+    step = parallel.JitTrainStep(blk, None, "adam",
+                                 {"learning_rate": SSD["lr"]})
+    record("JitTrainStep graphed", lambda: step.step(x, label), 2, 8)
+    st = step.stats()
+    log("ssd train: JitTrainStep graphed: %d capture in %.3f s (MultiBoxTarget "
+        "inside it: no host read), %d replays, graph pool %.1f MB"
+        % (st["captures"], st["capture_s"], st["replays"],
+           st["pool_bytes"] / 1e6))
+    if st["captures"] != 1 or st["replays"] != 10:     # the capture replays
+        fail("the SSD train step was not captured once and replayed (%s)"
+             % st)
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": SSD["lr"]})
+
+    def script_step():
+        with autograd.record():
+            loss = blk(xn, ln)
+        loss.backward()
+        trainer.step(1)
+        return loss.data().detach()
+
+    record("eager record()", script_step, 2, 6)
+    blk.hybridize()
+    record("hybridized record()", script_step, 3, 6)
+    hst = blk.stats()
+    log("ssd train: hybridized: %d captures, %d replays, %d backward "
+        "replays, %d busy calls"
+        % (hst["captures"], hst["replays"], hst["backward_replays"],
+           hst["busy_calls"]))
+    if hst["captures"] < 1 or hst["backward_replays"] < 6:
+        fail("the hybridized SSD loss did not run as a graph pair (%s)"
+             % hst)
+    with torch.no_grad(), autograd.predict_mode():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dets, det_in = ssd_decode(mx, net, xn)
+        dets_t = dets.data()
+        torch.cuda.synchronize()
+        infer_ms = (time.perf_counter() - t1) * 1e3
+    o1 = opt_counts(oo)["O1"]
+    o4 = box_nms.nms_keep.launches
+    # -- the main path ends here
+    n_steps = sum(len(v) for v in losses.values())
+    flat = [v for vs in losses.values() for v in vs]
+    log("ssd train: losses: %s" % "; ".join(
+        "%s first %.4f last %.4f" % (m, v[0], v[-1])
+        for m, v in losses.items()))
+    if not all(math.isfinite(v) for v in flat):
+        fail("an SSD loss is not finite")
+    if not flat[-1] < flat[0]:
+        fail("the SSD loss did not fall on the fixed batch (%.4f -> %.4f)"
+             % (flat[0], flat[-1]))
+    log("ssd train: O1 launched %d times over %d steps, O4 %d times in the "
+        "decode" % (o1, n_steps, o4))
+    if o1 < n_steps or o4 < 1:
+        fail("the SSD main path did not launch O1 once a step (%d for %d) "
+             "and O4 in its decode (%d)" % (o1, n_steps, o4))
+    for mode, (times, wall, busy, averages, peak) in rows.items():
+        p50_s = times[len(times) // 2]
+        top, _, kern_ms = kernel_rows(averages)
+        log("ssd train: %s step ms p50 %.3f (min %.3f max %.3f over %d "
+            "timed), %.1f images/s, %.2f%% MFU (%.4g model FLOP a step at "
+            "989 TFLOP/s), own peak device memory %.2f GB"
+            % (mode, 1e3 * p50_s, 1e3 * times[0], 1e3 * times[-1],
+               len(times), b / p50_s, 100 * step_flops / p50_s / BF16_FLOPS,
+               step_flops, (peak - held) / 1e9))
+        log("ssd train: %s profiled step: wall %.3f ms, kernels busy %.3f ms:"
+            " idle %.1f%% of the profiled step, %.1f%% of the p50 step; "
+            "kernels summed %.3f ms; by kind %s"
+            % (mode, wall * 1e3, busy, 100 * (1 - busy / (wall * 1e3)),
+               100 * max(0.0, 1 - busy / (p50_s * 1e3)), kern_ms,
+               ", ".join("%s %.3f" % kv for kv in kernel_kinds(
+                   averages, SSD_KINDS).items())))
+        for ms, n, key in top[:8]:
+            log("ssd train:   %9.3f ms  x%-5d %s" % (ms, n, key[:100]))
+    return ssd_decode_readings(mx, dev, dets_t, det_in, infer_ms), o1, o4
+
+
+def ssd_decode_readings(mx, dev, dets, det_in, infer_ms):
+    """The decode's detections checked (shape, finite, classes in range,
+    some kept) and held against the host's ``MultiBoxDetection`` on the
+    same inputs (classes and kept rows equal, boxes within 1e-5);
+    ``MultiBoxDetection`` timed with O4 and with its plain version, the
+    two outputs bitwise equal; O4 alone timed at the decode's shape
+    beside its plain version and its bound.  Returns O4's ``kernels``
+    readings."""
+    import torch
+
+    from mxnet_tpu_torch.ops import box_nms
+
+    b, a = SSD["batch"], dets.shape[1]
+    side = -(-SSD["image"] // 8)
+    kept = dets[:, :, 0] >= 0
+    ok = (tuple(dets.shape) == (b, side * side * SSD_ANCHORS, 6)
+          and bool(torch.isfinite(
+        dets).all()) and bool(((dets[:, :, 0] >= -1)
+                               & (dets[:, :, 0] < SSD["classes"])).all())
+          and int(kept.sum()) > 0)
+    log("ssd decode: detections %s, %d rows kept with a class, the batch's "
+        "inference (forward, priors, softmax, detection) %.3f ms %s"
+        % (tuple(dets.shape), int(kept.sum()), infer_ms,
+           "ok" if ok else "FAIL"))
+    probs, loc, anchors = det_in
+    host = mx.nd.contrib.MultiBoxDetection(
+        *(mx.nd.array(t.data().cpu(), ctx=mx.cpu()) for t in det_in),
+        nms_threshold=0.45, threshold=0.01).data()
+    card = dets.cpu()
+    same_rows = torch.equal(card[..., 0], host[..., 0]) and torch.equal(
+        card[..., 1] == -1, host[..., 1] == -1)
+    err = (card - host).abs().max().item()
+    good = same_rows and err <= 1e-5
+    ok &= good
+    log("ssd decode: against the host's MultiBoxDetection on the same "
+        "inputs: classes and kept rows %s, worst difference %.3g (bound "
+        "1e-5) %s" % ("equal" if same_rows else "DIFFER", err,
+                      "ok" if good else "FAIL"))
+
+    def detect(_):
+        return mx.nd.contrib.MultiBoxDetection(
+            probs, loc, anchors, nms_threshold=0.45, threshold=0.01)
+
+    with torch.no_grad():
+        det_ms = cuda_ms(detect, 10)
+        o4_out = detect(0).data()
+        with plain_nms():
+            t0 = time.perf_counter()
+            plain_out = detect(0).data()
+            torch.cuda.synchronize()
+            det_plain_ms = (time.perf_counter() - t0) * 1e3
+        same = torch.equal(o4_out, plain_out)
+        ok &= same
+        log("ssd decode: MultiBoxDetection at (%d, %d) with O4 %.3f ms, with "
+            "its plain version %.1f ms (%.0fx); the outputs %s"
+            % (b, a, det_ms, det_plain_ms, det_plain_ms / det_ms,
+               "bitwise equal" if same else "DIFFER"))
+        coords, valid = o4_inputs(probs, loc, anchors)
+        ms = cuda_ms(lambda i: box_nms.nms_keep(coords, valid, 0.45), 20)
+        keep = box_nms.nms_keep(coords, valid, 0.45)
+        t0 = time.perf_counter()
+        keep_ref = box_nms.nms_keep_ref(coords, valid, 0.45)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    diff = int((keep != keep_ref).sum())
+    ok &= diff == 0
+    bound_ms, bound_by, pairs = o4_bound(keep, keep.numel())
+    log("ssd o4: at the decode's shape (%d images x %d boxes, %d kept): "
+        "O4 %.4f ms, plain %.1f ms, bound %.4f ms by %s (%d IoUs the walk "
+        "needs: %.1f%% of bound), no library call (torch has no NMS "
+        "without torchvision); keep flags differing %d %s"
+        % (b, a, int(keep.sum()), ms, plain_ms, bound_ms, bound_by, pairs,
+           100 * bound_ms / ms, diff, "ok" if diff == 0 else "FAIL"))
+    if not ok:
+        fail("the SSD decode or O4 missed a check")
+    return {"max_abs_err": float(diff), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library": "none: torch has no NMS without torchvision",
+            "decode_ms": det_ms, "decode_plain_ms": det_plain_ms}
+
+
+def ssd_phase(mx, dev):
+    """O4's checks, the SSD's parity with the host, then the main path.
+    Returns O4's ``kernels`` readings and the main path's O1 and O4
+    launches."""
+    start_profiler(dev)
+    o4_checks(dev)
+    ssd_parity(mx, dev)
+    with torch_defaults():
+        return ssd_train_run(mx, dev)
+
+
 def clocks_line():
     """The card's SM clock and its maximum now (nvidia-smi)."""
     r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
@@ -7081,12 +8115,12 @@ def nvidia_smi_line():
 PHASES = ("kernel", "flash", "optimizer", "serve", "parity", "fleet",
           "train", "train_parity", "hybridize", "rtc", "imperative",
           "imperative_parity", "resnet", "bert", "gluon", "vision", "gan",
-          "ops")
-# the phases that launch K1-K4 and O1-O3, whose libraries the smoke
+          "ssd", "ops")
+# the phases that launch K1-K4 and O1-O4, whose libraries the smoke
 # builds first
 NVCC_PHASES = {"kernel", "flash", "optimizer", "serve", "parity", "fleet",
                "train", "train_parity", "hybridize", "resnet", "bert",
-               "gluon", "vision", "gan"}
+               "gluon", "vision", "gan", "ssd", "ops"}
 
 
 def kernel_entry(name, source, replaces, launches, timing, extra=None):
@@ -7116,6 +8150,7 @@ def main(argv):
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import serve
     from mxnet_tpu_torch.ops import _build
+    from mxnet_tpu_torch.ops import box_nms
     from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.ops import optimizer_ops as oo
     from mxnet_tpu_torch.ops import paged_attention as pa
@@ -7138,7 +8173,8 @@ def main(argv):
     skip_last = (oo._SOURCE, ("MXTT_SKIP_LAST=1",))
     if set(phases) & NVCC_PHASES:
         built = _build.build_all([fa._SOURCE, pa._SOURCE, drop_split,
-                                  oo._SOURCE, skip_last], verbose=True)
+                                  oo._SOURCE, skip_last, box_nms._SOURCE],
+                                 verbose=True)
         for lib, seconds in built.values():
             log("build: %s ready after %.1f s"
                 % (os.path.relpath(lib, REPO), seconds))
@@ -7193,6 +8229,8 @@ def main(argv):
     gluon_launches = timed("gluon", gluon_phase, dev)
     vision_o2 = timed("vision", vision_phase, dev)
     gan_o1 = timed("gan", gan_phase, mx, dev)
+    o4, ssd_o1, o4_launches = timed("ssd", ssd_phase, mx, dev) \
+        or (None, None, None)
     timed("ops", ops_phase, mx, dev)
     log("total: %.1f s" % (time.perf_counter() - t_all))
     if list(phases) != list(PHASES):
@@ -7228,15 +8266,21 @@ def main(argv):
         # the counterpart of a registered op of the JAX package
         kernel_entry("O1 multi_adamw (port-only)", opt_src,
                      "mxnet_tpu/ops/optimizer_ops.py:479",
-                     sum(p["O1"] for p in paths) + gan_o1, opt["O1"],
-                     {"bert_max_abs_err": bert_o1_err}),
+                     sum(p["O1"] for p in paths) + gan_o1 + ssd_o1,
+                     opt["O1"], {"bert_max_abs_err": bert_o1_err}),
         kernel_entry("O2 multi_sgd (port-only)", opt_src,
                      "mxnet_tpu/ops/optimizer_ops.py:314",
                      resnet_o2 + vision_o2, opt["O2"]),
         kernel_entry("O3 multi_sum_sq (port-only)", opt_src,
                      "mxnet_tpu/ops/optimizer_ops.py:174",
                      flash_launches["O3"] + gluon_launches["O3"],
-                     opt["O3"])]}))
+                     opt["O3"]),
+        kernel_entry("O4 box_nms (port-only)",
+                     "mxnet_tpu_torch/csrc/box_nms.cu",
+                     "mxnet_tpu/ops/contrib.py:85", o4_launches, o4,
+                     {"library": o4["library"],
+                      "decode_ms": o4["decode_ms"],
+                      "decode_plain_ms": o4["decode_plain_ms"]})]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

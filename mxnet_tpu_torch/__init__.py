@@ -38,6 +38,10 @@ Ported so far:
   convolution layers, ``ReflectionPad2D``, ``mx.random`` and
   ``nd.random`` over the samplers of ``ops.random_ops``, and the rest of
   the JAX package's ``ops/nn.py`` and ``ops/tensor.py`` (``RNN`` aside);
+* the detection, contrib and misc op tail (``ops.vision``, ``ops.contrib``
+  with O4, the NMS kernel, ``ops.misc``), control flow
+  (``nd.contrib.foreach``/``while_loop``/``cond``), ``mx.operator``'s
+  CustomOp, and ``hybrid_forward(F, ...)`` blocks;
 * the telemetry and testing modules these tiers use.
 
 The port's own kernels are CUDA C++ for sm_90a in ``csrc/``.  Entry
@@ -50,6 +54,7 @@ from . import gluon, initializer, optimizer, parallel  # noqa: F401
 from . import lr_scheduler, sharding  # noqa: F401
 from . import metric, name, registry  # noqa: F401
 from . import autograd, engine, ndarray, random, rtc  # noqa: F401
+from . import operator  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from .base import MXNetError  # noqa: F401

@@ -641,6 +641,22 @@ def set_bulk_size(size):
     return prev
 
 
+class unbulked:
+    """Scope in which every op runs eagerly, as under ``bulk(0)``, but
+    entering and leaving flush nothing: the open segment stays open for
+    the ops after the scope.  A block's ``hybrid_forward`` runs in it,
+    so a call captured into a CUDA graph never flushes (and so never
+    captures) ops deferred before the call."""
+
+    def __enter__(self):
+        Engine.get()._bulk_state().scopes.append(0)
+        return self
+
+    def __exit__(self, *exc):
+        Engine.get()._bulk_state().scopes.pop()
+        return False
+
+
 class bulk:
     """Scope bulking consecutive imperative ops (parity:
     mxnet.engine.bulk): up to ``size`` ops a segment, whatever the

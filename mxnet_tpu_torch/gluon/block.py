@@ -1,8 +1,13 @@
 """Blocks: ``Block`` and ``HybridBlock`` as ``torch.nn.Module``s.
 
 The port's counterpart of ``mxnet_tpu/gluon/block.py``.  A block is a
-module whose ``forward`` is plain torch; the JAX package's
-``hybrid_forward(F, ...)`` dispatch does not exist here.  Its
+module whose ``forward`` is plain torch, or a ``HybridBlock`` that
+defines ``hybrid_forward(self, F, x, *args, **params)`` and no
+``forward``: it is called as the JAX package calls it, with ``F`` the
+port's ``ndarray`` module (``F.contrib`` among its names), the inputs
+and the block's own registered parameters (by their attribute names) as
+NDArrays over the same tensors, and its outputs handed back in the form
+the inputs came in (tensors for tensors, NDArrays for NDArrays).  Its
 parameters are ``gluon.Parameter`` handles (``parameter.py``) over the
 tensors the module registers: assigning a handle as an attribute, or
 ``self.params.get(...)``'s handle, registers its tensor under the
@@ -83,9 +88,11 @@ import torch
 
 from .. import autograd as _autograd
 from .. import compile_cache as _ccache
+from .. import engine as _engine
 from .. import graph_cache as _graph_cache
 from .. import initializer as _init
 from ..base import MXNetError
+from ..context import Context
 from ..ndarray.ndarray import NDArray
 from .parameter import (Parameter, ParameterDict,  # noqa: F401
                         DeferredInitializationError, as_dtype)
@@ -820,6 +827,21 @@ class HybridBlock(Block):
     def _grad_params(self):
         return [t for t in self._graph_tensors() if t.requires_grad]
 
+    def forward(self, *args):
+        """``hybrid_forward`` with the JAX package's arguments (see the
+        module docstring), for a block that defines it and no
+        ``forward`` of its own."""
+        if type(self).hybrid_forward is HybridBlock.hybrid_forward:
+            raise NotImplementedError(
+                'Module [%s] is missing the required "forward" function'
+                % type(self).__name__)
+        return _hybrid_call(self, args)
+
+    def hybrid_forward(self, F, x, *args, **params):
+        """Parity: HybridBlock.hybrid_forward; a block defines it, or
+        ``forward``."""
+        raise NotImplementedError
+
     def _nested_call(self, *args):
         _nesting.depth = getattr(_nesting, "depth", 0) + 1
         try:
@@ -837,6 +859,53 @@ class HybridBlock(Block):
             self._watched = (gen, list(self.parameters())
                              + list(self.buffers()))
         return self._watched[1]
+
+
+def _nd_in(a):
+    """A tensor argument as an NDArray over it (no copy); anything else
+    as it is."""
+    if isinstance(a, torch.Tensor):
+        return NDArray._wrap(a, Context.from_device(a.device))
+    if isinstance(a, (tuple, list)):
+        return type(a)(_nd_in(x) for x in a)
+    return a
+
+
+def _tensors_out(out):
+    """``hybrid_forward``'s NDArray outputs as their tensors."""
+    if isinstance(out, NDArray):
+        return out._data
+    if isinstance(out, (tuple, list)):
+        return type(out)(_tensors_out(o) for o in out)
+    return out
+
+
+def _hybrid_call(block, args):
+    """Call ``block.hybrid_forward(nd, *inputs, **params)`` on NDArrays
+    over ``args`` and the block's registered tensors.  Its ops run
+    eagerly (``engine.unbulked``: nothing deferred inside a call, so
+    nothing deferred outside it is flushed into a graph being captured),
+    and recorded exactly when torch's grad mode is on (a
+    ``JitTrainStep``'s body and a graph pair's capture differentiate
+    them without ``autograd.record()``).  The wrappers live for the
+    call only."""
+    from .. import ndarray as _nd
+
+    block._shape_hint(*args)
+    params = {}
+    for name, p in block._reg_params.items():
+        t = p._tensor
+        if isinstance(t, _LAZY):
+            raise DeferredInitializationError(
+                "parameter %r of %s has no shape yet: hybrid_forward "
+                "blocks take theirs from shape= or from _shape_hint"
+                % (p.name, block.name))
+        params[name] = _nd_in(t)
+    with _engine.unbulked(), _autograd._RecordingStateScope(
+            torch.is_grad_enabled(), None):
+        out = block.hybrid_forward(_nd, *[_nd_in(a) for a in args],
+                                   **params)
+    return _tensors_out(out)
 
 
 def cast_tensors(tensors, dtype):

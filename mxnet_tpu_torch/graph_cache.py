@@ -94,6 +94,19 @@ for _hook in (torch.nn.modules.module.register_module_module_registration_hook,
     _hook(tree_changed)
 
 
+def refuse_host_read(what, tensor):
+    """Raise ``MXNetError`` when ``what`` is about to read ``tensor`` on
+    the host (a data-dependent shape or loop) while this thread captures
+    a CUDA graph: the read would invalidate the capture, or a replay
+    would repeat the first read's answer."""
+    if tensor.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise MXNetError(
+            "%s reads the device on the host (its output shape or its "
+            "loop depends on the data), which a CUDA graph cannot "
+            "capture: call it outside hybridize()/JitTrainStep, or "
+            "keep it eager" % what)
+
+
 def count(owner, name, n=1):
     """Add ``n`` launches to the counter ``owner.name``, or, while this
     thread captures a graph, to that graph's record (added on each of

@@ -42,6 +42,7 @@ import torch
 from .. import graph_cache as _graph_cache
 from ..base import MXNetError
 from . import _build
+from .registry import register
 
 _SOURCE = _build.source_path("flash_attention.cu")
 MAX_HEAD_DIM = 256
@@ -264,3 +265,10 @@ def flash_attention(query, key, value, scale=None, causal=False,
 flash_attention.fwd_launches = 0
 flash_attention.dq_launches = 0
 flash_attention.dkv_launches = 0
+
+
+# the JAX package's registered op (``mxnet_tpu/ops/pallas_kernels.py:360``):
+# ``nd.contrib.flash_attention`` on CUDA arrays launches K1 (K2 and K3 in
+# its backward)
+register("_contrib_flash_attention",
+         inputs=("query", "key", "value"))(flash_attention)

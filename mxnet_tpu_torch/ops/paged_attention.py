@@ -38,6 +38,7 @@ import torch
 from .. import graph_cache as _graph_cache
 from ..base import MXNetError
 from . import _build
+from .registry import register
 
 _SOURCE = _build.source_path("paged_attention.cu")
 MAX_HEAD_DIM = 256
@@ -305,3 +306,20 @@ def paged_attention(query, k_pages, v_pages, block_table, positions,
 
 paged_attention.launches = 0
 paged_attention.combine_launches = 0
+
+
+@register("_contrib_paged_attention",
+          inputs=("query", "k_pages", "v_pages", "block_table",
+                  "positions", "k_scale", "v_scale"))
+def _paged_attention_op(query, k_pages, v_pages, block_table, positions,
+                        k_scale=None, v_scale=None, scale=None,
+                        use_kernel=None):
+    """The JAX package's registered op (``mxnet_tpu/ops/
+    paged_attention.py:190``): ``paged_attention`` with the block table
+    and positions taken as int32.  ``use_kernel`` is accepted and
+    ignored: CUDA arrays launch K4, CPU arrays run the plain version."""
+    del use_kernel
+    return paged_attention(query, k_pages, v_pages,
+                           block_table.to(torch.int32),
+                           positions.to(torch.int32), k_scale, v_scale,
+                           scale)

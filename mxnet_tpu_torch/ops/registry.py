@@ -39,6 +39,9 @@ from ..engine import Engine
 
 _REGISTRY = {}
 _ALIASES = {}
+# op name -> fn(inputs, attrs, out): ops whose Python bodies drive other
+# ops (control flow) run through these instead of the dispatcher
+_OVERRIDES = {}
 
 
 class OpReg:
@@ -109,6 +112,14 @@ def register(name, aliases=(), inputs=None, needs_rng=False,
 
 def alias(new, old):
     _ALIASES[new] = old
+
+
+def register_invoke_override(name, fn):
+    """Route ``invoke(name, ...)`` to ``fn(inputs, attrs, out)`` (the JAX
+    package's hook of the same name): for ops whose attrs are Python
+    callables that run other ops on NDArrays (``_foreach``,
+    ``_while_loop``, ``_cond``), which are never deferred."""
+    _OVERRIDES[name] = fn
 
 
 def get(name):
@@ -326,6 +337,9 @@ def invoke(name, inputs, attrs=None, out=None, fields=None):
     deferrable op joins the open bulk segment (``_try_bulk``)."""
     reg = get(name)
     eng = Engine.get()
+    override = _OVERRIDES.get(reg.name)
+    if override is not None:
+        return override(list(inputs), dict(attrs or {}), out)
     res = _try_bulk(reg, inputs, attrs, out, fields, eng)
     if res is not NotImplemented:
         return res

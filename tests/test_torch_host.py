@@ -443,6 +443,10 @@ names += ["mxnet_tpu_torch.compile_cache", "mxnet_tpu_torch.gluon.loss",
 names += ["mxnet_tpu_torch.random", "mxnet_tpu_torch.ndarray.random",
           "mxnet_tpu_torch.ops.random_ops", "mxnet_tpu_torch.ops.tensor",
           "mxnet_tpu_torch.gluon.nn.basic_layers"]
+names += ["mxnet_tpu_torch.ops.contrib", "mxnet_tpu_torch.ops.box_nms",
+          "mxnet_tpu_torch.ops.vision", "mxnet_tpu_torch.ops.misc",
+          "mxnet_tpu_torch.ops.control_flow", "mxnet_tpu_torch.operator",
+          "mxnet_tpu_torch.gluon.block"]
 names += ["chip_smoke", "tools.torch_paged_attention_sweep",
           "tools.torch_flash_attention_sweep", "tools.torch_mxfleet",
           "tools.torch_mxflight", "tools.torch_mxtrace",

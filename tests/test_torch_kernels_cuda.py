@@ -1293,3 +1293,100 @@ def test_dcgan_transposed_convolutions_run_in_bf16_under_amp_on_card(card):
     import mxnet_tpu_torch as mx
 
     chip_smoke.gan_amp(mx, card)
+
+
+# -- O4 box_nms and the detection slice ------------------------------------------
+
+
+def _nms_case(card, case, b=3, n=1500):
+    g = torch.Generator()
+    g.manual_seed(len(case))
+    xy = torch.rand(b, n, 2, generator=g) * 0.7
+    boxes = torch.cat([xy, xy + 0.02 + torch.rand(b, n, 2, generator=g)
+                       * 0.3], 2)
+    valid = torch.rand(b, n, generator=g) > 0.05
+    thresh = 0.5
+    if case == "ties":
+        # repeated boxes: IoU 1 with every copy
+        boxes[:, 1::2] = boxes[:, 0::2][:, :boxes[:, 1::2].shape[1]]
+    elif case == "threshold":
+        base = torch.tensor([[0, 0, 2, 1], [0, 0, 2, 2], [0, 0, 1, 1],
+                             [0, 0, 4, 1]], dtype=torch.float32)
+        boxes = torch.cat([base * 2.0 ** -k for k in range(60)])[None] \
+            .expand(b, -1, -1).contiguous()
+        valid = torch.ones(b, boxes.shape[1], dtype=torch.bool)
+    return boxes.to(card), valid.to(card), thresh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "ties", "threshold"])
+def test_o4_keep_mask_equals_the_plain_version_on_card(card, case):
+    """O4 builds, launches once a call (its count), and its keep mask
+    equals the plain version's bit for bit: random boxes, repeated boxes
+    (ties at IoU 1), and pairs whose IoU is exactly the threshold."""
+    from mxnet_tpu_torch.ops import box_nms
+
+    boxes, valid, t = _nms_case(card, case)
+    before = box_nms.nms_keep.launches
+    got = box_nms.nms_keep(boxes, valid, t)
+    assert box_nms.nms_keep.launches == before + 1
+    want = box_nms.nms_keep_ref(boxes, valid, t)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bool and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_o4_checks_of_the_smoke_on_card(card):
+    chip_smoke.o4_checks(card)
+
+
+@pytest.mark.cuda
+def test_box_nms_op_matches_the_host_bitwise_on_card(card):
+    from mxnet_tpu_torch.ops import registry
+
+    rs = np.random.RandomState(0)
+    data = np.concatenate(
+        [rs.randint(0, 3, (2, 900, 1)), np.round(rs.uniform(
+            0, 1, (2, 900, 1)) * 8) / 8, rs.uniform(0, 0.7, (2, 900, 2))],
+        2).astype(np.float32)
+    data = np.concatenate([data, data[..., 2:4] + rs.uniform(
+        0.02, 0.3, (2, 900, 2)).astype(np.float32)], 2)
+    fwd = registry.get("_contrib_box_nms").forward
+    got = fwd(torch.from_numpy(data).to(card), overlap_thresh=0.45)
+    want = fwd(torch.from_numpy(data), overlap_thresh=0.45)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_ssd_steps_match_the_host_on_card(card):
+    """The SSD at full width, batch 2 at 300 x 300: three graphed
+    ``JitTrainStep`` adam steps (``MultiBoxTarget`` captured) held to the
+    host's f64 run (``chip_smoke.ssd_parity``)."""
+    import mxnet_tpu_torch as mx
+
+    chip_smoke.ssd_parity(mx, card)
+
+
+@pytest.mark.cuda
+def test_attention_ops_through_nd_contrib_launch_k1_and_k4_on_card(card):
+    import mxnet_tpu_torch as mx
+
+    assert chip_smoke.attention_op_checks(mx, card)
+
+
+@pytest.mark.cuda
+def test_custom_op_and_while_loop_recorded_match_host_on_card(card):
+    import mxnet_tpu_torch as mx
+
+    assert chip_smoke.recorded_control_checks(mx, card)
+
+
+@pytest.mark.cuda
+def test_host_reads_raise_under_a_capture_on_card(card):
+    """``boolean_mask``, ``cond`` and a recorded ``while_loop`` inside a
+    hybridized block's captured call raise ``MXNetError``, and the card
+    takes further work."""
+    import mxnet_tpu_torch as mx
+
+    assert chip_smoke.capture_refusal_checks(mx, card)

@@ -23,9 +23,7 @@ import pytest
 import torch
 
 import mxnet_tpu as jmx
-import mxnet_tpu.ops.nn  # noqa: F401  (registers the JAX package's ops)
-import mxnet_tpu.ops.random_ops  # noqa: F401
-import mxnet_tpu.ops.tensor  # noqa: F401
+import mxnet_tpu.ndarray  # noqa: F401  (registers the JAX package's ops)
 from mxnet_tpu.ops import registry as jreg
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.ops import registry as treg
@@ -84,23 +82,29 @@ def _f32(*shape, seed=0):
 
 # -- the coverage test ---------------------------------------------------------------
 
-# registered by the JAX package's ops/nn.py, ops/tensor.py and
-# ops/random_ops.py, and not (yet) in the port, each with its reason
+# registered by the JAX package's ported op modules and not (yet) in the
+# port, each with its reason
 EXCLUDED = {
     "RNN": "S9: comes with gluon/rnn/ (ROADMAP.md §1)",
     "rnn": "alias of RNN (S9)",
+    "_contrib_edge_id": "S7e: takes a CSRNDArray, which comes with "
+                        "ndarray/sparse.py (ROADMAP.md §1)",
+    "_contrib_dgl_adjacency": "S7e: takes and returns a CSRNDArray "
+                              "(ndarray/sparse.py)",
 }
-JAX_MODULES = ("nn", "tensor", "random_ops")
+THREE_MODULES = ("nn", "tensor", "random_ops")
+JAX_MODULES = THREE_MODULES + ("vision", "contrib", "misc", "control_flow",
+                               "pallas_kernels", "paged_attention")
 
 
-def _jax_names():
-    """Every op name and alias the three JAX modules register: primaries
-    by the module of their forward, aliases by the module whose source
-    names them."""
+def _jax_names(modules=JAX_MODULES):
+    """Every op name and alias the JAX modules ``modules`` register:
+    primaries by the module of their forward, aliases by the module whose
+    source names them."""
     names = {n for n, r in jreg._REGISTRY.items()
-             if r.forward.__module__.rsplit(".", 1)[-1] in JAX_MODULES}
+             if r.forward.__module__.rsplit(".", 1)[-1] in modules}
     src = ""
-    for m in JAX_MODULES:
+    for m in modules:
         with open(os.path.join(REPO, "mxnet_tpu", "ops", m + ".py")) as f:
             src += f.read()
     quoted = set(re.findall(r'"([A-Za-z0-9_]+)"', src))
@@ -109,20 +113,34 @@ def _jax_names():
     return names
 
 
-def test_every_op_of_the_three_modules_is_registered_in_the_port():
-    names = _jax_names()
-    assert len(names) > 300, len(names)
+def _check_registered(modules, least):
+    names = _jax_names(modules)
+    assert len(names) > least, len(names)
     have = set(treg.list_ops())
-    missing = sorted(n for n in names - have if n not in EXCLUDED)
+    excluded = {n: why for n, why in EXCLUDED.items() if n in names}
+    missing = sorted(n for n in names - have if n not in excluded)
     assert missing == [], missing
     # every exclusion is still needed and names its reason
-    assert all(n in names and n not in have for n in EXCLUDED)
-    assert all(EXCLUDED.values())
+    assert all(n not in have for n in excluded)
+    assert all(excluded.values())
+
+
+def test_every_op_of_the_three_modules_is_registered_in_the_port():
+    _check_registered(THREE_MODULES, 300)
+
+
+def test_every_op_of_the_ported_op_modules_is_registered_in_the_port():
+    """The three modules, ``ops/vision.py``, ``ops/contrib.py``,
+    ``ops/misc.py``, ``ops/control_flow.py`` and the attention ops of
+    ``ops/pallas_kernels.py`` and ``ops/paged_attention.py``: every op
+    is in the port but the listed exclusions."""
+    _check_registered(JAX_MODULES, 400)
+    assert set(EXCLUDED) <= _jax_names()
 
 
 def test_ported_ops_keep_their_attrs_and_defaults():
-    """Each ported op of the three modules takes the JAX op's attributes
-    with the same defaults (the port may add ``device``)."""
+    """Each ported op of the ported op modules takes the JAX op's
+    attributes with the same defaults (the port may add ``device``)."""
     import inspect
 
     def attrs(fn, drop):
