@@ -6549,6 +6549,8 @@ def gan_timed(mx, dev):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         times, outs = timed_steps(iteration, n_warm, n_timed)
+        if mode == "eager":
+            extra = gan_class_cost(nets, script, real, iteration)
         parts[mode] = gan_parts(script, real)
         losses += [(float(d.asscalar()), float(g.asscalar()))
                    for d, g in outs]
@@ -6558,7 +6560,7 @@ def gan_timed(mx, dev):
                       torch.cuda.max_memory_allocated(),
                       [net.stats() for net in nets])
     o1 = opt_counts(oo)["O1"]
-    n_iters = 2 * (n_warm + n_timed + 1 + 7)
+    n_iters = 2 * (n_warm + n_timed + 1 + 7) + extra
     log("gan train: O1 launched %d times over %d iterations (two Trainers)"
         % (o1, n_iters))
     if o1 < 2 * n_iters:
@@ -6604,6 +6606,59 @@ def gan_timed(mx, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return o1
+
+
+def gan_class_cost(nets, script, real, iteration, n=15):
+    """The host cost of the classes that make a block's tensors work as
+    their handles (``GluonParameter``/``GluonBuffer``: ``.data`` and
+    ``.grad`` are Python properties): the eager iteration's p50 ms and
+    the two Trainers' steps (the parts' medians) with the nets' tensors
+    in those classes and re-classed to torch's own, in eight runs
+    alternated (gluon, plain, plain, gluon, twice), and the host us of
+    reading every parameter's ``.grad`` once in each.  Returns the
+    iterations it ran."""
+    import torch
+
+    from mxnet_tpu_torch.gluon import parameter as gp
+
+    iteration()                 # every deferred parameter materialized
+    tensors = [t for net in nets
+               for t in list(net.parameters()) + list(net.buffers())]
+    classes = [type(t) for t in tensors]
+    plain = {gp.GluonParameter: torch.nn.Parameter,
+             gp.GluonBuffer: torch.Tensor}
+    params = [t for net in nets for t in net.parameters()]
+    rows = {"gluon": [], "plain": []}
+    pooled = {"gluon": [], "plain": []}
+    order = ("gluon", "plain", "plain", "gluon") * 2
+    try:
+        for kind in order:
+            for t, c in zip(tensors, classes):
+                t.__class__ = plain.get(c, c) if kind == "plain" else c
+            times, _ = timed_steps(iteration, 2, n)
+            pooled[kind] += times
+            part = gan_parts(script, real, n=5)
+            t0 = time.perf_counter()
+            for _ in range(100):
+                for p in params:
+                    _ = p.grad
+            read_us = 1e6 * (time.perf_counter() - t0) / 100
+            rows[kind].append((1e3 * times[len(times) // 2],
+                               part["D update"] + part["G update"], read_us))
+    finally:
+        for t, c in zip(tensors, classes):
+            t.__class__ = c
+    for kind, got in rows.items():
+        every = sorted(pooled[kind])
+        log("gan train: F8's classes, eager, tensors %s: iteration ms p50 "
+            "%.3f over its %d runs' %d iterations (each run's: %s), both "
+            "updates ms %s, every .grad read once %s us (%d parameters)"
+            % ("as GluonParameter/GluonBuffer" if kind == "gluon"
+               else "re-classed to torch's", 1e3 * every[len(every) // 2],
+               len(got), len(every), *(
+                   " / ".join("%.3f" % r[i] for r in got) for i in range(3)),
+               len(params)))
+    return 1 + len(order) * (2 + n + 5)
 
 
 def gan_parts(script, real, n=7):
@@ -7809,14 +7864,33 @@ def o4_bound(keep, n_boxes):
                                    else "bytes"), pairs
 
 
-def o4_checks(dev):
-    """O4 against its plain version on the card, keep masks bit for bit:
-    random boxes, tied scores with repeated boxes, one box repeated (all
-    but one suppressed), pairs whose IoU is exactly the threshold, and a
-    set past one 64-box word of kept rows."""
-    import torch
-
+def o4_two_pass_times(coords, valid, keep_ref):
+    """The two-pass route's mask pass and scan, each timed alone (CUDA
+    events over 20 launches) at the decode's shape; its keep mask held to
+    the plain version's."""
     from mxnet_tpu_torch.ops import box_nms
+
+    mask_pass, scan_pass, keep = box_nms.two_pass_passes(coords, valid, 0.45)
+    mask_ms = cuda_ms(lambda i: mask_pass(), 20)
+    scan_ms = cuda_ms(lambda i: scan_pass(), 20)
+    both_ms = cuda_ms(lambda i: (mask_pass(), scan_pass()), 20)
+    equal = bool((keep.bool() == keep_ref).all())
+    log("ssd o4: the two-pass route at the decode's shape: mask pass %.4f "
+        "ms, scan %.4f ms, both %.4f ms; keep mask %s"
+        % (mask_ms, scan_ms, both_ms,
+           "equal to the plain version's" if equal else "DIFFERS"))
+    return {"mask_ms": mask_ms, "scan_ms": scan_ms, "both_ms": both_ms,
+            "equal": equal}
+
+
+def o4_cases():
+    """O4's check cases: (label, boxes (B, N, 4), valid (B, N), threshold)
+    on the host: random boxes, tied scores with repeated boxes, one box
+    repeated (all but one suppressed), pairs whose IoU is exactly the
+    threshold, a set past one 64-box word of kept rows, a negative
+    threshold (every pair above it: the divide is never skipped), and
+    boxes with NaN and infinite corners."""
+    import torch
 
     g = torch.Generator(device="cpu")
     g.manual_seed(5)
@@ -7846,17 +7920,41 @@ def o4_checks(dev):
     sparse = boxes(2, 4100) * 0.2 + torch.rand(2, 4100, 1, generator=g) * 0.8
     cases.append(("sparse 2 x 4100 t 0.7", sparse,
                   torch.ones(2, 4100, dtype=torch.bool), 0.7))
+    neg = boxes(2, 300)
+    cases.append(("negative t -0.25 2 x 300", neg,
+                  torch.rand(2, 300, generator=g) > 0.5, -0.25))
+    odd = boxes(2, 1000)
+    odd[:, 3::17, 0] = float("nan")
+    odd[:, 5::23, 2] = float("inf")
+    odd[:, 7::29, 1] = -float("inf")
+    odd[:, 11::31] = torch.tensor([-float("inf"), -float("inf"),
+                                   float("inf"), float("inf")])
+    cases.append(("NaN and inf corners 2 x 1000", odd,
+                  torch.ones(2, 1000, dtype=torch.bool), 0.3))
+    return cases
+
+
+def o4_checks(dev):
+    """O4 against its plain version on the card, keep masks bit for bit,
+    on ``o4_cases()`` through both routes (the size rule's cluster route
+    and the two-pass route)."""
+    import torch
+
+    from mxnet_tpu_torch.ops import box_nms
+
     ok = True
-    for label, bx, valid, t in cases:
+    for label, bx, valid, t in o4_cases():
         bx, valid = bx.to(dev), valid.to(dev)
-        got = box_nms.nms_keep(bx, valid, t)
         want = box_nms.nms_keep_ref(bx, valid, t)
-        diff = int((got != want).sum())
-        good = diff == 0 and got.dtype == torch.bool
-        ok &= good
-        log("ssd o4: %-30s kept %d of %d, %d keep flags differ from the "
-            "plain version %s" % (label, int(got.sum()), got.numel(), diff,
-                                  "ok" if good else "FAIL"))
+        for route in ("cluster", "two_pass"):
+            got = box_nms._nms_keep(bx, valid, t, route)
+            diff = int((got != want).sum())
+            good = diff == 0 and got.dtype == torch.bool
+            ok &= good
+            log("ssd o4: %-30s %-8s kept %d of %d, %d keep flags differ "
+                "from the plain version %s"
+                % (label, route, int(got.sum()), got.numel(), diff,
+                   "ok" if good else "FAIL"))
     if not ok:
         fail("O4's keep mask differs from its plain version's")
 
@@ -8046,6 +8144,9 @@ def ssd_decode_readings(mx, dev, dets, det_in, infer_ms):
 
     with torch.no_grad():
         det_ms = cuda_ms(detect, 10)
+        det_host_us = host_us(lambda: detect(0), 10)
+        det_kernels_ms = queued_ms(detect, 10)
+        _, det_wall, det_busy, det_avg = profiled_step(lambda: detect(0))
         o4_out = detect(0).data()
         with plain_nms():
             t0 = time.perf_counter()
@@ -8060,26 +8161,47 @@ def ssd_decode_readings(mx, dev, dets, det_in, infer_ms):
                "bitwise equal" if same else "DIFFER"))
         coords, valid = o4_inputs(probs, loc, anchors)
         ms = cuda_ms(lambda i: box_nms.nms_keep(coords, valid, 0.45), 20)
+        top, _, det_summed = kernel_rows(det_avg, top=6)
+        o4_seen = sum(r[0] for r in kernel_rows(det_avg, top=10**6)[0]
+                      if "nms_" in r[2])
+        log("ssd decode: MultiBoxDetection's %.3f ms broken down: host "
+            "enqueue %.1f us a call; its kernels queued behind a sleep "
+            "%.4f ms, of which O4 alone %.4f ms and the rest %.4f ms; one "
+            "profiled call: wall %.3f ms, kernels busy %.4f ms, summed %.4f "
+            "ms (O4's kernel %.4f ms of it)"
+            % (det_ms, det_host_us, det_kernels_ms, ms,
+               det_kernels_ms - ms, 1e3 * det_wall, det_busy, det_summed,
+               o4_seen))
+        for k_ms, n, key in top:
+            log("ssd decode:   %9.4f ms  x%-4d %s" % (k_ms, n, key[:100]))
         keep = box_nms.nms_keep(coords, valid, 0.45)
         t0 = time.perf_counter()
         keep_ref = box_nms.nms_keep_ref(coords, valid, 0.45)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        passes = o4_two_pass_times(coords, valid, keep_ref)
     diff = int((keep != keep_ref).sum())
-    ok &= diff == 0
+    ok &= diff == 0 and passes["equal"]
     bound_ms, bound_by, pairs = o4_bound(keep, keep.numel())
     log("ssd o4: at the decode's shape (%d images x %d boxes, %d kept): "
-        "O4 %.4f ms, plain %.1f ms, bound %.4f ms by %s (%d IoUs the walk "
-        "needs: %.1f%% of bound), no library call (torch has no NMS "
-        "without torchvision); keep flags differing %d %s"
-        % (b, a, int(keep.sum()), ms, plain_ms, bound_ms, bound_by, pairs,
+        "O4 %.4f ms on the %s route (the two-pass route %.4f ms), plain "
+        "%.1f ms, bound %.4f ms by %s (%d IoUs the walk needs: %.1f%% of "
+        "bound), no library call (torch has no NMS without torchvision); "
+        "keep flags differing %d %s"
+        % (b, a, int(keep.sum()), ms, box_nms.route_for(a),
+           passes["both_ms"], plain_ms, bound_ms, bound_by, pairs,
            100 * bound_ms / ms, diff, "ok" if diff == 0 else "FAIL"))
     if not ok:
         fail("the SSD decode or O4 missed a check")
     return {"max_abs_err": float(diff), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "library": "none: torch has no NMS without torchvision",
-            "decode_ms": det_ms, "decode_plain_ms": det_plain_ms}
+            "decode_ms": det_ms, "decode_plain_ms": det_plain_ms,
+            "decode_host_us": det_host_us,
+            "decode_kernels_ms": det_kernels_ms,
+            "nms_route": box_nms.route_for(a),
+            "two_pass_ms": passes["both_ms"],
+            "mask_pass_ms": passes["mask_ms"], "scan_ms": passes["scan_ms"]}
 
 
 def ssd_phase(mx, dev):
@@ -8278,9 +8400,10 @@ def main(argv):
         kernel_entry("O4 box_nms (port-only)",
                      "mxnet_tpu_torch/csrc/box_nms.cu",
                      "mxnet_tpu/ops/contrib.py:85", o4_launches, o4,
-                     {"library": o4["library"],
-                      "decode_ms": o4["decode_ms"],
-                      "decode_plain_ms": o4["decode_plain_ms"]})]}))
+                     {k: o4[k] for k in (
+                         "library", "decode_ms", "decode_plain_ms",
+                         "nms_route", "two_pass_ms", "mask_pass_ms",
+                         "scan_ms")})]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,8 +58,10 @@ from . import operator  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from .base import MXNetError  # noqa: F401
-from .context import (Context, cpu, current_context, gpu,  # noqa: F401
-                      num_gpus)
+from .context import (Context, cpu, cpu_pinned,  # noqa: F401
+                      current_context, gpu, num_gpus)
 from .engine import waitall  # noqa: F401
+from .layout import layout_scope, set_default_layout  # noqa: F401
+from .ndarray import NDArray  # noqa: F401
 
 __version__ = "0.1.0"

@@ -68,6 +68,33 @@ def is_training():
     return _st().training
 
 
+def set_recording(is_record):
+    """Set the recording flag; returns the previous one (parity:
+    autograd.set_recording).  Switching recording on turns torch's grad
+    mode on, as ``record()`` does, and switching it off again puts back
+    the grad mode that was on before (outside ``record()``,
+    ``ops.registry`` runs ops under ``no_grad`` whatever the mode)."""
+    st = _st()
+    prev, rec = st.recording, bool(is_record)
+    if rec and not prev:
+        st.grad_mode_before = torch.is_grad_enabled()
+        torch.set_grad_enabled(True)
+    elif prev and not rec and getattr(st, "grad_mode_before", None) \
+            is not None:
+        torch.set_grad_enabled(st.grad_mode_before)
+        st.grad_mode_before = None
+    st.recording = rec
+    return prev
+
+
+def set_training(train_mode):
+    """Set the training flag; returns the previous one (parity:
+    autograd.set_training)."""
+    st = _st()
+    prev, st.training = st.training, bool(train_mode)
+    return prev
+
+
 class _RecordingStateScope:
     """Sets the recording and training flags for a scope; entering a
     recording (pausing) scope turns torch's grad mode on (off)."""

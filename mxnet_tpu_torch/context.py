@@ -27,7 +27,7 @@ import torch
 
 from .base import MXNetError
 
-_DEVTYPE2ID = {"cpu": 1, "gpu": 2}
+_DEVTYPE2ID = {"cpu": 1, "gpu": 2, "cpu_pinned": 3}
 _default = threading.local()
 
 
@@ -46,10 +46,10 @@ class Context:
         if device_type == "cuda":
             device_type = "gpu"
         if device_type not in _DEVTYPE2ID:
-            raise MXNetError("unknown device type %r (gpu or cpu)"
-                             % (device_type,))
+            raise MXNetError("unknown device type %r (gpu, cpu or "
+                             "cpu_pinned)" % (device_type,))
         self.device_type = device_type
-        self.device_id = 0 if device_type == "cpu" else int(device_id)
+        self.device_id = int(device_id) if device_type == "gpu" else 0
         self._old = []
 
     @property
@@ -60,7 +60,7 @@ class Context:
     def torch_device(self):
         """The ``torch.device``; a ``gpu`` context checks that the card
         exists."""
-        if self.device_type == "cpu":
+        if self.device_type != "gpu":
             return torch.device("cpu")
         _check_gpu(self.device_id)
         return torch.device("cuda", self.device_id)
@@ -87,6 +87,13 @@ class Context:
 
     def __exit__(self, *exc):
         _default.value = self._old.pop()
+
+    def empty_cache(self):
+        """Release the card's cached, unused memory (parity:
+        Context.empty_cache); nothing on the host."""
+        if self.device_type == "gpu" and torch.cuda.is_available():
+            with torch.cuda.device(self.device_id):
+                torch.cuda.empty_cache()
 
     @staticmethod
     def from_device(dev):
@@ -118,6 +125,12 @@ def gpu(device_id=0):
 def cpu(device_id=0):
     """The host (the index is accepted for MXNet parity and ignored)."""
     return Context("cpu")
+
+
+def cpu_pinned(device_id=0):
+    """The host, as MXNet's page-locked context names it (parity:
+    context.cpu_pinned): arrays on it are host tensors, like ``cpu()``'s."""
+    return Context("cpu_pinned")
 
 
 def num_gpus():

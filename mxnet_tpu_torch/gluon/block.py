@@ -35,7 +35,16 @@ A block called with NDArrays runs on their tensors (a lazy array is
 flushed first; inside ``autograd.record()`` a marked array feeds its
 leaf view) and returns NDArrays on the first input's context, so an
 NDArray loss's ``backward()`` fills the parameters' gradients.  Tensor
-inputs give tensor outputs.  Forward hooks and pre-hooks
+inputs give tensor outputs.  The port's own layers run on the tensors;
+a ``forward`` written outside this package gets, in a call with
+NDArrays, NDArrays over those tensors (as the JAX package hands
+``forward`` what the caller passed), its ops run eagerly and recorded
+as ``hybrid_forward``'s are, and its NDArray outputs go back as their
+tensors; called with tensors, it gets tensors.  Only the outermost
+user ``forward`` of a call converts: one it reaches through ``super()``
+gets what it is passed and returns what it makes (NDArrays stay
+NDArrays), and a ``forward`` of the port's own that it reaches so gets
+the tensors and gives NDArrays back.  Forward hooks and pre-hooks
 (``register_forward_hook``: MXNet's ``hook(block, inputs, outputs)``)
 run around each call with what the caller passed and got.
 
@@ -255,6 +264,65 @@ def _nd_context(args):
     return None
 
 
+def _user_forward(forward):
+    """``forward`` of a block class written outside this package, run on
+    NDArrays when it is the outermost user ``forward`` of a call made
+    with NDArrays (see the module docstring); otherwise as it is."""
+    @functools.wraps(forward)
+    def nd_forward(self, *args, **kwargs):
+        if id(self) not in getattr(_calls, "nd", ()):
+            return forward(self, *args, **kwargs)
+        with _nd_mark(self, False), _engine.unbulked(), \
+                _autograd._RecordingStateScope(torch.is_grad_enabled(),
+                                               None):
+            out = forward(self, *_nd_in(args), **kwargs)
+        return _tensors_out(out)
+
+    return nd_forward
+
+
+def _port_forward(forward):
+    """``forward`` of one of the port's block classes, reached through
+    ``super()`` from a user's ``forward``: NDArray arguments go in as
+    their tensors and the outputs come back as NDArrays."""
+    @functools.wraps(forward)
+    def tensor_forward(self, *args, **kwargs):
+        ctx = _nd_context(args)
+        if ctx is None:
+            return forward(self, *args, **kwargs)
+        out = forward(self, *(_tensor_arg(a, _autograd.is_recording())
+                              for a in args), **kwargs)
+        return _nd_out(out, ctx)
+
+    tensor_forward._mx_port = True
+    return tensor_forward
+
+
+def _is_port_class(cls):
+    return cls.__module__.startswith(__name__.split(".")[0] + ".")
+
+
+@contextlib.contextmanager
+def _nd_mark(block, on):
+    """Mark (``on``) or clear, for the scope, that ``block``'s call on
+    this thread was made with NDArrays and its outermost user
+    ``forward`` has yet to take them (``_user_forward``)."""
+    calls = _calls.__dict__.setdefault("nd", set())
+    key = id(block)
+    was = key in calls
+    if on:
+        calls.add(key)
+    else:
+        calls.discard(key)
+    try:
+        yield
+    finally:
+        if was:
+            calls.add(key)
+        else:
+            calls.discard(key)
+
+
 def _tensor_arg(a, recording):
     """What a block's forward reads for ``a``: an NDArray's tensor (a
     lazy array flushed; a marked one's leaf view inside ``record()``)."""
@@ -272,6 +340,23 @@ def _nd_out(out, ctx):
 
 class Block(torch.nn.Module):
     """Base block (parity: gluon.Block)."""
+
+    _nd_forward = False     # forward written outside this package
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        forward = cls.__dict__.get("forward")
+        if forward is None or _is_port_class(cls):
+            return
+        cls.forward = _user_forward(forward)
+        cls._nd_forward = True
+        # the port's forwards this one can reach through super()
+        for base in cls.__mro__[1:]:
+            own = base.__dict__.get("forward")
+            if (own is not None and issubclass(base, Block)
+                    and _is_port_class(base)
+                    and not getattr(own, "_mx_port", False)):
+                base.forward = _port_forward(own)
 
     def __init__(self, prefix=None, params=None):
         super().__init__()
@@ -434,7 +519,11 @@ class Block(torch.nn.Module):
         ctx = _nd_context(args)
         targs = args if ctx is None else tuple(
             _tensor_arg(a, _autograd.is_recording()) for a in args)
-        out = self._outermost(*targs, **kwargs)
+        if ctx is not None and self._nd_forward:
+            with _nd_mark(self, True):
+                out = self._outermost(*targs, **kwargs)
+        else:
+            out = self._outermost(*targs, **kwargs)
         if ctx is not None:
             out = _nd_out(out, ctx)
         for hook in tuple(self._mx_hooks.values()):

@@ -70,8 +70,16 @@ class Sequential(Block):
     def __len__(self):
         return len(self._modules)
 
-    def __getitem__(self, i):
-        return list(self._modules.values())[i]
+    def __getitem__(self, key):
+        """The ``key``-th child; for a slice, a new block of this type
+        holding those children (parity: Sequential.__getitem__)."""
+        layers = list(self._modules.values())
+        if isinstance(key, slice):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers[key])
+            return net
+        return layers[key]
 
     def __iter__(self):
         return iter(self._modules.values())

@@ -29,9 +29,19 @@ so a change takes effect on the next backward.
 has reached the tensor.  ``set_data`` copies in place, so a captured
 graph reads the new value.  One device only: ``list_data()`` has one
 entry and ``reset_ctx`` moves the tensor.
+
+A block's attribute (``dense.weight``, ``bn.running_mean``) is the
+registered tensor, and works as the handle too: once a handle holds it,
+its class becomes ``GluonParameter`` (a ``torch.nn.Parameter``) or
+``GluonBuffer``, whose ``.data`` and ``.grad`` are what torch gives and
+are also callable as the handle's ``data()`` and ``grad()``, and whose
+``set_data`` is the handle's.  Nothing else changes: ops on them give
+plain tensors, and torch's own ``.data``/``.grad`` reads and writes go
+through unchanged.
 """
 from __future__ import annotations
 
+import weakref
 from collections import OrderedDict
 
 import numpy as _np
@@ -44,6 +54,8 @@ from ..context import Context, as_context
 from .utils import shape_is_known
 
 _LAZY = torch.nn.parameter.UninitializedTensorMixin
+_TENSOR_DATA = torch._C.TensorBase.data
+_TENSOR_GRAD = torch._C.TensorBase.grad
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64,
            "int32": torch.int32, "int64": torch.int64, "int8": torch.int8,
@@ -66,6 +78,87 @@ def as_dtype(dtype):
 def dtype_name(dtype):
     """The JAX package's name of a dtype (``"float32"``, ``"bfloat16"``)."""
     return str(as_dtype(dtype)).replace("torch.", "")
+
+
+class _CallableTensor(torch.Tensor):
+    """What ``.data`` and ``.grad`` of a block's tensor give: the tensor
+    torch gives, also callable as its handle's ``data()``/``grad()``."""
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    def __call__(self, ctx=None):
+        ref, kind = self._mx_call
+        return getattr(_handle(ref), kind)(ctx)
+
+
+def _handle(ref):
+    """The handle behind a weak reference (a tensor holds its handle
+    weakly: the handle holds the tensor, and a cycle through a tensor's
+    attributes is not collected)."""
+    handle = ref()
+    if handle is None:
+        raise MXNetError("this tensor's gluon Parameter no longer exists")
+    return handle
+
+
+class _GluonTensor:
+    """``.data``/``.grad`` callable and ``set_data`` for a tensor that a
+    ``Parameter`` handle holds (``_mx_handle``, a weak reference); see the
+    module docstring."""
+
+    @property
+    def data(self):
+        d = _TENSOR_DATA.__get__(self)
+        d.__class__ = _CallableTensor
+        d._mx_call = (self._mx_handle, "data")
+        return d
+
+    @data.setter
+    def data(self, value):
+        _TENSOR_DATA.__set__(self, value)
+
+    @property
+    def grad(self):
+        g = _TENSOR_GRAD.__get__(self)
+        if g is not None and type(g) is not _CallableTensor:
+            g.__class__ = _CallableTensor
+            g._mx_call = (self._mx_handle, "grad")
+        return g
+
+    @grad.setter
+    def grad(self, value):
+        _TENSOR_GRAD.__set__(self, value)
+
+    def set_data(self, data):
+        _handle(self._mx_handle).set_data(data)
+
+
+class GluonParameter(_GluonTensor, torch.nn.Parameter):
+    """A block's registered ``torch.nn.Parameter`` once a handle holds
+    it."""
+
+    def __repr__(self):
+        return "Parameter containing:\n" + repr(_TENSOR_DATA.__get__(self))
+
+
+class GluonBuffer(_GluonTensor, torch.Tensor):
+    """A block's registered buffer (running statistics) once a handle
+    holds it."""
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    def __repr__(self):
+        return repr(_TENSOR_DATA.__get__(self))
+
+
+def _as_gluon(tensor, handle):
+    """Give ``tensor`` its handle and, if it is a plain parameter or
+    buffer, the class whose ``.data``/``.grad`` are callable."""
+    tensor._mx_handle = weakref.ref(handle)
+    if type(tensor) is torch.nn.Parameter:
+        tensor.__class__ = GluonParameter
+    elif type(tensor) is torch.Tensor:
+        tensor.__class__ = GluonBuffer
 
 
 class DeferredInitializationError(MXNetError):
@@ -138,6 +231,7 @@ class Parameter:
         """Make ``tensor`` this handle's (a block registered it)."""
         tensor.init = self._init
         tensor._grad_req = self._grad_req
+        _as_gluon(tensor, self)
         self._tensor = tensor
         self._nd = None
 
@@ -281,6 +375,7 @@ class Parameter:
         t.materialize(tuple(shape))
         t.init = init
         t._grad_req = self._grad_req
+        _as_gluon(t, self)
         hook = self._on_materialize and self._on_materialize()
         if hook is not None:
             hook()

@@ -681,16 +681,20 @@ class NDArray:
             else d
 
     def __getitem__(self, key):
-        """A copy of the indexed part (recorded inside ``record()``)."""
+        """A copy of the indexed part (recorded inside ``record()``).  A
+        slice with a negative step reads the same elements through the
+        positive step and flips them (torch takes no negative step)."""
         key = self._conv_index(key)
-        (out,) = _reg.invoke_fn(lambda d: (d[key].clone(),), [self],
-                                op_name="_index")
+        key, flips = _positive_steps(key, self.shape)
+        (out,) = _reg.invoke_fn(
+            lambda d: (d[key].flip(flips) if flips else d[key].clone(),),
+            [self], op_name="_index")
         return out
 
     def __setitem__(self, key, value):
         if autograd.is_recording() and self._in_graph:
             raise MXNetError("in-place assignment on a taped array")
-        key = self._conv_index(key)
+        key, flips = _positive_steps(self._conv_index(key), self.shape)
         reads = (self._var,)
         if isinstance(value, NDArray):
             reads += (value._var,)
@@ -702,10 +706,51 @@ class NDArray:
 
         def write():
             with torch.no_grad():
-                self._data[key] = value
+                if flips and isinstance(value, torch.Tensor):
+                    dst = self._data[key]
+                    dst.copy_(torch.broadcast_to(value, dst.shape).flip(flips))
+                else:
+                    self._data[key] = value
 
         Engine.get().push(write, reads, (self._var,), op_name="_setitem",
                           device=self._data.device)
+
+
+def _positive_steps(key, shape):
+    """``key`` with each negative-step slice replaced by the positive-step
+    slice over the same elements, and the dims of the result to flip to
+    put them back in the slice's order (empty when no step is negative).
+    Negative steps are taken in basic indexing: ints, slices, ``None``
+    and ``...``."""
+    items = key if isinstance(key, tuple) else (key,)
+    if not any(isinstance(k, slice) and k.step is not None and k.step < 0
+               for k in items):
+        return key, ()
+    if not all(k is None or k is Ellipsis or isinstance(k, slice)
+               or isinstance(k, (int, _np.integer)) for k in items):
+        raise MXNetError("a negative-step slice with an array index is not "
+                         "supported: index with the slice first")
+    out, flips, src, res = [], [], 0, 0
+    for k in items:
+        if k is Ellipsis:
+            span = len(shape) - sum(1 for i in items
+                                    if i is not None and i is not Ellipsis)
+            src, res = src + span, res + span
+        elif k is None:
+            res += 1
+        elif isinstance(k, slice):
+            if k.step is not None and k.step < 0:
+                idx = range(*k.indices(shape[src]))
+                if len(idx):
+                    k = slice(idx[-1], idx[0] + 1, -k.step)
+                    flips.append(res)
+                else:
+                    k = slice(0, 0)
+            src, res = src + 1, res + 1
+        else:
+            src += 1
+        out.append(k)
+    return tuple(out), tuple(flips)
 
 
 def _as_nd(x, ctx=None):

@@ -90,14 +90,36 @@ _REDUCERS = {
 }
 
 
+# what jnp (64-bit types off) sums and multiplies integers and booleans
+# into: 32 bits, unsigned from unsigned; 64-bit arrays stay 64-bit, as
+# MXNet keeps them
+_INT_ACCUM = {torch.bool: torch.int32, torch.int8: torch.int32,
+              torch.int16: torch.int32, torch.int32: torch.int32,
+              torch.uint8: torch.uint32, torch.uint16: torch.uint32,
+              torch.uint32: torch.uint32}
+
+
+def _int_accum(out, x, running=False):
+    """``out`` (torch's int64 sum, product or, ``running``, running sum
+    of ``x``) in the type jnp gives it: the same low bits, as a sum that
+    wraps in that type gives them.  jnp's running sum keeps an integer
+    input's own type and counts booleans in int32."""
+    if running:
+        dt = torch.int32 if x.dtype == torch.bool \
+            else x.dtype if x.dtype in _INT_ACCUM else None
+    else:
+        dt = _INT_ACCUM.get(x.dtype)
+    return out if dt is None or out.dtype == dt else out.to(dt)
+
+
 def _reduce(fn_name):
     red = _REDUCERS[fn_name]
+    accum = fn_name in ("sum", "prod", "nansum", "nanprod")
 
     def op(x, axis=None, keepdims=False, exclude=False):
         axes = _norm_axis(axis, x.dim(), exclude)
-        if not axes:
-            return x.clone()
-        return red(x, axes, bool(keepdims))
+        out = red(x, axes, bool(keepdims)) if axes else x.clone()
+        return _int_accum(out, x) if accum else out
 
     return op
 
@@ -353,7 +375,9 @@ def _argmax_channel(data):
 def _cumsum(a, axis=None, dtype=None):
     if axis is None:
         a, axis = a.reshape(-1), 0
-    return torch.cumsum(a, int(axis), dtype=to_torch_dtype(dtype))
+    if dtype is not None:
+        return torch.cumsum(a, int(axis), dtype=to_torch_dtype(dtype))
+    return _int_accum(torch.cumsum(a, int(axis)), a, running=True)
 
 
 @register("logsumexp")

@@ -1390,3 +1390,214 @@ def test_host_reads_raise_under_a_capture_on_card(card):
     import mxnet_tpu_torch as mx
 
     assert chip_smoke.capture_refusal_checks(mx, card)
+
+
+# -- O4's cluster route, the two-pass route, and F8 on the card ------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(chip_smoke.o4_cases())))
+@pytest.mark.parametrize("route", ["cluster", "two_pass"])
+def test_o4_routes_equal_the_plain_version_on_card(card, route, case):
+    """Each route's keep mask equals ``nms_keep_ref``'s bit for bit on the
+    smoke's cases: random, repeated rows, one box repeated, IoU exactly at
+    the threshold, sparse past one word, a negative threshold, NaN and
+    infinite corners."""
+    from mxnet_tpu_torch.ops import box_nms
+
+    label, boxes, valid, t = chip_smoke.o4_cases()[case]
+    boxes, valid = boxes.to(card), valid.to(card)
+    got = box_nms._nms_keep(boxes, valid, t, route)
+    want = box_nms.nms_keep_ref(boxes, valid, t)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bool and torch.equal(got, want), label
+
+
+@pytest.mark.cuda
+def test_o4_above_the_cluster_size_takes_the_two_pass_route_on_card(card):
+    """One image of ``CLUSTER_MAX_BOXES + 1`` boxes: the size rule gives
+    the two-pass route, which equals the plain version; the cluster route
+    refuses it."""
+    from mxnet_tpu_torch.ops import box_nms
+
+    n = box_nms.CLUSTER_MAX_BOXES + 1
+    assert box_nms.route_for(n) == "two_pass"
+    assert box_nms.route_for(n - 1) == "cluster"
+    g = torch.Generator()
+    g.manual_seed(9)
+    xy = torch.rand(1, n, 2, generator=g) * 0.9
+    boxes = torch.cat([xy, xy + 0.01 + torch.rand(1, n, 2, generator=g)
+                       * 0.05], 2).to(card)
+    valid = (torch.rand(1, n, generator=g) > 0.05).to(card)
+    before = box_nms.nms_keep.launches
+    got = box_nms.nms_keep(boxes, valid, 0.5)
+    assert box_nms.nms_keep.launches == before + 1
+    want = box_nms.nms_keep_ref(boxes, valid, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(MXNetError):
+        box_nms._nms_keep(boxes, valid, 0.5, "cluster")
+
+
+@pytest.mark.cuda
+def test_o4_cluster_route_at_its_size_limit_on_card(card):
+    """Two images of exactly ``CLUSTER_MAX_BOXES`` boxes (256 words: 32
+    local words a CTA, the largest shared memory and flag arrays at
+    their full extent) go through the cluster route, one launch, and
+    equal the plain version bit for bit."""
+    from mxnet_tpu_torch.ops import box_nms
+
+    n = box_nms.CLUSTER_MAX_BOXES
+    assert box_nms.route_for(n) == "cluster"
+    g = torch.Generator()
+    g.manual_seed(10)
+    xy = torch.rand(2, n, 2, generator=g) * 0.9
+    boxes = torch.cat([xy, xy + 0.01 + torch.rand(2, n, 2, generator=g)
+                       * 0.08], 2).to(card)
+    valid = (torch.rand(2, n, generator=g) > 0.05).to(card)
+    before = box_nms.nms_keep.launches
+    got = box_nms.nms_keep(boxes, valid, 0.5)
+    assert box_nms.nms_keep.launches == before + 1
+    want = box_nms.nms_keep_ref(boxes, valid, 0.5)
+    torch.cuda.synchronize()
+    assert 0 < int(want.sum()) < want.numel()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thresh", [-0.5, 0.0, 0.3])
+def test_o4_negative_zero_threshold_and_nonfinite_boxes_on_card(card, thresh):
+    """Thresholds below, at and above 0 (the divide is skipped only at or
+    above 0) on boxes with NaN, infinite and empty corners: both routes
+    equal the plain version."""
+    from mxnet_tpu_torch.ops import box_nms
+
+    g = torch.Generator()
+    g.manual_seed(11)
+    xy = torch.rand(3, 700, 2, generator=g) * 0.7
+    boxes = torch.cat([xy, xy + torch.rand(3, 700, 2, generator=g) * 0.3],
+                      2)
+    boxes[:, 1::13, 2] = float("nan")
+    boxes[:, 2::19, 3] = float("inf")
+    boxes[:, 4::23, :2] = -float("inf")
+    boxes[:, 6::29, 2:] = boxes[:, 6::29, :2]           # zero area
+    boxes, valid = boxes.to(card), torch.ones(3, 700, dtype=torch.bool,
+                                              device=card)
+    want = box_nms.nms_keep_ref(boxes, valid, thresh)
+    for route in ("cluster", "two_pass"):
+        got = box_nms._nms_keep(boxes, valid, thresh, route)
+        assert torch.equal(got, want), route
+
+
+@pytest.mark.cuda
+def test_multibox_detection_replays_in_a_captured_graph_on_card(card):
+    """``MultiBoxDetection`` (O4 on the cluster route) captured in a CUDA
+    graph: its replay on new inputs equals the eager call bit for bit,
+    and the capture counted one O4 launch."""
+    from mxnet_tpu_torch.ops import box_nms, registry
+
+    fwd = registry.get("_contrib_MultiBoxDetection").forward
+    g = torch.Generator()
+    g.manual_seed(12)
+    a = 2000
+    xy = torch.rand(1, a, 2, generator=g) * 0.8
+    anchors = torch.cat([xy, xy + 0.05 + torch.rand(1, a, 2, generator=g)
+                         * 0.15], 2).to(card)
+
+    def inputs():
+        logits = torch.randn(4, 6, a, generator=g) * 2.0
+        return (torch.softmax(logits, 1).to(card),
+                (torch.randn(4, a * 4, generator=g) * 0.3).to(card))
+
+    probs, loc = inputs()
+    static = [probs.clone(), loc.clone()]
+    fwd(*static, anchors, nms_threshold=0.45)           # builds, warms up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = box_nms.nms_keep.launches
+    with torch.cuda.graph(graph):
+        out = fwd(*static, anchors, nms_threshold=0.45)
+    assert box_nms.nms_keep.launches == before + 1
+    for _ in range(2):
+        probs, loc = inputs()
+        static[0].copy_(probs)
+        static[1].copy_(loc)
+        graph.replay()
+        want = fwd(probs, loc, anchors, nms_threshold=0.45)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+def _vae_block(gluon, nn):
+    """``examples/autoencoder/train_vae.py``'s VAE at small widths as a
+    ``HybridBlock`` whose ``forward`` is written on ``mx.nd``, the noise
+    passed in (so eager and hybridized calls compare)."""
+    class VAE(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.enc = nn.Dense(16, activation="relu", in_units=12)
+                self.mu = nn.Dense(4, in_units=16)
+                self.logvar = nn.Dense(4, in_units=16)
+                self.dec = nn.Dense(12, in_units=4)
+
+        def forward(self, x, eps):
+            h = self.enc(x)
+            mu, logvar = self.mu(h), self.logvar(h)
+            z = mu + (0.5 * logvar).exp() * eps
+            return self.dec(z), mu, logvar
+
+    return VAE
+
+
+@pytest.mark.cuda
+def test_user_forward_on_nd_records_eager_and_hybridized_on_card(card):
+    """F8 on the card: a user's ``forward`` on NDArrays under
+    ``record()``, eagerly and hybridized (the graph pair), gives the same
+    loss and gradients; the example's own ``nd.random.normal`` runs too."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.gluon import nn
+
+    rng = np.random.default_rng(13)
+    x = nd.array(rng.uniform(size=(8, 12)).astype(np.float32), ctx=mx.gpu(0))
+    eps = nd.array(rng.standard_normal((8, 4)).astype(np.float32),
+                   ctx=mx.gpu(0))
+    net = _vae_block(gluon, nn)()
+    net.initialize(mx.init.Xavier())
+
+    def step():
+        with autograd.record():
+            logits, mu, logvar = net(x, eps)
+            loss = ((logits - x) ** 2).sum() + (
+                -0.5 * (1 + logvar - mu ** 2 - logvar.exp())).sum()
+        loss.backward()
+        return float(loss.asscalar()), [p.grad().asnumpy().copy()
+                                        for p in net.collect_params().values()]
+
+    eager = step()
+    net.hybridize()
+    for _ in range(3):                 # eager, capture, replay
+        hybrid = step()
+    assert net.stats()["captures"] >= 1
+    np.testing.assert_allclose(hybrid[0], eager[0], rtol=1e-6)
+    for g, w in zip(hybrid[1], eager[1]):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+
+    class Sampled(gluon.Block):
+        def __init__(self):
+            super().__init__()
+            self.mu = nn.Dense(4, in_units=12)
+
+        def forward(self, x):
+            mu = self.mu(x)
+            return mu + nd.random.normal(0, 1, shape=mu.shape)
+
+    blk = Sampled()
+    blk.initialize()
+    with autograd.record():
+        out = blk(x)
+        total = out.sum()
+    total.backward()
+    assert out.shape == (8, 4) and out.context == mx.gpu(0)
+    assert np.isfinite(blk.mu.weight.grad().asnumpy()).all()
