@@ -291,7 +291,36 @@ Phases, each fatal on failure:
              ``MultiBoxDetection(nms_threshold=0.45)`` (O4): its detections
              against the host's on the same inputs, the decode timed with
              O4 and with the plain version (outputs bitwise equal), and O4
-             alone beside its plain version and its bound.
+             alone beside its plain version and its bound;
+20. quant  — int8 quantization: first O5 (``int8_gemm``) and O6
+             (``int8_conv``, ``csrc/int8_ops.cu``) against their plain
+             versions, bitwise in both epilogues, at every distinct
+             convolution of ResNet-50 v1 at batch 2 (the 7 x 7 stem
+             among them), N 1,000, K, M and N tails, groups 2, depthwise,
+             stride 2 with padding, dilation 2, misaligned views and
+             BERT-base's FFN; a build whose K loop drops its last tile
+             must fail every case; the registered ops' NCHW form and
+             ``_contrib_quantize``/``_contrib_dequantize`` against the
+             host; then the main path: ResNet-50 v1 at 224 x 224,
+             f32, hybridized and captured, then calibrated through
+             ``contrib.quantization.quantize_net_v2`` (naive, and entropy
+             on a fresh copy) over 2 x 32 seeded images: 53
+             ``QuantizedConv2D`` and one ``QuantizedDense``, thresholds
+             equal to an eager calibration's (R10), each entropy
+             threshold bitwise equal to ``_get_optimal_threshold`` on the
+             host over the same inputs; int8 inference eager and
+             hybridized at batch 32 and 256 beside the f32 net (TF32
+             off): hybridized logits bitwise equal to eager and unlike the
+             f32 net's, O6 launched 53 times and O5 once a forward
+             (replays included; counted from 0 just before these runs and
+             read just after, the side runs apart); at batch 2 each int8
+             layer of the main path's net bitwise equal to the host's fed
+             the card's input, and with exact-identity BatchNorms the
+             card's logits within 1e-3 of the host's plain int8 run;
+             then O6 over the 53 convolutions at batch 256 and O5 at the output layer and BERT-base's FFN,
+             queued behind a sleep, beside their bounds, their plain
+             versions, cuDNN's bf16 convolutions and ``torch._int_mm``,
+             and the activation quantize timed alone.
 
 Each phase logs the card's SM clock and its maximum when it starts.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -1886,9 +1915,11 @@ def fleet_deploy_and_cli(serve, dev, g, tmp):
     t_up = fleet_cli(path, prompts[0], n, want[1][0])
 
     # each replica's backlog outlasts the first replica's reload and the
-    # second's load (one load is under t_up / 2); on the H100 the second
-    # replica served a third of such a backlog before its swap
-    per = int(min(1500, max(16, math.ceil(max(rates) * (0.5 * t_up + 5)))))
+    # second's load (one load is under t_up / 2), with the time the first
+    # replica serves before its reload starts on top: sized to t_up / 2
+    # + 5 s the second replica's crossing shrank from 127 to 8 requests
+    # over four H100 runs, and one run drained it before its swap
+    per = int(min(1500, max(16, math.ceil(max(rates) * (t_up + 5)))))
     servers = [server(weights[0], queue_depth=2 * per + 16).start()
                for _ in range(2)]
     router = serve.FleetRouter([serve.LocalReplica(s, name="r%d" % i)
@@ -3269,17 +3300,19 @@ RESNET_SMALL = dict(name="resnet18_v1", batch=8, image=64)
 
 
 @contextlib.contextmanager
-def exact_convs():
+def exact_convs(deterministic=True):
     """f32 convolutions and products in IEEE f32 (TF32 off) and
     deterministic cuDNN algorithms without autotuning, for the checks
-    that compare bits or hold the card to the host."""
+    that compare bits or hold the card to the host; with
+    ``deterministic=False``, cuDNN autotuned, for the timed runs."""
     import torch
 
     b = torch.backends
     saved = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32,
              b.cudnn.deterministic, b.cudnn.benchmark)
     b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = False
-    b.cudnn.deterministic, b.cudnn.benchmark = True, False
+    b.cudnn.deterministic = deterministic
+    b.cudnn.benchmark = not deterministic
     try:
         yield
     finally:
@@ -8215,6 +8248,798 @@ def ssd_phase(mx, dev):
         return ssd_train_run(mx, dev)
 
 
+# -- phase 20: quant, ResNet-50 v1 calibrated and run in int8 --------------
+
+INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core peak
+QUANT_SEED = 17
+QUANT_CALIB = (2, 32)              # quantize_net_v2's calibration: batches
+QUANT_PARITY_BATCH = 2
+QUANT_ITERS = 13                   # forwards a mode: 3 warm-up, 10 timed
+QUANT_DENOM = float(np.float32(127.0 / 4.1 * (127.0 / 0.23)))
+O5_SHAPES = ((256, 2048, 1000), (32, 2048, 1000),
+             (4096, 768, 3072))    # M, K, N: the output layer, BERT's FFN
+INT8_KINDS = (("O5 + O6 (int8_conv_kernel)", ("int8_conv_kernel",)),
+              ("quantize's round", ("round",)),
+              ("pooling", ("pool",)),
+              ("reductions", ("reduce_kernel",)),
+              ("copies", ("copy",)),
+              ("elementwise", ("elementwise",)))
+
+
+def quant_images(dev, batch, seed):
+    """Seeded images in [0, 1), as bench.py makes them."""
+    return _resnet_batch(dev, batch, RESNET_IMAGE, seed)[0]
+
+
+def quant_conv_shapes(net, x):
+    """Every ``nn.Conv2D`` of one ``no_grad`` predict-mode forward of the
+    f32 ``net`` on ``x``, in order, as O6 takes it: the input's NHWC
+    shape, the weight's OHWI shape, stride, pad, dilate and groups."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.ops.nn import channel_last
+
+    shapes, hooks = [], []
+
+    def hook(m, args, out):
+        shp = tuple(args[0].shape)
+        if not channel_last(m._layout):
+            shp = (shp[0], shp[2], shp[3], shp[1])
+        o, cg, kh, kw = m.weight.shape
+        k = m._kwargs
+        shapes.append(dict(x=shp, w=(o, kh, kw, cg),
+                           stride=tuple(k["stride"]), pad=tuple(k["pad"]),
+                           dilate=tuple(k["dilate"]),
+                           groups=int(k["num_group"])))
+
+    for m in net.modules():
+        if type(m) is nn.Conv2D:
+            hooks.append(m.register_forward_hook(hook))
+    try:
+        with torch.no_grad(), autograd.predict_mode():
+            net(x)
+    finally:
+        for h in hooks:
+            h.detach()
+    return shapes
+
+
+def conv_spec(x, w, stride=(1, 1), pad=(0, 0), dilate=(1, 1), groups=1,
+              misalign=False):
+    return dict(x=x, w=w, stride=stride, pad=pad, dilate=dilate,
+                groups=groups, misalign=misalign)
+
+
+def int8_cases(conv_shapes):
+    """(label, kind, spec) of O5's and O6's checks: every distinct
+    convolution of ResNet-50 v1 at batch 2 (the stem among them), then
+    the edges: groups, depthwise, stride 2 with padding, dilation, N, M
+    and K tails, misaligned views, N 1,000 and BERT's FFN."""
+    cases, seen = [], set()
+    for s in conv_shapes:
+        key = (s["x"][1:], s["w"], s["stride"], s["pad"], s["dilate"],
+               s["groups"])
+        if key not in seen:
+            seen.add(key)
+            cases.append(("resnet50 %s * %s s%d p%d" % (
+                s["x"], s["w"], s["stride"][0], s["pad"][0]), "conv",
+                dict(s, misalign=False)))
+    c = conv_spec
+    cases += [
+        ("groups 2, C/G 32", "conv", c((2, 14, 14, 64), (128, 3, 3, 32),
+                                       pad=(1, 1), groups=2)),
+        ("groups 2, C/G 3 (byte path)", "conv",
+         c((2, 9, 9, 6), (8, 3, 3, 3), (2, 2), (1, 1), groups=2)),
+        ("depthwise 32", "conv", c((2, 15, 15, 32), (32, 3, 3, 1),
+                                   pad=(1, 1), groups=32)),
+        ("depthwise x2, stride 2", "conv",
+         c((2, 8, 8, 16), (32, 3, 3, 1), (2, 2), (1, 1), groups=16)),
+        ("stride 2 pad 1", "conv", c((2, 28, 28, 64), (64, 3, 3, 64),
+                                     (2, 2), (1, 1))),
+        ("dilate 2 pad 2", "conv", c((2, 17, 17, 32), (48, 3, 3, 32),
+                                     pad=(2, 2), dilate=(2, 2))),
+        ("N tail 70, M tail", "conv", c((3, 11, 13, 48), (70, 1, 1, 48))),
+        ("misaligned x (byte path)", "conv",
+         c((2, 14, 14, 64), (64, 3, 3, 64), pad=(1, 1), misalign=True)),
+        ("fc 2 x 2048 -> 1000", "gemm", dict(m=2, k=2048, n=1000)),
+        ("fc 256 x 2048 -> 1000", "gemm", dict(m=256, k=2048, n=1000)),
+        ("K tail 147 (byte path)", "gemm", dict(m=77, k=147, n=45)),
+        ("K tail 2064", "gemm", dict(m=130, k=2064, n=200)),
+        ("M and N tails", "gemm", dict(m=129, k=64, n=129)),
+        ("one row, K 16", "gemm", dict(m=1, k=16, n=1)),
+        ("BERT FFN 4096 x 768 -> 3072", "gemm", dict(m=4096, k=768,
+                                                    n=3072)),
+        ("misaligned a and b (byte path)", "gemm",
+         dict(m=33, k=96, n=40, misalign=True)),
+    ]
+    return cases
+
+
+def int8_inputs(dev, kind, spec, seed):
+    """Seeded int8 operands (a misaligned view where the case says so),
+    an f32 and an s32 bias, on the card."""
+    import torch
+
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed)
+
+    def s8(shape, misalign):
+        t = torch.randint(-127, 128, shape, dtype=torch.int8, generator=g)
+        if not misalign:
+            return t.to(dev)
+        buf = torch.empty(t.numel() + 1, dtype=torch.int8, device=dev)
+        view = buf[1:].view(shape)
+        view.copy_(t)
+        return view
+
+    mis = spec.get("misalign", False)
+    if kind == "conv":
+        x, w, o = s8(spec["x"], mis), s8(spec["w"], False), spec["w"][0]
+    else:
+        x, w = s8((spec["m"], spec["k"]), mis), s8((spec["n"], spec["k"]),
+                                                   mis)
+        o = spec["n"]
+    bias_f = (torch.randn(o, generator=g) * 3).to(dev)
+    bias_i = torch.randint(-2 ** 20, 2 ** 20, (o,), dtype=torch.int32,
+                           generator=g).to(dev)
+    return x, w, bias_f, bias_i
+
+
+def int8_run(kind, spec, x, w, bias, denom, plain):
+    """O6 or O5 (or its plain version) on one case."""
+    from mxnet_tpu_torch.ops import int8_ops as io
+
+    if kind == "conv":
+        fn = io.int8_conv_ref if plain else io.int8_conv
+        return fn(x, w, spec["stride"], spec["pad"], spec["dilate"],
+                  spec["groups"], bias=bias, denom=denom)
+    fn = io.int8_gemm_ref if plain else io.int8_gemm
+    return fn(x, w, bias=bias, denom=denom)
+
+
+def int8_compare(got, want):
+    """(bitwise equal, largest absolute difference)."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False, float("inf")
+    if not got.numel():
+        return True, 0.0
+    return (torch.equal(got, want),
+            (got.double() - want.double()).abs().max().item())
+
+
+def int8_checks(dev, conv_shapes):
+    """O5 and O6 against their plain versions on the card, bitwise, in
+    both epilogues (s32 with an s32 bias; f32 with and without an f32
+    bias) on ``int8_cases``.  Returns the largest difference."""
+    import torch
+
+    ok, worst = True, 0.0
+    for i, (label, kind, spec) in enumerate(int8_cases(conv_shapes)):
+        x, w, bias_f, bias_i = int8_inputs(dev, kind, spec, 100 + i)
+        bad = []
+        for epi, bias, denom in (("s32", bias_i, None),
+                                 ("f32", bias_f, QUANT_DENOM),
+                                 ("f32 no bias", None, QUANT_DENOM)):
+            got = int8_run(kind, spec, x, w, bias, denom, False)
+            want = int8_run(kind, spec, x, w, bias, denom, True)
+            torch.cuda.synchronize()
+            same, err = int8_compare(got, want)
+            worst = max(worst, err)
+            if not same:
+                bad.append("%s (%.3g)" % (epi, err))
+        ok &= not bad
+        log("quant o5/o6: %-46s %s" % (label, "bitwise equal in both "
+                                       "epilogues" if not bad
+                                       else "DIFFER: %s" % ", ".join(bad)))
+    if not ok:
+        fail("O5 or O6 differs from its plain version")
+    return worst
+
+
+@contextlib.contextmanager
+def planted_int8_library(path):
+    """O5's and O6's kernel taken from the library at ``path`` (built
+    with a planted fault) inside the block."""
+    import ctypes
+
+    from mxnet_tpu_torch.ops import _build
+    from mxnet_tpu_torch.ops import int8_ops as io
+
+    good = io._load()
+    lib = ctypes.CDLL(path)
+    io._bind(lib)
+    _build._libs[io._SOURCE] = lib
+    try:
+        yield
+    finally:
+        _build._libs[io._SOURCE] = good
+
+
+def planted_int8_fault(dev, conv_shapes, path):
+    """A build whose K loop drops its last tile (``MXTT_SKIP_LAST``) must
+    fail every case of the checks (f32 epilogue with bias)."""
+    import torch
+
+    cases = int8_cases(conv_shapes)
+    caught = 0
+    with planted_int8_library(path):
+        for i, (label, kind, spec) in enumerate(cases):
+            x, w, bias_f, _ = int8_inputs(dev, kind, spec, 100 + i)
+            got = int8_run(kind, spec, x, w, bias_f, QUANT_DENOM, False)
+            want = int8_run(kind, spec, x, w, bias_f, QUANT_DENOM, True)
+            torch.cuda.synchronize()
+            caught += not int8_compare(got, want)[0]
+    log("quant o5/o6: a build that drops the last K tile differs from the "
+        "plain version in %d of %d cases (must be all)"
+        % (caught, len(cases)))
+    if caught != len(cases):
+        fail("the O5/O6 checks pass a build that drops the last K tile")
+
+
+def quantized_op_checks(dev):
+    """The registered ops' NCHW form on the card (O6 through
+    ``_contrib_quantized_conv``, groups 2, stride 2, pad 1, an int8
+    bias; O5 through ``_contrib_quantized_fully_connected``, flattened)
+    against the same ops on the host: the s32 sums and the ranges
+    bitwise.  So are ``_contrib_quantize`` and ``_contrib_dequantize`` at
+    a range of 3.5, whose quotients are not the products by their
+    reciprocals (both divide truly, as the JAX package does)."""
+    import torch
+
+    from mxnet_tpu_torch.ops import registry as reg
+
+    g = torch.Generator(device="cpu")
+    g.manual_seed(7)
+
+    def s8(*shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8, generator=g)
+
+    ranges = [torch.tensor(v) for v in (-1.5, 2.0, -0.3, 0.25, -0.02, 0.03)]
+    lo, hi = torch.tensor([-1.2]), torch.tensor([2.3])
+    grid = torch.linspace(-1.3, 2.4, 40001)
+    runs = (("_contrib_quantized_conv",
+             [s8(2, 32, 15, 15), s8(48, 16, 3, 3), s8(48)] + ranges,
+             dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), num_filter=48,
+                  num_group=2)),
+            ("_contrib_quantized_fully_connected",
+             [s8(3, 5, 40), s8(17, 200), s8(17)] + ranges,
+             dict(num_hidden=17)),
+            ("_contrib_quantize", [grid, lo, hi], dict(out_type="uint8")),
+            ("_contrib_quantize", [grid, lo, hi], dict(out_type="int8")),
+            ("_contrib_dequantize", [s8(40001), lo, hi], {}),
+            ("_contrib_dequantize",
+             [torch.randint(0, 256, (40001,), dtype=torch.uint8,
+                            generator=g), lo, hi], {}))
+    ok = True
+    for name, tensors, attrs in runs:
+        fwd = reg.get(name).forward
+        host = fwd(*tensors, **attrs)
+        card = fwd(*[t.to(dev) for t in tensors], **attrs)
+        host = host if isinstance(host, tuple) else (host,)
+        card = card if isinstance(card, tuple) else (card,)
+        torch.cuda.synchronize()
+        same = all(c.dtype == h.dtype and torch.equal(c.cpu(), h)
+                   for c, h in zip(card, host))
+        ok &= same
+        log("quant ops: %s on the card against the host: out %s %s, "
+            "ranges %s %s" % (name, tuple(card[0].shape), card[0].dtype,
+                              [round(float(r), 6) for r in card[1:]],
+                              "bitwise equal" if same else "DIFFER"))
+    if not ok:
+        fail("a registered quantized op differs between the card and the "
+             "host")
+
+
+def quant_blocks(net):
+    """``{path: block}`` of a quantized net's int8 layers."""
+    from mxnet_tpu_torch.contrib import quantization as q
+
+    return {name: m for name, m in net.named_modules()
+            if isinstance(m, (q.QuantizedConv2D, q.QuantizedDense))}
+
+
+def quantize_like(host, card):
+    """Swap ``host``'s layers for int8 ones at ``card``'s paths and
+    thresholds (the same weights give the same int8 weights)."""
+    for path, blk in quant_blocks(card).items():
+        parent_path, _, name = path.rpartition(".")
+        parent = host.get_submodule(parent_path) if parent_path else host
+        setattr(parent, name, type(blk)(parent._modules[name],
+                                        blk._threshold))
+    return host
+
+
+def int8_agreement(got, want):
+    """Relative error of ``got``'s logits against ``want``'s largest,
+    top-1 agreement, and the share of images whose ``want`` top-1 class
+    is in ``got``'s top 5."""
+    err = ((got.float() - want.float()).abs().max()
+           / want.float().abs().max()).item()
+    top1 = (got.argmax(1) == want.argmax(1)).float().mean().item()
+    top5 = (got.topk(5, 1).indices == want.argmax(1, keepdim=True)) \
+        .any(1).float().mean().item()
+    return err, top1, top5
+
+
+def _p50(ms):
+    s = sorted(ms[3:])
+    return s[len(s) // 2], s[0], s[-1]
+
+
+def int8_launches(zero=False):
+    """O6's and O5's launch counts ({"O6": n, "O5": n}); ``zero`` sets
+    them to 0 first."""
+    from mxnet_tpu_torch.ops import int8_ops as io
+
+    if zero:
+        io.int8_conv.launches = io.int8_gemm.launches = 0
+    return {"O6": io.int8_conv.launches, "O5": io.int8_gemm.launches}
+
+
+def held_launches(what, forwards):
+    """The counts since the last zeroing, held at one launch of O6 a
+    convolution and of O5 a forward, over ``forwards`` int8 forwards of
+    ResNet-50 (replays included)."""
+    got = int8_launches()
+    log("quant launches, %s: O6 %d (want 53 x %d forwards = %d), O5 %d "
+        "(want %d)" % (what, got["O6"], forwards, 53 * forwards, got["O5"],
+                       forwards))
+    if got != {"O6": 53 * forwards, "O5": forwards}:
+        fail("O5/O6 were not launched once a layer a forward (%s)" % what)
+    return got
+
+
+def entropy_host_check(dev, ent, naive, calib):
+    """Each threshold of the entropy calibration on the card (``ent``,
+    calibrated over ``calib``) against ``_get_optimal_threshold`` on the
+    host over the same layers' inputs (taken from a second f32 net of the
+    same seed, deterministic convolutions): bitwise.  Logs the entropy
+    thresholds' ratios to the naive ones (``naive``: path -> block)."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.contrib import quantization as q
+
+    thr = {p: b._threshold for p, b in quant_blocks(ent).items()}
+    probe = resnet_net(dev, "resnet50_v1", QUANT_SEED)
+    samples = {p: [] for p in thr}
+
+    def keep(path):
+        return lambda blk, args: samples[path].append(
+            args[0].detach().float().cpu().numpy())
+
+    hooks = [probe.get_submodule(p).register_forward_pre_hook(keep(p))
+             for p in thr]
+    t0 = time.perf_counter()
+    try:
+        with exact_convs(), torch.no_grad(), autograd.predict_mode():
+            for xb in calib:
+                probe(xb)
+    finally:
+        for h in hooks:
+            h.detach()
+    del probe
+    bad = [p for p in thr
+           if q._get_optimal_threshold(samples.pop(p)) != thr[p]]
+    ratios = sorted((thr[p] / naive[p]._threshold, p) for p in thr)
+    log("quant calibration: entropy thresholds on the card against "
+        "_get_optimal_threshold on the host over the same inputs: %d of %d "
+        "bitwise equal (%.1f s); entropy / naive threshold: least %.4g "
+        "(%s), median %.4g, largest %.4g (%s), %d of %d under 0.5"
+        % (len(thr) - len(bad), len(thr), time.perf_counter() - t0,
+           ratios[0][0], ratios[0][1], ratios[len(ratios) // 2][0],
+           ratios[-1][0], ratios[-1][1],
+           sum(r < 0.5 for r, _ in ratios), len(ratios)))
+    if bad:
+        fail("the card's entropy thresholds differ from the host's at %s"
+             % ", ".join(bad[:5]))
+
+
+def quant_parity(dev, net, net_f):
+    """The card against the host's plain int8 run of the same weights
+    and thresholds, at batch QUANT_PARITY_BATCH.  The main path's own
+    ``net`` is held layer by layer: each int8 layer on the host, fed the
+    card's input to that layer, must give the card's int8 activations and
+    output bitwise.  Whole nets are held with each BatchNorm an exact
+    identity (1e-3 of the largest logit); with the fresh statistics the
+    whole-net reading is logged.  Returns the int8 forwards run on the
+    card."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.contrib import quantization as q
+    from mxnet_tpu_torch.ops import int8_ops as io
+    from mxnet_tpu_torch.ops.nn import channel_last
+
+    x = quant_images(dev, QUANT_PARITY_BATCH, 70)
+    seen = {}
+
+    def nchw(blk, t, back=False):
+        """A convolution's NHWC tensor (the card's layout) as NCHW, or
+        with ``back`` an NCHW one in ``blk``'s layout."""
+        if not (isinstance(blk, q.QuantizedConv2D)
+                and channel_last(blk._layout)):
+            return t
+        return t.permute(0, 2, 3, 1) if back else t.permute(0, 3, 1, 2)
+
+    def keep(path):
+        def hook(blk, args, out):
+            qx = io.quantize_int8(args[0], blk._x_scale)
+            seen[path] = tuple(nchw(blk, t).cpu() for t in (args[0], qx,
+                                                           out))
+        return hook
+
+    def host_net(state):
+        h = resnet_net("cpu", "resnet50_v1", 1)
+        resnet_shapes(h, x.cpu())
+        h.load_state_dict(state)
+        return quantize_like(h, net)
+
+    def rel(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    hooks = [b.register_forward_hook(keep(p))
+             for p, b in quant_blocks(net).items()]
+    net.hybridize(False)
+    try:
+        with torch.no_grad(), autograd.predict_mode():
+            card_out = net(x).cpu()
+    finally:
+        for h in hooks:
+            h.detach()
+    host = host_net(net_f.state_dict())
+    bad, n_act, n_layers = [], 0, len(seen)
+    with torch.no_grad(), autograd.predict_mode():
+        fresh = rel(card_out, host(x.cpu()))
+        for path, blk in quant_blocks(host).items():
+            xin, q_card, want = seen.pop(path)
+            q_host = io.quantize_int8(xin, blk._x_scale)
+            n_act += q_host.numel()
+            got = nchw(blk, blk(nchw(blk, xin, back=True)))
+            if not (torch.equal(q_host, q_card) and torch.equal(got, want)):
+                bad.append(path)
+    del host
+
+    state = {k: v.clone() for k, v in net_f.state_dict().items()}
+    for k, v in state.items():
+        if k.endswith("running_var"):
+            v.fill_(float(np.float32(1) - np.float32(1e-5)))
+        elif k.endswith(("running_mean", "beta")):
+            v.zero_()
+        elif k.endswith("gamma"):
+            v.fill_(1.0)
+    card = resnet_net(dev, "resnet50_v1", 1)
+    resnet_shapes(card, x)
+    card.load_state_dict(state)
+    quantize_like(card, net)
+    with torch.no_grad(), autograd.predict_mode():
+        ident = rel(card(x).cpu(), host_net(state)(x.cpu()))
+    log("quant parity: batch %d, the main path's net layer by layer: %d "
+        "of %d int8 layers on the host, fed the card's input, give the "
+        "card's int8 activations (%d elements) and outputs bitwise%s; "
+        "whole nets, the card's int8 logits against the host's plain int8 "
+        "run of the same weights and thresholds: %.3g of the largest logit "
+        "with each BatchNorm an exact identity (running variance f32(1 - "
+        "eps); bound 1e-3) %s; %.3g with the fresh statistics (logged: "
+        "each f32 BatchNorm's one-ulp differences between the card and the "
+        "host turn int8 roundings at .5 boundaries, and the flips compound "
+        "over 53 layers)"
+        % (QUANT_PARITY_BATCH, n_layers - len(bad), n_layers, n_act,
+           "" if not bad else " (DIFFERENT at %s)" % ", ".join(bad[:5]),
+           ident, "ok" if ident <= 1e-3 else "FAIL", fresh))
+    if bad or n_layers != 54:
+        fail("an int8 layer of the main path differs between the card and "
+             "the host on the same input")
+    if not (ident <= 1e-3):
+        fail("the card's int8 ResNet-50 disagrees with the host's")
+    return 2
+
+
+def quant_main_path(dev, net_f):
+    """ResNet-50 v1 calibrated through ``quantize_net_v2`` while
+    hybridized (R10's case), naive and, on a fresh copy, entropy; then
+    int8 inference eager and hybridized at RESNET_INFER_BATCHES beside
+    the f32 net, and the card against the host's plain int8 run.
+    Returns O5's and O6's launches in the int8 inference runs (replays
+    included), counted from 0 just before them and read just after."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.contrib import quantization as q
+
+    n_batches, batch = QUANT_CALIB
+    calib = [quant_images(dev, batch, 31 + i) for i in range(n_batches)]
+    out = {}
+    with exact_convs():
+        net = resnet_net(dev, "resnet50_v1", QUANT_SEED)
+        net.hybridize()
+        with torch.no_grad(), autograd.predict_mode():
+            for _ in range(3):
+                net(calib[0])
+        captured = net.stats()["captures"]
+        if captured < 1:
+            fail("the hybridized ResNet-50 captured no graph before "
+                 "quantize_net_v2")
+        t0 = time.perf_counter()
+        q.quantize_net_v2(net, calib_mode="naive", calib_data=calib)
+        torch.cuda.synchronize()
+        out["naive_s"] = time.perf_counter() - t0
+        eager = resnet_net(dev, "resnet50_v1", QUANT_SEED)
+        q.quantize_net_v2(eager, calib_mode="naive", calib_data=calib)
+        ent = resnet_net(dev, "resnet50_v1", QUANT_SEED)
+        t0 = time.perf_counter()
+        q.quantize_net_v2(ent, calib_mode="entropy", calib_data=calib)
+        torch.cuda.synchronize()
+        out["entropy_s"] = time.perf_counter() - t0
+    blocks, eblocks = quant_blocks(net), quant_blocks(eager)
+    kinds = [type(b).__name__ for b in blocks.values()]
+    n_conv, n_dense = kinds.count("QuantizedConv2D"), \
+        kinds.count("QuantizedDense")
+    same_thr = blocks.keys() == eblocks.keys() and all(
+        blocks[p]._threshold == eblocks[p]._threshold for p in blocks)
+    ent_thr = quant_blocks(ent)
+    log("quant calibration: %d QuantizedConv2D + %d QuantizedDense; naive "
+        "%.2f s over %d x %d images (hybridized, %d graph(s) captured "
+        "before), entropy %.2f s on a fresh copy; the hybridized net's "
+        "thresholds %s the eager calibration's (first %.5g, output %.5g; "
+        "entropy %.5g, %.5g)"
+        % (n_conv, n_dense, out["naive_s"], n_batches, batch,
+           captured, out["entropy_s"],
+           "equal" if same_thr else "DIFFER from",
+           blocks["features.0"]._threshold, blocks["output"]._threshold,
+           ent_thr["features.0"]._threshold, ent_thr["output"]._threshold))
+    if (n_conv, n_dense) != (53, 1):
+        fail("quantize_net_v2 swapped %d convolutions and %d dense layers, "
+             "not 53 and 1" % (n_conv, n_dense))
+    if not same_thr:
+        fail("R10: the hybridized net's thresholds differ from an eager "
+             "calibration's")
+    if out["entropy_s"] > 90:
+        log("quant calibration: entropy calibration took over 90 s")
+    entropy_host_check(dev, ent, blocks, calib)
+    del calib
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = {"O6": 0, "O5": 0}
+    with exact_convs(deterministic=False):
+        for b in RESNET_INFER_BATCHES:
+            x = quant_images(dev, b, 50 + b)
+            net_f.hybridize(False)
+            fe, f_out = timed_forward(net_f, x, QUANT_ITERS)
+            net_f.hybridize()
+            fh, _ = timed_forward(net_f, x, QUANT_ITERS)
+            net_f.hybridize(False)
+            # the main path: int8 inference, eager then hybridized
+            int8_launches(zero=True)
+            net.hybridize(False)
+            ie, i_out = timed_forward(net, x, QUANT_ITERS)
+            net.hybridize()
+            ih, h_out = timed_forward(net, x, QUANT_ITERS)
+            st = net.stats()
+            forwards = 2 * QUANT_ITERS
+            if b == RESNET_INFER_BATCHES[-1]:
+                _, wall, busy, avg = profiled_step(lambda: net(x))
+                forwards += 1
+                out["profile"] = (wall * 1e3, busy,
+                                  kernel_kinds(avg, INT8_KINDS))
+                out["profile_rows"] = kernel_rows(avg, top=10)[0]
+            got = held_launches("int8 inference at batch %d" % b, forwards)
+            launches = {k: launches[k] + got[k] for k in launches}
+            if b == RESNET_INFER_BATCHES[0]:
+                int8_launches(zero=True)
+                with torch.no_grad():
+                    e_out, n_out = eager(x), ent(x)
+                held_launches("the eager-calibrated and entropy copies at "
+                              "batch %d (not the main path)" % b, 2)
+                out["entropy"] = int8_agreement(n_out, f_out)
+                if not torch.equal(e_out, i_out):
+                    fail("R10: the eager-calibrated net's int8 logits "
+                         "differ from the hybridized-calibrated net's")
+            net.hybridize(False)
+            fin = bool(torch.isfinite(h_out).all())
+            equal = torch.equal(h_out, i_out)
+            stale = torch.equal(h_out, f_out)
+            err, top1, top5 = int8_agreement(h_out, f_out)
+            log("quant infer: batch %d, no_grad: f32 (TF32 off) eager ms p50 "
+                "%.3f (min %.3f max %.3f), hybridized %.3f (%.3f, %.3f); "
+                "int8 eager %.3f (%.3f, %.3f), %.1f images/s, hybridized "
+                "%.3f (%.3f, %.3f), %.1f images/s; f32 %.1f / %.1f images/s"
+                % ((b,) + _p50(fe) + _p50(fh) + _p50(ie)
+                   + (1e3 * b / _p50(ie)[0],) + _p50(ih)
+                   + (1e3 * b / _p50(ih)[0], 1e3 * b / _p50(fe)[0],
+                      1e3 * b / _p50(fh)[0])))
+            log("quant infer: batch %d: hybridized int8 logits %s the eager "
+                "ones (%d capture(s), %d replays), %s the f32 net's; int8 "
+                "against f32: %.4g of the largest logit, top-1 agreement "
+                "%.4f, f32 top-1 in the int8 top-5 %.4f"
+                % (b, "bitwise equal to" if equal else "DIFFER from",
+                   st["captures"], st["replays"],
+                   "STALE: equal to" if stale else "differ from", err, top1,
+                   top5))
+            if not (fin and equal and not stale and st["replays"] > 0):
+                fail("int8 inference at batch %d: finite %s, hybridized "
+                     "equal to eager %s, differs from f32 %s, replays %d"
+                     % (b, fin, equal, not stale, st["replays"]))
+            del x, f_out, i_out, h_out
+            gc.collect()
+            torch.cuda.empty_cache()
+    log("quant infer: entropy-calibrated net at batch %d against f32: %.4g "
+        "of the largest logit, top-1 %.4f, top-5 %.4f"
+        % ((RESNET_INFER_BATCHES[0],) + out["entropy"]))
+    log("quant launches, the main path (int8 inference at batches %s): O6 "
+        "%d, O5 %d" % (list(RESNET_INFER_BATCHES), launches["O6"],
+                       launches["O5"]))
+
+    int8_launches(zero=True)
+    held_launches("the parity runs on the card (not the main path)",
+                  quant_parity(dev, net, net_f))
+    wall, busy, kinds_ms = out["profile"]
+    log("quant profile: one hybridized int8 forward at batch %d: wall %.3f "
+        "ms, kernels busy %.3f ms; %s"
+        % (RESNET_INFER_BATCHES[-1], wall, busy,
+           ", ".join("%s %.3f" % kv for kv in kinds_ms.items())))
+    for ms, count, key in out["profile_rows"]:
+        log("quant profile:   %9.3f ms  x%-4d %s" % (ms, count, key[:90]))
+    del net, eager, ent
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def int8_bound(ops, nbytes):
+    """(least ms, what bounds it) of ``ops`` int8 operations and
+    ``nbytes`` bytes on the H100."""
+    ops_ms, bytes_ms = 1e3 * ops / INT8_OPS, 1e3 * nbytes / HBM_BYTES_PER_S
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def conv_work(s):
+    """Operations and bytes of one O6 call (f32 output, no bias)."""
+    from mxnet_tpu_torch.ops.int8_ops import conv_out_size
+
+    n, h, w, c = s["x"]
+    o, kh, kw, cg = s["w"]
+    p = conv_out_size(h, kh, s["stride"][0], s["pad"][0], s["dilate"][0])
+    q = conv_out_size(w, kw, s["stride"][1], s["pad"][1], s["dilate"][1])
+    m = n * p * q
+    return (2 * m * o * kh * kw * cg,
+            n * h * w * c + o * kh * kw * cg + 4 * m * o)
+
+
+def quant_kernel_timing(dev, net_f):
+    """O6 over ResNet-50's 53 convolutions at batch 256 (f32 epilogue, as
+    the net runs them) and O5 at O5_SHAPES (f32 epilogue with bias),
+    queued behind a sleep, beside their bounds, their plain versions and
+    the yardsticks: cuDNN's bf16 convolutions at the same shapes, and
+    ``torch._int_mm`` (s32 out, no epilogue); the activation quantize of
+    the 53 inputs timed the same way."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import int8_ops as io
+
+    with exact_convs():
+        shapes = quant_conv_shapes(net_f, quant_images(dev, 256, 60))
+    gc.collect()
+    torch.cuda.empty_cache()
+    xs = [torch.randint(-127, 128, s["x"], dtype=torch.int8, device=dev)
+          for s in shapes]
+    ws = [torch.randint(-127, 128, s["w"], dtype=torch.int8, device=dev)
+          for s in shapes]
+
+    def o6(_):
+        for s, x, w in zip(shapes, xs, ws):
+            io.int8_conv(x, w, s["stride"], s["pad"], s["dilate"],
+                         s["groups"], denom=QUANT_DENOM)
+
+    def o6_plain(_):
+        for s, x, w in zip(shapes, xs, ws):
+            io.int8_conv_ref(x, w, s["stride"], s["pad"], s["dilate"],
+                             s["groups"], denom=QUANT_DENOM)
+
+    ms = queued_ms(o6, 5)
+    plain_ms = queued_ms(o6_plain, 1, warmup=1)
+    work = [conv_work(s) for s in shapes]
+    bounds = [int8_bound(*wk) for wk in work]
+    bound_ms = sum(b[0] for b in bounds)
+    by_ops = sum(b[0] for b in bounds if b[1] == "operations")
+    xb = [x.to(torch.bfloat16).permute(0, 3, 1, 2) for x in xs]
+    wb = [w.to(torch.bfloat16).permute(0, 3, 1, 2) for w in ws]
+    del xs
+
+    def cudnn_bf16(_):
+        for s, x, w in zip(shapes, xb, wb):
+            F.conv2d(x, w, None, s["stride"], s["pad"], s["dilate"],
+                     s["groups"])
+
+    with exact_convs(deterministic=False):
+        lib_ms = queued_ms(cudnn_bf16, 5)
+    del xb, wb
+    gc.collect()
+    torch.cuda.empty_cache()
+    xf = [torch.randn(s["x"], device=dev) for s in shapes]
+    quant_ms = queued_ms(lambda _: [io.quantize_int8(x, 25.4) for x in xf],
+                         3)
+    quant_bytes = sum(5 * x.numel() for x in xf)
+    del xf, ws
+    gc.collect()
+    torch.cuda.empty_cache()
+    o6_t = {"max_abs_err": None, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if by_ops >= bound_ms / 2 else "bytes",
+            "library_ms": None, "cudnn_bf16_ms": lib_ms,
+            "quantize_ms": quant_ms,
+            "quantize_bound_ms": 1e3 * quant_bytes / HBM_BYTES_PER_S,
+            "tops": 1e-9 * sum(wk[0] for wk in work) / ms}
+    log("quant o6: the 53 convolutions of ResNet-50 v1 at batch 256 (f32 "
+        "out): %.4f ms queued (%.1f TOP/s, %.1f%% of the %.4f ms bound, "
+        "%.4f ms of it bound by operations), plain (float64) %.1f ms; "
+        "cuDNN's bf16 convolutions at the same shapes %.4f ms (another "
+        "function; torch has no int8 convolution); the activation quantize "
+        "of the 53 inputs (torch elementwise) %.4f ms against its %.4f ms "
+        "byte bound"
+        % (ms, o6_t["tops"], 100 * bound_ms / ms, bound_ms, by_ops,
+           plain_ms, lib_ms, quant_ms, o6_t["quantize_bound_ms"]))
+    o5 = []
+    for m, k, n in O5_SHAPES:
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev)
+        b = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev)
+        bias = torch.randn(n, device=dev)
+        t = queued_ms(lambda _: io.int8_gemm(a, b, bias=bias,
+                                             denom=QUANT_DENOM), 50)
+        tp = queued_ms(lambda _: io.int8_gemm_ref(a, b, bias=bias,
+                                                  denom=QUANT_DENOM), 5)
+        try:
+            lib = queued_ms(lambda _: torch._int_mm(a, b.t()), 50)
+        except RuntimeError as e:
+            log("quant o5: torch._int_mm refused (%d, %d, %d): %s"
+                % (m, k, n, e))
+            lib = None
+        bms, bby = int8_bound(2 * m * n * k, m * k + n * k + 4 * m * n
+                              + 4 * n)
+        o5.append({"max_abs_err": None, "ms": t, "plain_ms": tp,
+                   "bound_ms": bms, "bound_by": bby, "library_ms": lib,
+                   "shape": [m, k, n]})
+        log("quant o5: M %d, K %d, N %d (f32 out, bias): %.4f ms queued "
+            "(%.1f TOP/s, %.1f%% of the %.4f ms %s bound), plain %.4f ms, "
+            "torch._int_mm (s32 out) %s ms"
+            % (m, k, n, t, 2e-9 * m * n * k / t, 100 * bms / t, bms, bby,
+               tp, "%.4f" % lib if lib is not None else "n/a"))
+    return o6_t, o5
+
+
+def quant_phase(dev, planted_path):
+    """O5's and O6's checks and planted fault, the registered ops on the
+    card, the main path (``quant_main_path``), then the kernels' timing.
+    Returns the launches and the ``kernels`` readings."""
+    import torch
+
+    start_profiler(dev)
+    with exact_convs():
+        net_f = resnet_net(dev, "resnet50_v1", QUANT_SEED)
+        shapes = quant_conv_shapes(net_f, quant_images(dev, 2, 40))
+    if len(shapes) != 53:
+        fail("ResNet-50 v1 ran %d convolutions, not 53" % len(shapes))
+    worst = int8_checks(dev, shapes)
+    planted_int8_fault(dev, shapes, planted_path)
+    quantized_op_checks(dev)
+    launches = quant_main_path(dev, net_f)
+    o6, o5 = quant_kernel_timing(dev, net_f)
+    o6["max_abs_err"] = worst
+    for r in o5:
+        r["max_abs_err"] = worst
+    del net_f
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, o6, o5
+
+
 def clocks_line():
     """The card's SM clock and its maximum now (nvidia-smi)."""
     r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
@@ -8237,12 +9062,12 @@ def nvidia_smi_line():
 PHASES = ("kernel", "flash", "optimizer", "serve", "parity", "fleet",
           "train", "train_parity", "hybridize", "rtc", "imperative",
           "imperative_parity", "resnet", "bert", "gluon", "vision", "gan",
-          "ssd", "ops")
-# the phases that launch K1-K4 and O1-O4, whose libraries the smoke
+          "ssd", "quant", "ops")
+# the phases that launch K1-K4 and O1-O6, whose libraries the smoke
 # builds first
 NVCC_PHASES = {"kernel", "flash", "optimizer", "serve", "parity", "fleet",
                "train", "train_parity", "hybridize", "resnet", "bert",
-               "gluon", "vision", "gan", "ssd", "ops"}
+               "gluon", "vision", "gan", "ssd", "quant", "ops"}
 
 
 def kernel_entry(name, source, replaces, launches, timing, extra=None):
@@ -8274,6 +9099,7 @@ def main(argv):
     from mxnet_tpu_torch.ops import _build
     from mxnet_tpu_torch.ops import box_nms
     from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import int8_ops
     from mxnet_tpu_torch.ops import optimizer_ops as oo
     from mxnet_tpu_torch.ops import paged_attention as pa
 
@@ -8293,9 +9119,12 @@ def main(argv):
     drop_split = (pa._SOURCE, ("MXTT_DROP_SPLIT=1",))
     # O1-O3 with each table's last tensor left out: the planted fault
     skip_last = (oo._SOURCE, ("MXTT_SKIP_LAST=1",))
+    # O5/O6 with the K loop's last tile left out: the planted fault
+    skip_k_tile = (int8_ops._SOURCE, ("MXTT_SKIP_LAST=1",))
     if set(phases) & NVCC_PHASES:
         built = _build.build_all([fa._SOURCE, pa._SOURCE, drop_split,
-                                  oo._SOURCE, skip_last, box_nms._SOURCE],
+                                  oo._SOURCE, skip_last, box_nms._SOURCE,
+                                  int8_ops._SOURCE, skip_k_tile],
                                  verbose=True)
         for lib, seconds in built.values():
             log("build: %s ready after %.1f s"
@@ -8353,6 +9182,9 @@ def main(argv):
     gan_o1 = timed("gan", gan_phase, mx, dev)
     o4, ssd_o1, o4_launches = timed("ssd", ssd_phase, mx, dev) \
         or (None, None, None)
+    int8_launches, o6, o5 = timed(
+        "quant", lambda: quant_phase(dev, built[skip_k_tile][0])) \
+        or (None, None, None)
     timed("ops", ops_phase, mx, dev)
     log("total: %.1f s" % (time.perf_counter() - t_all))
     if list(phases) != list(PHASES):
@@ -8361,6 +9193,7 @@ def main(argv):
 
     src = "mxnet_tpu_torch/csrc/flash_attention.cu"
     opt_src = "mxnet_tpu_torch/csrc/optimizer_ops.cu"
+    int8_src = "mxnet_tpu_torch/csrc/int8_ops.cu"
     flash, flash_bert = flash
     paths = (flash_launches, hybrid_launches, bert_launches, gluon_launches)
     print(json.dumps({"kernels": [
@@ -8403,7 +9236,20 @@ def main(argv):
                      {k: o4[k] for k in (
                          "library", "decode_ms", "decode_plain_ms",
                          "nms_route", "two_pass_ms", "mask_pass_ms",
-                         "scan_ms")})]}))
+                         "scan_ms")}),
+        kernel_entry("O5 int8_gemm (port-only)", int8_src,
+                     "mxnet_tpu/ops/quantized_ops.py:88",
+                     int8_launches["O5"], o5[0],
+                     {"shape_mkn": o5[0]["shape"], "library": "torch._int_mm",
+                      "at": [{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                                "bound_ms", "bound_by",
+                                                "library_ms")}
+                             for r in o5[1:]]}),
+        kernel_entry("O6 int8_conv (port-only)", int8_src,
+                     "mxnet_tpu/ops/quantized_ops.py:109",
+                     int8_launches["O6"], o6,
+                     {k: o6[k] for k in ("cudnn_bf16_ms", "quantize_ms",
+                                         "quantize_bound_ms")})]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

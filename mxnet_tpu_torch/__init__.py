@@ -42,6 +42,9 @@ Ported so far:
   with O4, the NMS kernel, ``ops.misc``), control flow
   (``nd.contrib.foreach``/``while_loop``/``cond``), ``mx.operator``'s
   CustomOp, and ``hybrid_forward(F, ...)`` blocks;
+* int8 quantization: the quantized ops (``ops.quantized_ops``) and
+  ``contrib.quantization`` (``quantize_net_v2``), whose products run on
+  the int8 kernels O5 and O6 (``ops.int8_ops``);
 * the telemetry and testing modules these tiers use.
 
 The port's own kernels are CUDA C++ for sm_90a in ``csrc/``.  Entry
@@ -55,6 +58,7 @@ from . import lr_scheduler, sharding  # noqa: F401
 from . import metric, name, registry  # noqa: F401
 from . import autograd, engine, ndarray, random, rtc  # noqa: F401
 from . import operator  # noqa: F401
+from . import contrib  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from .base import MXNetError  # noqa: F401

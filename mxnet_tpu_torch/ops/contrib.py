@@ -26,7 +26,7 @@ import torch
 from .. import graph_cache as _graph_cache
 from . import box_nms as _nms
 from .registry import register
-from .tensor import _index_dtype
+from .tensor import _div, _index_dtype, _rdiv
 
 
 @register("_contrib_fft")
@@ -142,7 +142,7 @@ def _quantize(data, min_range, max_range, out_type="uint8"):
         qmin, qmax, dt = 0.0, 255.0, torch.uint8
     else:
         qmin, qmax, dt = -127.0, 127.0, torch.int8
-    scale = (qmax - qmin) / (max_range - min_range).clamp_min(1e-12)
+    scale = _rdiv(qmax - qmin, (max_range - min_range).clamp_min(1e-12))
     q = torch.clamp(torch.round((data - min_range) * scale + qmin),
                     qmin, qmax)
     return q.to(dt), min_range, max_range
@@ -154,7 +154,7 @@ def _dequantize(data, min_range, max_range, out_type="float32"):
         qmin, qmax = 0.0, 255.0
     else:
         qmin, qmax = -127.0, 127.0
-    scale = (max_range - min_range) / (qmax - qmin)
+    scale = _div(max_range - min_range, qmax - qmin)
     return (data.to(torch.float32) - qmin) * scale + min_range
 
 

@@ -277,6 +277,19 @@ register("stop_gradient", aliases=("BlockGrad", "make_loss_grad_stop"))(
 register("make_loss")(lambda data: data.clone())
 
 
+def _div(t, c):
+    """``t / c`` as one true division by the constant, in ``t``'s dtype
+    (on the card, a tensor over a host scalar is the product by the
+    scalar's reciprocal)."""
+    return t / t.new_full((), c)
+
+
+def _rdiv(c, t):
+    """``c / t`` as one true division of the constant by ``t`` (torch's
+    ``c / t`` is ``reciprocal(t) * c``)."""
+    return t.new_full((), c) / t
+
+
 def _index_dtype():
     """int64 under ``MXNET_INT64_TENSOR_SIZE=1`` (the JAX package turns
     on x64 for it), int32 otherwise."""

@@ -447,6 +447,8 @@ names += ["mxnet_tpu_torch.ops.contrib", "mxnet_tpu_torch.ops.box_nms",
           "mxnet_tpu_torch.ops.vision", "mxnet_tpu_torch.ops.misc",
           "mxnet_tpu_torch.ops.control_flow", "mxnet_tpu_torch.operator",
           "mxnet_tpu_torch.gluon.block"]
+names += ["mxnet_tpu_torch.ops.quantized_ops", "mxnet_tpu_torch.ops.int8_ops",
+          "mxnet_tpu_torch.contrib", "mxnet_tpu_torch.contrib.quantization"]
 names += ["chip_smoke", "tools.torch_paged_attention_sweep",
           "tools.torch_flash_attention_sweep", "tools.torch_mxfleet",
           "tools.torch_mxflight", "tools.torch_mxtrace",

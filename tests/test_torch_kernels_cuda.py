@@ -1601,3 +1601,132 @@ def test_user_forward_on_nd_records_eager_and_hybridized_on_card(card):
     total.backward()
     assert out.shape == (8, 4) and out.context == mx.gpu(0)
     assert np.isfinite(blk.mu.weight.grad().asnumpy()).all()
+
+
+# -- O5 and O6: the int8 products (quantization) ------------------------------------
+
+
+_INT8_EDGE_CASES = chip_smoke.int8_cases([])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(_INT8_EDGE_CASES)),
+                         ids=[c[0] for c in _INT8_EDGE_CASES])
+def test_int8_kernels_equal_their_plain_versions_on_card(card, case):
+    """O5 and O6 at the smoke's edge cases (groups, depthwise, stride 2
+    with padding, dilation, tails, misaligned views, N 1,000, BERT's
+    FFN), bitwise in both epilogues, one launch a call."""
+    from mxnet_tpu_torch.ops import int8_ops
+
+    label, kind, spec = _INT8_EDGE_CASES[case]
+    x, w, bias_f, bias_i = chip_smoke.int8_inputs(card, kind, spec, case)
+    wrapper = int8_ops.int8_conv if kind == "conv" else int8_ops.int8_gemm
+    for bias, denom in ((bias_i, None), (bias_f, chip_smoke.QUANT_DENOM),
+                        (None, chip_smoke.QUANT_DENOM)):
+        before = wrapper.launches
+        got = chip_smoke.int8_run(kind, spec, x, w, bias, denom, False)
+        assert wrapper.launches == before + 1
+        want = chip_smoke.int8_run(kind, spec, x, w, bias, denom, True)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want), label
+
+
+@pytest.mark.cuda
+def test_int8_checks_of_the_smoke_at_resnet50s_shapes_on_card(card):
+    """Every distinct convolution of ResNet-50 v1 at batch 2, as the
+    smoke holds them."""
+    with chip_smoke.exact_convs():
+        net = chip_smoke.resnet_net(card, "resnet50_v1", 17)
+        shapes = chip_smoke.quant_conv_shapes(
+            net, chip_smoke.quant_images(card, 2, 40))
+    assert len(shapes) == 53
+    assert chip_smoke.int8_checks(card, shapes) == 0
+
+
+@pytest.mark.cuda
+def test_quantized_ops_nchw_match_the_host_on_card(card):
+    chip_smoke.quantized_op_checks(card)
+
+
+@pytest.mark.cuda
+def test_entropy_calibration_on_card_equals_the_host_search(card):
+    """The entropy calibrator's histogram counted on the card (values on
+    the bin edges and at the maximum included) and its thresholds equal
+    ``np.histogram`` and ``_get_optimal_threshold`` on the host, bitwise."""
+    from mxnet_tpu_torch.contrib import quantization as q
+
+    rs = np.random.RandomState(1)
+    edges = np.histogram(np.zeros(0, np.float32), bins=1001,
+                         range=(0, 3.0))[1]
+    vals = np.concatenate([rs.uniform(0, 3, 20000).astype(np.float32),
+                           edges, np.float32([3.0, 0.0])])
+    parts = [torch.from_numpy(vals[:7000]).to(card),
+             torch.from_numpy(vals[7000:]).to(card)]
+    got, _ = q._device_histogram(parts, 1001, 3.0)
+    np.testing.assert_array_equal(
+        got, np.histogram(vals, bins=1001, range=(0, 3.0))[0])
+    for seed in range(3):
+        rs = np.random.RandomState(seed)
+        batches = [np.maximum(rs.standard_normal((4, 64, 7, 7)) * 2, 0)
+                   .astype(np.float32) for _ in range(2)]
+        cal = q._Calibrator("entropy")
+        for b in batches:
+            cal.observe("x", torch.from_numpy(b).to(card))
+        assert cal.threshold("x") == q._get_optimal_threshold(batches)
+
+
+@pytest.mark.cuda
+def test_int8_kernels_raise_on_what_they_do_not_take_on_card(card):
+    from mxnet_tpu_torch.ops import int8_ops
+
+    a = torch.zeros(4, 32, dtype=torch.int8, device=card)
+    with pytest.raises(MXNetError, match="bias"):
+        int8_ops.int8_gemm(a, a, bias=torch.zeros(4, device="cpu"),
+                           denom=2.0)
+    with pytest.raises(MXNetError, match="operands"):
+        int8_ops.int8_gemm(a, a.cpu())
+
+
+@pytest.mark.cuda
+def test_quantize_net_v2_rebuilds_a_captured_net_on_card(card):
+    """R10 on the card: a hybridized net that has captured its graph is
+    calibrated as an eager copy is (equal thresholds), and its next
+    calls capture the int8 path: hybridized logits bitwise equal to
+    eager, unlike the f32 net's, with O6 launched 20 times and O5 once
+    a forward, replays included."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.contrib import quantization as q
+    from mxnet_tpu_torch.ops import int8_ops
+
+    def net():
+        return chip_smoke.resnet_net(card, "resnet18_v1", 5, thumbnail=True,
+                                     classes=10)
+
+    g = torch.Generator(device="cpu")
+    g.manual_seed(3)
+    calib = [torch.rand(4, 3, 32, 32, generator=g).to(card)
+             for _ in range(2)]
+    x = torch.rand(4, 3, 32, 32, generator=g).to(card)
+    with chip_smoke.exact_convs():
+        hyb, eager, f32 = net(), net(), net()
+        hyb.hybridize()
+        with torch.no_grad(), autograd.predict_mode():
+            for _ in range(3):
+                hyb(calib[0])
+            want_f32 = f32(x)
+        assert hyb.stats()["captures"] >= 1
+        q.quantize_net_v2(hyb, calib_data=calib)
+        q.quantize_net_v2(eager, calib_data=calib)
+        hb, eb = chip_smoke.quant_blocks(hyb), chip_smoke.quant_blocks(eager)
+        assert len(hb) == 21 and hb.keys() == eb.keys()
+        assert all(hb[p]._threshold == eb[p]._threshold for p in hb)
+        int8_ops.int8_conv.launches = int8_ops.int8_gemm.launches = 0
+        with torch.no_grad(), autograd.predict_mode():
+            outs = [hyb(x) for _ in range(4)]
+            want = eager(x)
+        torch.cuda.synchronize()
+    assert hyb.stats()["replays"] >= 1
+    assert all(torch.equal(o, want) for o in outs)
+    assert not torch.equal(want, want_f32)
+    assert int8_ops.int8_conv.launches == 20 * 5
+    assert int8_ops.int8_gemm.launches == 5

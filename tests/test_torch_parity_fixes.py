@@ -484,7 +484,10 @@ _DONE = ["", "autograd", "context", "engine", "gluon", "gluon.nn",
          "gluon.model_zoo.vision", "nd", "nd.random", "initializer",
          "optimizer", "lr_scheduler", "metric", "random", "layout", "amp",
          "rtc", "operator", "telemetry", "name", "registry", "parallel",
-         "sharding"]
+         "sharding", "contrib"]
+# mx.contrib's names that come with S9: each raises MXNetError naming it
+_CONTRIB_S9 = ["onnx", "text", "tensorboard", "svrg_optimization", "io",
+               "autograd", "DataLoaderIter", "TrainingStateScope"]
 # Each public name of those modules that the port still lacks, with the
 # slice that brings it (ROADMAP.md §1), or why it has no counterpart.
 _MISSING = {
@@ -518,11 +521,11 @@ _MISSING = {
            "sharding.verify", "sharding.verify_enabled",
            "sharding.verify_spec"],
     "S9": ["HybridBlock.export", "HybridBlock.lint", "gluon.SymbolBlock",
-           "gluon.contrib", "contrib", "AttrScope", "Monitor", "callback",
+           "gluon.contrib", "AttrScope", "Monitor", "callback",
            "deploy", "error", "executor", "image", "io", "library", "log",
            "model", "module", "monitor", "profiler", "recordio", "rnn",
            "runtime", "sym", "symbol", "test_utils", "util",
-           "visualization"],
+           "visualization"] + ["contrib." + n for n in _CONTRIB_S9],
     "none: no TPU in the port": ["tpu", "num_tpus", "context.tpu",
                                  "context.num_tpus", "Context.jax_device"],
     "none: JAX's tape and keys, not torch's": [
@@ -541,9 +544,14 @@ _CLASSES = {"gluon.Block": "gluon.Block",
 
 
 def _get(pkg, path):
+    """The object at ``path``, or None where it is missing or raises
+    ``MXNetError`` naming the slice that brings it."""
     obj = pkg
     for part in [p for p in path.split(".") if p]:
-        obj = getattr(obj, part, None)
+        try:
+            obj = getattr(obj, part, None)
+        except MXNetError:
+            return None
         if obj is None:
             return None
     return obj
@@ -606,6 +614,24 @@ def test_public_names_of_the_done_modules_exist_or_name_their_slice():
             missing.add(name)
     assert not missing - listed, sorted(missing - listed)
     assert not listed - missing, sorted(listed - missing)
+
+
+def test_contrib_has_amp_and_quantization_and_names_s9_for_the_rest():
+    """``mx.contrib`` as in the JAX package: ``amp`` is ``mx.amp``,
+    ``quantization`` is ported, and each other name raises
+    ``MXNetError`` naming S9, also through ``from ... import``."""
+    from mxnet_tpu_torch import contrib
+
+    assert contrib.amp is tmx.amp and jmx.contrib.amp is jmx.amp
+    assert callable(contrib.quantization.quantize_net_v2)
+    for name in _CONTRIB_S9:
+        assert hasattr(jmx.contrib, name), name
+        with pytest.raises(MXNetError, match="S9"):
+            getattr(contrib, name)
+    with pytest.raises(MXNetError, match="S9"):
+        exec("from mxnet_tpu_torch.contrib import onnx", {})
+    with pytest.raises(AttributeError):
+        contrib.no_such_name
 
 
 @pytest.mark.parametrize("name", [
