@@ -7462,14 +7462,45 @@ def dropout_graph_masks(mx, dev):
     return differ, same, net.stats()
 
 
+def scalar_division_checks(mx, dev):
+    """F13: ``_div_scalar`` and ``_rdiv_scalar`` on the card, and NDArray
+    ``/`` with a Python number both ways, against the host's true f32
+    division (numpy) of the same values, bitwise.  Returns whether all
+    held."""
+    import torch
+
+    from mxnet_tpu_torch.ops import registry as reg
+
+    x = np.linspace(0.1, 10, 2000, dtype=np.float32)
+    xt = torch.from_numpy(x).to(dev)
+    arr = mx.nd.array(x, ctx=mx.gpu(0))
+    ok = True
+    for scalar in (255.0, 3.0, 0.1):
+        c = np.float32(scalar)
+        runs = (("_div_scalar", reg.get("_div_scalar").forward(
+                    xt, scalar=scalar), x / c),
+                ("_rdiv_scalar", reg.get("_rdiv_scalar").forward(
+                    xt, scalar=scalar), c / x),
+                ("NDArray / scalar", (arr / scalar).asnumpy(), x / c),
+                ("scalar / NDArray", (scalar / arr).asnumpy(), c / x))
+        for label, got, want in runs:
+            got = got if isinstance(got, np.ndarray) else got.cpu().numpy()
+            bad = int((got != want).sum())
+            ok &= bad == 0
+            log("ops: F13 %-17s at %-5g on the card against the host's "
+                "true division: %d of %d differ %s"
+                % (label, scalar, bad, x.size, "ok" if not bad else "FAIL"))
+    return ok
+
+
 def ops_phase(mx, dev):
     """Every op of the op tail and of the contrib, vision and misc ops on
     the card against the host, every sampler's 2^22 draws against its
     distribution, seeded draws repeated, a hybridized Dropout's masks
     through its replays, the attention ops through ``nd.contrib``, a
-    ``CustomOp`` and a ``while_loop`` recorded, and the host reads
-    refused under a capture."""
-    ok = True
+    ``CustomOp`` and a ``while_loop`` recorded, the scalar divisions
+    (F13), and the host reads refused under a capture."""
+    ok = scalar_division_checks(mx, dev)
     for label, kind, err, bound, good in op_tail_checks(dev):
         ok &= good
         log("ops: %-28s %-6s %s %s" % (
@@ -8258,12 +8289,16 @@ QUANT_ITERS = 13                   # forwards a mode: 3 warm-up, 10 timed
 QUANT_DENOM = float(np.float32(127.0 / 4.1 * (127.0 / 0.23)))
 O5_SHAPES = ((256, 2048, 1000), (32, 2048, 1000),
              (4096, 768, 3072))    # M, K, N: the output layer, BERT's FFN
-INT8_KINDS = (("O5 + O6 (int8_conv_kernel)", ("int8_conv_kernel",)),
+QUANT_SCALES = (32.0, float(np.float32(127.0 / 4.1)))   # f32 mode's
+INT8_KINDS = (("O5 + O6 (int8_wgmma_kernel, int8_splitk_reduce, "
+               "int8_conv_kernel)", ("int8_wgmma", "int8_splitk",
+                                     "int8_conv_kernel")),
               ("quantize's round", ("round",)),
               ("pooling", ("pool",)),
               ("reductions", ("reduce_kernel",)),
               ("copies", ("copy",)),
               ("elementwise", ("elementwise",)))
+INT8_MODES = ("s8", "f32")
 
 
 def quant_images(dev, batch, seed):
@@ -8307,16 +8342,19 @@ def quant_conv_shapes(net, x):
 
 
 def conv_spec(x, w, stride=(1, 1), pad=(0, 0), dilate=(1, 1), groups=1,
-              misalign=False):
+              misalign=False, **flags):
     return dict(x=x, w=w, stride=stride, pad=pad, dilate=dilate,
-                groups=groups, misalign=misalign)
+                groups=groups, misalign=misalign, **flags)
 
 
 def int8_cases(conv_shapes):
-    """(label, kind, spec) of O5's and O6's checks: every distinct
-    convolution of ResNet-50 v1 at batch 2 (the stem among them), then
-    the edges: groups, depthwise, stride 2 with padding, dilation, N, M
-    and K tails, misaligned views, N 1,000 and BERT's FFN."""
+    """(label, kind, spec) of O5's and O6's checks, each run in both A
+    modes: every distinct convolution of ResNet-50 v1 at batch 2 (the
+    stem among them), then the edges: the stem's geometry, groups,
+    depthwise, stride 2 with padding, dilation, N, M and K tails,
+    misaligned s8 and f32 views, +-inf in the f32 activation, split K at
+    M 2 and 32 (O5) and at ResNet-50's last stage at batch 2 (O6), N
+    1,000 and BERT's FFN."""
     cases, seen = [], set()
     for s in conv_shapes:
         key = (s["x"][1:], s["w"], s["stride"], s["pad"], s["dilate"],
@@ -8328,6 +8366,8 @@ def int8_cases(conv_shapes):
                 dict(s, misalign=False)))
     c = conv_spec
     cases += [
+        ("stem C 3, stride 2, pad 3", "conv",
+         c((2, 30, 30, 3), (64, 7, 7, 3), (2, 2), (3, 3))),
         ("groups 2, C/G 32", "conv", c((2, 14, 14, 64), (128, 3, 3, 32),
                                        pad=(1, 1), groups=2)),
         ("groups 2, C/G 3 (byte path)", "conv",
@@ -8341,9 +8381,19 @@ def int8_cases(conv_shapes):
         ("dilate 2 pad 2", "conv", c((2, 17, 17, 32), (48, 3, 3, 32),
                                      pad=(2, 2), dilate=(2, 2))),
         ("N tail 70, M tail", "conv", c((3, 11, 13, 48), (70, 1, 1, 48))),
+        ("K tail 3 x 3 x 24", "conv", c((2, 9, 9, 24), (40, 3, 3, 24),
+                                        pad=(1, 1))),
         ("misaligned x (byte path)", "conv",
          c((2, 14, 14, 64), (64, 3, 3, 64), pad=(1, 1), misalign=True)),
-        ("fc 2 x 2048 -> 1000", "gemm", dict(m=2, k=2048, n=1000)),
+        ("misaligned f32 view", "conv",
+         c((2, 14, 14, 64), (96, 3, 3, 64), pad=(1, 1), misalign_f32=True)),
+        ("+-inf in the f32 activation", "conv",
+         c((2, 12, 12, 32), (64, 3, 3, 32), pad=(1, 1), inf=True)),
+        ("split K, last stage at batch 2", "conv",
+         c((2, 7, 7, 512), (512, 3, 3, 512), pad=(1, 1))),
+        ("fc 2 x 2048 -> 1000 (split K)", "gemm", dict(m=2, k=2048, n=1000)),
+        ("fc 32 x 2048 -> 1000 (split K)", "gemm",
+         dict(m=32, k=2048, n=1000)),
         ("fc 256 x 2048 -> 1000", "gemm", dict(m=256, k=2048, n=1000)),
         ("K tail 147 (byte path)", "gemm", dict(m=77, k=147, n=45)),
         ("K tail 2064", "gemm", dict(m=130, k=2064, n=200)),
@@ -8353,13 +8403,19 @@ def int8_cases(conv_shapes):
                                                     n=3072)),
         ("misaligned a and b (byte path)", "gemm",
          dict(m=33, k=96, n=40, misalign=True)),
+        ("misaligned f32 a, +-inf", "gemm",
+         dict(m=70, k=256, n=96, misalign_f32=True, inf=True)),
     ]
     return cases
 
 
 def int8_inputs(dev, kind, spec, seed):
     """Seeded int8 operands (a misaligned view where the case says so),
-    an f32 and an s32 bias, on the card."""
+    an f32 and an s32 bias, and the f32 mode's activation and scale, on
+    the card.  The activation is 2 N(0, 1) with a quarter of it at
+    ``(j + 0.5) / 32`` (rounding ties at scale 32), a view 4 bytes off
+    where ``misalign_f32``, with +-inf in it where ``inf``; the scale
+    alternates between 32 and 127 / 4.1 with the seed."""
     import torch
 
     g = torch.Generator(device="cpu")
@@ -8384,19 +8440,54 @@ def int8_inputs(dev, kind, spec, seed):
     bias_f = (torch.randn(o, generator=g) * 3).to(dev)
     bias_i = torch.randint(-2 ** 20, 2 ** 20, (o,), dtype=torch.int32,
                            generator=g).to(dev)
-    return x, w, bias_f, bias_i
+    xf = torch.randn(tuple(x.shape), generator=g) * 2
+    ties = torch.rand(tuple(x.shape), generator=g) < 0.25
+    xf[ties] = (torch.randint(-140, 140, (int(ties.sum()),), generator=g)
+                .float() + 0.5) / 32
+    if spec.get("inf"):
+        flat = xf.view(-1)
+        flat[::97] = float("inf")
+        flat[5::89] = -float("inf")
+    if spec.get("misalign_f32"):
+        buf = torch.empty(xf.numel() + 1, device=dev)
+        view = buf[1:].view(tuple(xf.shape))
+        view.copy_(xf)
+        xf = view
+    else:
+        xf = xf.to(dev)
+    return x, w, bias_f, bias_i, xf, QUANT_SCALES[seed % 2]
 
 
-def int8_run(kind, spec, x, w, bias, denom, plain):
-    """O6 or O5 (or its plain version) on one case."""
+def int8_run(kind, spec, x, w, bias, denom, plain, scale=None):
+    """O6 or O5 (or its plain version) on one case; with ``scale``, ``x``
+    is the f32 activation (the f32 mode; its plain version quantizes
+    with ``quantize_int8`` first)."""
     from mxnet_tpu_torch.ops import int8_ops as io
 
+    if plain and scale is not None:
+        x, scale = io.quantize_int8(x, scale), None
     if kind == "conv":
         fn = io.int8_conv_ref if plain else io.int8_conv
+        extra = {} if plain else {"scale": scale}
         return fn(x, w, spec["stride"], spec["pad"], spec["dilate"],
-                  spec["groups"], bias=bias, denom=denom)
-    fn = io.int8_gemm_ref if plain else io.int8_gemm
-    return fn(x, w, bias=bias, denom=denom)
+                  spec["groups"], bias=bias, denom=denom, **extra)
+    if plain:
+        return io.int8_gemm_ref(x, w, bias=bias, denom=denom)
+    return io.int8_gemm(x, w, bias=bias, denom=denom, scale=scale)
+
+
+def int8_variants(x, w, bias_f, bias_i, xf, scale):
+    """(label, A, bias, denom, scale) of one case: each A mode (s8, and
+    the f32 activation with its scale) in each epilogue (s32 with an s32
+    bias; f32 with and without an f32 bias)."""
+    out = []
+    for mode, a, sc in (("s8", x, None), ("f32", xf, scale)):
+        for epi, bias, denom in (("s32", bias_i, None),
+                                 ("f32", bias_f, QUANT_DENOM),
+                                 ("f32 no bias", None, QUANT_DENOM)):
+            out.append(("%s A, %s epilogue" % (mode, epi), a, bias, denom,
+                        sc))
+    return out
 
 
 def int8_compare(got, want):
@@ -8413,28 +8504,30 @@ def int8_compare(got, want):
 
 def int8_checks(dev, conv_shapes):
     """O5 and O6 against their plain versions on the card, bitwise, in
-    both epilogues (s32 with an s32 bias; f32 with and without an f32
-    bias) on ``int8_cases``.  Returns the largest difference."""
+    both A modes and both epilogues (``int8_variants``) on
+    ``int8_cases``.  Returns the largest difference."""
     import torch
 
-    ok, worst = True, 0.0
+    ok, worst, runs = True, 0.0, 0
     for i, (label, kind, spec) in enumerate(int8_cases(conv_shapes)):
-        x, w, bias_f, bias_i = int8_inputs(dev, kind, spec, 100 + i)
+        x, w, bias_f, bias_i, xf, scale = int8_inputs(dev, kind, spec,
+                                                      100 + i)
         bad = []
-        for epi, bias, denom in (("s32", bias_i, None),
-                                 ("f32", bias_f, QUANT_DENOM),
-                                 ("f32 no bias", None, QUANT_DENOM)):
-            got = int8_run(kind, spec, x, w, bias, denom, False)
-            want = int8_run(kind, spec, x, w, bias, denom, True)
+        for what, a, bias, denom, sc in int8_variants(x, w, bias_f, bias_i,
+                                                      xf, scale):
+            got = int8_run(kind, spec, a, w, bias, denom, False, sc)
+            want = int8_run(kind, spec, a, w, bias, denom, True, sc)
             torch.cuda.synchronize()
             same, err = int8_compare(got, want)
             worst = max(worst, err)
+            runs += 1
             if not same:
-                bad.append("%s (%.3g)" % (epi, err))
+                bad.append("%s (%.3g)" % (what, err))
         ok &= not bad
-        log("quant o5/o6: %-46s %s" % (label, "bitwise equal in both "
-                                       "epilogues" if not bad
+        log("quant o5/o6: %-46s %s" % (label, "bitwise equal in both A "
+                                       "modes and both epilogues" if not bad
                                        else "DIFFER: %s" % ", ".join(bad)))
+    log("quant o5/o6: %d runs (cases x A modes x epilogues)" % runs)
     if not ok:
         fail("O5 or O6 differs from its plain version")
     return worst
@@ -8460,23 +8553,33 @@ def planted_int8_library(path):
 
 
 def planted_int8_fault(dev, conv_shapes, path):
-    """A build whose K loop drops its last tile (``MXTT_SKIP_LAST``) must
-    fail every case of the checks (f32 epilogue with bias)."""
+    """A build whose K loop drops the last tile of every split
+    (``MXTT_SKIP_LAST``) must differ from the plain version in every
+    case, A mode and epilogue of the checks."""
     import torch
 
     cases = int8_cases(conv_shapes)
-    caught = 0
+    caught = runs = 0
+    missed = []
     with planted_int8_library(path):
         for i, (label, kind, spec) in enumerate(cases):
-            x, w, bias_f, _ = int8_inputs(dev, kind, spec, 100 + i)
-            got = int8_run(kind, spec, x, w, bias_f, QUANT_DENOM, False)
-            want = int8_run(kind, spec, x, w, bias_f, QUANT_DENOM, True)
-            torch.cuda.synchronize()
-            caught += not int8_compare(got, want)[0]
-    log("quant o5/o6: a build that drops the last K tile differs from the "
-        "plain version in %d of %d cases (must be all)"
-        % (caught, len(cases)))
-    if caught != len(cases):
+            x, w, bias_f, bias_i, xf, scale = int8_inputs(dev, kind, spec,
+                                                          100 + i)
+            for what, a, bias, denom, sc in int8_variants(
+                    x, w, bias_f, bias_i, xf, scale):
+                got = int8_run(kind, spec, a, w, bias, denom, False, sc)
+                want = int8_run(kind, spec, a, w, bias, denom, True, sc)
+                torch.cuda.synchronize()
+                runs += 1
+                if int8_compare(got, want)[0]:
+                    missed.append("%s: %s" % (label, what))
+                else:
+                    caught += 1
+    log("quant o5/o6: a build that drops the last K tile of every split "
+        "differs from the plain version in %d of %d runs (must be all)%s"
+        % (caught, runs, "" if not missed else "; passed: %s"
+           % "; ".join(missed[:6])))
+    if caught != runs:
         fail("the O5/O6 checks pass a build that drops the last K tile")
 
 
@@ -8572,25 +8675,41 @@ def _p50(ms):
 
 def int8_launches(zero=False):
     """O6's and O5's launch counts ({"O6": n, "O5": n}); ``zero`` sets
-    them to 0 first."""
+    them, and the counts by route and mode, to 0 first."""
     from mxnet_tpu_torch.ops import int8_ops as io
 
     if zero:
-        io.int8_conv.launches = io.int8_gemm.launches = 0
+        io.zero_counts()
     return {"O6": io.int8_conv.launches, "O5": io.int8_gemm.launches}
+
+
+def int8_routes():
+    """The launches by route and mode: {"O6": {"wgmma_f32": n, ...},
+    "O5": {...}}."""
+    from mxnet_tpu_torch.ops import int8_ops as io
+
+    return {"O6": io.route_counts(io.int8_conv),
+            "O5": io.route_counts(io.int8_gemm)}
 
 
 def held_launches(what, forwards):
     """The counts since the last zeroing, held at one launch of O6 a
     convolution and of O5 a forward, over ``forwards`` int8 forwards of
-    ResNet-50 (replays included)."""
-    got = int8_launches()
+    ResNet-50 (replays included), every one on the wgmma route in the f32
+    mode (the layers' activation quantized in the kernels' load).
+    Returns the counts and the counts by route."""
+    got, routes = int8_launches(), int8_routes()
     log("quant launches, %s: O6 %d (want 53 x %d forwards = %d), O5 %d "
-        "(want %d)" % (what, got["O6"], forwards, 53 * forwards, got["O5"],
-                       forwards))
+        "(want %d); by route and mode: O6 %s, O5 %s"
+        % (what, got["O6"], forwards, 53 * forwards, got["O5"], forwards,
+           routes["O6"], routes["O5"]))
     if got != {"O6": 53 * forwards, "O5": forwards}:
         fail("O5/O6 were not launched once a layer a forward (%s)" % what)
-    return got
+    if routes["O6"]["wgmma_f32"] != got["O6"] \
+            or routes["O5"]["wgmma_f32"] != got["O5"]:
+        fail("the int8 layers did not all take the wgmma route in the f32 "
+             "mode (%s)" % what)
+    return got, routes
 
 
 def entropy_host_check(dev, ent, naive, calib):
@@ -8806,6 +8925,7 @@ def quant_main_path(dev, net_f):
     torch.cuda.empty_cache()
 
     launches = {"O6": 0, "O5": 0}
+    routes = {k: {r: 0 for r in v} for k, v in int8_routes().items()}
     with exact_convs(deterministic=False):
         for b in RESNET_INFER_BATCHES:
             x = quant_images(dev, b, 50 + b)
@@ -8828,8 +8948,13 @@ def quant_main_path(dev, net_f):
                 out["profile"] = (wall * 1e3, busy,
                                   kernel_kinds(avg, INT8_KINDS))
                 out["profile_rows"] = kernel_rows(avg, top=10)[0]
-            got = held_launches("int8 inference at batch %d" % b, forwards)
+                out["quantize_rows"] = quantize_rows(avg)
+            got, got_routes = held_launches("int8 inference at batch %d"
+                                            % b, forwards)
             launches = {k: launches[k] + got[k] for k in launches}
+            for k in routes:
+                for r, v in got_routes[k].items():
+                    routes[k][r] += v
             if b == RESNET_INFER_BATCHES[0]:
                 int8_launches(zero=True)
                 with torch.no_grad():
@@ -8872,8 +8997,9 @@ def quant_main_path(dev, net_f):
         "of the largest logit, top-1 %.4f, top-5 %.4f"
         % ((RESNET_INFER_BATCHES[0],) + out["entropy"]))
     log("quant launches, the main path (int8 inference at batches %s): O6 "
-        "%d, O5 %d" % (list(RESNET_INFER_BATCHES), launches["O6"],
-                       launches["O5"]))
+        "%d, O5 %d; by route and mode: O6 %s, O5 %s"
+        % (list(RESNET_INFER_BATCHES), launches["O6"], launches["O5"],
+           routes["O6"], routes["O5"]))
 
     int8_launches(zero=True)
     held_launches("the parity runs on the card (not the main path)",
@@ -8885,10 +9011,33 @@ def quant_main_path(dev, net_f):
            ", ".join("%s %.3f" % kv for kv in kinds_ms.items())))
     for ms, count, key in out["profile_rows"]:
         log("quant profile:   %9.3f ms  x%-4d %s" % (ms, count, key[:90]))
+    # the layers' quantize runs in O5's and O6's load: no round pass, and
+    # no multiply, cast or clamp kernels beside the ReLUs and adds
+    passes = [key for _, _, key in out["quantize_rows"]]
+    log("quant profile: separate quantize passes (round, or mul / cast / "
+        "clamp to int8) in the int8 forward: %s"
+        % (", ".join(passes) if passes else "none"))
+    if passes or kinds_ms["quantize's round"] > 0:
+        fail("the hybridized int8 forward still runs separate quantize "
+             "passes: %s" % ", ".join(passes))
     del net, eager, ent
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def quantize_rows(averages):
+    """The profile's kernels that would be a separate activation quantize:
+    a round, or an elementwise kernel that writes int8 (torch names its
+    dtypes in the kernel's template arguments: ``signed char``)."""
+    rows = []
+    for e in averages:
+        if e.self_device_time_total <= 0:
+            continue
+        key = e.key.lower()
+        if "round" in key or ("elementwise" in key and "signed char" in key):
+            rows.append((e.self_device_time_total / 1e3, e.count, e.key))
+    return rows
 
 
 def int8_bound(ops, nbytes):
@@ -8899,26 +9048,62 @@ def int8_bound(ops, nbytes):
                                    else "bytes")
 
 
-def conv_work(s):
-    """Operations and bytes of one O6 call (f32 output, no bias)."""
+def _touched(size, k, stride, pad, dilate, out):
+    """How many of an input axis's ``size`` positions a convolution's
+    windows read (a strided 1 x 1 reads every ``stride``-th)."""
+    return len({i * stride - pad + t * dilate for i in range(out)
+                for t in range(k)} & set(range(size)))
+
+
+def conv_work(s, in_bytes=1):
+    """Operations and bytes of one O6 call (f32 output, no bias): each
+    input element a window reads, read once at ``in_bytes`` an element (1
+    in the s8 mode, 4 in the f32 mode), the weights once, the output
+    written once."""
     from mxnet_tpu_torch.ops.int8_ops import conv_out_size
 
     n, h, w, c = s["x"]
     o, kh, kw, cg = s["w"]
-    p = conv_out_size(h, kh, s["stride"][0], s["pad"][0], s["dilate"][0])
-    q = conv_out_size(w, kw, s["stride"][1], s["pad"][1], s["dilate"][1])
+    (sh, sw), (ph, pw), (dh, dw) = s["stride"], s["pad"], s["dilate"]
+    p = conv_out_size(h, kh, sh, ph, dh)
+    q = conv_out_size(w, kw, sw, pw, dw)
     m = n * p * q
+    read = n * _touched(h, kh, sh, ph, dh, p) \
+        * _touched(w, kw, sw, pw, dw, q) * c
     return (2 * m * o * kh * kw * cg,
-            n * h * w * c + o * kh * kw * cg + 4 * m * o)
+            in_bytes * read + o * kh * kw * cg + 4 * m * o)
+
+
+def o6_bound(shapes, in_bytes):
+    """(bound ms, what bounds most of it, ms of it bound by operations)
+    of O6 over ``shapes``."""
+    bounds = [int8_bound(*conv_work(s, in_bytes)) for s in shapes]
+    total = sum(b[0] for b in bounds)
+    by_ops = sum(b[0] for b in bounds if b[1] == "operations")
+    return total, "operations" if by_ops >= total / 2 else "bytes", by_ops
+
+
+def o6_calls(shapes, xs, ws, scale=None):
+    """One pass of O6 over ``shapes`` (f32 epilogue, as the net runs
+    them); with ``scale`` the inputs are f32 (the f32 mode)."""
+    from mxnet_tpu_torch.ops import int8_ops as io
+
+    def run(_):
+        for s, x, w in zip(shapes, xs, ws):
+            io.int8_conv(x, w, s["stride"], s["pad"], s["dilate"],
+                         s["groups"], denom=QUANT_DENOM, scale=scale)
+    return run
 
 
 def quant_kernel_timing(dev, net_f):
     """O6 over ResNet-50's 53 convolutions at batch 256 (f32 epilogue, as
-    the net runs them) and O5 at O5_SHAPES (f32 epilogue with bias),
-    queued behind a sleep, beside their bounds, their plain versions and
-    the yardsticks: cuDNN's bf16 convolutions at the same shapes, and
-    ``torch._int_mm`` (s32 out, no epilogue); the activation quantize of
-    the 53 inputs timed the same way."""
+    the net runs them) in the s8 mode and in the f32 mode (the layers'
+    activation quantized in the load), and O5 at O5_SHAPES (f32 epilogue
+    with bias) in both modes, queued behind a sleep, beside their bounds,
+    the s8 mode's plain versions and the yardsticks: cuDNN's bf16
+    convolutions at the same shapes, ``torch._int_mm`` (s32 out, no
+    epilogue), and the torch quantize of the 53 inputs timed the same
+    way."""
     import torch
     import torch.nn.functional as F
 
@@ -8933,22 +9118,15 @@ def quant_kernel_timing(dev, net_f):
     ws = [torch.randint(-127, 128, s["w"], dtype=torch.int8, device=dev)
           for s in shapes]
 
-    def o6(_):
-        for s, x, w in zip(shapes, xs, ws):
-            io.int8_conv(x, w, s["stride"], s["pad"], s["dilate"],
-                         s["groups"], denom=QUANT_DENOM)
-
     def o6_plain(_):
         for s, x, w in zip(shapes, xs, ws):
             io.int8_conv_ref(x, w, s["stride"], s["pad"], s["dilate"],
                              s["groups"], denom=QUANT_DENOM)
 
-    ms = queued_ms(o6, 5)
+    ms = queued_ms(o6_calls(shapes, xs, ws), 5)
     plain_ms = queued_ms(o6_plain, 1, warmup=1)
     work = [conv_work(s) for s in shapes]
-    bounds = [int8_bound(*wk) for wk in work]
-    bound_ms = sum(b[0] for b in bounds)
-    by_ops = sum(b[0] for b in bounds if b[1] == "operations")
+    bound_ms, bound_by, by_ops = o6_bound(shapes, 1)
     xb = [x.to(torch.bfloat16).permute(0, 3, 1, 2) for x in xs]
     wb = [w.to(torch.bfloat16).permute(0, 3, 1, 2) for w in ws]
     del xs
@@ -8967,32 +9145,44 @@ def quant_kernel_timing(dev, net_f):
     quant_ms = queued_ms(lambda _: [io.quantize_int8(x, 25.4) for x in xf],
                          3)
     quant_bytes = sum(5 * x.numel() for x in xf)
+    f32_ms = queued_ms(o6_calls(shapes, xf, ws, 25.4), 5)
+    f32_bound, f32_by, _ = o6_bound(shapes, 4)
     del xf, ws
     gc.collect()
     torch.cuda.empty_cache()
     o6_t = {"max_abs_err": None, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if by_ops >= bound_ms / 2 else "bytes",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "cudnn_bf16_ms": lib_ms,
             "quantize_ms": quant_ms,
             "quantize_bound_ms": 1e3 * quant_bytes / HBM_BYTES_PER_S,
+            "f32_mode_ms": f32_ms, "f32_mode_bound_ms": f32_bound,
+            "f32_mode_bound_by": f32_by,
             "tops": 1e-9 * sum(wk[0] for wk in work) / ms}
     log("quant o6: the 53 convolutions of ResNet-50 v1 at batch 256 (f32 "
-        "out): %.4f ms queued (%.1f TOP/s, %.1f%% of the %.4f ms bound, "
-        "%.4f ms of it bound by operations), plain (float64) %.1f ms; "
-        "cuDNN's bf16 convolutions at the same shapes %.4f ms (another "
-        "function; torch has no int8 convolution); the activation quantize "
-        "of the 53 inputs (torch elementwise) %.4f ms against its %.4f ms "
-        "byte bound"
+        "out), s8 mode: %.4f ms queued (%.1f TOP/s, %.1f%% of the %.4f ms "
+        "bound, %.4f ms of it bound by operations), plain (float64) %.1f "
+        "ms; cuDNN's bf16 convolutions at the same shapes %.4f ms (another "
+        "function; torch has no int8 convolution)"
         % (ms, o6_t["tops"], 100 * bound_ms / ms, bound_ms, by_ops,
-           plain_ms, lib_ms, quant_ms, o6_t["quantize_bound_ms"]))
+           plain_ms, lib_ms))
+    log("quant o6: f32 mode (the activation quantized in the load): %.4f "
+        "ms queued, %.1f%% of its %.4f ms bound (4-byte inputs, %s); the "
+        "torch quantize of the 53 inputs alone %.4f ms against its %.4f ms "
+        "byte bound, so the parent's quantize + O6 came to %.4f ms of "
+        "kernels"
+        % (f32_ms, 100 * f32_bound / f32_ms, f32_bound, f32_by, quant_ms,
+           o6_t["quantize_bound_ms"], quant_ms + ms))
     o5 = []
     for m, k, n in O5_SHAPES:
         a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev)
+        af = torch.randn(m, k, device=dev)
         b = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev)
         bias = torch.randn(n, device=dev)
         t = queued_ms(lambda _: io.int8_gemm(a, b, bias=bias,
                                              denom=QUANT_DENOM), 50)
+        tf = queued_ms(lambda _: io.int8_gemm(af, b, bias=bias,
+                                              denom=QUANT_DENOM,
+                                              scale=25.4), 50)
         tp = queued_ms(lambda _: io.int8_gemm_ref(a, b, bias=bias,
                                                   denom=QUANT_DENOM), 5)
         try:
@@ -9003,14 +9193,19 @@ def quant_kernel_timing(dev, net_f):
             lib = None
         bms, bby = int8_bound(2 * m * n * k, m * k + n * k + 4 * m * n
                               + 4 * n)
+        fbms, fbby = int8_bound(2 * m * n * k, 4 * m * k + n * k
+                                + 4 * m * n + 4 * n)
         o5.append({"max_abs_err": None, "ms": t, "plain_ms": tp,
                    "bound_ms": bms, "bound_by": bby, "library_ms": lib,
+                   "f32_mode_ms": tf, "f32_mode_bound_ms": fbms,
                    "shape": [m, k, n]})
-        log("quant o5: M %d, K %d, N %d (f32 out, bias): %.4f ms queued "
-            "(%.1f TOP/s, %.1f%% of the %.4f ms %s bound), plain %.4f ms, "
+        log("quant o5: M %d, K %d, N %d (f32 out, bias): s8 mode %.4f ms "
+            "queued (%.1f TOP/s, %.1f%% of the %.4f ms %s bound), f32 mode "
+            "%.4f ms (%.1f%% of its %.4f ms %s bound), plain %.4f ms, "
             "torch._int_mm (s32 out) %s ms"
             % (m, k, n, t, 2e-9 * m * n * k / t, 100 * bms / t, bms, bby,
-               tp, "%.4f" % lib if lib is not None else "n/a"))
+               tf, 100 * fbms / tf, fbms, fbby, tp,
+               "%.4f" % lib if lib is not None else "n/a"))
     return o6_t, o5
 
 
@@ -9241,15 +9436,19 @@ def main(argv):
                      "mxnet_tpu/ops/quantized_ops.py:88",
                      int8_launches["O5"], o5[0],
                      {"shape_mkn": o5[0]["shape"], "library": "torch._int_mm",
+                      "f32_mode_ms": o5[0]["f32_mode_ms"],
+                      "f32_mode_bound_ms": o5[0]["f32_mode_bound_ms"],
                       "at": [{k: r[k] for k in ("shape", "ms", "plain_ms",
                                                 "bound_ms", "bound_by",
-                                                "library_ms")}
+                                                "library_ms", "f32_mode_ms",
+                                                "f32_mode_bound_ms")}
                              for r in o5[1:]]}),
         kernel_entry("O6 int8_conv (port-only)", int8_src,
                      "mxnet_tpu/ops/quantized_ops.py:109",
                      int8_launches["O6"], o6,
                      {k: o6[k] for k in ("cudnn_bf16_ms", "quantize_ms",
-                                         "quantize_bound_ms")})]}))
+                                         "quantize_bound_ms", "f32_mode_ms",
+                                         "f32_mode_bound_ms")})]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

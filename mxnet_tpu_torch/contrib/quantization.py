@@ -233,10 +233,11 @@ class QuantizedDense(_Quantized):
 
     def forward(self, x):
         flat = x.reshape(x.shape[0], -1) if self._flatten else x
-        xq = _int8.quantize_int8(flat, self._x_scale)
-        out = _int8.int8_gemm(xq.reshape(-1, xq.shape[-1]), self._w_q,
-                              bias=self._bias, denom=self._denom)
-        return self._finish(out.reshape(tuple(xq.shape[:-1])
+        # O5 quantizes the f32 activation as it loads it
+        out = _int8.int8_gemm(flat.reshape(-1, flat.shape[-1]), self._w_q,
+                              bias=self._bias, denom=self._denom,
+                              scale=self._x_scale)
+        return self._finish(out.reshape(tuple(flat.shape[:-1])
                                         + (out.shape[-1],)))
 
 
@@ -257,12 +258,13 @@ class QuantizedConv2D(_Quantized):
         self._layout = kw["layout"]
 
     def forward(self, x):
-        xq = _int8.quantize_int8(x, self._x_scale)
+        # O6 quantizes the f32 activation as it loads it, in its strides:
+        # a channel-first input goes in as an NHWC view, not a copy
         last = channel_last(self._layout)
-        out = _int8.int8_conv(xq if last else xq.permute(0, 2, 3, 1),
+        out = _int8.int8_conv(x if last else x.permute(0, 2, 3, 1),
                               self._w_q, self._stride, self._pad,
                               self._dilate, self._groups, bias=self._bias,
-                              denom=self._denom)
+                              denom=self._denom, scale=self._x_scale)
         return self._finish(out if last else out.permute(0, 3, 1, 2))
 
 

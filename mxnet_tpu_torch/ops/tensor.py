@@ -197,13 +197,26 @@ def _scalar_op(f, reverse=False):
     return op
 
 
+def _true_div_args(x, scalar):
+    """``(x, scalar)`` with ``x`` in the true division's type (an integer
+    or boolean ``x`` becomes float, as torch's ``x / scalar`` makes it):
+    ``_div``/``_rdiv`` then divide as the JAX package does, truly, where
+    torch's ``x / scalar`` on the card and ``scalar / x`` anywhere
+    multiply by a reciprocal."""
+    dt = torch.result_type(x, scalar)
+    if not dt.is_floating_point and not dt.is_complex:
+        dt = torch.get_default_dtype()
+    return x.to(dt), scalar
+
+
 _SCALAR_BINARY = {
     "_plus_scalar": lambda x, scalar: x + scalar,
     "_minus_scalar": lambda x, scalar: x - scalar,
     "_rminus_scalar": lambda x, scalar: scalar - x,
     "_mul_scalar": lambda x, scalar: x * scalar,
-    "_div_scalar": lambda x, scalar: x / scalar,
-    "_rdiv_scalar": lambda x, scalar: scalar / x,
+    "_div_scalar": lambda x, scalar: _div(*_true_div_args(x, scalar)),
+    "_rdiv_scalar": lambda x, scalar: _rdiv(
+        *_true_div_args(x, scalar)[::-1]),
     "_mod_scalar": _scalar_op(torch.remainder),
     "_rmod_scalar": _scalar_op(torch.remainder, reverse=True),
     "_power_scalar": lambda x, scalar: torch.pow(x, scalar),

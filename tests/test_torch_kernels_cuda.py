@@ -1613,22 +1613,82 @@ _INT8_EDGE_CASES = chip_smoke.int8_cases([])
 @pytest.mark.parametrize("case", range(len(_INT8_EDGE_CASES)),
                          ids=[c[0] for c in _INT8_EDGE_CASES])
 def test_int8_kernels_equal_their_plain_versions_on_card(card, case):
-    """O5 and O6 at the smoke's edge cases (groups, depthwise, stride 2
-    with padding, dilation, tails, misaligned views, N 1,000, BERT's
-    FFN), bitwise in both epilogues, one launch a call."""
+    """O5 and O6 at the smoke's edge cases (the stem, groups, depthwise,
+    stride 2 with padding, dilation, tails, misaligned s8 and f32 views,
+    +-inf, split K, N 1,000, BERT's FFN), bitwise in both A modes and
+    both epilogues, one launch a call."""
     from mxnet_tpu_torch.ops import int8_ops
 
     label, kind, spec = _INT8_EDGE_CASES[case]
-    x, w, bias_f, bias_i = chip_smoke.int8_inputs(card, kind, spec, case)
+    x, w, bias_f, bias_i, xf, scale = chip_smoke.int8_inputs(card, kind,
+                                                             spec, case)
     wrapper = int8_ops.int8_conv if kind == "conv" else int8_ops.int8_gemm
-    for bias, denom in ((bias_i, None), (bias_f, chip_smoke.QUANT_DENOM),
-                        (None, chip_smoke.QUANT_DENOM)):
+    for what, a, bias, denom, sc in chip_smoke.int8_variants(
+            x, w, bias_f, bias_i, xf, scale):
         before = wrapper.launches
-        got = chip_smoke.int8_run(kind, spec, x, w, bias, denom, False)
+        got = chip_smoke.int8_run(kind, spec, a, w, bias, denom, False, sc)
         assert wrapper.launches == before + 1
-        want = chip_smoke.int8_run(kind, spec, x, w, bias, denom, True)
+        want = chip_smoke.int8_run(kind, spec, a, w, bias, denom, True, sc)
         torch.cuda.synchronize()
-        assert got.dtype == want.dtype and torch.equal(got, want), label
+        assert got.dtype == want.dtype and torch.equal(got, want), \
+            (label, what)
+
+
+@pytest.mark.cuda
+def test_int8_planted_fault_is_caught_in_every_case_on_card(card):
+    """A build that drops the last K tile of every split differs from the
+    plain version in every edge case, A mode and epilogue."""
+    from mxnet_tpu_torch.ops import _build
+    from mxnet_tpu_torch.ops import int8_ops
+
+    path = _build.build(int8_ops._SOURCE, defines=("MXTT_SKIP_LAST=1",))
+    chip_smoke.planted_int8_fault(card, [], path)
+
+
+@pytest.mark.cuda
+def test_int8_routes_are_counted_by_route_and_mode_on_card(card):
+    """The f32 mode takes the wgmma route (its stem's 3 channels, a
+    channel-first view, a misaligned view included) but for depthwise
+    convolutions; the s8 mode takes it where C/G is a multiple of 16 and
+    the operands are aligned, the mma_sync route elsewhere."""
+    from mxnet_tpu_torch.ops import int8_ops as io
+
+    def s8(*shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8,
+                             device=card)
+
+    xf = torch.randn(2, 3, 16, 16, device=card).permute(0, 2, 3, 1)
+    runs = [
+        (lambda: io.int8_conv(xf, s8(8, 3, 3, 3), pad=(1, 1), denom=2.0,
+                              scale=20.0), "int8_conv", "wgmma_f32"),
+        (lambda: io.int8_conv(torch.randn(2, 8, 8, 16, device=card),
+                              s8(16, 3, 3, 1), num_group=16, denom=2.0,
+                              scale=20.0), "int8_conv", "mma_sync_f32"),
+        (lambda: io.int8_conv(s8(2, 8, 8, 32), s8(16, 1, 1, 32)),
+         "int8_conv", "wgmma_s8"),
+        (lambda: io.int8_conv(s8(2, 8, 8, 3), s8(16, 1, 1, 3)),
+         "int8_conv", "mma_sync_s8"),
+        (lambda: io.int8_gemm(s8(33 * 96 + 1)[1:].view(33, 96),
+                              s8(8, 96)), "int8_gemm", "mma_sync_s8"),
+        (lambda: io.int8_gemm(torch.randn(4, 96, device=card)[:, 1:95],
+                              s8(8, 94), denom=3.0, scale=9.0),
+         "int8_gemm", "wgmma_f32"),
+    ]
+    for run, name, key in runs:
+        io.zero_counts()
+        run()
+        fn = getattr(io, name)
+        assert fn.launches == 1 and getattr(fn, key) == 1, (name, key)
+        assert sum(io.route_counts(fn).values()) == 1
+
+
+@pytest.mark.cuda
+def test_scalar_divisions_are_true_divisions_on_card(card):
+    """F13: ``_div_scalar``, ``_rdiv_scalar`` and NDArray ``/`` with a
+    Python number on the card equal the host's true f32 division."""
+    import mxnet_tpu_torch as mx
+
+    assert chip_smoke.scalar_division_checks(mx, card)
 
 
 @pytest.mark.cuda
@@ -1720,7 +1780,7 @@ def test_quantize_net_v2_rebuilds_a_captured_net_on_card(card):
         hb, eb = chip_smoke.quant_blocks(hyb), chip_smoke.quant_blocks(eager)
         assert len(hb) == 21 and hb.keys() == eb.keys()
         assert all(hb[p]._threshold == eb[p]._threshold for p in hb)
-        int8_ops.int8_conv.launches = int8_ops.int8_gemm.launches = 0
+        int8_ops.zero_counts()
         with torch.no_grad(), autograd.predict_mode():
             outs = [hyb(x) for _ in range(4)]
             want = eager(x)
@@ -1730,3 +1790,6 @@ def test_quantize_net_v2_rebuilds_a_captured_net_on_card(card):
     assert not torch.equal(want, want_f32)
     assert int8_ops.int8_conv.launches == 20 * 5
     assert int8_ops.int8_gemm.launches == 5
+    # the layers quantize in the kernels' load: the wgmma route, f32 mode
+    assert int8_ops.int8_conv.wgmma_f32 == 20 * 5
+    assert int8_ops.int8_gemm.wgmma_f32 == 5

@@ -1,9 +1,10 @@
-"""Faults F8-F12 of the port, each held against the JAX package on the
+"""Faults F8-F13 of the port, each held against the JAX package on the
 CPU: user-written ``Block.forward`` on ``mx.nd`` and the parameter
 attributes' ``data()``/``grad()``/``set_data()`` (F8), negative-step
 slices (F9), the dtypes of integer and boolean reductions (F10), slicing
-``Sequential`` and ``HybridSequential`` (F11), and the public names of
-the done modules (F12).
+``Sequential`` and ``HybridSequential`` (F11), the public names of the
+done modules (F12), and the scalar divisions (F13), which the JAX
+package computes as true f32 divisions, bitwise.
 
 Inputs are made by numpy from a seed; the port's weights are the JAX
 package's, saved by ``save_parameters`` and read by the port's
@@ -447,6 +448,72 @@ def test_64_bit_arrays_stay_64_bit(dtype):
         x = tmx.nd.array([1, 2, 3], dtype=dtype)
         assert x.dtype == np.dtype(dtype)
         assert tmx.nd.sum(x).dtype == np.dtype(dtype)
+
+
+# -- F13: division by and of a Python number -----------------------------
+
+_F13_X = np.linspace(0.1, 10, 2000, dtype=np.float32)
+
+
+@pytest.mark.parametrize("scalar", [255.0, 3.0, 0.1])
+@pytest.mark.parametrize("op", ["_div_scalar", "_rdiv_scalar"])
+def test_scalar_division_ops_are_true_divisions_as_jax(op, scalar):
+    """``_rdiv_scalar(x, 255.0)`` was ``255.0 / x``, which torch computes
+    as ``reciprocal(x) * 255``: 491 of these 2,000 values differed."""
+    import jax.numpy as jnp
+
+    from mxnet_tpu.ops import registry as jreg
+    from mxnet_tpu_torch.ops import registry as treg
+
+    want = np.asarray(jreg.get(op).forward(jnp.asarray(_F13_X),
+                                           scalar=scalar))
+    got = treg.get(op).forward(torch.from_numpy(_F13_X),
+                               scalar=scalar).numpy()
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("scalar", [255.0, 3.0, 0.1])
+def test_ndarray_division_by_and_of_a_number_as_jax(scalar):
+    """NDArray ``/`` with a Python number, both ways, equals the JAX
+    package's ops (true divisions), and ``c / x`` its NDArray too.  The
+    JAX package's own NDArray ``x / c`` is jit-compiled with ``c`` a
+    constant, which XLA turns into a product by its reciprocal (1,413 of
+    these 2,000 values differ from its op at 255; ROADMAP.md, R12): the
+    port follows the op."""
+    import jax.numpy as jnp
+
+    from mxnet_tpu.ops import registry as jreg
+
+    with tmx.cpu():
+        ta = tmx.nd.array(_F13_X)
+        got = [(ta / scalar).asnumpy(), (scalar / ta).asnumpy()]
+    x = jnp.asarray(_F13_X)
+    want = [np.asarray(jreg.get(op).forward(x, scalar=scalar))
+            for op in ("_div_scalar", "_rdiv_scalar")]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got[1],
+                                  (scalar / jmx.nd.array(_F13_X)).asnumpy())
+
+
+@pytest.mark.parametrize("scalar", [255.0, 3, 0.1])
+@pytest.mark.parametrize("op", ["_div_scalar", "_rdiv_scalar"])
+def test_scalar_division_of_int32_keeps_jax_type_and_values(op, scalar):
+    """An int32 input gives float32, as it did and as the JAX package's
+    does, with the JAX package's values."""
+    import jax.numpy as jnp
+
+    from mxnet_tpu.ops import registry as jreg
+    from mxnet_tpu_torch.ops import registry as treg
+
+    x = np.arange(-300, 301, 7, dtype=np.int32)
+    x = x[x != 0]
+    want = np.asarray(jreg.get(op).forward(jnp.asarray(x), scalar=scalar))
+    got = treg.get(op).forward(torch.from_numpy(x), scalar=scalar).numpy()
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
 
 
 # -- F11: slicing Sequential ----------------------------------------------
