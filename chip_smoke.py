@@ -203,6 +203,31 @@ Phases, each fatal on failure:
              ``grad_req="null"``, and ``save_parameters`` /
              ``load_parameters`` into a fresh net giving bitwise equal
              logits;
+15b. np    — ``mx.np`` and ``mx.npx``.  First, ``mx.np`` functions
+             on the card against the port on the host, TF32 off:
+             elementwise, indexing and integer results bitwise,
+             transcendental ones within 1e-6 of the largest value,
+             reductions within 1e-5; a hybridized block called with
+             ``mx.np`` arrays after NDArrays keeps each call's class and
+             replays the NDArray call's graph (no second capture);
+             ``unique``, ``nonzero``, ``bincount`` and ``delete`` inside
+             a captured call raise ``MXNetError``; then a main path:
+             BERT-base under ``amp`` bf16 pre-trained as a numpy-mode
+             Gluon script (``mx.npx.set_np()``, ``mx.np`` batches of 32
+             x 128, ``npx.pick`` over ``npx.log_softmax`` masked to a mean
+             loss, ``backward()``, ``clip_global_norm`` (O3),
+             ``Trainer(..., "adamw").step(1)`` (O1), an ``mx.np``
+             accuracy), 12 steps eager and 12 hybridized, each step
+             alternated with the gluon phase's NDArray script on a
+             second net from the same seed: every output an
+             ``mx.np.ndarray``, each mode's first logits bitwise equal to
+             the NDArray script's at the same weights, the first losses
+             within 1e-6 of plain torch's reduction of those logits, the
+             loss falling, K1-K3 12 launches a step of either script
+             (counted from 0 before these steps); step ms p50 (min, max)
+             of both scripts, samples/s, MFU, idle share, kernels by kind
+             and the loss part's host time; then the ``mx.np`` dispatch
+             rate beside ``mx.nd``'s, bulked and eager;
 16. vision — the other vision families and saved signatures.  First,
              each family's representative (AlexNet, VGG-16, SqueezeNet
              1.1, DenseNet-121, Inception-v3, MobileNet v1 and v2) at
@@ -3019,13 +3044,15 @@ def rtc_phase(mx, dev):
     return rtc_timing(mx, kern, tensors, arrays, errs)
 
 
-def dispatch_rate(mx, ctx, record, chain_len=20, n_iters=30, windows=5):
+def dispatch_rate(mx, ctx, record, chain_len=20, n_iters=30, windows=5,
+                  ones=None):
     """Imperative ops/s through a ``chain_len``-op elementwise chain on a
     (64, 64) array (the JAX package's ``bench.py`` ``_dispatch_rate``):
     plain, or under ``record()`` with ``backward()``; the median of
-    ``windows`` windows.  Host-bound by design."""
+    ``windows`` windows.  Host-bound by design.  ``ones`` makes the array
+    (``mx.nd.ones`` unless given: ``mx.np.ones`` for the np phase)."""
     nd, autograd = mx.nd, mx.autograd
-    x = nd.ones((64, 64), ctx=ctx)
+    x = (ones or nd.ones)((64, 64), ctx=ctx)
     if record:
         x.attach_grad()
 
@@ -4955,6 +4982,566 @@ def gluon_phase(dev):
     finally:
         amp.turn_off()
         shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+# -- phase 21: mx.np and mx.npx -----------------------------------------------
+
+NP_STEPS = 12              # steps a mode of each script
+NP_IGNORE = -1             # a label id the samples never hold
+
+
+def np_card_cases():
+    """``(label, fn, kind)``: ``fn(np, x, y, i)`` on (64, 48) f32 ``x``
+    and ``y`` and an int32 ``i`` of ``mx.np`` arrays; ``kind`` is
+    "exact" (bitwise), "ulp" (within 1e-6 of the largest value: the
+    card's and the host's transcendental functions round differently) or
+    "reduce" (within 1e-5 of the largest value: another summation
+    order)."""
+    return [
+        ("add", lambda np, x, y, i: np.add(x, y), "exact"),
+        ("subtract", lambda np, x, y, i: x - y, "exact"),
+        ("multiply", lambda np, x, y, i: np.multiply(x, 2.5), "exact"),
+        ("true_divide", lambda np, x, y, i: x / y, "exact"),
+        ("int / 2", lambda np, x, y, i: i / 2, "exact"),
+        ("maximum", lambda np, x, y, i: np.maximum(x, y), "exact"),
+        ("negative, absolute", lambda np, x, y, i: np.absolute(-x),
+         "exact"),
+        ("floor, rint", lambda np, x, y, i: np.floor(x * 7) + np.rint(y),
+         "exact"),
+        ("sqrt, square", lambda np, x, y, i: np.sqrt(np.square(x)),
+         "exact"),
+        ("comparisons", lambda np, x, y, i: np.logical_and(x > y, x != 0),
+         "exact"),
+        ("where", lambda np, x, y, i: np.where(x > 0, x, y), "exact"),
+        ("clip", lambda np, x, y, i: np.clip(x, -0.5, 0.5), "exact"),
+        ("mod, fmod", lambda np, x, y, i: (np.mod(x, 0.7),
+                                           np.fmod(y, 0.3)), "ulp"),
+        ("copysign", lambda np, x, y, i: np.copysign(x, y), "exact"),
+        ("transpose, flip, roll", lambda np, x, y, i: np.roll(
+            np.flip(x.T, 0), 3, 1), "exact"),
+        ("concatenate, stack", lambda np, x, y, i: np.stack(
+            [np.concatenate([x, y]), np.concatenate([y, x])]), "exact"),
+        ("tril, diag", lambda np, x, y, i: (np.tril(x), np.diag(x),
+                                            np.diag(x[0])), "exact"),
+        ("sort, argsort", lambda np, x, y, i: (np.sort(x, axis=1),
+                                               np.argsort(x, axis=1)),
+         "exact"),
+        ("argmax, argmin", lambda np, x, y, i: (np.argmax(x, axis=0),
+                                                np.argmin(x)), "exact"),
+        ("int sum, cumsum", lambda np, x, y, i: (np.sum(i, axis=0),
+                                                 np.cumsum(i, axis=1)),
+         "exact"),
+        ("take, one_hot", lambda np, x, y, i: (np.take(
+            x, np.abs(i[0]) % 64, axis=0), np.one_hot(np.abs(i[0]) % 5, 5)),
+         "exact"),
+        ("searchsorted, digitize", lambda np, x, y, i: (np.searchsorted(
+            np.sort(x.reshape(-1)), y.reshape(-1)), np.digitize(
+            x, np.array([-1.0, 0.0, 1.0], ctx=x.context))), "exact"),
+        ("histogram", lambda np, x, y, i: np.histogram(x, bins=7,
+                                                       range=(-2.0, 2.0)),
+         "exact"),
+        ("isnan, nan_to_num", lambda np, x, y, i: np.nan_to_num(
+            np.log(x)), "ulp"),
+        ("exp, log1p, tanh", lambda np, x, y, i: np.exp(x) + np.log1p(
+            np.abs(y)) + np.tanh(x), "ulp"),
+        ("sin, arctan2, hypot", lambda np, x, y, i: np.sin(x)
+         + np.arctan2(x, y) + np.hypot(x, y), "ulp"),
+        ("power, sigmoid", lambda np, x, y, i: np.power(np.abs(x), 1.7)
+         + np.sigmoid(y), "ulp"),
+        ("sum, mean", lambda np, x, y, i: (np.sum(x, axis=0), np.mean(
+            np.abs(y)), np.abs(x).sum()), "reduce"),
+        ("std, var", lambda np, x, y, i: (np.std(x, axis=1),
+                                          np.var(y, ddof=1)), "reduce"),
+        ("prod, max, ptp", lambda np, x, y, i: (np.prod(
+            1 + 0.01 * x, axis=0), np.max(x, axis=1), np.ptp(y)),
+         "reduce"),
+        ("dot, matmul, einsum", lambda np, x, y, i: (np.dot(x, y.T),
+                                                     x.T @ y,
+                                                     np.einsum(
+                                                         "ij,ij->i", x, y)),
+         "reduce"),
+        ("median, percentile", lambda np, x, y, i: (np.median(x, axis=0),
+                                                    np.percentile(y, 30.0)),
+         "reduce"),
+        ("nanmean, nanstd", lambda np, x, y, i: (np.nanmean(
+            np.log(x)), np.nanstd(np.log(y), axis=0)), "reduce"),
+        ("cov, corrcoef", lambda np, x, y, i: (np.cov(x[:8]),
+                                               np.corrcoef(y[:8])),
+         "reduce"),
+        ("linalg", lambda np, x, y, i: (np.linalg.norm(x),
+                                        np.linalg.inv(
+                                            x[:48] + 10 * np.eye(
+                                                48, ctx=x.context))),
+         "reduce"),
+    ]
+
+
+def np_inputs(mx, ctx, seed=0):
+    rs = np.random.RandomState(seed)
+    x = rs.standard_normal((64, 48)).astype(np.float32)
+    y = rs.standard_normal((64, 48)).astype(np.float32)
+    i = rs.randint(-50, 50, (64, 48)).astype(np.int32)
+    return [mx.np.array(a, ctx=ctx) for a in (x, y, i)]
+
+
+def np_card_checks(mx, dev, cases=None):
+    """Every case of ``np_card_cases`` (or ``cases``) on the card against
+    the port on the host, TF32 off: the results ``mx.np`` arrays of the
+    host's dtypes and shapes, within each case's kind.  Returns the worst
+    reading of each kind and whether every case held."""
+    import torch
+
+    cases = cases or np_card_cases()
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = {"exact": 0.0, "ulp": 0.0, "reduce": 0.0}
+    ok = True
+    try:
+        host = np_inputs(mx, mx.cpu())
+        card = np_inputs(mx, mx.gpu(0))
+        for label, fn, kind in cases:
+            want = fn(mx.np, *host)
+            got = fn(mx.np, *card)
+            want = list(want) if isinstance(want, (tuple, list)) else [want]
+            got = list(got) if isinstance(got, (tuple, list)) else [got]
+            err, good = 0.0, len(got) == len(want)
+            for g, w in zip(got, want):
+                good &= type(g) is mx.np.ndarray and g.dtype == w.dtype \
+                    and g.shape == w.shape and g.context == mx.gpu(0)
+                gn, wn = g.asnumpy(), w.asnumpy()
+                if kind == "exact":
+                    same = np.array_equal(
+                        gn, wn, equal_nan=gn.dtype.kind == "f")
+                    err = max(err, 0.0 if same else float("inf"))
+                else:
+                    gn, wn = gn.astype(np.float64), wn.astype(np.float64)
+                    scale = max(np.abs(np.nan_to_num(wn)).max(), 1e-30)
+                    e = float(np.nanmax(np.abs(gn - wn)) / scale) \
+                        if gn.size else 0.0
+                    good &= np.array_equal(np.isnan(gn), np.isnan(wn))
+                    err = max(err, e)
+            limit = {"exact": 0.0, "ulp": 1e-6, "reduce": 1e-5}[kind]
+            good &= err <= limit
+            worst[kind] = max(worst[kind], err)
+            ok &= bool(good)
+            if not good:
+                log("np ops: %s on the card against the host: %.3g (%s, "
+                    "limit %.3g) FAIL" % (label, err, kind, limit))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log("np ops: %d cases on the card against the host, TF32 off: "
+        "elementwise and indexing bitwise (worst %.3g), transcendental "
+        "within %.3g of the largest value (limit 1e-6), reductions within "
+        "%.3g (limit 1e-5): %s"
+        % (len(cases), worst["exact"], worst["ulp"],
+           worst["reduce"], "ok" if ok else "FAIL"))
+    return worst, ok
+
+
+def np_graph_class_check(mx, dev):
+    """A hybridized block called with ``mx.np`` arrays after the same
+    call with NDArrays: ``mx.np`` out, NDArrays out, one capture between
+    them (the np call replays the NDArray call's graph), bitwise equal
+    outputs (``no_grad``: a recorded call's pair stays busy while its
+    outputs live).  Returns whether it held."""
+    import torch
+
+    from mxnet_tpu_torch import gluon
+
+    class Net(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.fc = gluon.nn.Dense(16, in_units=32)
+
+        def forward(self, x):
+            return self.fc(x).tanh() * 2
+
+    net = Net()
+    net.initialize(device=dev)
+    net.hybridize()
+    x = np.random.RandomState(3).standard_normal((8, 32)).astype(np.float32)
+    with torch.no_grad():
+        outs_nd = [net(mx.nd.array(x, ctx=mx.gpu(0))) for _ in range(2)]
+        st0 = net.stats()
+        outs_np = [net(mx.np.array(x, ctx=mx.gpu(0))) for _ in range(2)]
+        st1 = net.stats()
+    ok = all(type(o) is mx.nd.NDArray for o in outs_nd) \
+        and all(type(o) is mx.np.ndarray for o in outs_np) \
+        and st0["captures"] == st1["captures"] == 1 \
+        and st1["replays"] == st0["replays"] + 2 \
+        and all(np.array_equal(o.asnumpy(), outs_nd[0].asnumpy())
+                for o in outs_np)
+    log("np graph: a hybridized block: NDArray calls %s, np calls %s; "
+        "captures %d then %d, replays %d then %d; outputs %s: %s"
+        % (type(outs_nd[0]).__name__, type(outs_np[0]).__module__ + "."
+           + type(outs_np[0]).__name__, st0["captures"], st1["captures"],
+           st0["replays"], st1["replays"],
+           "bitwise equal" if ok else "checked", "ok" if ok else "FAIL"))
+    return ok
+
+
+def np_capture_refusals(mx, dev):
+    """``unique``, ``nonzero``, ``bincount`` and ``delete`` inside a
+    hybridized block's captured call raise ``MXNetError`` naming the op;
+    the card takes further work after each.  Returns whether all held."""
+    import torch
+
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.base import MXNetError
+
+    cases = [("unique", lambda np, x: np.unique(x)),
+             ("nonzero", lambda np, x: np.nonzero(x > 0)[0]),
+             ("bincount", lambda np, x: np.bincount(
+                 x.astype("int32").reshape(-1))),
+             ("delete", lambda np, x: np.delete(x, [1]))]
+    ok = True
+    for label, fn in cases:
+        class Net(gluon.HybridBlock):
+            def forward(self, x, fn=fn):
+                return fn(mx.np, x) * 1.0
+
+        net = Net()
+        net.hybridize()
+        x = mx.np.array(np.arange(8, dtype=np.float32).reshape(2, 4) % 3,
+                        ctx=mx.gpu(0))
+        raised = None
+        for _ in range(3):
+            try:
+                net(x)
+            except MXNetError as e:
+                raised = e
+                break
+        torch.cuda.synchronize()
+        usable = bool((torch.randint(0, 5, (8,), device=dev) < 5).all())
+        good = raised is not None and usable
+        ok &= good
+        log("np graph: %s inside a captured call: %s; the card usable "
+            "after %s %s" % (label, ("MXNetError: %s" % str(raised)
+                                     .splitlines()[0][:80])
+                             if raised is not None else "NOTHING RAISED",
+                             usable, "ok" if good else "FAIL"))
+    return ok
+
+
+def np_script_step(mx, net, trainer, toks, labels, clip):
+    """One step of the numpy-mode script (``mx.npx.set_np()`` is on):
+    logits, the masked mean NLL through ``npx.pick``/``npx.log_softmax``
+    under ``record()``, ``backward()``, ``clip_global_norm``,
+    ``trainer.step(1)``, and the accuracy outside ``record()``.  Returns
+    every array it touched and the host seconds of the loss part and of
+    the accuracy."""
+    with mx.autograd.record():
+        logits = net(toks)
+        t0 = time.perf_counter()
+        mask = (labels != NP_IGNORE).astype("float32")
+        nll = -mx.npx.pick(mx.npx.log_softmax(logits), labels.reshape(-1))
+        loss = (nll * mask.reshape(-1)).sum() / mask.sum()
+        host = time.perf_counter() - t0
+    loss.backward()
+    clip()
+    trainer.step(1)
+    t0 = time.perf_counter()
+    acc = (logits.argmax(axis=-1) == labels.reshape(-1)).mean()
+    host = (host, time.perf_counter() - t0)
+    return (toks, labels, logits, mask, nll, loss, acc), host
+
+
+def np_nd_step(mx, net, trainer, loss_fn, toks, labels, clip):
+    """The gluon phase's NDArray script's step on one batch; returns its
+    logits and the loss part's host seconds."""
+    with mx.autograd.record():
+        out = net(toks)
+        t0 = time.perf_counter()
+        loss = loss_fn(out, labels.reshape((-1,)))
+        host = time.perf_counter() - t0
+    loss.backward()
+    clip()
+    trainer.step(BERT_B)
+    return out, host
+
+
+def np_loss_reference(logits, labels):
+    """The script's loss in plain torch on the same logits (f32, as the
+    port's log_softmax under amp computes it)."""
+    import torch
+
+    lt = logits.data().detach().float()
+    y = labels.data().reshape(-1)
+    lsm = torch.log_softmax(lt, -1)
+    nll = -torch.take_along_dim(lsm, y.long()[:, None], 1)[:, 0]
+    mask = (y != NP_IGNORE).float()
+    return ((nll * mask).sum() / mask.sum()).item()
+
+
+def np_train_run(dev, smi):
+    """The main path: BERT-base under amp bf16 pre-trained as a
+    numpy-mode Gluon script (``mx.npx.set_np()``, ``mx.np`` batches,
+    ``npx.pick``/``npx.log_softmax``, an ``mx.np`` loss and accuracy),
+    12 steps eager then 12 hybridized, each step alternated with the
+    gluon phase's NDArray script on a second net from the same seed;
+    returns the launch counts over both scripts' steps and the
+    readings.  ``smi`` is the card's name and power limit."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import optimizer_ops as oo
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = mx.gpu(0)
+    nets, trainers, clips = [], [], []
+    for _ in range(2):
+        net = gluon_net(dev, 0)
+        mx.amp.convert_hybrid_block(net)
+        params = net.collect_params()
+        net.collect_params(".*gamma|.*beta|.*bias").setattr("wd_mult", 0.0)
+        trainers.append(gluon.Trainer(params, "adamw", {
+            "learning_rate": 1e-4, "wd": 0.01}))
+        grads = [p for p in params.values() if p.grad_req != "null"]
+        clips.append((lambda g: lambda: gluon.utils.clip_global_norm(
+            [p.grad() for p in g], 1.0))(grads))
+        nets.append(net)
+    net_np, net_nd = nets
+    toks, labels = mlm_samples(NP_STEPS * BERT_B, BERT_T, BERT_VOCAB, 1)
+    batches = [(toks[i * BERT_B:(i + 1) * BERT_B],
+                labels[i * BERT_B:(i + 1) * BERT_B])
+               for i in range(NP_STEPS)]
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    layers, units = BERT_BASE["num_layers"], BERT_BASE["units"]
+    inner = net_np.bert
+    layer_w = sum(p.numel() for n, p in inner.named_parameters()
+                  if n.startswith("encoder.") and p.dim() == 2)
+    head_w = inner.word_embed.weight.numel()
+    tokens = BERT_B * BERT_T
+    step_flops = 6 * tokens * (layer_w + head_w) \
+        + 3 * layers * 4 * BERT_B * BERT_T * BERT_T * units
+    counters = ("fwd_launches", "dq_launches", "dkv_launches")
+    for name in counters:
+        setattr(fa.flash_attention, name, 0)
+    reset_opt_counts(oo)
+    np_only = dict.fromkeys(counters, 0)
+    rows, losses, classes_ok = {}, {"eager": [], "hybridized": []}, True
+    loss_errs, host = [], {"np": [], "acc": [], "nd": []}
+    mx.npx.set_np()
+    try:
+        for mode in ("eager", "hybridized"):
+            if mode == "hybridized":
+                for a, b in zip(net_np.parameters(), net_nd.parameters()):
+                    b.data.copy_(a.data)
+                for a, b in zip(net_np.buffers(), net_nd.buffers()):
+                    b.copy_(a)
+                for net in nets:
+                    net.hybridize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            t_np, t_nd, prof, prof_nd, first = [], [], None, None, None
+            for i, (bt, bl) in enumerate(batches):
+                before = {n: getattr(fa.flash_attention, n)
+                          for n in counters}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x = mx.np.array(bt, ctx=ctx)
+                y = mx.np.array(bl, ctx=ctx)
+
+                def np_step():
+                    return np_script_step(mx, net_np, trainers[0], x, y,
+                                          clips[0])
+                if i == NP_STEPS // 2:
+                    (outs, h), wall, busy, averages = profiled_step(np_step)
+                    prof = (wall, busy, averages)
+                else:
+                    outs, h = np_step()
+                    torch.cuda.synchronize()
+                    if i:
+                        t_np.append(time.perf_counter() - t0)
+                host["np"].append(h[0])
+                host["acc"].append(h[1])
+                for n in counters:
+                    np_only[n] += getattr(fa.flash_attention, n) - before[n]
+                classes_ok &= all(type(o) is mx.np.ndarray for o in outs)
+                losses[mode].append(outs[5].item())
+                if i == 0:
+                    loss_errs.append(abs(outs[5].item() - np_loss_reference(
+                        outs[2], outs[1])) / abs(outs[5].item()))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                nx = mx.nd.array(bt, ctx=ctx)
+                ny = mx.nd.array(bl, ctx=ctx)
+
+                def nd_step():
+                    return np_nd_step(mx, net_nd, trainers[1], loss_fn, nx,
+                                      ny, clips[1])
+                if i == NP_STEPS // 2:
+                    (out_nd, h), wall, busy, averages = profiled_step(
+                        nd_step)
+                    prof_nd = (wall, busy, averages)
+                else:
+                    out_nd, h = nd_step()
+                    torch.cuda.synchronize()
+                    if i:
+                        t_nd.append(time.perf_counter() - t0)
+                host["nd"].append(h)
+                if i == 0:
+                    first = (outs[2].detach(), out_nd.detach())
+                # nothing keeps a step's graph: a held AccumulateGrad node
+                # breaks the next backward capture (C14b, ROADMAP.md §1)
+                del outs, out_nd
+            same = torch.equal(first[0].data(), first[1].data())
+            rows[mode] = (sorted(t_np), sorted(t_nd), prof, same,
+                          nets[0].stats() if mode == "hybridized" else None,
+                          prof_nd)
+    finally:
+        mx.npx.reset_np()
+    launches = {n: getattr(fa.flash_attention, n) for n in counters}
+    launches.update(opt_counts(oo))
+    n_steps = 2 * 2 * NP_STEPS
+    log("np train: BERT-base (12 x 768, vocab %d) under amp bf16 as a "
+        "numpy-mode script, %d steps a mode of it and of the NDArray "
+        "script alternately; launches over both scripts' %d steps: %s "
+        "(K1-K3 must be %d each, O1 %d); the np script's alone: %s (must "
+        "be %d each)" % (BERT_VOCAB, NP_STEPS, n_steps, launches,
+                         layers * n_steps, n_steps, np_only,
+                         layers * n_steps // 2))
+    for n in counters:
+        if launches[n] != layers * n_steps \
+                or np_only[n] != layers * n_steps // 2:
+            fail("the np phase's %s = %d (np script %d) over %d steps of %d "
+                 "layers" % (n, launches[n], np_only[n], n_steps, layers))
+    if launches["O1"] != n_steps:
+        fail("the np phase's adamw updates launched O1 %d times over %d "
+             "steps" % (launches["O1"], n_steps))
+    if not classes_ok:
+        fail("an output of the numpy-mode script is not an mx.np.ndarray")
+    for mode, (_, _, _, same, _, _) in rows.items():
+        log("np train: %s first step's logits against the NDArray script's "
+            "at the same weights and batch: %s"
+            % (mode, "bitwise equal" if same else "DIFFER"))
+        if not same:
+            fail("the numpy-mode script's %s logits differ from the NDArray "
+                 "script's" % mode)
+    log("np train: first-step loss against the same reduction in plain "
+        "torch on its logits: %s relative (limit 1e-6)"
+        % ["%.3g" % e for e in loss_errs])
+    if not all(e <= 1e-6 for e in loss_errs):
+        fail("the numpy-mode loss differs from plain torch's")
+    means = [sum(v) / len(v) for v in losses.values()]
+    log("np train: losses eager %s, hybridized %s; mean %.4f then %.4f "
+        "(must fall)" % (["%.3f" % v for v in losses["eager"]],
+                         ["%.3f" % v for v in losses["hybridized"]],
+                         means[0], means[1]))
+    if not all(math.isfinite(v) for vs in losses.values() for v in vs) \
+            or not means[1] < means[0]:
+        fail("the numpy-mode script's loss did not fall")
+    readings = {}
+    for mode, (t_np, t_nd, (wall, busy, averages), _, st, nd_prof) \
+            in rows.items():
+        p50_np, p50_nd = t_np[len(t_np) // 2], t_nd[len(t_nd) // 2]
+        readings[mode] = (1e3 * p50_np, 1e3 * p50_nd)
+        top, _, kern_ms = kernel_rows(averages)
+        log("np train: %s step ms p50 %.3f (min %.3f max %.3f over %d "
+            "steps), %.1f samples/s, %.1f%% MFU (%.4g FLOP a step at 989 "
+            "TFLOP/s bf16); the NDArray script alternated: p50 %.3f (min "
+            "%.3f max %.3f); np / NDArray %.3fx; on %s"
+            % (mode, 1e3 * p50_np, 1e3 * t_np[0], 1e3 * t_np[-1], len(t_np),
+               BERT_B / p50_np, 100 * step_flops / p50_np / BF16_FLOPS,
+               step_flops, 1e3 * p50_nd, 1e3 * t_nd[0], 1e3 * t_nd[-1],
+               p50_np / p50_nd, smi))
+        log("np train: %s profiled np step: wall %.3f ms, kernels busy %.3f "
+            "ms: idle %.1f%% of the profiled step, %.1f%% of the p50 step; "
+            "kernels summed %.3f ms: %s"
+            % (mode, wall * 1e3, busy, 100 * (1 - busy / (wall * 1e3)),
+               100 * max(0.0, 1 - busy / (1e3 * p50_np)), kern_ms,
+               ", ".join("%s %.3f" % kv
+                         for kv in kernel_kinds(averages).items())))
+        for ms, n, key in top[:6]:
+            log("np train:   %9.3f ms  x%-5d %s" % (ms, n, key[:100]))
+        wall, busy, averages = nd_prof
+        log("np train: %s profiled NDArray step: wall %.3f ms, kernels busy "
+            "%.3f ms, idle %.1f%% of its p50 step; kernels summed %.3f ms: %s"
+            % (mode, wall * 1e3, busy,
+               100 * max(0.0, 1 - busy / (1e3 * p50_nd)),
+               kernel_rows(averages)[2],
+               ", ".join("%s %.3f" % kv
+                         for kv in kernel_kinds(averages).items())))
+        if st is not None:
+            log("np train: hybridized: %d captures, %d replays, %d backward "
+                "replays, %d busy calls" % (st["captures"], st["replays"],
+                                            st["backward_replays"],
+                                            st["busy_calls"]))
+
+    def us(xs):
+        xs = sorted(xs)
+        return 1e6 * xs[len(xs) // 2], 1e6 * xs[-1]
+
+    log("np train: host us median (max) of the loss's ops under record(): "
+        "np script (!=, astype, log_softmax, pick, -, *, sum, /) %.1f "
+        "(%.1f); NDArray script (SoftmaxCrossEntropyLoss) %.1f (%.1f); the "
+        "np script's accuracy (argmax, ==, mean) %.1f (%.1f)"
+        % (*us(host["np"]), *us(host["nd"]), *us(host["acc"])))
+    return launches, readings
+
+
+def np_dispatch_rates(mx, ctx, smi):
+    """``dispatch_rate`` (the imperative phase's 20-op chain on (64, 64))
+    over ``mx.np`` arrays and, in the same process, ``mx.nd`` arrays, in
+    turns (np, nd, nd, np) after one untimed run of each, bulked (the
+    engine's default) and eager (``bulk(0)``), plain and under
+    ``record()``; ``smi`` is the card's name and power limit."""
+    rates = {}
+    for mode in ("bulked", "eager"):
+        with bulking(mx, mode == "bulked"):
+            for ones in (mx.np.ones, None):
+                dispatch_rate(mx, ctx, False, ones=ones, windows=1)
+                dispatch_rate(mx, ctx, True, ones=ones, windows=1)
+            for cls, ones in (("np", mx.np.ones), ("nd", None),
+                              ("nd", None), ("np", mx.np.ones)):
+                rates.setdefault((mode, cls), []).append((
+                    dispatch_rate(mx, ctx, False, ones=ones),
+                    dispatch_rate(mx, ctx, True, ones=ones)))
+    for mode in ("bulked", "eager"):
+        (p_np, r_np), (p_nd, r_nd) = (
+            [sum(r[k] for r in rates[(mode, cls)]) / 2 for k in (0, 1)]
+            for cls in ("np", "nd"))
+        log("np dispatch (%s), a 20-op chain on (64, 64) f32, np, nd, nd, "
+            "np in turns: mx.np %s ops/s plain (mean %.2f us an op), %s under "
+            "record() with backward(); mx.nd %s plain (%.2f us), %s "
+            "recorded; np / nd %.3f plain, %.3f recorded; on %s"
+            % (mode, ["%.0f" % r[0] for r in rates[(mode, "np")]],
+               1e6 / p_np, ["%.0f" % r[1] for r in rates[(mode, "np")]],
+               ["%.0f" % r[0] for r in rates[(mode, "nd")]], 1e6 / p_nd,
+               ["%.0f" % r[1] for r in rates[(mode, "nd")]], p_np / p_nd,
+               r_np / r_nd, smi))
+    return rates
+
+
+def np_phase(dev):
+    """The np ops on the card against the host, the class through a
+    hybridized block's graph, the host reads refused under a capture,
+    then the main path (``np_train_run``) under amp bf16 and the np
+    dispatch rate beside ``mx.nd``'s."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    start_profiler(dev)
+    smi = nvidia_smi_line()
+    _, ok = np_card_checks(mx, dev)
+    ok &= np_graph_class_check(mx, dev)
+    ok &= np_capture_refusals(mx, dev)
+    if not ok:
+        fail("an np check failed on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mx.amp.init("bfloat16")
+    try:
+        launches, _ = np_train_run(dev, smi)
+    finally:
+        mx.amp.turn_off()
+    np_dispatch_rates(mx, mx.gpu(0), smi)
     return launches
 
 
@@ -9256,13 +9843,13 @@ def nvidia_smi_line():
 
 PHASES = ("kernel", "flash", "optimizer", "serve", "parity", "fleet",
           "train", "train_parity", "hybridize", "rtc", "imperative",
-          "imperative_parity", "resnet", "bert", "gluon", "vision", "gan",
-          "ssd", "quant", "ops")
+          "imperative_parity", "resnet", "bert", "gluon", "np", "vision",
+          "gan", "ssd", "quant", "ops")
 # the phases that launch K1-K4 and O1-O6, whose libraries the smoke
 # builds first
 NVCC_PHASES = {"kernel", "flash", "optimizer", "serve", "parity", "fleet",
                "train", "train_parity", "hybridize", "resnet", "bert",
-               "gluon", "vision", "gan", "ssd", "quant", "ops"}
+               "gluon", "np", "vision", "gan", "ssd", "quant", "ops"}
 
 
 def kernel_entry(name, source, replaces, launches, timing, extra=None):
@@ -9373,6 +9960,7 @@ def main(argv):
     bert_launches, bert_o1_err = timed("bert", bert_phase, dev) \
         or (None, None)
     gluon_launches = timed("gluon", gluon_phase, dev)
+    np_launches = timed("np", np_phase, dev)
     vision_o2 = timed("vision", vision_phase, dev)
     gan_o1 = timed("gan", gan_phase, mx, dev)
     o4, ssd_o1, o4_launches = timed("ssd", ssd_phase, mx, dev) \
@@ -9390,7 +9978,8 @@ def main(argv):
     opt_src = "mxnet_tpu_torch/csrc/optimizer_ops.cu"
     int8_src = "mxnet_tpu_torch/csrc/int8_ops.cu"
     flash, flash_bert = flash
-    paths = (flash_launches, hybrid_launches, bert_launches, gluon_launches)
+    paths = (flash_launches, hybrid_launches, bert_launches, gluon_launches,
+             np_launches)
     print(json.dumps({"kernels": [
         kernel_entry("K1 flash_fwd", src,
                      "mxnet_tpu/ops/pallas_kernels.py:83",
@@ -9423,7 +10012,8 @@ def main(argv):
                      resnet_o2 + vision_o2, opt["O2"]),
         kernel_entry("O3 multi_sum_sq (port-only)", opt_src,
                      "mxnet_tpu/ops/optimizer_ops.py:174",
-                     flash_launches["O3"] + gluon_launches["O3"],
+                     flash_launches["O3"] + gluon_launches["O3"]
+                     + np_launches["O3"],
                      opt["O3"]),
         kernel_entry("O4 box_nms (port-only)",
                      "mxnet_tpu_torch/csrc/box_nms.cu",

@@ -45,6 +45,10 @@ Ported so far:
 * int8 quantization: the quantized ops (``ops.quantized_ops``) and
   ``contrib.quantization`` (``quantize_net_v2``), whose products run on
   the int8 kernels O5 and O6 (``ops.int8_ops``);
+* the NumPy frontend: ``mx.np`` (``numpy``: the NumPy-semantics
+  ``ndarray`` over NDArray, its function namespace, ``np.linalg`` and
+  ``np.random``), ``mx.npx`` (``numpy_extension``), the ``_np*``/
+  ``_npi_*`` ops of ``ops.npi`` and ``mx.util``;
 * the telemetry and testing modules these tiers use.
 
 The port's own kernels are CUDA C++ for sm_90a in ``csrc/``.  Entry
@@ -59,6 +63,11 @@ from . import metric, name, registry  # noqa: F401
 from . import autograd, engine, ndarray, random, rtc  # noqa: F401
 from . import operator  # noqa: F401
 from . import contrib  # noqa: F401
+from . import numpy, numpy_extension, util  # noqa: F401
+from . import numpy as np  # noqa: F401
+from . import numpy_extension as npx  # noqa: F401
+from .numpy_extension import (is_np_array, is_np_shape,  # noqa: F401
+                              reset_np, set_np)
 from . import initializer as init  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from .base import MXNetError  # noqa: F401

@@ -33,8 +33,9 @@ taken off.
 
 A block called with NDArrays runs on their tensors (a lazy array is
 flushed first; inside ``autograd.record()`` a marked array feeds its
-leaf view) and returns NDArrays on the first input's context, so an
-NDArray loss's ``backward()`` fills the parameters' gradients.  Tensor
+leaf view) and returns NDArrays on the first input's context, of the
+first input's class (``mx.np.ndarray`` in, ``mx.np.ndarray`` out), so
+an NDArray loss's ``backward()`` fills the parameters' gradients.  Tensor
 inputs give tensor outputs.  The port's own layers run on the tensors;
 a ``forward`` written outside this package gets, in a call with
 NDArrays, NDArrays over those tensors (as the JAX package hands
@@ -256,12 +257,25 @@ def _name_manager_next(hint):
     return "%s%d" % (hint, c)
 
 
-def _nd_context(args):
-    """The context of the first NDArray among ``args``, else None."""
+def _nd_first(args):
+    """The first NDArray among ``args``, else None: its context and its
+    class (``mx.np.ndarray`` or NDArray) are the call's outputs'."""
     for a in args:
         if isinstance(a, NDArray):
-            return a.context
+            return a
     return None
+
+
+@contextlib.contextmanager
+def _call_class(cls):
+    """The class that ``_nd_in`` wraps tensors in for the scope: the
+    class of the NDArrays a call was made with."""
+    prev = getattr(_calls, "cls", NDArray)
+    _calls.cls = cls
+    try:
+        yield
+    finally:
+        _calls.cls = prev
 
 
 def _user_forward(forward):
@@ -287,12 +301,12 @@ def _port_forward(forward):
     their tensors and the outputs come back as NDArrays."""
     @functools.wraps(forward)
     def tensor_forward(self, *args, **kwargs):
-        ctx = _nd_context(args)
-        if ctx is None:
+        first = _nd_first(args)
+        if first is None:
             return forward(self, *args, **kwargs)
         out = forward(self, *(_tensor_arg(a, _autograd.is_recording())
                               for a in args), **kwargs)
-        return _nd_out(out, ctx)
+        return _nd_out(out, first.context, first._op_result_cls)
 
     tensor_forward._mx_port = True
     return tensor_forward
@@ -329,12 +343,12 @@ def _tensor_arg(a, recording):
     return a._op_input(recording) if isinstance(a, NDArray) else a
 
 
-def _nd_out(out, ctx):
-    """A block's tensor outputs as NDArrays on ``ctx``."""
+def _nd_out(out, ctx, cls=NDArray):
+    """A block's tensor outputs as arrays of ``cls`` on ``ctx``."""
     if isinstance(out, torch.Tensor):
-        return NDArray._wrap(out, ctx)
+        return cls._wrap(out, ctx)
     if isinstance(out, (tuple, list)):
-        return type(out)(_nd_out(o, ctx) for o in out)
+        return type(out)(_nd_out(o, ctx, cls) for o in out)
     return out
 
 
@@ -516,16 +530,17 @@ class Block(torch.nn.Module):
     def __call__(self, *args, **kwargs):
         for hook in tuple(self._mx_pre_hooks.values()):
             hook(self, args)
-        ctx = _nd_context(args)
-        targs = args if ctx is None else tuple(
-            _tensor_arg(a, _autograd.is_recording()) for a in args)
-        if ctx is not None and self._nd_forward:
-            with _nd_mark(self, True):
-                out = self._outermost(*targs, **kwargs)
+        first = _nd_first(args)
+        if first is None:
+            out = self._outermost(*args, **kwargs)
         else:
-            out = self._outermost(*targs, **kwargs)
-        if ctx is not None:
-            out = _nd_out(out, ctx)
+            targs = tuple(_tensor_arg(a, _autograd.is_recording())
+                          for a in args)
+            cls = first._op_result_cls
+            with _call_class(cls), (_nd_mark(self, True) if self._nd_forward
+                                    else contextlib.nullcontext()):
+                out = self._outermost(*targs, **kwargs)
+            out = _nd_out(out, first.context, cls)
         for hook in tuple(self._mx_hooks.values()):
             hook(self, args, out)
         return out
@@ -950,13 +965,15 @@ class HybridBlock(Block):
         return self._watched[1]
 
 
-def _nd_in(a):
-    """A tensor argument as an NDArray over it (no copy); anything else
-    as it is."""
+def _nd_in(a, cls=None):
+    """A tensor argument as an array over it (no copy), of ``cls`` or
+    else of the class the call was made with; anything else as it is."""
+    if cls is None:
+        cls = getattr(_calls, "cls", NDArray)
     if isinstance(a, torch.Tensor):
-        return NDArray._wrap(a, Context.from_device(a.device))
+        return cls._wrap(a, Context.from_device(a.device))
     if isinstance(a, (tuple, list)):
-        return type(a)(_nd_in(x) for x in a)
+        return type(a)(_nd_in(x, cls) for x in a)
     return a
 
 
@@ -989,7 +1006,7 @@ def _hybrid_call(block, args):
                 "parameter %r of %s has no shape yet: hybrid_forward "
                 "blocks take theirs from shape= or from _shape_hint"
                 % (p.name, block.name))
-        params[name] = _nd_in(t)
+        params[name] = _nd_in(t, NDArray)
     with _engine.unbulked(), _autograd._RecordingStateScope(
             torch.is_grad_enabled(), None):
         out = block.hybrid_forward(_nd, *[_nd_in(a) for a in args],

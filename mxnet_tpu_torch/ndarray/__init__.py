@@ -3,8 +3,8 @@
 Op functions are generated at import from the port's registry
 (``ops/tensor.py``, ``ops/nn.py``, ``ops/random_ops.py``,
 ``ops/optimizer_ops.py``, ``ops/contrib.py``, ``ops/vision.py``,
-``ops/misc.py``, ``ops/control_flow.py``, ``ops/quantized_ops.py`` and
-the attention ops), as the
+``ops/misc.py``, ``ops/control_flow.py``, ``ops/quantized_ops.py``,
+``ops/npi.py`` and the attention ops), as the
 JAX package's ``ndarray/__init__.py`` does from its own; ``nd.random``
 holds the samplers, ``nd.contrib`` the ``_contrib_*`` ops under their
 short names with ``foreach``, ``while_loop`` and ``cond``, and
@@ -23,6 +23,7 @@ from ..ops import misc as _m  # noqa: F401
 from ..ops import vision as _v  # noqa: F401
 from ..ops import control_flow as _cf  # noqa: F401
 from ..ops import quantized_ops as _q  # noqa: F401
+from ..ops import npi as _npi  # noqa: F401
 from .ndarray import (  # noqa: F401
     NDArray, arange, array, concatenate, empty, full, load, moveaxis, ones,
     ones_like, save, shard, waitall, zeros, zeros_like,

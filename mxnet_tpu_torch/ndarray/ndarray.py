@@ -72,6 +72,10 @@ def _host_tensor(source, dtype):
 class NDArray:
     """A mutable tensor on a context, with engine and autograd state."""
 
+    # the class an op's results take when this array is its first input
+    # (``mx.np.ndarray`` sets its own); NDArray below
+    _op_result_cls = None
+
     __slots__ = ("_value", "_pending", "_ctx", "_var", "_marked", "_grad",
                  "_grad_req", "_leaf", "_stable", "__weakref__")
 
@@ -304,8 +308,14 @@ class NDArray:
                           train_mode=train_mode)
 
     def detach(self):
-        """A new array over the same tensor, outside any graph."""
-        return NDArray._wrap(self._data.detach(), self._ctx)
+        """A new array of this array's class over the same tensor,
+        outside any graph."""
+        return self._op_result_cls._wrap(self._data.detach(), self._ctx)
+
+    def as_nd_ndarray(self):
+        """This array as a classic ``mx.nd`` NDArray (itself here;
+        ``mx.np.ndarray`` gives a view over the same tensor)."""
+        return self
 
     # ------------------------------------------------------------------
     # conversion / copies
@@ -686,6 +696,11 @@ class NDArray:
         positive step and flips them (torch takes no negative step)."""
         key = self._conv_index(key)
         key, flips = _positive_steps(key, self.shape)
+        if any(isinstance(k, torch.Tensor) and k.dtype == torch.bool
+               for k in (key if isinstance(key, tuple) else (key,))):
+            from ..graph_cache import refuse_host_read
+
+            refuse_host_read("boolean-mask indexing", self._data)
         (out,) = _reg.invoke_fn(
             lambda d: (d[key].flip(flips) if flips else d[key].clone(),),
             [self], op_name="_index")
@@ -714,6 +729,9 @@ class NDArray:
 
         Engine.get().push(write, reads, (self._var,), op_name="_setitem",
                           device=self._data.device)
+
+
+NDArray._op_result_cls = NDArray
 
 
 def _positive_steps(key, shape):

@@ -204,7 +204,10 @@ def _wrap(outs, inputs, ctx, out):
 
     if ctx is None:
         ctx = inputs[0]._ctx
-    results = [NDArray._wrap(o, ctx) for o in outs]
+    # results take the class of the first input (``mx.np.ndarray`` stays
+    # ``mx.np.ndarray``), as the JAX package's ``_op_result_cls`` does
+    cls = inputs[0]._op_result_cls if inputs else NDArray
+    results = [cls._wrap(o, ctx) for o in outs]
     if outs and outs[0].is_cuda:
         # waiting on an output waits on the stream its op went to
         stream = torch.cuda.current_stream(outs[0].device)
@@ -324,7 +327,7 @@ def _try_bulk(reg, inputs, attrs, out, fields, eng):
                      recording)
     eng.stats.bulk_ops += 1
     ctx = inputs[0]._ctx
-    results = [NDArray._lazy(r, ctx) for r in refs]
+    results = [inputs[0]._op_result_cls._lazy(r, ctx) for r in refs]
     # a failed flush poisons every promised output (async rethrow)
     seg.write_vars.extend(a._var for a in results)
     if seg.cap and seg.n_ops >= seg.cap:

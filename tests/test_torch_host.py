@@ -449,6 +449,9 @@ names += ["mxnet_tpu_torch.ops.contrib", "mxnet_tpu_torch.ops.box_nms",
           "mxnet_tpu_torch.gluon.block"]
 names += ["mxnet_tpu_torch.ops.quantized_ops", "mxnet_tpu_torch.ops.int8_ops",
           "mxnet_tpu_torch.contrib", "mxnet_tpu_torch.contrib.quantization"]
+names += ["mxnet_tpu_torch.ops.npi", "mxnet_tpu_torch.numpy",
+          "mxnet_tpu_torch.numpy.linalg", "mxnet_tpu_torch.numpy.random",
+          "mxnet_tpu_torch.numpy_extension", "mxnet_tpu_torch.util"]
 names += ["chip_smoke", "tools.torch_paged_attention_sweep",
           "tools.torch_flash_attention_sweep", "tools.torch_mxfleet",
           "tools.torch_mxflight", "tools.torch_mxtrace",

@@ -1793,3 +1793,41 @@ def test_quantize_net_v2_rebuilds_a_captured_net_on_card(card):
     # the layers quantize in the kernels' load: the wgmma route, f32 mode
     assert int8_ops.int8_conv.wgmma_f32 == 20 * 5
     assert int8_ops.int8_gemm.wgmma_f32 == 5
+
+
+# -- mx.np on the card -------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(chip_smoke.np_card_cases())),
+                         ids=[c[0] for c in chip_smoke.np_card_cases()])
+def test_np_functions_on_card_match_the_host(card, case):
+    """Each ``mx.np`` case on the card against the port on the host:
+    ``mx.np`` arrays of the host's dtypes and shapes, elementwise and
+    indexing results bitwise, transcendental ones within 1e-6 and
+    reductions within 1e-5 of the largest value."""
+    import mxnet_tpu_torch as mx
+
+    _, ok = chip_smoke.np_card_checks(
+        mx, card, [chip_smoke.np_card_cases()[case]])
+    assert ok
+
+
+@pytest.mark.cuda
+def test_np_call_replays_the_ndarray_calls_graph_on_card(card):
+    """A hybridized block called with ``mx.np`` arrays after NDArrays
+    gives ``mx.np`` arrays and replays the NDArray call's graph: the
+    capture count is unchanged and the outputs are bitwise equal."""
+    import mxnet_tpu_torch as mx
+
+    assert chip_smoke.np_graph_class_check(mx, card)
+
+
+@pytest.mark.cuda
+def test_np_host_reads_raise_under_a_capture_on_card(card):
+    """``unique``, ``nonzero``, ``bincount`` and ``delete`` inside a
+    captured call raise ``MXNetError`` naming the op; the card takes
+    further work."""
+    import mxnet_tpu_torch as mx
+
+    assert chip_smoke.np_capture_refusals(mx, card)

@@ -95,7 +95,7 @@ EXCLUDED = {
 THREE_MODULES = ("nn", "tensor", "random_ops")
 JAX_MODULES = THREE_MODULES + ("vision", "contrib", "misc", "control_flow",
                                "pallas_kernels", "paged_attention",
-                               "quantized_ops")
+                               "quantized_ops", "npi")
 
 
 def _jax_names(modules=JAX_MODULES):
@@ -133,9 +133,9 @@ def test_every_op_of_the_three_modules_is_registered_in_the_port():
 def test_every_op_of_the_ported_op_modules_is_registered_in_the_port():
     """The three modules, ``ops/vision.py``, ``ops/contrib.py``,
     ``ops/misc.py``, ``ops/control_flow.py``, the attention ops of
-    ``ops/pallas_kernels.py`` and ``ops/paged_attention.py`` and the 13
-    of ``ops/quantized_ops.py``: every op is in the port but the listed
-    exclusions."""
+    ``ops/pallas_kernels.py`` and ``ops/paged_attention.py``, the 13
+    of ``ops/quantized_ops.py`` and the 162 names of ``ops/npi.py``:
+    every op is in the port but the listed exclusions."""
     _check_registered(JAX_MODULES, 400)
     assert set(EXCLUDED) <= _jax_names()
 

@@ -551,18 +551,18 @@ _DONE = ["", "autograd", "context", "engine", "gluon", "gluon.nn",
          "gluon.model_zoo.vision", "nd", "nd.random", "initializer",
          "optimizer", "lr_scheduler", "metric", "random", "layout", "amp",
          "rtc", "operator", "telemetry", "name", "registry", "parallel",
-         "sharding", "contrib"]
+         "sharding", "contrib", "numpy", "numpy.linalg", "numpy.random",
+         "numpy_extension", "util"]
 # mx.contrib's names that come with S9: each raises MXNetError naming it
 _CONTRIB_S9 = ["onnx", "text", "tensorboard", "svrg_optimization", "io",
                "autograd", "DataLoaderIter", "TrainingStateScope"]
 # Each public name of those modules that the port still lacks, with the
 # slice that brings it (ROADMAP.md §1), or why it has no counterpart.
 _MISSING = {
-    "S7d": ["np", "npx", "numpy", "numpy_extension", "set_np", "reset_np",
-            "is_np_shape", "is_np_array", "NDArray.as_nd_ndarray"],
     "S7e": ["nd.sparse", "nd.from_dlpack", "nd.to_dlpack_for_read",
             "nd.to_dlpack_for_write"],
-    "RNN (ROADMAP.md §1 item 4)": ["gluon.rnn", "nd.RNN", "nd.rnn"],
+    "RNN (ROADMAP.md §1 item 4)": ["gluon.rnn", "nd.RNN", "nd.rnn",
+                                   "numpy_extension.rnn"],
     "S8": ["kvstore", "gluon.nn.SyncBatchNorm", "Trainer.kvstore",
            "NDArray.sharding", "parallel.HostPipeline", "parallel.Mesh",
            "parallel.MeshScope", "parallel.as_jax_mesh",
@@ -591,8 +591,8 @@ _MISSING = {
            "gluon.contrib", "AttrScope", "Monitor", "callback",
            "deploy", "error", "executor", "image", "io", "library", "log",
            "model", "module", "monitor", "profiler", "recordio", "rnn",
-           "runtime", "sym", "symbol", "test_utils", "util",
-           "visualization"] + ["contrib." + n for n in _CONTRIB_S9],
+           "runtime", "sym", "symbol", "test_utils", "visualization"]
+    + ["contrib." + n for n in _CONTRIB_S9],
     "none: no TPU in the port": ["tpu", "num_tpus", "context.tpu",
                                  "context.num_tpus", "Context.jax_device"],
     "none: JAX's tape and keys, not torch's": [
