@@ -345,7 +345,35 @@ Phases, each fatal on failure:
              then O6 over the 53 convolutions at batch 256 and O5 at the output layer and BERT-base's FFN,
              queued behind a sleep, beside their bounds, their plain
              versions, cuDNN's bf16 convolutions and ``torch._int_mm``,
-             and the activation quantize timed alone.
+             and the activation quantize timed alone;
+21. sparse — sparse storage (``nd.sparse``) and its two kernels, O7
+             ``csr_dot`` and O8 ``rsp_lazy_update``
+             (``csrc/sparse_ops.cu``).  Path A, matrix factorization:
+             ``examples/recommenders/train_mf.py``'s MFNet (two
+             ``Embedding(sparse_grad=True)`` tables, factor 128) at
+             MovieLens-10M's id ranges (71,569 users, 65,135 movies), a
+             pool of 4 x 8,192 ratings from a seeded rank-6 truth, 20
+             eager ``Trainer("adagrad", lr 1.0)`` steps: the loss falls
+             by half, each gradient is row-sparse with the batch's
+             distinct ids as rows, O8 launches twice a step (counted
+             from 0 just before these steps), rows no id touched keep
+             their bytes; then 3 steps through O8 against 3 through its
+             plain version from the same weights (within 1e-5 of the
+             largest weight); path B, sparse linear classification:
+             ``examples/sparse/linear_classification.py``'s loop at
+             Avazu's width (1,000,001 features, 22 nonzeros a row,
+             Zipf-skewed ids) on a seeded libsvm file of 65,536 examples
+             read by ``LibSVMIter`` into CSR batches of 8,192, 3 epochs:
+             the log loss falls, O7 launches once forward and once
+             transposed a batch, the first epoch's predictions agree
+             with O7's plain version within 1e-5; each path's profiled
+             step (wall, kernels busy, idle share); then O7 in both
+             modes at path B's batch (within 1e-5 of the largest value)
+             and O8's four routes (SGD, SGD with momentum, Adam, AdaGrad)
+             at path A's rows (within 1e-6 of the largest value; an
+             empty gradient a no-op), each queued behind a sleep beside
+             its bound, its plain version and a library yardstick
+             (``torch.sparse.mm``, ``torch.optim``'s sparse steps).
 
 Each phase logs the card's SM clock and its maximum when it starts.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -9822,6 +9850,558 @@ def quant_phase(dev, planted_path):
     return launches, o6, o5
 
 
+# -- phase 21: sparse storage, O7 and O8 -----------------------------------
+
+SPARSE_SEED = 23
+# path A: MovieLens-10M's id ranges (upstream example/sparse/
+# matrix_factorization), factor 128; ratings from a seeded rank-6 truth
+# as examples/recommenders/train_mf.py makes them, a pool of 4 batches
+# of 8,192 ratings trained for 5 epochs
+MF = dict(users=71569, movies=65135, factor=128, rank=6, batch=8192,
+          batches=4, steps=20, lr=1.0, parity_steps=3)
+# path B: Avazu's width (upstream example/sparse/linear_classification),
+# 22 nonzeros a row (one a categorical field; this smoke's choice), ids
+# Zipf-skewed within each field's range, labels from a hidden weight
+LC = dict(features=1000001, fields=22, batch=8192, batches=8, epochs=3,
+          lr=2.0, zipf=1.3)
+O7_TOL = 1e-5     # of the largest |value|: sums in another order (atomics)
+O8_TOL = 1e-6     # of the largest |value|: the same f32 ops, bitwise expected
+
+
+def sparse_counts(zero=False):
+    """O7's launches (forward, transposed) and O8's, set to 0 first when
+    ``zero``."""
+    from mxnet_tpu_torch.ops import sparse_ops as sops
+
+    if zero:
+        sops.csr_dot.launches = sops.csr_dot.transposed_launches = 0
+        sops.rsp_lazy_update.launches = 0
+    t = sops.csr_dot.transposed_launches
+    return sops.csr_dot.launches - t, t, sops.rsp_lazy_update.launches
+
+
+def mf_pool(m, seed):
+    """The rating pool: ``batches`` of (users, movies, ratings), ids as
+    f32 as the example's ``nd.array`` batches carry them."""
+    rs = np.random.RandomState(seed)
+    tu = rs.randn(m["users"], m["rank"]).astype(np.float32)
+    tv = rs.randn(m["movies"], m["rank"]).astype(np.float32)
+    pool = []
+    for _ in range(m["batches"]):
+        u = rs.randint(0, m["users"], m["batch"])
+        i = rs.randint(0, m["movies"], m["batch"])
+        r = (tu[u] * tv[i]).sum(1) / np.sqrt(m["rank"]) \
+            + 0.05 * rs.randn(m["batch"])
+        pool.append((u.astype(np.float32), i.astype(np.float32),
+                     r.astype(np.float32)))
+    return pool
+
+
+def mf_net(mx, dev, m, weights=None):
+    """``train_mf.py``'s MFNet on the port: two ``Embedding(sparse_grad=
+    True)`` tables, the rows' product summed; Normal(0.1) weights, or
+    ``weights`` copied in."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn
+
+    class MFNet(gluon.Block):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.user = nn.Embedding(m["users"], m["factor"],
+                                         sparse_grad=True)
+                self.item = nn.Embedding(m["movies"], m["factor"],
+                                         sparse_grad=True)
+
+        def forward(self, users, items):
+            return (self.user(users) * self.item(items)).sum(axis=-1)
+
+    with mx.Context.from_device(dev):
+        net = MFNet()
+        net.initialize(mx.init.Normal(0.1))
+    if weights is not None:
+        for t, w in zip((net.user.weight, net.item.weight), weights):
+            t.set_data(mx.nd.array(w, ctx=mx.Context.from_device(dev)))
+    return net
+
+
+def mf_trainer(net, lr, plain=False):
+    """``gluon.Trainer(..., "adagrad")``; with ``plain`` its lazy update
+    takes O8's plain version (the generic route)."""
+    from mxnet_tpu_torch import gluon
+
+    trainer = gluon.Trainer(net.collect_params(), "adagrad",
+                            {"learning_rate": lr})
+    if plain:
+        trainer._optimizer._lazy_kernel = lambda state: None
+    return trainer
+
+
+def mf_steps(mx, dev, net, trainer, pool, steps, check=None):
+    """``steps`` steps over the pool in order (``L2Loss``, ``backward()``,
+    ``trainer.step(batch)``).  Returns the losses and each step's host
+    ms, from the batch's copy to the card to the step's end on the card;
+    the loss's read and ``check(step, net, users, items)`` run after the
+    clock stops (the gradient stays until the next backward)."""
+    import torch
+
+    from mxnet_tpu_torch import autograd, gluon
+
+    ctx = mx.Context.from_device(dev)
+    loss_fn = gluon.loss.L2Loss()
+    losses, ms = [], []
+    for s in range(steps):
+        u, i, r = pool[s % len(pool)]
+        t0 = time.perf_counter()
+        with autograd.record():
+            loss = loss_fn(net(mx.nd.array(u, ctx=ctx),
+                               mx.nd.array(i, ctx=ctx)),
+                           mx.nd.array(r, ctx=ctx))
+        loss.backward()
+        trainer.step(len(r))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.mean().asscalar()))
+        if check is not None:
+            check(s, net, u, i)
+    return losses, ms
+
+
+def mf_path(mx, dev, smi):
+    """Path A, matrix factorization: 20 eager AdaGrad steps at
+    MovieLens-10M's id ranges with row-sparse gradients (the counts read
+    over these steps alone), then the same 3 steps through O8 and through
+    its plain version from one set of weights, and one profiled step."""
+    import torch
+
+    m = MF
+    pool = mf_pool(m, SPARSE_SEED)
+    mx.random.seed(SPARSE_SEED)
+    net = mf_net(mx, dev, m)
+    w0 = [net.user.weight.detach().clone(), net.item.weight.detach().clone()]
+    rows = []
+
+    def check(step, net, u, i):
+        for name, layer, ids in (("user", net.user, u),
+                                 ("item", net.item, i)):
+            g = layer.weight.grad()
+            want = np.unique(ids.astype(np.int64)).size
+            if g.stype != "row_sparse" or g.indices.shape[0] != want:
+                fail("mf: step %d's %s gradient is %s with %s rows, not "
+                     "row_sparse with %d" % (step, name, g.stype,
+                                             g.indices.shape, want))
+            rows.append(want)
+
+    trainer = mf_trainer(net, m["lr"])
+    sparse_counts(zero=True)
+    losses, ms = mf_steps(mx, dev, net, trainer, pool, m["steps"],
+                          check=check)
+    _, _, o8 = sparse_counts()
+    first = float(np.mean(losses[:m["batches"]]))
+    last = float(np.mean(losses[-m["batches"]:]))
+    log("sparse mf: %d steps of %d ratings, users %d, movies %d, factor %d:"
+        " loss %.6f (first epoch) -> %.6f (last), rows a step %d-%d of "
+        "each table, O8 %d launches (2 a step: %d), step ms p50 %.3f "
+        "(min %.3f, max %.3f) | %s"
+        % (m["steps"], m["batch"], m["users"], m["movies"], m["factor"],
+           first, last, min(rows), max(rows), o8, 2 * m["steps"],
+           float(np.median(ms[2:])), min(ms[2:]), max(ms[2:]), smi))
+    if not all(np.isfinite(losses)) or not last < 0.5 * first:
+        fail("mf: the loss did not fall by half (%s)" % losses)
+    if o8 != 2 * m["steps"]:
+        fail("mf: O8 launched %d times in %d steps, not 2 a step"
+             % (o8, m["steps"]))
+    touched_u = np.unique(np.concatenate([p[0] for p in pool])
+                          .astype(np.int64))
+    touched_i = np.unique(np.concatenate([p[1] for p in pool])
+                          .astype(np.int64))
+    for name, w, w_init, touched in (
+            ("user", net.user.weight, w0[0], touched_u),
+            ("item", net.item.weight, w0[1], touched_i)):
+        keep = torch.ones(w.shape[0], dtype=torch.bool, device=dev)
+        keep[torch.from_numpy(touched).to(dev)] = False
+        same = bool(torch.equal(w.detach()[keep], w_init[keep]))
+        moved = not torch.equal(w.detach()[~keep], w_init[~keep])
+        log("sparse mf: %s rows no id touched (%d of %d) keep their bytes: "
+            "%s; touched rows moved: %s" % (name, int(keep.sum()),
+                                            w.shape[0], same, moved))
+        if not same or not moved:
+            fail("mf: the lazy update touched rows outside the gradient, "
+                 "or none")
+    # the same steps through O8 and through its plain version
+    start = [w.cpu().numpy() for w in w0]
+    got = []
+    for plain in (False, True):
+        pnet = mf_net(mx, dev, m, weights=start)
+        pl, _ = mf_steps(mx, dev, pnet, mf_trainer(pnet, m["lr"], plain),
+                         pool, m["parity_steps"])
+        got.append((pl, [pnet.user.weight.detach(),
+                         pnet.item.weight.detach()]))
+    err = max(float((a - b).abs().max()) for a, b in zip(got[0][1],
+                                                         got[1][1]))
+    scale = max(float(b.abs().max()) for b in got[1][1])
+    log("sparse mf: %d steps through O8 against its plain version from one"
+        " set of weights: weights max abs err %.3g (largest %.3g, tolerance"
+        " 1e-5 of it: compact()'s index_add_ sums in another order), "
+        "losses %s / %s" % (m["parity_steps"], err, scale, got[0][0],
+                            got[1][0]))
+    if not err <= 1e-5 * scale:
+        fail("mf: O8's steps disagree with its plain version's")
+    # where a step's time goes
+    sparse_profile(lambda: mf_steps(mx, dev, net, trainer, pool[:1], 1),
+                   "mf", smi)
+    return {"O8": o8, "ids": np.unique(pool[0][0].astype(np.int64))}
+
+
+def sparse_profile(fn, what, smi, n=4):
+    """Wall ms, kernels busy ms and idle share of ``n`` profiled calls of
+    ``fn`` (a step each), logged with the busiest kernels; a profile that
+    holds no kernel event (CUPTI dropped it) is logged as not measured."""
+    _, wall, busy, ka = profiled_step(lambda: [fn() for _ in range(n)])
+    wall_ms = wall * 1e3 / n
+    if busy <= 0:
+        log("sparse %s: %d profiled steps: wall %.3f ms a step; kernels "
+            "busy not measured (the profile holds no kernel event) | %s"
+            % (what, n, wall_ms, smi))
+        return
+    busy /= n
+    log("sparse %s: %d profiled steps: wall %.3f ms a step, kernels busy "
+        "%.3f ms, idle %.1f%% | %s" % (what, n, wall_ms, busy,
+                                       100 * (1 - busy / wall_ms), smi))
+    sparse_top_kernels(ka, what, n)
+
+
+def sparse_top_kernels(ka, what, steps, n=6):
+    rows = sorted((e for e in ka if getattr(e, "device_time_total", 0) > 0),
+                  key=lambda e: -e.device_time_total)[:n]
+    for e in rows:
+        log("sparse %s:   %-60s %8.3f ms a step, %d launches a step" % (
+            what, e.key[:60], e.device_time_total / 1e3 / steps,
+            e.count // steps))
+
+
+def lc_write(path, c, seed):
+    """The seeded libsvm file of path B: ``batch * batches`` examples, one
+    nonzero (1.0) a field, field f's id Zipf-drawn within its own range;
+    a label 1 where a hidden weight's sum over the row (plus noise) is
+    positive.  Returns the hidden weight."""
+    rs = np.random.RandomState(seed)
+    n, f, d = c["batch"] * c["batches"], c["fields"], c["features"]
+    size = d // f
+    ranks = np.minimum(rs.zipf(c["zipf"], size=(n, f)) - 1, size - 1)
+    ids = np.arange(f) * size + ranks
+    hidden = rs.randn(d).astype(np.float32)
+    labels = (hidden[ids].sum(1) / np.sqrt(f) + 0.3 * rs.randn(n)) > 0
+    with open(path, "w") as out:
+        for lab, row in zip(labels, ids):
+            out.write("%d %s\n" % (lab, " ".join("%d:1" % j for j in row)))
+    return hidden
+
+
+def lc_epoch(mx, it, w, b, dot, lr):
+    """One epoch of ``examples/sparse/linear_classification.py``'s loop:
+    ``p = sigmoid(dot(x, w) + b)`` on each CSR batch, the log loss, and
+    ``w -= lr * dot(x, p - y, transpose_a=True) / B``.  Returns w, b, the
+    mean log loss and each batch's predictions."""
+    it.reset()
+    losses, preds = [], []
+    for batch in it:
+        x = batch.data[0]
+        y = batch.label[0].asnumpy()
+        z = dot(x, w, False).asnumpy().reshape(-1) + b
+        p = 1.0 / (1.0 + np.exp(-z))
+        err = (p - y).astype(np.float32)
+        keep = len(y) - batch.pad
+        eps = 1e-7
+        losses.append(-np.mean(y[:keep] * np.log(p[:keep] + eps)
+                               + (1 - y[:keep]) * np.log(1 - p[:keep] + eps)))
+        gw = dot(x, mx.nd.array(err.reshape(-1, 1), ctx=w.context), True)
+        w -= lr * gw / len(y)
+        b -= lr * float(err.mean())
+        preds.append(p)
+    return w, b, float(np.mean(losses)), preds
+
+
+def o7_plain(x, rhs, transpose_a):
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+    from mxnet_tpu_torch.ops import sparse_ops as sops
+
+    return NDArray._wrap(sops.csr_dot_ref(
+        x.data_arr._data, x.indptr._data, x.indices._data, rhs._data,
+        x.shape, transpose_a), x.context)
+
+
+def lc_path(mx, dev, smi, tmp):
+    """Path B, sparse linear classification at Avazu's width: the seeded
+    libsvm file parsed by ``LibSVMIter`` into CSR batches on the card,
+    3 epochs (the counts read over them alone), then the first epoch
+    again through O7's plain version from the same zero weight, and one
+    profiled batch."""
+    from mxnet_tpu_torch.io import LibSVMIter
+    from mxnet_tpu_torch.ndarray import sparse
+
+    c = LC
+    path = os.path.join(tmp, "avazu_width.libsvm")
+    t0 = time.perf_counter()
+    lc_write(path, c, SPARSE_SEED)
+    t1 = time.perf_counter()
+    with mx.Context.from_device(dev):
+        it = LibSVMIter(data_libsvm=path, data_shape=(c["features"],),
+                        batch_size=c["batch"])
+    t2 = time.perf_counter()
+    log("sparse lc: %d examples x %d features, %d nonzeros a row: file "
+        "written in %.1f s, parsed by read_libsvm in %.1f s"
+        % (it.num_examples, c["features"], c["fields"], t1 - t0, t2 - t1))
+    ctx = mx.Context.from_device(dev)
+
+    def o7(x, rhs, transpose_a):
+        return sparse.dot(x, rhs, transpose_a=transpose_a)
+
+    w, b = mx.nd.zeros((c["features"], 1), ctx=ctx), 0.0
+    sparse_counts(zero=True)
+    losses, first_preds = [], None
+    epoch_ms = []
+    for e in range(c["epochs"]):
+        t0 = time.perf_counter()
+        w, b, loss, preds = lc_epoch(mx, it, w, b, o7, c["lr"])
+        epoch_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        first_preds = first_preds or preds
+    fwd, tr, _ = sparse_counts()
+    n_b = c["batches"] * c["epochs"]
+    log("sparse lc: log loss by epoch %s, O7 %d forward and %d transposed "
+        "launches (%d each expected), epoch ms %s (%.3f ms a batch) | %s"
+        % (["%.6f" % v for v in losses], fwd, tr, n_b,
+           ["%.1f" % v for v in epoch_ms],
+           epoch_ms[-1] / c["batches"], smi))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("lc: the log loss did not fall (%s)" % losses)
+    if fwd != n_b or tr != n_b:
+        fail("lc: O7 launched %d forward and %d transposed times, not %d"
+             % (fwd, tr, n_b))
+    _, _, _, plain_preds = lc_epoch(
+        mx, it, mx.nd.zeros((c["features"], 1), ctx=ctx), 0.0, o7_plain,
+        c["lr"])
+    err = max(float(np.abs(a - p).max()) for a, p in zip(first_preds,
+                                                         plain_preds))
+    log("sparse lc: first epoch's predictions through O7 against its plain "
+        "version: max abs err %.3g (tolerance 1e-5)" % err)
+    if not err <= 1e-5:
+        fail("lc: O7's predictions disagree with its plain version's")
+    it.reset()
+    batch = next(it)
+    sparse_profile(lambda: lc_one(mx, batch, w, o7, c["lr"]), "lc", smi)
+    return {"O7": fwd + tr, "batch": batch}
+
+
+def lc_one(mx, batch, w, dot, lr):
+    x = batch.data[0]
+    y = batch.label[0].asnumpy()
+    p = 1.0 / (1.0 + np.exp(-dot(x, w, False).asnumpy().reshape(-1)))
+    gw = dot(x, mx.nd.array((p - y).astype(np.float32).reshape(-1, 1),
+                            ctx=w.context), True)
+    return w - lr * gw / len(y), None
+
+
+def o7_bound(x, kdim, transpose_a):
+    """O7's least time at this batch, in ms, by bytes: the values, column
+    indices and indptr once, the rhs rows the product needs (those of the
+    distinct columns; all m rows transposed), the output once."""
+    nnz, (m, n) = x.data_arr.shape[0], x.shape
+    need = int(x.indices._data.unique().numel()) if not transpose_a else m
+    out = n if transpose_a else m
+    nbytes = 4 * nnz + 8 * nnz + 8 * (m + 1) + 4 * kdim * need \
+        + 4 * kdim * out
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def o7_checks(dev, batch, smi):
+    """O7 in both modes at path B's shapes against its plain version, then
+    timed (queued behind a sleep) beside its bound, the plain version and
+    ``torch.sparse.mm`` on a CSR tensor (cuSPARSE; a yardstick only)."""
+    import torch
+
+    from mxnet_tpu_torch.ops import sparse_ops as sops
+
+    x = batch.data[0]
+    m, n = x.shape
+    data, indptr, cols = (x.data_arr._data, x.indptr._data,
+                          x.indices._data)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SPARSE_SEED)
+    out = {}
+    a = torch.sparse_csr_tensor(indptr, cols, data, size=(m, n))
+    at = a.to_sparse_coo().t().coalesce().to_sparse_csr()
+    for mode, rows in (("forward", n), ("transposed", m)):
+        t = mode == "transposed"
+        rhs = torch.randn(rows, 1, generator=g, device=dev)
+        got = sops.csr_dot(data, indptr, cols, rhs, (m, n), t)
+        want = sops.csr_dot_ref(data, indptr, cols, rhs, (m, n), t)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        ok = err <= O7_TOL * max(scale, 1.0)
+        ms = queued_ms(lambda i: sops.csr_dot(data, indptr, cols, rhs,
+                                              (m, n), t), 50)
+        plain_ms = queued_ms(lambda i: sops.csr_dot_ref(
+            data, indptr, cols, rhs, (m, n), t), 20)
+        lib = at if t else a
+        lib_err = float((torch.sparse.mm(lib, rhs) - want).abs().max())
+        library_ms = queued_ms(lambda i: torch.sparse.mm(lib, rhs), 50)
+        bound = o7_bound(x, 1, t)
+        log("sparse o7 %-10s %d x %d, %d nonzeros, K 1: max abs err %.3g "
+            "(largest %.3g, tolerance %g of it) %s; %.4f ms, bound %.4f ms "
+            "(bytes, %.1f%%), plain %.4f ms, torch.sparse.mm %.4f ms (its "
+            "err %.3g) | %s"
+            % (mode, m, n, x.data_arr.shape[0], err, scale, O7_TOL,
+               "ok" if ok else "FAIL", ms, bound, 100 * bound / ms,
+               plain_ms, library_ms, lib_err, smi))
+        if not ok:
+            fail("O7 (%s) disagrees with its plain version" % mode)
+        out[mode] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": "bytes",
+                     "library_ms": library_ms}
+    return out
+
+
+def o8_case(dev, route, n, c, ids, seed):
+    """An optimizer of ``route`` and its inputs: a weight (n, c), its
+    state, gradient rows at ``ids``, the device scalars, the optimizer's
+    step on gathered rows in plain torch (O8's plain version runs it; it
+    launches neither O1 nor O2) and O8's keyword arguments."""
+    import torch
+
+    from mxnet_tpu_torch import optimizer
+
+    opt = {"sgd": lambda: optimizer.SGD(learning_rate=0.1, wd=1e-4,
+                                        clip_gradient=5.0),
+           "sgd_mom": lambda: optimizer.SGD(learning_rate=0.1, momentum=0.9,
+                                            wd=1e-4),
+           "adam": lambda: optimizer.Adam(learning_rate=1e-3, wd=1e-4,
+                                          rescale_grad=0.5),
+           "adagrad": lambda: optimizer.AdaGrad(learning_rate=1.0)}[route]()
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    w = torch.randn(n, c, generator=g, device=dev)
+    state = opt.create_state(0, w)
+    for s in (state if isinstance(state, tuple) else (state,)):
+        if s is not None:
+            s.copy_(torch.rand(n, c, generator=g, device=dev))
+    vals = torch.randn(len(ids), c, generator=g, device=dev)
+    idx = torch.as_tensor(ids, dtype=torch.int64, device=dev)
+    lr = torch.full((), opt.learning_rate, dtype=torch.float32, device=dev)
+    t = torch.full((), 3, dtype=torch.int32, device=dev)
+    name, consts = opt._lazy_kernel(state)
+    if name != route:
+        fail("o8_case: %s takes O8's route %s, not %s"
+             % (type(opt).__name__, name, route))
+
+    def step(wr, gr, sr):
+        opt._step_multi([wr], [gr], [sr], lr, [opt.wd], t, [1.0],
+                        plain=True)
+
+    kw = dict(lr=lr, t=t, wd=opt.wd, rescale=opt.rescale_grad,
+              clip=opt._clip(), **consts)
+    return opt, w, state, idx, vals, lr, t, step, kw
+
+
+def _clone_state(state):
+    if state is None:
+        return None
+    if isinstance(state, tuple):
+        return tuple(s.clone() for s in state)
+    return state.clone()
+
+
+def o8_checks(dev, ids, smi):
+    """O8's routes at path A's shapes (the user table, the first batch's
+    distinct ids) against its plain version, an empty gradient, then each
+    timed (queued behind a sleep) beside its bound, the plain version
+    and torch's own sparse optimizer step on a coalesced COO gradient
+    (``SGD``, ``SparseAdam``, ``Adagrad``: other functions over the same
+    bytes, eps placed their way; yardsticks only)."""
+    import torch
+
+    from mxnet_tpu_torch.ops import sparse_ops as sops
+
+    from mxnet_tpu_torch.ops import optimizer_ops as oops
+
+    n, c = MF["users"], MF["factor"]
+    out = {}
+    arrays = {"sgd": 3, "sgd_mom": 5, "adam": 7, "adagrad": 5}
+    for k, route in enumerate(("sgd", "sgd_mom", "adam", "adagrad")):
+        opt, w, state, idx, vals, lr, t, step, kw = o8_case(
+            dev, route, n, c, ids, SPARSE_SEED + k)
+        w1, s1 = w.clone(), _clone_state(state)
+        w2, s2 = w.clone(), _clone_state(state)
+        before = sops.rsp_lazy_update.launches
+        sops.rsp_lazy_update(w1, idx, vals, s1, route, step, **kw)
+        held = (oops.multi_sgd.launches, oops.multi_adamw.launches)
+        sops.rsp_lazy_update_ref(w2, idx, vals, s2, step)
+        if (oops.multi_sgd.launches, oops.multi_adamw.launches) != held:
+            fail("O8's plain version (%s) launched O1 or O2" % route)
+        pairs = [(w1, w2)] + list(zip(sops._leaves(s1), sops._leaves(s2)))
+        err = max(float((a - b).abs().max()) for a, b in pairs)
+        scale = max(float(b.abs().max()) for _, b in pairs)
+        untouched = torch.ones(n, dtype=torch.bool, device=dev)
+        untouched[idx] = False
+        same = bool(torch.equal(w1[untouched], w[untouched]))
+        empty = w.clone()
+        sops.rsp_lazy_update(empty, idx[:0], vals[:0],
+                             _clone_state(state), route, step, **kw)
+        launched = sops.rsp_lazy_update.launches - before
+        ok = err <= O8_TOL * scale and same and torch.equal(empty, w) \
+            and launched == 1
+        ms = queued_ms(lambda i: sops.rsp_lazy_update(
+            w1, idx, vals, s1, route, step, **kw), 50)
+        plain_ms = queued_ms(lambda i: sops.rsp_lazy_update_ref(
+            w2, idx, vals, s2, step), 20)
+        p = torch.nn.Parameter(w.clone())
+        lib = {"sgd": lambda: torch.optim.SGD([p], lr=0.1),
+               "sgd_mom": lambda: torch.optim.SGD([p], lr=0.1, momentum=0.9),
+               "adam": lambda: torch.optim.SparseAdam([p], lr=1e-3),
+               "adagrad": lambda: torch.optim.Adagrad([p], lr=1.0)}[route]()
+        p.grad = torch.sparse_coo_tensor(idx[None], vals, (n, c)).coalesce()
+        library_ms = queued_ms(lambda i: lib.step(), 50)
+        nbytes = arrays[route] * len(ids) * c * 4 + 8 * len(ids)
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        log("sparse o8 %-8s %d of %d rows x %d: max abs err %.3g (largest "
+            "%.3g, tolerance %g of it), untouched rows kept %s, U = 0 a "
+            "no-op %s, %s; %.4f ms, bound %.4f ms (bytes, %.1f%%), plain "
+            "%.4f ms, torch.optim %s %.4f ms | %s"
+            % (route, len(ids), n, c, err, scale, O8_TOL, same,
+               torch.equal(empty, w), "ok" if ok else "FAIL", ms, bound,
+               100 * bound / ms, plain_ms, type(lib).__name__, library_ms,
+               smi))
+        if not ok:
+            fail("O8 (%s) disagrees with its plain version" % route)
+        out[route] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": "bytes",
+                      "library_ms": library_ms,
+                      "library": "torch.optim.%s" % type(lib).__name__}
+    return out
+
+
+def sparse_phase(dev):
+    """Path A (MF, O8) and path B (linear classification, O7), then O7's
+    and O8's checks and timing.  Returns the launches and the readings."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    start_profiler(dev)
+    smi = nvidia_smi_line()
+    with mx.Context.from_device(dev):
+        mf = mf_path(mx, dev, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            lc = lc_path(mx, dev, smi, tmp)
+        o7 = o7_checks(dev, lc["batch"], smi)
+        o8 = o8_checks(dev, mf["ids"], smi)
+    return {"O7": lc["O7"], "O8": mf["O8"]}, o7, o8
+
+
 def clocks_line():
     """The card's SM clock and its maximum now (nvidia-smi)."""
     r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
@@ -9844,12 +10424,13 @@ def nvidia_smi_line():
 PHASES = ("kernel", "flash", "optimizer", "serve", "parity", "fleet",
           "train", "train_parity", "hybridize", "rtc", "imperative",
           "imperative_parity", "resnet", "bert", "gluon", "np", "vision",
-          "gan", "ssd", "quant", "ops")
-# the phases that launch K1-K4 and O1-O6, whose libraries the smoke
+          "gan", "ssd", "quant", "ops", "sparse")
+# the phases that launch K1-K4 and O1-O8, whose libraries the smoke
 # builds first
 NVCC_PHASES = {"kernel", "flash", "optimizer", "serve", "parity", "fleet",
                "train", "train_parity", "hybridize", "resnet", "bert",
-               "gluon", "np", "vision", "gan", "ssd", "quant", "ops"}
+               "gluon", "np", "vision", "gan", "ssd", "quant", "ops",
+               "sparse"}
 
 
 def kernel_entry(name, source, replaces, launches, timing, extra=None):
@@ -9884,6 +10465,7 @@ def main(argv):
     from mxnet_tpu_torch.ops import int8_ops
     from mxnet_tpu_torch.ops import optimizer_ops as oo
     from mxnet_tpu_torch.ops import paged_attention as pa
+    from mxnet_tpu_torch.ops import sparse_ops
 
     phases = argv[0].split(",") if argv else list(PHASES)
     if set(phases) - set(PHASES):
@@ -9906,7 +10488,8 @@ def main(argv):
     if set(phases) & NVCC_PHASES:
         built = _build.build_all([fa._SOURCE, pa._SOURCE, drop_split,
                                   oo._SOURCE, skip_last, box_nms._SOURCE,
-                                  int8_ops._SOURCE, skip_k_tile],
+                                  int8_ops._SOURCE, skip_k_tile,
+                                  sparse_ops._SOURCE],
                                  verbose=True)
         for lib, seconds in built.values():
             log("build: %s ready after %.1f s"
@@ -9969,6 +10552,8 @@ def main(argv):
         "quant", lambda: quant_phase(dev, built[skip_k_tile][0])) \
         or (None, None, None)
     timed("ops", ops_phase, mx, dev)
+    sparse_launches, o7, o8 = timed("sparse", sparse_phase, dev) \
+        or (None, None, None)
     log("total: %.1f s" % (time.perf_counter() - t_all))
     if list(phases) != list(PHASES):
         log("ran phases %s only: no result lines" % ",".join(phases))
@@ -9977,6 +10562,7 @@ def main(argv):
     src = "mxnet_tpu_torch/csrc/flash_attention.cu"
     opt_src = "mxnet_tpu_torch/csrc/optimizer_ops.cu"
     int8_src = "mxnet_tpu_torch/csrc/int8_ops.cu"
+    sparse_src = "mxnet_tpu_torch/csrc/sparse_ops.cu"
     flash, flash_bert = flash
     paths = (flash_launches, hybrid_launches, bert_launches, gluon_launches,
              np_launches)
@@ -10038,7 +10624,19 @@ def main(argv):
                      int8_launches["O6"], o6,
                      {k: o6[k] for k in ("cudnn_bf16_ms", "quantize_ms",
                                          "quantize_bound_ms", "f32_mode_ms",
-                                         "f32_mode_bound_ms")})]}))
+                                         "f32_mode_bound_ms")}),
+        kernel_entry("O7 csr_dot (port-only)", sparse_src,
+                     "mxnet_tpu/ndarray/sparse.py:408", sparse_launches["O7"],
+                     o7["forward"], {"shape": "8192 x 1000001, 22 a row, K 1",
+                                     "library": "torch.sparse.mm (cuSPARSE)",
+                                     "transposed": o7["transposed"]}),
+        kernel_entry("O8 rsp_lazy_update (port-only)", sparse_src,
+                     "mxnet_tpu/optimizer/optimizer.py:170",
+                     sparse_launches["O8"], o8["adagrad"],
+                     {"optimizer": "adagrad",
+                      "library": o8["adagrad"]["library"],
+                      "routes": {r: o8[r] for r in ("sgd", "sgd_mom",
+                                                    "adam")}})]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

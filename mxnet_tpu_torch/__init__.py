@@ -49,6 +49,11 @@ Ported so far:
   ``ndarray`` over NDArray, its function namespace, ``np.linalg`` and
   ``np.random``), ``mx.npx`` (``numpy_extension``), the ``_np*``/
   ``_npi_*`` ops of ``ops.npi`` and ``mx.util``;
+* sparse storage: ``nd.sparse`` (``RowSparseNDArray``, ``CSRNDArray``),
+  ``Embedding(sparse_grad=True)`` with the lazy row-sparse update, the
+  sparse dot and the lazy update as the kernels O7 and O8
+  (``ops.sparse_ops``), dlpack, ``gluon.contrib.nn`` and ``io`` with
+  ``LibSVMIter``;
 * the telemetry and testing modules these tiers use.
 
 The port's own kernels are CUDA C++ for sm_90a in ``csrc/``.  Entry
@@ -63,6 +68,7 @@ from . import metric, name, registry  # noqa: F401
 from . import autograd, engine, ndarray, random, rtc  # noqa: F401
 from . import operator  # noqa: F401
 from . import contrib  # noqa: F401
+from . import io  # noqa: F401
 from . import numpy, numpy_extension, util  # noqa: F401
 from . import numpy as np  # noqa: F401
 from . import numpy_extension as npx  # noqa: F401

@@ -14,8 +14,10 @@ The tape is torch's autograd graph:
   ``torch.no_grad()``.
 * ``backward`` runs ``torch.autograd.backward`` from the heads and
   writes each marked array's gradient (its leaf view's) by its
-  ``grad_req``; a Gluon block's parameters that the heads reach get
-  theirs in ``.grad``, as a tensor backward gives them.  ``grad_req``:
+  ``grad_req``, a row-sparse one (torch's sparse COO, from
+  ``Embedding(sparse_grad=True)``) kept row-sparse; a Gluon block's
+  parameters that the heads reach get theirs in ``.grad``, as a tensor
+  backward gives them.  ``grad_req``:
   ``write`` copies it over ``.grad``, ``add`` adds it, ``null`` drops
   it.  A head that is not a scalar gets a
   head gradient of ones.  Without ``retain_graph`` the graph is freed,
@@ -263,8 +265,20 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                 res[i] = g if res[i] is None else res[i] + g
         if res[i] is None:
             res[i] = torch.zeros_like(v._data)
-    out = [NDArray(r, ctx=v.context) for r, v in zip(res, var_list)]
+    out = [_grad_array(r, v.context) for r, v in zip(res, var_list)]
     return out[0] if single else out
+
+
+def _grad_array(g, ctx):
+    """A gradient tensor as an NDArray, a row-sparse one (torch's sparse
+    COO, from ``Embedding(sparse_grad=True)``) as a RowSparseNDArray."""
+    from .ndarray.ndarray import NDArray
+
+    if g.is_sparse:
+        from .ndarray.sparse import RowSparseNDArray
+
+        return RowSparseNDArray._from_torch(g, ctx)
+    return NDArray(g, ctx=ctx)
 
 
 class _Bridge(torch.autograd.Function):

@@ -7,4 +7,4 @@ from .parameter import (  # noqa: F401
 )
 from .block import Block, HybridBlock  # noqa: F401
 from .trainer import Trainer  # noqa: F401
-from . import data, loss, model_zoo, nn, utils  # noqa: F401
+from . import contrib, data, loss, model_zoo, nn, utils  # noqa: F401

@@ -356,6 +356,10 @@ class Block(torch.nn.Module):
     """Base block (parity: gluon.Block)."""
 
     _nd_forward = False     # forward written outside this package
+    # a recorded call gives a parameter a row-sparse gradient
+    # (Embedding(sparse_grad=True)); a hybridized tree holding such a
+    # block runs its recorded calls eagerly
+    _sparse_grad = False
 
     def __init_subclass__(cls, **kwargs):
         super().__init_subclass__(**kwargs)
@@ -756,7 +760,10 @@ class HybridBlock(Block):
     grad) is keyed also by which inputs and parameters require grad, and
     replays a forward graph whose outputs carry a backward graph that
     gives their gradients; while that backward is pending, a call of
-    the same key runs eagerly (``stats()["busy_calls"]``).  The graphs
+    the same key runs eagerly (``stats()["busy_calls"]``).  A recorded
+    call of a tree that holds an ``Embedding(sparse_grad=True)`` runs
+    eagerly (``stats()["sparse_calls"]``): its row-sparse gradient's row
+    count depends on the data, so it cannot be captured.  The graphs
     read the parameters in place, so an in-place update shows in the
     next replay; a parameter whose storage moved is captured again, and
     ``hybridize(False)``, ``clear_cache()``, ``cast()`` and
@@ -773,6 +780,7 @@ class HybridBlock(Block):
         self._aot_path = None       # hybridize(aot=...) bundle file
         self._aot_entries = None    # its entries, read once
         self._aot_pending = False   # its signatures not captured yet
+        self._sparse_calls = 0      # recorded calls run eagerly (sparse)
 
     def hybridize(self, active=True, static_alloc=False, static_shape=False,
                   lint=False, aot=None, **kwargs):
@@ -907,6 +915,9 @@ class HybridBlock(Block):
         watched = self._graph_tensors()
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in tensors + watched):
+            if _autograd.is_recording() and self._sparse_grads():
+                self._sparse_calls += 1
+                return super()._call(*args, **kwargs)
             if not self._graphs.pairs_on(tensors[0].device):
                 return super()._call(*args, **kwargs)
             key += (_graph_cache.grad_signature(tensors),
@@ -925,11 +936,25 @@ class HybridBlock(Block):
     def stats(self):
         """This block's graphs: held, captures, replays, backward
         replays, busy calls run eagerly, capture and host seconds, and
-        the pool's bytes (``graph_cache.CallCache.stats``)."""
-        return self._graphs.stats()
+        the pool's bytes (``graph_cache.CallCache.stats``); and the
+        recorded calls run eagerly for a row-sparse gradient
+        (``sparse_calls``)."""
+        return dict(self._graphs.stats(), sparse_calls=self._sparse_calls)
 
     def _grad_params(self):
         return [t for t in self._graph_tensors() if t.requires_grad]
+
+    def _sparse_grads(self):
+        """Whether the tree holds a block whose recorded call gives a
+        row-sparse gradient (``Block._sparse_grad``; looked up again only
+        after the tree changed)."""
+        gen = _graph_cache.tree_generation()
+        seen = getattr(self, "_sparse_seen", None)
+        if seen is None or seen[0] != gen:
+            seen = (gen, any(isinstance(b, Block) and b._sparse_grad
+                             for b in self.modules()))
+            self._sparse_seen = seen
+        return seen[1]
 
     def forward(self, *args):
         """``hybrid_forward`` with the JAX package's arguments (see the

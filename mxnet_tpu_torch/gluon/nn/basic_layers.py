@@ -145,25 +145,28 @@ class Embedding(HybridBlock):
     through the ``Embedding`` op: float indices (as the JAX package's
     ``nd.array`` batches carry them) are truncated to integers, a
     negative one counts from the end, and one out of range gives a row
-    of NaN, as in the JAX package.  ``sparse_grad=True`` raises (sparse
-    storage is S7)."""
+    of NaN, as in the JAX package.  With ``sparse_grad=True`` a call that
+    ``autograd.record()`` records clips the ids and gives the weight a
+    row-sparse gradient (``ops.nn.embedding_rows``; ``weight.grad()`` is
+    a ``RowSparseNDArray``, ``gluon.Trainer`` updates its rows lazily),
+    also inside a hybridized block, whose recorded calls then run
+    eagerly."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, prefix=None,
                  params=None, device=None):
         super().__init__(prefix=prefix, params=params)
-        if sparse_grad:
-            raise MXNetError("Embedding(sparse_grad=True) is not ported "
-                             "yet (S7, sparse storage)")
         self._input_dim = input_dim
         self._output_dim = output_dim
+        self._sparse_grad = bool(sparse_grad)
         self.weight = self.params.get(
             "weight", shape=(input_dim, output_dim), dtype=dtype,
             init=weight_initializer, allow_deferred_init=True,
+            grad_stype="row_sparse" if sparse_grad else "default",
             device=resolve(device))
 
     def forward(self, x):
-        return _ops._embedding(x, self.weight)
+        return _ops._embedding(x, self.weight, sparse_grad=self._sparse_grad)
 
     def __repr__(self):
         return "Embedding(%s -> %s)" % (self._input_dim, self._output_dim)

@@ -26,7 +26,11 @@ so a change takes effect on the next backward.
 
 ``data()`` and ``grad()`` return NDArrays over the tensor and its
 ``.grad`` (the same storage); ``grad()`` gives zeros while no backward
-has reached the tensor.  ``set_data`` copies in place, so a captured
+has reached the tensor, and a ``RowSparseNDArray`` where ``.grad`` is
+torch's sparse COO gradient (``Embedding(sparse_grad=True)``; the
+write rule and ``"add"`` work on it as on a dense one, and
+``zero_grad`` empties it).  ``stype`` and ``grad_stype`` are accepted
+and kept, as in the JAX package.  ``set_data`` copies in place, so a captured
 graph reads the new value.  One device only: ``list_data()`` has one
 entry and ``reset_ctx`` moves the tensor.
 
@@ -176,10 +180,14 @@ class Parameter:
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default", device=None):
-        if stype != "default" or grad_stype != "default":
-            raise MXNetError("Parameter(stype=%r, grad_stype=%r): sparse "
-                             "storage is not ported yet (S7 in ROADMAP.md)"
-                             % (stype, grad_stype))
+        for what, st in (("stype", stype), ("grad_stype", grad_stype)):
+            if st not in ("default", "row_sparse", "csr"):
+                raise MXNetError("Parameter(%s=%r): default, row_sparse or "
+                                 "csr" % (what, st))
+        # accepted and kept, as in the JAX package: the data is dense, and
+        # a gradient is row-sparse where the op that makes it says so
+        # (Embedding(sparse_grad=True))
+        self._stype, self._grad_stype = stype, grad_stype
         self.name = name
         req = grad_req if differentiable else "null"
         _check_req(req)
@@ -425,7 +433,9 @@ class Parameter:
 
     def grad(self, ctx=None):
         """The gradient as an NDArray over ``.grad`` (zeros while no
-        backward has reached the tensor)."""
+        backward has reached the tensor); a row-sparse one (torch's sparse
+        COO ``.grad``, from ``Embedding(sparse_grad=True)``) as a
+        compacted ``RowSparseNDArray``."""
         from ..ndarray.ndarray import NDArray
 
         self._check_initialized()
@@ -435,6 +445,10 @@ class Parameter:
         if g is None:
             return NDArray._wrap(torch.zeros_like(self._tensor),
                                  self._context())
+        if g.is_sparse:
+            from ..ndarray.sparse import RowSparseNDArray
+
+            return RowSparseNDArray._from_torch(g, self._context())
         out = NDArray._wrap(g, self._context())
         out._stable = True
         return out

@@ -29,6 +29,13 @@ A step updates every parameter through the optimizer's
 only under ``ignore_stale_grad``), whose learning rate and count the
 Trainer writes into two device scalars first, so SGD, NAG, Adam and
 AdamW launch one multi-tensor kernel per group of dtypes on the card.
+A parameter whose gradient is row-sparse (torch's sparse COO ``.grad``,
+from ``Embedding(sparse_grad=True)``) leaves those groups and takes the
+optimizer's lazy update (``Optimizer.update`` with a
+``RowSparseNDArray``: O8, one launch a parameter, for SGD, Adam and
+AdaGrad), as the JAX package's Trainer
+sends it to its sparse executable; no sparse tensor reaches
+``_step_multi``.
 ``save_states``/``load_states`` write and read the JAX package's MXGC1
 format (``sharding/checkpoint.py``) with its entry names and meta, and
 read its legacy pickles: a file one package writes, the other reads.
@@ -41,6 +48,8 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..context import Context
+from ..ndarray.sparse import RowSparseNDArray
 from .. import optimizer as opt_mod
 from .. import sharding as _shd
 from .block import write_grads_when_reached
@@ -173,8 +182,16 @@ class Trainer:
                     "ignore_stale_grad=True to suppress" % self._names[i])
             active.append(i)
         self._ensure_states()
-        groups = {}
+        dense = []
         for i in active:
+            if not params[i].grad.is_sparse:
+                dense.append(i)
+                continue
+            rsp = RowSparseNDArray._from_torch(
+                params[i].grad, Context.from_device(params[i].device))
+            opt.update(i, params[i].detach(), rsp, self._states[i])
+        groups = {}
+        for i in dense:
             opt._update_count(i)
             key = (params[i].device, opt._index_update_count[i],
                    opt.learning_rate)

@@ -23,10 +23,23 @@ Where the port differs from the JAX package, deliberately:
   ``_data`` flushes the segment; its shape, dtype and whether it
   requires grad are known without a flush.
 
+* a gradient may be row-sparse: ``Embedding(sparse_grad=True)`` under
+  ``record()`` gives a ``sparse.RowSparseNDArray`` (compacted), which
+  ``grad`` returns.  ``write`` replaces it at each backward; ``add``
+  sums two row-sparse gradients (compacted) and scatters one into a
+  dense gradient; a dense gradient onto a row-sparse one densifies it
+  (the JAX package's ``_accumulate_grad`` rules).
+  ``attach_grad(stype="row_sparse")`` starts from an empty row-sparse
+  gradient.
+* dlpack exports alias the tensor on either device (no copy): a write
+  through ``to_dlpack_for_write``'s capsule shows in the array at once,
+  where the JAX package's shows after its next read (it writes a host
+  mirror).  An export flushes a lazy array first and waits for its last
+  write; the write export counts as a write to the engine.
+
 Not ported yet (a call raises ``MXNetError`` naming the slice in
 ``ROADMAP.md``): sharding (``reshard``, ``with_sharding_constraint``,
-``shard``, S8), sparse storage (``tostype``, S7), dlpack (S7), and the
-methods over ops this slice leaves out (``one_hot``, ``sort``/``argsort``/``topk``, S7).
+``shard``, S8).
 """
 from __future__ import annotations
 
@@ -261,8 +274,19 @@ class NDArray:
     # ------------------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
         """Mark for gradient collection (parity: ndarray.py attach_grad):
-        a zero gradient buffer, filled by each ``backward``."""
-        self._mark(grad_req, torch.zeros_like(self._data))
+        a zero gradient buffer, filled by each ``backward``; with
+        ``stype="row_sparse"`` an empty row-sparse one."""
+        if stype in (None, "default"):
+            buf = torch.zeros_like(self._data)
+        elif stype == "row_sparse":
+            from . import sparse
+
+            buf = sparse.zeros("row_sparse", self.shape, ctx=self._ctx,
+                               dtype=self._data.dtype)
+        else:
+            raise MXNetError("attach_grad: stype %r (default or row_sparse)"
+                             % (stype,))
+        self._mark(grad_req, buf)
 
     def _mark(self, grad_req, grad_buf):
         if grad_req not in ("write", "add", "null"):
@@ -276,31 +300,60 @@ class NDArray:
         autograd._marked[id(self)] = self
 
     def _write_grad(self, g):
-        """One backward's gradient, written by ``grad_req``."""
+        """One backward's gradient, written by ``grad_req``: a torch sparse
+        COO gradient is kept row-sparse (see the module docstring)."""
         if self._grad_req == "null":
             return
+        from .sparse import RowSparseNDArray
+
+        prev = self._grad
+        add = self._grad_req == "add" and prev is not None
+        if g.is_sparse:
+            rsp = RowSparseNDArray._from_torch(g.to(self._data.dtype),
+                                               self._ctx)
+            if not add:
+                self._grad = rsp
+            elif isinstance(prev, RowSparseNDArray):
+                self._grad = prev + rsp
+            else:
+                Engine.get().flush_if_referencing((prev,), "grad")
+                prev.index_add_(0, rsp.indices._data, rsp.values._data)
+            return
         g = g.to(self._data.dtype)
-        if self._grad is not None:
-            Engine.get().flush_if_referencing((self._grad,), "grad")
-        if self._grad is None or self._grad.shape != g.shape:
+        if isinstance(prev, RowSparseNDArray):
+            self._grad = prev.tostype("default")._data + g if add \
+                else g.clone()
+            return
+        if prev is not None:
+            Engine.get().flush_if_referencing((prev,), "grad")
+        if prev is None or prev.shape != g.shape:
             self._grad = g.clone()
-        elif self._grad_req == "add":
-            self._grad.add_(g)
+        elif add:
+            prev.add_(g)
         else:
-            self._grad.copy_(g)
+            prev.copy_(g)
 
     @property
     def grad(self):
         if self._grad is None:
             return None
+        if not isinstance(self._grad, torch.Tensor):
+            return self._grad       # row-sparse
         g = NDArray._wrap(self._grad, self._ctx)
         g._stable = True
         return g
 
     def zero_grad(self):
-        if self._grad is not None:
-            Engine.get().flush_if_referencing((self._grad,), "grad")
-            self._grad.zero_()
+        if self._grad is None:
+            return
+        if not isinstance(self._grad, torch.Tensor):
+            from . import sparse
+
+            self._grad = sparse.zeros("row_sparse", self.shape,
+                                      ctx=self._ctx, dtype=self._data.dtype)
+            return
+        Engine.get().flush_if_referencing((self._grad,), "grad")
+        self._grad.zero_()
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
         autograd.backward([self], [out_grad] if out_grad is not None
@@ -355,8 +408,13 @@ class NDArray:
     as_in_ctx = as_in_context
 
     def tostype(self, stype):
+        """This array in ``stype`` storage: itself for ``"default"``, a
+        ``sparse.RowSparseNDArray`` or ``sparse.CSRNDArray`` view of its
+        values otherwise."""
         if stype != "default":
-            _not_ported("sparse storage (tostype %r)" % stype, "S7")
+            from . import sparse
+
+            return sparse.dense_to(self, stype)
         return self
 
     def reshard(self, spec=None, mesh=None):
@@ -365,10 +423,36 @@ class NDArray:
     def with_sharding_constraint(self, spec=None, mesh=None):
         _not_ported("NDArray.with_sharding_constraint", "S8")
 
-    def to_dlpack_for_read(self):
-        _not_ported("dlpack", "S7")
+    # ------------------------------------------------------------------
+    # DLPack (reference ndarray.py:2825-2893): the export aliases the
+    # tensor on either device
+    # ------------------------------------------------------------------
+    def _dlpack_tensor(self, write):
+        """The tensor to export, once its last write is done (a lazy
+        array flushes first); a write export bumps the version and flushes
+        the open segment where it reads this tensor."""
+        data = self._data
+        self.wait_to_read()
+        if write:
+            Engine.get().flush_if_referencing((data,), "dlpack")
+            self._var.on_write()
+        return data.detach()
 
-    to_dlpack_for_write = to_dlpack_for_read
+    def __dlpack__(self, **kwargs):
+        return self._dlpack_tensor(False).__dlpack__(**kwargs)
+
+    def __dlpack_device__(self):
+        return self._data.__dlpack_device__()
+
+    def to_dlpack_for_read(self):
+        """A DLPack capsule over this array's tensor (no copy); no writes
+        through it."""
+        return torch.utils.dlpack.to_dlpack(self._dlpack_tensor(False))
+
+    def to_dlpack_for_write(self):
+        """A DLPack capsule over this array's tensor (no copy): what is
+        written through it shows in the array at once."""
+        return torch.utils.dlpack.to_dlpack(self._dlpack_tensor(True))
 
     # ------------------------------------------------------------------
     # shape ops (method forms)
@@ -779,6 +863,25 @@ def _as_nd(x, ctx=None):
 
 def shard(arr, spec=None, mesh=None):
     _not_ported("nd.shard", "S8")
+
+
+def from_dlpack(obj):
+    """An NDArray over a DLPack-capable object or a legacy capsule
+    (parity: reference ``ndarray.py:2878-2893``): no copy where torch can
+    read the producer's memory, on the producer's device."""
+    if isinstance(obj, NDArray):
+        return obj
+    return NDArray(torch.utils.dlpack.from_dlpack(obj))
+
+
+def to_dlpack_for_read(data):
+    """Module-level form of ``NDArray.to_dlpack_for_read``."""
+    return data.to_dlpack_for_read()
+
+
+def to_dlpack_for_write(data):
+    """Module-level form of ``NDArray.to_dlpack_for_write``."""
+    return data.to_dlpack_for_write()
 
 
 # ----------------------------------------------------------------------------

@@ -15,7 +15,8 @@ every kept box stays (ROADMAP.md R7).
 ``boolean_mask``'s output shape depends on the mask, so it reads the
 mask on the host (a sync, as the JAX package's does); under a CUDA graph
 capture it raises ``MXNetError``.  ``edge_id`` and ``dgl_adjacency``
-take ``CSRNDArray``s and come with ``ndarray/sparse.py`` (slice S7e).
+take ``CSRNDArray``s (``ndarray/sparse.py``) and read their structure on
+the host, as the JAX package's do.
 The index ops' integer outputs are int32, or int64 under
 ``MXNET_INT64_TENSOR_SIZE=1`` (the JAX package's x64 switch).
 """
@@ -25,7 +26,7 @@ import torch
 
 from .. import graph_cache as _graph_cache
 from . import box_nms as _nms
-from .registry import register
+from .registry import register, register_invoke_override
 from .tensor import _div, _index_dtype, _rdiv
 
 
@@ -262,3 +263,64 @@ def _boolean_mask(data, index, axis=0):
     _graph_cache.refuse_host_read("_contrib_boolean_mask", index)
     idx = torch.nonzero(index.reshape(-1) != 0).reshape(-1)
     return torch.index_select(data, int(axis), idx)
+
+
+# ----------------------------------------------------------------------------
+# DGL graph helpers on CSR structure (parity: src/operator/contrib/
+# dgl_graph.cc edge_id / adjacency): they take CSRNDArrays, and run on
+# the host through their invoke overrides, as the JAX package's do (the
+# reference's are CPU-only).  The registered forwards are the JAX
+# package's dense renderings (the identity).
+# ----------------------------------------------------------------------------
+
+
+@register("_contrib_edge_id")
+def _edge_id(data, u, v):
+    """The dense rendering (the identity); ``nd.contrib.edge_id`` on a
+    ``CSRNDArray`` runs ``_edge_id_override``."""
+    return data
+
+
+@register("_contrib_dgl_adjacency")
+def _dgl_adjacency(data):
+    """The dense rendering (the identity); ``nd.contrib.dgl_adjacency``
+    on a ``CSRNDArray`` runs ``_dgl_adjacency_override``."""
+    return data
+
+
+def _edge_id_override(inputs, attrs, out):
+    """For each pair ``(u[i], v[i])``, the value stored at row ``u[i]``,
+    column ``v[i]`` of the CSR graph, or -1 where there is none (f32)."""
+    import numpy as onp
+
+    from ..ndarray.ndarray import NDArray
+
+    csr, u, v = inputs
+    indptr = csr.indptr.asnumpy().astype(onp.int64)
+    indices = csr.indices.asnumpy().astype(onp.int64)
+    vals = csr.data_arr.asnumpy()
+    uu = u.asnumpy().astype(onp.int64).reshape(-1)
+    vv = v.asnumpy().astype(onp.int64).reshape(-1)
+    res = onp.full(uu.shape, -1.0, onp.float32)
+    for i, (r, c) in enumerate(zip(uu, vv)):
+        lo, hi = indptr[r], indptr[r + 1]
+        pos = onp.searchsorted(indices[lo:hi], c)
+        if pos < hi - lo and indices[lo + pos] == c:
+            res[i] = vals[lo + pos]
+    return NDArray(res, ctx=csr.context)
+
+
+def _dgl_adjacency_override(inputs, attrs, out):
+    """The graph's adjacency matrix: its CSR structure with every stored
+    value 1 (f32)."""
+    from ..ndarray import sparse as _sp
+
+    csr = inputs[0]
+    ones = torch.ones(csr.data_arr.shape, dtype=torch.float32,
+                      device=csr.data_arr._data.device)
+    return _sp.CSRNDArray(ones, csr.indptr, csr.indices, csr.shape,
+                          ctx=csr.context)
+
+
+register_invoke_override("_contrib_edge_id", _edge_id_override)
+register_invoke_override("_contrib_dgl_adjacency", _dgl_adjacency_override)

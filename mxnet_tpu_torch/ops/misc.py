@@ -176,8 +176,9 @@ def _sparse_retain(data, indices):
 
 @register("cast_storage")
 def _cast_storage(data, stype="default"):
-    """The identity: every storage type is a dense buffer here, as in the
-    JAX package's registered op (sparse views are slice S7e)."""
+    """The identity: the registered op is the dense rendering, as in the
+    JAX package's; ``nd.cast_storage`` gives sparse arrays of eager
+    arrays (``ndarray/__init__.py``)."""
     return data
 
 

@@ -51,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import amp as _amp
-from .registry import register
+from .registry import register, register_invoke_override
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
@@ -698,6 +698,41 @@ def _fill_value(dtype):
     return info.min if info.min < 0 else info.max
 
 
+def _truthy(flag):
+    return flag in (True, 1, "1", "true", "True")
+
+
+def sparse_grad_active(sparse_grad, in_graph):
+    """Whether an ``Embedding`` call takes the row-sparse gradient
+    (:func:`embedding_rows`): with ``sparse_grad`` while
+    ``autograd.record()`` records and the weight takes a gradient
+    (``in_graph``), as in the JAX package; elsewhere the dense op runs.
+    The op and its invoke override both ask this."""
+    from .. import autograd
+
+    return _truthy(sparse_grad) and autograd.is_recording() \
+        and torch.is_grad_enabled() and bool(in_graph)
+
+
+def embedding_rows(data, weight):
+    """``Embedding`` with a row-sparse gradient (parity: indexing_op.cc's
+    kRowSparseStorage backward): float ids are truncated and every id is
+    clipped into ``[0, n)`` (``jnp.take(mode="clip")``, as the JAX
+    package's sparse forward reads), and the weight's gradient holds the
+    rows the forward read, duplicate ids summed: torch's sparse COO
+    gradient of ``F.embedding(sparse=True)``, which the NDArray and Gluon
+    gradient rules keep row-sparse.  The JAX package lists the raw ids
+    instead, so an id out of range moves another row, or none
+    (ROADMAP.md R15); here it moves the row it read.  A weight that is
+    not a leaf gets a dense gradient, as the JAX package densifies a
+    row-sparse cotangent into an interior node."""
+    n = weight.shape[0]
+    ids = data.to(torch.int32).long() if data.is_floating_point() \
+        else data.long()
+    return F.embedding(ids.clamp(0, max(n - 1, 0)), weight,
+                       sparse=weight.grad_fn is None)
+
+
 @register("Embedding", aliases=("embedding",))
 def _embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
                sparse_grad=False):
@@ -708,13 +743,10 @@ def _embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
     row of the fill value (NaN for a float table).  The ids are clamped
     and the rows masked on the device, so no id reaches the gather out
     of range and nothing waits on the host; the gradient reaches the
-    rows of ids in range only.  ``sparse_grad=True`` (a row-sparse
-    gradient) raises: sparse storage is not ported yet (S7)."""
-    if sparse_grad:
-        from ..base import MXNetError
-
-        raise MXNetError("Embedding(sparse_grad=True) is not ported yet "
-                         "(S7, sparse storage)")
+    rows of ids in range only.  With ``sparse_grad`` under ``record()``
+    the call is :func:`embedding_rows` (``sparse_grad_active``)."""
+    if sparse_grad_active(sparse_grad, weight.requires_grad):
+        return embedding_rows(data, weight)
     n = weight.shape[0]
     ids = data.to(torch.int32).long() if data.is_floating_point() \
         else data.long()
@@ -728,6 +760,23 @@ def _embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
     mask = valid.reshape(valid.shape + (1,) * (weight.dim() - 1))
     return torch.where(mask, rows,
                        rows.new_full((), _fill_value(weight.dtype)))
+
+
+def _embedding_sparse_invoke(inputs, attrs, out):
+    """``nd.Embedding(sparse_grad=True)`` while recording, with the weight
+    in the graph: one eager call outside any bulk segment (the gradient's
+    row count depends on the ids), as the JAX package's override runs
+    it; every other call goes to the dispatcher."""
+    from .registry import invoke_fn
+
+    if out is not None or len(inputs) < 2 or not sparse_grad_active(
+            attrs.get("sparse_grad"), inputs[1]._in_graph):
+        return NotImplemented
+    return invoke_fn(lambda d, w: (embedding_rows(d, w),), inputs[:2],
+                     op_name="Embedding")[0]
+
+
+register_invoke_override("Embedding", _embedding_sparse_invoke)
 
 
 # ----------------------------------------------------------------------------

@@ -29,8 +29,9 @@ replays of a captured graph included).
 The registered ops write the weights and states they are given in place
 (the port's arrays are mutable, as the reference's are; the JAX package
 returns new arrays instead) and return what the JAX package's ops
-return.  ``_sparse_adagrad_update`` needs row-sparse arrays, slice S7 of
-the port, and raises.
+return.  ``_sparse_adagrad_update`` computes on dense inputs, as the JAX
+package's does; like it, it takes no ``RowSparseNDArray`` (that is the
+optimizer's lazy AdaGrad, ``optimizer.AdaGrad``).
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ import torch
 from .. import graph_cache as _graph_cache
 from ..base import MXNetError
 from . import _build
-from .registry import register
+from .registry import register, register_invoke_override
 
 _SOURCE = _build.source_path("optimizer_ops.cu")
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -989,10 +990,33 @@ def _ftml_update(weight, grad, d, v, z, lr=0.1, beta1=0.6, beta2=0.999,
 @register("_sparse_adagrad_update", inplace=True)
 def _sparse_adagrad_update(weight, grad, history, lr=0.01, epsilon=1e-7,
                            wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
-    """Row-sparse AdaGrad: waits for the port's sparse arrays."""
-    raise MXNetError("_sparse_adagrad_update takes row-sparse gradients; "
-                     "ndarray/sparse.py is slice S7 of the port "
-                     "(ROADMAP.md)")
+    """AdaGrad on dense inputs, as the JAX package computes it (reference:
+    AdagradDnsRspDnsKernel in optimizer_op.cc divides by
+    ``sqrt(hist + eps)``); weight decay is rejected, as the reference's
+    CheckAdagradParam rejects it."""
+    if float(wd) != 0.0:
+        raise ValueError("_sparse_adagrad_update: wd must be 0 "
+                         "(reference sparse AdaGrad rejects weight decay)")
+    g = _g32(grad, rescale_grad, clip_gradient)
+    hist = history.float() + g.square()
+    history.copy_(hist)
+    weight.copy_(weight.float() - lr * g / torch.sqrt(hist + epsilon))
+    return weight, history
+
+
+def _dense_only_invoke(inputs, attrs, out):
+    """``_sparse_adagrad_update`` takes dense arrays only, as the JAX
+    package's op does; a sparse one raises here."""
+    for x in inputs:
+        if getattr(x, "stype", "default") != "default":
+            raise MXNetError(
+                "_sparse_adagrad_update takes dense arrays, as the JAX "
+                "package's op does; a row-sparse gradient takes the "
+                "optimizer's lazy update (optimizer.AdaGrad)")
+    return NotImplemented
+
+
+register_invoke_override("_sparse_adagrad_update", _dense_only_invoke)
 
 
 @register("_contrib_group_adagrad_update", inplace=True)

@@ -118,7 +118,10 @@ def register_invoke_override(name, fn):
     """Route ``invoke(name, ...)`` to ``fn(inputs, attrs, out)`` (the JAX
     package's hook of the same name): for ops whose attrs are Python
     callables that run other ops on NDArrays (``_foreach``,
-    ``_while_loop``, ``_cond``), which are never deferred."""
+    ``_while_loop``, ``_cond``), ops on sparse arrays, and calls that
+    must run eagerly (``Embedding`` with a row-sparse gradient); these
+    are never deferred.  An override that returns ``NotImplemented``
+    hands the call back to the dispatcher."""
     _OVERRIDES[name] = fn
 
 
@@ -342,7 +345,9 @@ def invoke(name, inputs, attrs=None, out=None, fields=None):
     eng = Engine.get()
     override = _OVERRIDES.get(reg.name)
     if override is not None:
-        return override(list(inputs), dict(attrs or {}), out)
+        res = override(list(inputs), dict(attrs or {}), out)
+        if res is not NotImplemented:
+            return res
     res = _try_bulk(reg, inputs, attrs, out, fields, eng)
     if res is not NotImplemented:
         return res

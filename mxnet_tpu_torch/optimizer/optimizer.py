@@ -24,8 +24,19 @@ JAX package runs them as XLA elementwise code); ``LAMB`` and ``LARS``
 take their norms from O3.  ``lr`` and ``t`` may be numbers or 0-d
 tensors on the weights' device everywhere.
 
-Row-sparse gradients (the lazy update) need ``ndarray/sparse.py``, slice
-S7 of the port, and raise.
+A row-sparse gradient (``RowSparseNDArray``, from
+``Embedding(sparse_grad=True)``) takes the lazy update
+(``_lazy_update``; reference: optimizer_op.cc's sparse variants, the
+JAX package's ``_get_sparse_jit_step``): only the rows present in the
+compacted gradient move, in the weight and in every state tensor, each
+by the optimizer's own step, so ``wd``, ``rescale_grad``,
+``clip_gradient`` and the count ``t`` apply as in a dense step.  The
+route is chosen by the optimizer's type alone (``_lazy_kernel``):
+``SGD`` (with or without momentum), ``Adam`` and ``AdaGrad`` run O8 on
+the card (``ops/sparse_ops.rsp_lazy_update``, one launch a parameter;
+float32 only, it raises on any other dtype) and its plain version on
+the CPU; every other optimizer gathers the rows, steps them and
+scatters them back (the generic route).
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ import torch
 
 from ..base import MXNetError
 from ..ops import optimizer_ops as _ops
+from ..ops import sparse_ops as _sparse_ops
 
 
 class Optimizer:
@@ -169,29 +181,74 @@ class Optimizer:
                          _ops._f32(t, dev))
         return weight, state
 
-    def _step_multi(self, weights, grads, states, lr, wds, t, lr_mults=None):
+    def _step_multi(self, weights, grads, states, lr, wds, t, lr_mults=None,
+                    plain=False):
         """One update of every listed tensor, all at update count ``t``;
-        tensor i's rate is ``lr * lr_mults[i]``."""
+        tensor i's rate is ``lr * lr_mults[i]``.  ``plain`` (O8's plain
+        version, for the optimizers with a lazy route) runs ``SGD`` and
+        ``Adam`` through O2's and O1's plain versions on any device;
+        ``AdaGrad`` is plain torch already."""
         for i, w in enumerate(weights):
             mult = 1.0 if lr_mults is None else lr_mults[i]
             self._step(w, grads[i], states[i], lr if mult == 1.0
                        else _ops._f32(lr, w.device) * mult, wds[i], t)
 
+    # -- the lazy update of a row-sparse gradient ----------------------------
+    def _lazy_kernel(self, state):
+        """O8's route for this optimizer's rule (``ops/sparse_ops.ROUTES``)
+        and its constants (keyword arguments of ``rsp_lazy_update``), or
+        None: the generic route (gather, ``_step``, scatter)."""
+        return None
+
+    def _lazy_update(self, weight, grad, state, lr, wd, t, lr_mult=1.0):
+        """Apply the row-sparse ``grad`` to the rows of ``weight`` (a
+        tensor) and ``state`` it lists, in place; ``lr`` and ``t`` are
+        numbers or 0-d device tensors (see the module docstring)."""
+        rsp = grad.compact()
+        dev = weight.device
+        indices = rsp.indices._data.to(dev)
+        values = rsp.values._data.to(dev)
+        kernel = self._lazy_kernel(state)
+
+        def step(w, g, s):
+            # O8's plain version runs the step in plain torch
+            self._step_multi([w], [g], [s], lr, [wd], t, [lr_mult],
+                             plain=kernel is not None)
+
+        if kernel is None:
+            _sparse_ops.rsp_lazy_update_ref(weight, indices, values, state,
+                                            step)
+            return
+        route, consts = kernel
+        _sparse_ops.rsp_lazy_update(
+            weight, indices, values, state, route, step,
+            lr=_device_scalar(lr, torch.float32, dev),
+            t=_device_scalar(t, torch.int32, dev), lr_mult=lr_mult, wd=wd,
+            rescale=self.rescale_grad, clip=self._clip(), **consts)
+
     # -- imperative API (parity: Optimizer.update) ---------------------------
     def update(self, index, weight, grad, state):
         """One update of ``weight`` (an NDArray or a tensor) in place;
-        returns ``(weight, state)``."""
+        returns ``(weight, state)``.  A ``RowSparseNDArray`` gradient
+        takes the lazy update."""
         if isinstance(index, (list, tuple)):
             for i, w, g, s in zip(index, weight, grad, state):
                 self.update(i, w, g, s)
             return None
-        if type(grad).__name__ in ("RowSparseNDArray", "CSRNDArray"):
-            raise MXNetError("row-sparse gradients (the lazy update) need "
-                             "ndarray/sparse.py, slice S7 of the port")
+        kind = type(grad).__name__
+        if kind == "CSRNDArray":
+            raise MXNetError("a csr gradient has no update: gradients are "
+                             "dense or row_sparse")
         self._update_count(index)
-        self._step(_tensor(weight), _tensor(grad), state,
-                   self._get_lr(index), self._get_wd(index),
-                   self._index_update_count[index])
+        if kind == "RowSparseNDArray":
+            self._lazy_update(_tensor(weight), grad, state,
+                              self.learning_rate, self._get_wd(index),
+                              self._index_update_count[index],
+                              self._lr_mult(index))
+        else:
+            self._step(_tensor(weight), _tensor(grad), state,
+                       self._get_lr(index), self._get_wd(index),
+                       self._index_update_count[index])
         var = getattr(weight, "_var", None)
         if var is not None:
             var.on_write()
@@ -259,22 +316,30 @@ class SGD(Optimizer):
     def create_state(self, index, weight):
         return None if self.momentum == 0.0 else self._zeros(weight)
 
+    def _lazy_kernel(self, state):
+        if self._kind != _ops.SGD_MOMENTUM:
+            return None
+        if self.momentum == 0.0 or state is None:
+            return "sgd", {}
+        return "sgd_mom", {"momentum": self.momentum}
+
     def _step(self, weight, grad, state, lr, wd, t):
         self._step_multi([weight], [grad], [state], lr, [wd], t)
         return weight, state
 
-    def _step_multi(self, weights, grads, states, lr, wds, t, lr_mults=None):
+    def _step_multi(self, weights, grads, states, lr, wds, t, lr_mults=None,
+                    plain=False):
         if not weights:
             return
         lr, _, mults = _kernel_args(weights, lr, t, lr_mults)
-        plain = self.momentum == 0.0 or states[0] is None
+        bare = self.momentum == 0.0 or states[0] is None
+        fn = _ops._multi_sgd_ref if plain else _ops.multi_sgd
         with torch.no_grad():
-            _ops.multi_sgd(weights, grads, None if plain else list(states),
-                           mults, [float(w) for w in wds], lr=lr,
-                           momentum=self.momentum,
-                           kind=_ops.SGD_PLAIN if plain else self._kind,
-                           rescale_grad=float(self.rescale_grad),
-                           clip_gradient=self._clip())
+            fn(weights, grads, None if bare else list(states), mults,
+               [float(w) for w in wds], lr=lr, momentum=self.momentum,
+               kind=_ops.SGD_PLAIN if bare else self._kind,
+               rescale_grad=float(self.rescale_grad),
+               clip_gradient=self._clip())
 
 
 @register
@@ -304,23 +369,28 @@ class Adam(Optimizer):
     def create_state(self, index, weight):
         return (self._zeros(weight), self._zeros(weight))
 
+    def _lazy_kernel(self, state):
+        if not self._fold_wd:
+            return None
+        return "adam", {"beta1": self.beta1, "beta2": self.beta2,
+                        "eps": self.epsilon}
+
     def _step(self, weight, grad, state, lr, wd, t):
         self._step_multi([weight], [grad], [state], lr, [wd], t)
         return weight, state
 
-    def _step_multi(self, weights, grads, states, lr, wds, t, lr_mults=None):
+    def _step_multi(self, weights, grads, states, lr, wds, t, lr_mults=None,
+                    plain=False):
         if not weights:
             return
         lr, t, mults = _kernel_args(weights, lr, t, lr_mults)
+        fn = _ops._multi_adamw_ref if plain else _ops.multi_adamw
         with torch.no_grad():
-            _ops.multi_adamw(weights, grads, [s[0] for s in states],
-                             [s[1] for s in states], mults,
-                             [float(w) for w in wds], lr=lr, t=t,
-                             beta1=self.beta1, beta2=self.beta2,
-                             epsilon=self.epsilon,
-                             rescale_grad=float(self.rescale_grad),
-                             clip_gradient=self._clip(),
-                             fold_wd=self._fold_wd)
+            fn(weights, grads, [s[0] for s in states], [s[1] for s in states],
+               mults, [float(w) for w in wds], lr=lr, t=t, beta1=self.beta1,
+               beta2=self.beta2, epsilon=self.epsilon,
+               rescale_grad=float(self.rescale_grad),
+               clip_gradient=self._clip(), fold_wd=self._fold_wd)
 
     def _adam_step(self, weight, mean, var, lr, t, decay=0.0, wd=0.0):
         """The weight rule alone, given updated moments (plain torch, for
@@ -482,6 +552,9 @@ class AdaGrad(Optimizer):
 
     def create_state(self, index, weight):
         return self._zeros(weight)
+
+    def _lazy_kernel(self, state):
+        return "adagrad", {"eps": self.float_stable_eps}
 
     def _update(self, weight, grad, state, lr, wd, t):
         w = weight.float()

@@ -159,9 +159,13 @@ class JitTrainStep:
         loss_val = loss.float().mean()
         train = [self._params[i] for i in self._train_idx]
         # a parameter the loss does not reach (a BERT MLM wrapper's
-        # pooler) gets a zero gradient, as in the JAX package
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
-            train, torch.autograd.grad(loss_val, train, allow_unused=True))]
+        # pooler) gets a zero gradient, as in the JAX package; a
+        # row-sparse one (a hybrid_forward's F.Embedding(sparse_grad=True))
+        # is made dense, as the JAX package's one executable gives it
+        grads = [torch.zeros_like(p) if g is None
+                 else g.to_dense() if g.is_sparse else g for p, g in zip(
+                     train, torch.autograd.grad(loss_val, train,
+                                                allow_unused=True))]
         del out, outs, loss
         if self._clip_global_norm is not None:
             grads = _global_norm_scale(grads, self._clip_global_norm)

@@ -452,6 +452,10 @@ names += ["mxnet_tpu_torch.ops.quantized_ops", "mxnet_tpu_torch.ops.int8_ops",
 names += ["mxnet_tpu_torch.ops.npi", "mxnet_tpu_torch.numpy",
           "mxnet_tpu_torch.numpy.linalg", "mxnet_tpu_torch.numpy.random",
           "mxnet_tpu_torch.numpy_extension", "mxnet_tpu_torch.util"]
+names += ["mxnet_tpu_torch.ndarray.sparse", "mxnet_tpu_torch.ops.sparse_ops",
+          "mxnet_tpu_torch.io", "mxnet_tpu_torch.io.io",
+          "mxnet_tpu_torch.io.libsvm", "mxnet_tpu_torch.gluon.contrib",
+          "mxnet_tpu_torch.gluon.contrib.nn"]
 names += ["chip_smoke", "tools.torch_paged_attention_sweep",
           "tools.torch_flash_attention_sweep", "tools.torch_mxfleet",
           "tools.torch_mxflight", "tools.torch_mxtrace",

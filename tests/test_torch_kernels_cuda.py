@@ -1831,3 +1831,192 @@ def test_np_host_reads_raise_under_a_capture_on_card(card):
     import mxnet_tpu_torch as mx
 
     assert chip_smoke.np_capture_refusals(mx, card)
+
+
+# -- O7 csr_dot and O8 rsp_lazy_update (sparse storage) ----------------------
+
+
+def _csr(rng, m, n, per_row, empty_rows=()):
+    """A random CSR matrix on the host: ``per_row`` sorted distinct columns
+    a row (none in ``empty_rows``), f32 values."""
+    indptr, cols = [0], []
+    for r in range(m):
+        k = 0 if r in empty_rows else min(per_row, n)
+        cols.extend(sorted(rng.choice(n, size=k, replace=False).tolist()))
+        indptr.append(len(cols))
+    vals = rng.standard_normal(len(cols)).astype(np.float32)
+    return (torch.from_numpy(vals), torch.tensor(indptr, dtype=torch.int64),
+            torch.tensor(cols, dtype=torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose_a", [False, True])
+@pytest.mark.parametrize("kdim", [1, 128])
+@pytest.mark.parametrize("m,n,per_row", [(300, 1000, 22), (64, 50, 0),
+                                         (33, 7, 7)])
+def test_csr_dot_matches_plain_on_card(card, transpose_a, kdim, m, n,
+                                       per_row):
+    """O7 in both modes against its plain version: K 1 and 128, rows with
+    no nonzeros, nnz 0 and full rows; within 1e-5 of the largest value
+    (the sums run in another order, transposed by atomics)."""
+    from mxnet_tpu_torch.ops import sparse_ops as sops
+
+    rng = np.random.default_rng(m + kdim)
+    data, indptr, cols = (t.to(card) for t in _csr(
+        rng, m, n, per_row, empty_rows=(0, 5, m - 1)))
+    rhs = torch.from_numpy(rng.standard_normal(
+        (m if transpose_a else n, kdim)).astype(np.float32)).to(card)
+    before = sops.csr_dot.launches
+    got = sops.csr_dot(data, indptr, cols, rhs, (m, n), transpose_a)
+    assert sops.csr_dot.launches == before + 1
+    want = sops.csr_dot_ref(data, indptr, cols, rhs, (m, n), transpose_a)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    scale = max(float(want.abs().max()) if want.numel() else 0.0, 1.0)
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_csr_dot_raises_on_what_it_does_not_take_on_card(card):
+    from mxnet_tpu_torch.ops import sparse_ops as sops
+
+    data, indptr, cols = (t.to(card) for t in _csr(
+        np.random.default_rng(0), 4, 6, 2))
+    rhs = torch.ones(6, 1, device=card)
+    with pytest.raises(MXNetError):
+        sops.csr_dot(data.double(), indptr, cols, rhs.double(), (4, 6))
+    with pytest.raises(MXNetError):
+        sops.csr_dot(data, indptr.int(), cols, rhs, (4, 6))
+    with pytest.raises(MXNetError):
+        sops.csr_dot(data, indptr, cols, torch.ones(5, 1, device=card),
+                     (4, 6))
+
+
+def _o8_inputs(card, route, n, c, ids, seed):
+    return chip_smoke.o8_case(card, route, n, c, ids, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["sgd", "sgd_mom", "adam", "adagrad"])
+@pytest.mark.parametrize("ids", [[0, 3, 4, 9, 31], [], [2, 7, 40, -1]])
+def test_rsp_lazy_update_matches_plain_on_card(card, route, ids):
+    """O8's routes against its plain version (the optimizer's step in
+    plain torch on the gathered rows; it launches neither O1 nor O2):
+    weight and states within 1e-6 of the largest value (the same f32
+    operations); untouched rows keep their bytes; an empty gradient
+    launches nothing; an index out of range (40 and -1 in a 32-row
+    table) is skipped."""
+    from mxnet_tpu_torch.ops import sparse_ops as sops
+
+    n, c = 32, 24
+    opt, w, state, idx, vals, lr, t, step, kw = _o8_inputs(card, route, n,
+                                                           c, ids, 3)
+    s1, s2 = chip_smoke._clone_state(state), chip_smoke._clone_state(state)
+    w1, w2 = w.clone(), w.clone()
+    before = sops.rsp_lazy_update.launches
+    sops.rsp_lazy_update(w1, idx, vals, s1, route, step, **kw)
+    assert sops.rsp_lazy_update.launches == before + (1 if ids else 0)
+    held = (oo.multi_sgd.launches, oo.multi_adamw.launches)
+    sops.rsp_lazy_update_ref(w2, idx, vals, s2, step)
+    assert (oo.multi_sgd.launches, oo.multi_adamw.launches) == held
+    torch.cuda.synchronize()
+    for a, b in [(w1, w2)] + list(zip(sops._leaves(s1), sops._leaves(s2))):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    keep = torch.ones(n, dtype=torch.bool, device=card)
+    inside = [i for i in ids if 0 <= i < n]
+    keep[inside] = False
+    assert torch.equal(w1[keep], w[keep])
+    if inside:
+        assert not torch.equal(w1[~keep], w[~keep])
+
+
+@pytest.mark.cuda
+def test_rsp_lazy_update_raises_on_what_it_does_not_take_on_card(card):
+    from mxnet_tpu_torch.ops import sparse_ops as sops
+
+    opt, w, state, idx, vals, lr, t, step, kw = _o8_inputs(
+        card, "adagrad", 8, 4, [1, 2], 0)
+    with pytest.raises(MXNetError):
+        sops.rsp_lazy_update(w.double(), idx, vals, state, "adagrad", step,
+                             **kw)
+    with pytest.raises(MXNetError):
+        sops.rsp_lazy_update(w, idx, vals, None, "adagrad", step, **kw)
+    with pytest.raises(MXNetError):
+        sops.rsp_lazy_update(w, idx, vals, state, "rmsprop", step, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sgd", "adam", "adagrad"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_half_precision_lazy_update_raises_on_card(card, name, dtype):
+    """A half-precision table with a row-sparse gradient on the card, under
+    an optimizer that has an O8 route, reaches O8, which takes float32
+    only: the step raises, launches nothing and leaves the table as it
+    was (no quiet gather-step-scatter in its place)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.ops import sparse_ops as sops
+
+    with mx.gpu(0):
+        emb = gluon.nn.Embedding(20, 8, dtype=dtype, sparse_grad=True)
+        emb.initialize()
+        tr = gluon.Trainer(emb.collect_params(), name,
+                           {"learning_rate": 0.1})
+        with autograd.record():
+            loss = emb(mx.nd.array([[1, 4, 4, 7]])).astype("float32").sum()
+        loss.backward()
+        assert emb.weight.grad().stype == "row_sparse"
+        before = emb.weight.detach().clone()
+        launches = sops.rsp_lazy_update.launches
+        with pytest.raises(MXNetError, match="rsp_lazy_update"):
+            tr.step(1)
+    assert sops.rsp_lazy_update.launches == launches
+    assert torch.equal(emb.weight.detach(), before)
+
+
+@pytest.mark.cuda
+def test_trainer_lazy_update_on_card_matches_the_host(card):
+    """``gluon.Trainer`` with a row-sparse Embedding gradient on the card
+    (O8) against the same steps on the host (its plain version), for
+    SGD with momentum, Adam and AdaGrad."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    rng = np.random.default_rng(4)
+    table = rng.standard_normal((50, 8)).astype(np.float32)
+    ids = rng.integers(0, 50, (6, 5)).astype(np.float32)
+    for name, kw in (("sgd", {"momentum": 0.9}), ("adam", {}),
+                     ("adagrad", {})):
+        got = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            with ctx:
+                emb = gluon.nn.Embedding(50, 8, sparse_grad=True)
+                emb.initialize()
+                emb.weight.set_data(mx.nd.array(table))
+                tr = gluon.Trainer(emb.collect_params(), name,
+                                   dict(learning_rate=0.1, **kw))
+                for _ in range(3):
+                    with autograd.record():
+                        loss = (emb(mx.nd.array(ids)) ** 2).sum()
+                    loss.backward()
+                    assert emb.weight.grad().stype == "row_sparse"
+                    tr.step(6)
+                got.append(emb.weight.data().asnumpy())
+        np.testing.assert_allclose(got[0], got[1], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_to_dlpack_for_write_aliases_a_card_array(card):
+    """A write through ``to_dlpack_for_write``'s capsule shows in the card
+    array at once (the export aliases the tensor), and the read export
+    aliases it too."""
+    import mxnet_tpu_torch as mx
+
+    a = mx.nd.array(np.arange(6, dtype=np.float32), ctx=mx.gpu(0))
+    w = torch.utils.dlpack.from_dlpack(a.to_dlpack_for_write())
+    assert w.device.type == "cuda" and w.data_ptr() == a.data().data_ptr()
+    w += 10.0
+    np.testing.assert_array_equal(a.asnumpy(), np.arange(6) + 10.0)
+    r = torch.utils.dlpack.from_dlpack(a.to_dlpack_for_read())
+    assert r.data_ptr() == a.data().data_ptr()
+    np.testing.assert_array_equal((a + 1).asnumpy(), np.arange(6) + 11.0)

@@ -136,11 +136,43 @@ def test_embedding_integer_table_fills_as_jax():
 
 
 def test_embedding_sparse_grad_raises_naming_s7():
-    with pytest.raises(MXNetError, match="S7"):
-        gluon.nn.Embedding(3, 2, sparse_grad=True, device="cpu")
-    with pytest.raises(MXNetError, match="S7"):
-        treg.get("Embedding").forward(torch.zeros(2), torch.ones(3, 2),
-                                      sparse_grad=True)
+    """``sparse_grad=True`` raised here until sparse storage landed (S7e);
+    now the op and the layer under ``record()`` against the JAX
+    package's: the same rows forward (bitwise) and a row-sparse weight
+    gradient with the same rows and values (GRAD), for ids in range
+    with a repeat; outside ``record()`` the op is the dense one."""
+    rs = np.random.RandomState(3)
+    table = rs.randn(6, 4).astype(np.float32)
+    ids = np.array([[0, 2, 2], [5, 1, 2]], np.float32)
+    head = rs.randn(2, 3, 4).astype(np.float32)
+    got = []
+    for mx, nn in ((jmx, jgluon.nn), (tmx, gluon.nn)):
+        with mx.cpu():
+            w = mx.nd.array(table)
+            w.attach_grad()
+            with mx.autograd.record():
+                out = mx.nd.Embedding(mx.nd.array(ids), w, input_dim=6,
+                                      output_dim=4, sparse_grad=True)
+            out.backward(mx.nd.array(head))
+            layer = nn.Embedding(6, 4, sparse_grad=True)
+            layer.initialize()
+            layer.weight.set_data(mx.nd.array(table))
+            with mx.autograd.record():
+                lout = layer(mx.nd.array(ids))
+            lout.backward(mx.nd.array(head))
+            lg = layer.weight.grad()
+            assert w.grad.stype == lg.stype == "row_sparse"
+            got.append([out.asnumpy(), w.grad.indices.asnumpy(),
+                        w.grad.asnumpy(), lout.asnumpy(),
+                        lg.indices.asnumpy(), lg.asnumpy()])
+    for k, (want, have) in enumerate(zip(*got)):
+        if k in (2, 5):     # the gradients
+            np.testing.assert_allclose(have, want, **GRAD)
+        else:               # rows, and indices by value (int32 there)
+            np.testing.assert_array_equal(have, want)
+    dense = treg.get("Embedding").forward(torch.tensor([0.0, 7.0]),
+                                          torch.ones(3, 2), sparse_grad=True)
+    assert torch.isnan(dense[1]).all()      # the dense op's fill
 
 
 # -- FullyConnected ---------------------------------------------------------------------

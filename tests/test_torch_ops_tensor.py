@@ -87,10 +87,6 @@ def _f32(*shape, seed=0):
 EXCLUDED = {
     "RNN": "S9: comes with gluon/rnn/ (ROADMAP.md §1)",
     "rnn": "alias of RNN (S9)",
-    "_contrib_edge_id": "S7e: takes a CSRNDArray, which comes with "
-                        "ndarray/sparse.py (ROADMAP.md §1)",
-    "_contrib_dgl_adjacency": "S7e: takes and returns a CSRNDArray "
-                              "(ndarray/sparse.py)",
 }
 THREE_MODULES = ("nn", "tensor", "random_ops")
 JAX_MODULES = THREE_MODULES + ("vision", "contrib", "misc", "control_flow",

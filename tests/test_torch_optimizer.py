@@ -317,8 +317,21 @@ def test_update_ops_write_in_place_and_take_out_through_nd():
         tmx.nd.sgd_mom_update(tw, tg, mom, lr=0.5, momentum=0.9)
         np.testing.assert_allclose(mom.asnumpy(), np.full((3, 4), -0.5))
         np.testing.assert_allclose(tw.asnumpy(), w - 1.0, rtol=1e-6)
-        with pytest.raises(MXNetError, match="S7"):
-            tmx.nd._sparse_adagrad_update(tw, tg, tmx.nd.zeros((3, 4)))
+        # _sparse_adagrad_update raised here until sparse storage landed;
+        # now it computes on dense inputs as the JAX package's op does
+        w1 = tw.asnumpy()
+        hist = tmx.nd.zeros((3, 4))
+        tmx.nd._sparse_adagrad_update(tw, tg, hist, lr=0.1,
+                                      rescale_grad=0.5, clip_gradient=0.3)
+        jw, jh = mx.nd._sparse_adagrad_update(
+            mx.nd.array(w1), mx.nd.array(g), mx.nd.zeros((3, 4)), lr=0.1,
+            rescale_grad=0.5, clip_gradient=0.3)
+        np.testing.assert_allclose(tw.asnumpy(), jw.asnumpy(), rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(hist.asnumpy(), jh.asnumpy(), rtol=RTOL,
+                                   atol=ATOL)
+        with pytest.raises(ValueError, match="wd must be 0"):
+            tmx.nd._sparse_adagrad_update(tw, tg, hist, wd=0.1)
 
 
 def test_multi_all_finite_with_a_planted_inf_and_nan():

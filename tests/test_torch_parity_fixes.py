@@ -552,15 +552,14 @@ _DONE = ["", "autograd", "context", "engine", "gluon", "gluon.nn",
          "optimizer", "lr_scheduler", "metric", "random", "layout", "amp",
          "rtc", "operator", "telemetry", "name", "registry", "parallel",
          "sharding", "contrib", "numpy", "numpy.linalg", "numpy.random",
-         "numpy_extension", "util"]
+         "numpy_extension", "util", "nd.sparse", "io", "gluon.contrib",
+         "gluon.contrib.nn"]
 # mx.contrib's names that come with S9: each raises MXNetError naming it
 _CONTRIB_S9 = ["onnx", "text", "tensorboard", "svrg_optimization", "io",
                "autograd", "DataLoaderIter", "TrainingStateScope"]
 # Each public name of those modules that the port still lacks, with the
 # slice that brings it (ROADMAP.md §1), or why it has no counterpart.
 _MISSING = {
-    "S7e": ["nd.sparse", "nd.from_dlpack", "nd.to_dlpack_for_read",
-            "nd.to_dlpack_for_write"],
     "RNN (ROADMAP.md §1 item 4)": ["gluon.rnn", "nd.RNN", "nd.rnn",
                                    "numpy_extension.rnn"],
     "S8": ["kvstore", "gluon.nn.SyncBatchNorm", "Trainer.kvstore",
@@ -588,11 +587,12 @@ _MISSING = {
            "sharding.verify", "sharding.verify_enabled",
            "sharding.verify_spec"],
     "S9": ["HybridBlock.export", "HybridBlock.lint", "gluon.SymbolBlock",
-           "gluon.contrib", "AttrScope", "Monitor", "callback",
-           "deploy", "error", "executor", "image", "io", "library", "log",
+           "AttrScope", "Monitor", "callback",
+           "deploy", "error", "executor", "image", "library", "log",
            "model", "module", "monitor", "profiler", "recordio", "rnn",
            "runtime", "sym", "symbol", "test_utils", "visualization"]
-    + ["contrib." + n for n in _CONTRIB_S9],
+    + ["contrib." + n for n in _CONTRIB_S9]
+    + ["gluon.contrib." + n for n in ("estimator", "rnn", "cnn", "data")],
     "none: no TPU in the port": ["tpu", "num_tpus", "context.tpu",
                                  "context.num_tpus", "Context.jax_device"],
     "none: JAX's tape and keys, not torch's": [
