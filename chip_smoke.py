@@ -10088,15 +10088,22 @@ def lc_write(path, c, seed):
     positive.  Returns the hidden weight."""
     rs = np.random.RandomState(seed)
     n, f, d = c["batch"] * c["batches"], c["fields"], c["features"]
-    size = d // f
-    ranks = np.minimum(rs.zipf(c["zipf"], size=(n, f)) - 1, size - 1)
-    ids = np.arange(f) * size + ranks
+    ids = lc_ids(rs, c)
     hidden = rs.randn(d).astype(np.float32)
     labels = (hidden[ids].sum(1) / np.sqrt(f) + 0.3 * rs.randn(n)) > 0
     with open(path, "w") as out:
         for lab, row in zip(labels, ids):
             out.write("%d %s\n" % (lab, " ".join("%d:1" % j for j in row)))
     return hidden
+
+
+def lc_ids(rs, c):
+    """Path B's ids, ``batch * batches`` rows of ``fields``: field f's id
+    Zipf-drawn (``zipf``) within its own range, from ``rs``."""
+    n, f = c["batch"] * c["batches"], c["fields"]
+    size = c["features"] // f
+    ranks = np.minimum(rs.zipf(c["zipf"], size=(n, f)) - 1, size - 1)
+    return np.arange(f) * size + ranks
 
 
 def lc_epoch(mx, it, w, b, dot, lr):
@@ -10204,63 +10211,122 @@ def lc_one(mx, batch, w, dot, lr):
     return w - lr * gw / len(y), None
 
 
-def o7_bound(x, kdim, transpose_a):
-    """O7's least time at this batch, in ms, by bytes: the values, column
-    indices and indptr once, the rhs rows the product needs (those of the
-    distinct columns; all m rows transposed), the output once."""
-    nnz, (m, n) = x.data_arr.shape[0], x.shape
-    need = int(x.indices._data.unique().numel()) if not transpose_a else m
+def o7_bound(data, indptr, cols, shape, kdim, transpose_a):
+    """O7's least time on these operands, in ms, by bytes: the values,
+    column indices and indptr once, the rhs rows the product needs (those
+    of the distinct columns; all m rows transposed), the output once."""
+    nnz, (m, n) = data.shape[0], shape
+    need = m if transpose_a else int(cols.unique().numel())
     out = n if transpose_a else m
     nbytes = 4 * nnz + 8 * nnz + 8 * (m + 1) + 4 * kdim * need \
         + 4 * kdim * out
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
-def o7_checks(dev, batch, smi):
-    """O7 in both modes at path B's shapes against its plain version, then
-    timed (queued behind a sleep) beside its bound, the plain version and
-    ``torch.sparse.mm`` on a CSR tensor (cuSPARSE; a yardstick only)."""
+def o7_uniform_batch(dev, c, m, seed):
+    """Path B's batch shape with uniform ids: ``fields`` nonzeros (1.0) a
+    row, field f's id drawn uniformly within its own range, as CSR
+    tensors (values, indptr, columns) on ``dev``."""
+    import torch
+
+    f, size = c["fields"], c["features"] // c["fields"]
+    rs = np.random.RandomState(seed)
+    ids = np.arange(f) * size + rs.randint(0, size, (m, f))
+    return (torch.ones(m * f, device=dev),
+            torch.arange(0, m * f + 1, f, device=dev),
+            torch.from_numpy(ids.reshape(-1)).to(dev))
+
+
+def o7_case(dev, batch, operands, kdim, mode, smi, g):
+    """O7 on one batch in one mode against its plain version (forward:
+    also two runs bitwise equal), then timed (queued behind a sleep)
+    beside its bound, the plain version and ``torch.sparse.mm`` on a CSR
+    tensor (cuSPARSE; a yardstick only); transposed, also the output's
+    zero fill alone (``csr_dot`` of a matrix with no rows: the library's
+    memset and no kernel) and the scatter as the whole call less it."""
     import torch
 
     from mxnet_tpu_torch.ops import sparse_ops as sops
 
+    data, indptr, cols, shape, a, at = operands
+    m, n = shape
+    t = mode == "transposed"
+    rhs = torch.randn(m if t else n, kdim, generator=g, device=dev)
+
+    def o7(_):
+        return sops.csr_dot(data, indptr, cols, rhs, shape, t)
+
+    got = o7(0)
+    want = sops.csr_dot_ref(data, indptr, cols, rhs, shape, t)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    ok = err <= O7_TOL * max(scale, 1.0)
+    repeat = t or bool(torch.equal(got, o7(0)))
+    del got, want
+    ms = queued_ms(o7, 50)
+    plain_ms = queued_ms(lambda i: sops.csr_dot_ref(data, indptr, cols, rhs,
+                                                    shape, t), 10)
+    lib = at if t else a
+    library_ms = queued_ms(lambda i: torch.sparse.mm(lib, rhs), 20)
+    bound = o7_bound(data, indptr, cols, shape, kdim, t)
+    row = {"batch": batch, "mode": mode, "k": kdim, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": "bytes", "library_ms": library_ms}
+    split = ""
+    if t:
+        none = (data[:0], indptr[:1], cols[:0], rhs[:0], (0, n))
+        row["fill_ms"] = queued_ms(
+            lambda i: sops.csr_dot(*none, transpose_a=True), 50)
+        row["scatter_ms"] = ms - row["fill_ms"]
+        split = "; the zero fill alone %.4f ms, the scatter (the call " \
+            "less the fill) %.4f ms" % (row["fill_ms"], row["scatter_ms"])
+    else:
+        row["bitwise_repeatable"] = repeat
+    log("sparse o7 %-10s %-7s %d x %d, %d nonzeros, K %d: max abs err %.3g "
+        "(largest %.3g, tolerance %g of it) %s%s; %.4f ms, bound %.4f ms "
+        "(bytes, %.1f%%), plain %.4f ms, torch.sparse.mm %.4f ms%s | %s"
+        % (mode, batch, m, n, data.shape[0], kdim, err, scale, O7_TOL,
+           "ok" if ok else "FAIL", "" if t else
+           ", two runs bitwise equal: %s" % repeat, ms, bound,
+           100 * bound / ms, plain_ms, library_ms, split, smi))
+    if not ok:
+        fail("O7 (%s, %s, K %d) disagrees with its plain version"
+             % (mode, batch, kdim))
+    if not repeat:
+        fail("O7's forward (%s, K %d) is not bitwise repeatable"
+             % (batch, kdim))
+    return row
+
+
+def o7_checks(dev, batch, smi):
+    """O7 in both modes at path B's batch (Zipf ids) and at a batch of the
+    same shape with uniform ids, at K 1 and 128 (``o7_case`` each).
+    Returns the Zipf batch's K 1 readings by mode, and every row."""
+    import torch
+
     x = batch.data[0]
-    m, n = x.shape
-    data, indptr, cols = (x.data_arr._data, x.indptr._data,
-                          x.indices._data)
     g = torch.Generator(device=dev)
     g.manual_seed(SPARSE_SEED)
-    out = {}
-    a = torch.sparse_csr_tensor(indptr, cols, data, size=(m, n))
-    at = a.to_sparse_coo().t().coalesce().to_sparse_csr()
-    for mode, rows in (("forward", n), ("transposed", m)):
-        t = mode == "transposed"
-        rhs = torch.randn(rows, 1, generator=g, device=dev)
-        got = sops.csr_dot(data, indptr, cols, rhs, (m, n), t)
-        want = sops.csr_dot_ref(data, indptr, cols, rhs, (m, n), t)
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        ok = err <= O7_TOL * max(scale, 1.0)
-        ms = queued_ms(lambda i: sops.csr_dot(data, indptr, cols, rhs,
-                                              (m, n), t), 50)
-        plain_ms = queued_ms(lambda i: sops.csr_dot_ref(
-            data, indptr, cols, rhs, (m, n), t), 20)
-        lib = at if t else a
-        lib_err = float((torch.sparse.mm(lib, rhs) - want).abs().max())
-        library_ms = queued_ms(lambda i: torch.sparse.mm(lib, rhs), 50)
-        bound = o7_bound(x, 1, t)
-        log("sparse o7 %-10s %d x %d, %d nonzeros, K 1: max abs err %.3g "
-            "(largest %.3g, tolerance %g of it) %s; %.4f ms, bound %.4f ms "
-            "(bytes, %.1f%%), plain %.4f ms, torch.sparse.mm %.4f ms (its "
-            "err %.3g) | %s"
-            % (mode, m, n, x.data_arr.shape[0], err, scale, O7_TOL,
-               "ok" if ok else "FAIL", ms, bound, 100 * bound / ms,
-               plain_ms, library_ms, lib_err, smi))
-        if not ok:
-            fail("O7 (%s) disagrees with its plain version" % mode)
-        out[mode] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound, "bound_by": "bytes",
-                     "library_ms": library_ms}
+    batches = {"zipf": (x.data_arr._data, x.indptr._data, x.indices._data),
+               "uniform": o7_uniform_batch(dev, LC, x.shape[0],
+                                           SPARSE_SEED + 1)}
+    rows = []
+    for name, (data, indptr, cols) in batches.items():
+        a = torch.sparse_csr_tensor(indptr, cols, data, size=x.shape)
+        at = a.to_sparse_coo().t().coalesce().to_sparse_csr()
+        operands = (data, indptr, cols, tuple(x.shape), a, at)
+        for kdim in (1, 128):
+            for mode in ("forward", "transposed"):
+                rows.append(o7_case(dev, name, operands, kdim, mode, smi, g))
+                torch.cuda.empty_cache()
+    out = {r["mode"]: r for r in rows if r["batch"] == "zipf"
+           and r["k"] == 1}
+    zipf_t, uni_t = (next(r["ms"] for r in rows if r["batch"] == b and
+                          r["k"] == 1 and r["mode"] == "transposed")
+                     for b in ("zipf", "uniform"))
+    log("sparse o7: transposed at K 1, Zipf ids %.4f ms against uniform "
+        "%.4f ms (%.2fx) | %s" % (zipf_t, uni_t, zipf_t / uni_t, smi))
+    out["at"] = rows
     return out
 
 
@@ -10629,7 +10695,8 @@ def main(argv):
                      "mxnet_tpu/ndarray/sparse.py:408", sparse_launches["O7"],
                      o7["forward"], {"shape": "8192 x 1000001, 22 a row, K 1",
                                      "library": "torch.sparse.mm (cuSPARSE)",
-                                     "transposed": o7["transposed"]}),
+                                     "transposed": o7["transposed"],
+                                     "at": o7["at"]}),
         kernel_entry("O8 rsp_lazy_update (port-only)", sparse_src,
                      "mxnet_tpu/optimizer/optimizer.py:170",
                      sparse_launches["O8"], o8["adagrad"],

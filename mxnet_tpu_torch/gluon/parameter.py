@@ -137,6 +137,34 @@ class _GluonTensor:
         _handle(self._mx_handle).set_data(data)
 
 
+def _handle_attr(name):
+    """The handle's attribute ``name``, read and written through the
+    tensor."""
+    return property(lambda self: getattr(_handle(self._mx_handle), name),
+                    lambda self, value: setattr(_handle(self._mx_handle),
+                                                name, value))
+
+
+def _handle_method(name):
+    def method(self, *args, **kwargs):
+        return getattr(_handle(self._mx_handle), name)(*args, **kwargs)
+
+    method.__name__ = name
+    return method
+
+
+# the handle's attributes and methods that torch.Tensor does not have
+# (``name`` shadows torch's named-tensor name): a write to
+# ``net.weight.grad_req`` reaches the handle, as in the JAX package,
+# where ``net.weight`` is the Parameter
+for _name in ("grad_req", "lr_mult", "wd_mult", "name"):
+    setattr(_GluonTensor, _name, _handle_attr(_name))
+for _name in ("list_data", "list_grad", "list_ctx", "zero_grad",
+              "initialize", "cast", "reset_ctx"):
+    setattr(_GluonTensor, _name, _handle_method(_name))
+del _name
+
+
 class GluonParameter(_GluonTensor, torch.nn.Parameter):
     """A block's registered ``torch.nn.Parameter`` once a handle holds
     it."""

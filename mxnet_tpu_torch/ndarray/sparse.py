@@ -393,7 +393,11 @@ def multiply(lhs, rhs):
         return RowSparseNDArray(NDArray._wrap(vals, lhs.context), common,
                                 lhs.shape, ctx=lhs.context, canonical=True)
     if isinstance(lhs, RowSparseNDArray) and isinstance(rhs, NDArray):
-        picked = rhs._data.index_select(0, lhs.indices._data)
+        # an (N, C) operand is gathered by row id; a (1, C) or (C,) one
+        # broadcasts over the stored rows
+        picked = rhs._data
+        if picked.dim() == len(lhs.shape) and picked.shape[0] != 1:
+            picked = picked.index_select(0, lhs.indices._data)
         return RowSparseNDArray(
             NDArray._wrap(lhs.values._data * picked, lhs.context),
             lhs.indices, lhs.shape, ctx=lhs.context,

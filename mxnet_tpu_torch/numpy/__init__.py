@@ -38,8 +38,9 @@ import torch
 from ..base import MXNetError
 from ..context import as_context, current_context  # noqa: F401
 from ..ndarray.ndarray import NDArray, _host_tensor
+from ..ops import npi as _npi
 from ..ops import registry as _reg
-from ..ops.tensor import to_torch_dtype
+from ..ops.tensor import _pad_index, to_torch_dtype
 
 __all__ = ["ndarray", "array", "zeros", "ones", "empty", "full", "arange",
            "linspace", "logspace", "eye", "identity", "meshgrid"]
@@ -443,8 +444,9 @@ _UNARY = {
     "isinf": ("isinf", None),
     "isfinite": ("isfinite", None),
     "logical_not": ("_npi_logical_not", None),
-    "sort": (None, lambda a, axis=-1: torch.sort(a, dim=axis,
-                                                 stable=True)[0]),
+    "sort": (None, lambda a, axis=-1: torch.sort(
+        a.reshape(-1) if axis is None else a, dim=-1 if axis is None
+        else axis, stable=True)[0]),
     "deg2rad": ("_npi_deg2rad", None),
     "rad2deg": ("_npi_rad2deg", None),
     "signbit": ("_npi_signbit", None),
@@ -647,24 +649,112 @@ def _cast(a, dtype):
         to_torch_dtype(dtype) != to_torch_dtype(a.dtype) else a
 
 
-def _make_reduce(name, op, has_dtype=True):
-    def f(a, axis=None, dtype=None, keepdims=False, out=None, **kwargs):
-        a = _cast(a, dtype if has_dtype else None)
-        return _op(op, [a], {"axis": _axis(axis), "keepdims": keepdims},
-                   out=out)
+# a reduction's value where ``where`` masks an element out, and its
+# combination with ``initial``
+_IDENTITY = {"sum": 0, "nansum": 0, "prod": 1, "nanprod": 1, "all": True,
+             "any": False}
+_WITH_INITIAL = {"sum": torch.add, "nansum": torch.add, "prod": torch.mul,
+                 "nanprod": torch.mul, "max": torch.maximum,
+                 "min": torch.minimum}
 
-    f.__name__ = name
+
+def _reduce(kind, x, mask, dims, keepdims, dt, initial):
+    """numpy's ``kind`` reduction of ``x`` over ``dims``: ``dt`` (or None)
+    is both the accumulation and the result type, ``initial`` (or None)
+    the value the reduction starts from, ``mask`` (or None) the boolean
+    ``where``: an element it masks out counts as the reduction's
+    identity, and a masked-out slice of a max or min takes ``initial``
+    (numpy raises without one)."""
+    if dt is not None and kind != "mean":
+        x = x.to(dt)
+    if kind.startswith("nan") and x.is_floating_point():
+        x = torch.where(torch.isnan(x), torch.full_like(
+            x, _IDENTITY[kind]), x)
+    if mask is not None:
+        mask = torch.broadcast_to(mask.bool(), x.shape)
+        if kind in ("max", "min"):
+            if initial is None and bool((mask.sum(dims) == 0).any()):
+                raise ValueError("zero-size reduction %s under where= needs "
+                                 "initial=" % kind)
+            info = torch.finfo if x.is_floating_point() else torch.iinfo
+            edge = info(x.dtype).min if kind == "max" \
+                else info(x.dtype).max
+            if x.is_floating_point():
+                edge = -math.inf if kind == "max" else math.inf
+            x = torch.where(mask, x, torch.full_like(x, edge))
+        elif kind != "mean":
+            x = torch.where(mask, x, torch.full_like(x, _IDENTITY[kind]))
+    if kind == "mean":
+        if dt is None:
+            xf = _npi._float(x)
+        else:
+            xf = x.to(dt if dt.is_floating_point else torch.float64)
+        if mask is None:
+            out = torch.mean(xf, dims, keepdim=keepdims)
+        else:
+            out = torch.where(mask, xf, torch.zeros_like(xf)).sum(
+                dims, keepdim=keepdims) / mask.sum(
+                    dims, keepdim=keepdims).to(xf.dtype)
+        return out if dt is None else out.to(dt)
+    if kind in ("all", "any"):
+        out = _npi._np_all(x, dims, keepdims) if kind == "all" \
+            else _npi._np_any(x, dims, keepdims)
+    elif kind in ("max", "min"):
+        out = (_npi._amax if kind == "max" else _npi._amin)(x, dims,
+                                                             keepdims)
+    elif dt is not None:
+        # in dt: an integer sum or product wraps in it, as numpy's does
+        out = x.clone()
+        for d in sorted(dims, reverse=True):
+            out = (torch.sum if "sum" in kind else torch.prod)(
+                out, d, keepdim=keepdims, dtype=dt)
+    else:
+        out = (_npi._sum if "sum" in kind else _npi._prod)(x, dims,
+                                                            keepdims)
+    if initial is not None:
+        out = _WITH_INITIAL[kind](out, torch.tensor(
+            initial, dtype=out.dtype, device=out.device))
+    return out
+
+
+def _make_reduce(name, op, has_dtype=True, has_initial=False):
+    """numpy's ``name``: the registry op ``op`` for a plain call, else
+    :func:`_reduce` with ``dtype`` (both the accumulation and the result
+    type), ``initial`` (where numpy takes it) and ``where``; any other
+    keyword raises ``TypeError``."""
+    def f(a, axis=None, dtype=None, keepdims=False, out=None, initial=None,
+          where=None):
+        if initial is not None and not has_initial:
+            raise TypeError("%s() got an unexpected keyword argument "
+                            "'initial'" % name)
+        a = a if isinstance(a, NDArray) else array(a)
+        dt = to_torch_dtype(dtype) if has_dtype and dtype is not None \
+            else None
+        if where is True:
+            where = None
+        if dt is None and initial is None and where is None:
+            return _op(op, [a], {"axis": _axis(axis), "keepdims": keepdims},
+                       out=out)
+        dims = _npi._dims(_axis(axis), a.ndim)
+        ins = [a] if where is None else [a, where]
+        res = _invoke(lambda x, m=None: _reduce(
+            name, x, m, dims, bool(keepdims), dt, initial), ins, "_np_" + name)
+        return _to_out(res, out)
+
+    f.__name__ = f.__qualname__ = name
     return f
 
 
-sum = _make_reduce("sum", "_np_sum")  # noqa: A001
+sum = _make_reduce("sum", "_np_sum", has_initial=True)  # noqa: A001
 mean = _make_reduce("mean", "_npi_mean")
-prod = _make_reduce("prod", "_np_prod")
-max = _make_reduce("max", "_np_max", has_dtype=False)  # noqa: A001
-min = _make_reduce("min", "_np_min", has_dtype=False)  # noqa: A001
+prod = _make_reduce("prod", "_np_prod", has_initial=True)
+max = _make_reduce("max", "_np_max", has_dtype=False,  # noqa: A001
+                   has_initial=True)
+min = _make_reduce("min", "_np_min", has_dtype=False,  # noqa: A001
+                   has_initial=True)
 amax, amin = max, min
-nansum = _make_reduce("nansum", "_npi_nansum")
-nanprod = _make_reduce("nanprod", "_npi_nanprod")
+nansum = _make_reduce("nansum", "_npi_nansum", has_initial=True)
+nanprod = _make_reduce("nanprod", "_npi_nanprod", has_initial=True)
 all = _make_reduce("all", "_np_all", has_dtype=False)  # noqa: A001
 any = _make_reduce("any", "_np_any", has_dtype=False)  # noqa: A001
 
@@ -688,8 +778,10 @@ def argmin(a, axis=None, out=None):
 
 
 def argsort(a, axis=-1):
-    return _invoke(lambda x: torch.sort(x, dim=axis, stable=True)[1].to(
-        torch.int32), [a], "_np_argsort")
+    """Stable; ``axis=None`` sorts the flattened array, as numpy does."""
+    return _invoke(lambda x: torch.sort(
+        x.reshape(-1) if axis is None else x, dim=-1 if axis is None
+        else axis, stable=True)[1].to(torch.int32), [a], "_np_argsort")
 
 
 def cumsum(a, axis=None, dtype=None):
@@ -730,7 +822,19 @@ def moveaxis(a, source, destination):
 
 
 def expand_dims(a, axis):
-    return _op("expand_dims", [a], {"axis": axis})
+    """``axis`` an int or a tuple of ints, numpy's positions in the
+    result."""
+    if not isinstance(axis, (tuple, list)):
+        return _op("expand_dims", [a], {"axis": axis})
+    a = _arrs([a])[0]
+    nd = a.ndim + len(axis)
+    at = sorted(int(x) % nd for x in axis)
+    if len(set(at)) != len(at):
+        raise ValueError("repeated axis in expand_dims: %s" % (axis,))
+    shape = list(a.shape)
+    for x in at:
+        shape.insert(x, 1)
+    return reshape(a, tuple(shape))
 
 
 def squeeze(a, axis=None):
@@ -742,7 +846,11 @@ def broadcast_to(a, shape):
 
 
 def concatenate(seq, axis=0, out=None):
-    return _op("_npi_concatenate", list(seq), {"axis": axis}, out=out)
+    """``axis=None`` flattens each input first, as numpy does."""
+    seq = list(seq)
+    if axis is None:
+        seq, axis = [reshape(x, (-1,)) for x in _arrs(seq)], 0
+    return _op("_npi_concatenate", seq, {"axis": axis}, out=out)
 
 
 def stack(arrays, axis=0, out=None):
@@ -836,13 +944,82 @@ def atleast_1d(*arys):
     return outs[0] if len(outs) == 1 else outs
 
 
+_PAD_STATS = {"maximum": lambda x, d: torch.amax(x, d, keepdim=True),
+              "minimum": lambda x, d: torch.amin(x, d, keepdim=True),
+              "mean": lambda x, d: torch.mean(_npi._float(x), d,
+                                              keepdim=True),
+              "median": lambda x, d: torch.quantile(
+                  _npi._float(x), 0.5, d, keepdim=True)}
+
+
+def _pad_axis(x, d, lo, hi, mode, value):
+    """``x`` padded by ``lo`` and ``hi`` along ``d`` as numpy's ``mode``
+    pads one axis (with numpy's defaults: the whole axis for a
+    statistic, end values 0 for a ramp, even reflection)."""
+    n = x.shape[d]
+    if mode in ("constant", "empty"):
+        size = list(x.shape)
+        parts = []
+        for w, v in ((lo, value[0]), (hi, value[1])):
+            size[d] = w
+            parts.append(torch.full(size, v, dtype=x.dtype, device=x.device))
+        return torch.cat([parts[0], x, parts[1]], d)
+    if mode in ("edge", "wrap", "reflect", "symmetric"):
+        return x.index_select(d, _pad_index(n, lo, hi, mode, x.device))
+    if mode in _PAD_STATS:
+        stat = _PAD_STATS[mode](x, d)
+        if not x.is_floating_point():
+            stat = torch.round(stat)
+        stat = stat.to(x.dtype)
+        left = stat.expand(*[lo if i == d else s
+                             for i, s in enumerate(x.shape)])
+        right = stat.expand(*[hi if i == d else s
+                              for i, s in enumerate(x.shape)])
+        return torch.cat([left, x, right], d)
+    if mode == "linear_ramp":
+        edges = (x.narrow(d, 0, 1), x.narrow(d, n - 1, 1))
+        ramps = []
+        for w, edge, flip in ((lo, edges[0], False), (hi, edges[1], True)):
+            shape = [1] * x.dim()
+            shape[d] = w
+            i = torch.arange(w, device=x.device).reshape(shape)
+            ft = x.dtype if x.is_floating_point() else torch.float64
+            e = edge.to(ft)
+            # an integer ramp rounds down, as numpy's linspace does
+            ramp = (i.to(ft) * (e / w)) if w else x.narrow(d, 0, 0)
+            ramp = (ramp if x.is_floating_point() else ramp.floor()).to(
+                x.dtype)
+            ramps.append(ramp.flip(d) if flip else ramp)
+        return torch.cat([ramps[0], x, ramps[1]], d)
+    raise ValueError("mode %r is not supported (one of constant, edge, "
+                     "linear_ramp, maximum, mean, median, minimum, reflect, "
+                     "symmetric, wrap, empty)" % (mode,))
+
+
 def pad(a, pad_width, mode="constant", constant_values=0):
+    """numpy's ``pad`` in every mode ``jnp.pad`` takes, with numpy's
+    defaults for each (``empty`` pads with zeros, as jnp does); the
+    registered ``pad`` op's own modes go through it."""
     a = _arrs([a])[0]
     pw = _onp.broadcast_to(_onp.asarray(pad_width, dtype=_onp.int64),
                            (a.ndim, 2))
-    return _op("pad", [a], {"mode": mode,
-                            "pad_width": tuple(int(v) for v in pw.ravel()),
-                            "constant_value": constant_values})
+    if mode in ("constant", "edge", "reflect") \
+            and _onp.ndim(constant_values) == 0:
+        return _op("pad", [a], {"mode": mode,
+                                "pad_width": tuple(int(v) for v in
+                                                   pw.ravel()),
+                                "constant_value": constant_values})
+    values = _onp.broadcast_to(_onp.asarray(
+        constant_values if mode == "constant" else 0), (a.ndim, 2))
+
+    def fn(x):
+        for d in range(x.dim()):
+            lo, hi = int(pw[d, 0]), int(pw[d, 1])
+            if lo or hi:
+                x = _pad_axis(x, d, lo, hi, mode, values[d].tolist())
+        return x
+
+    return _invoke(fn, [a], "_np_pad")
 
 
 def diag(v, k=0):

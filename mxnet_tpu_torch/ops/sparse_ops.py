@@ -124,8 +124,8 @@ def _bind(lib):
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_longlong
     n_out = ctypes.POINTER(i)
-    # data, indptr, cols, rhs, out; m, n, kdim; transpose_a; stream
-    lib.mxtt_csr_dot.argtypes = [p] * 5 + [ll] * 3 + [i, p, n_out]
+    # data, indptr, cols, rhs, out; m, n, kdim, nnz; transpose_a; stream
+    lib.mxtt_csr_dot.argtypes = [p] * 5 + [ll] * 4 + [i, p, n_out]
     lib.mxtt_csr_dot.restype = i
     # route; w, g, idx, s0, s1, lr, t; u, c, n; lr_mult, wd, rescale,
     # clip, mu, b1, b2, 1-b1, 1-b2, eps; stream
@@ -147,6 +147,7 @@ def _launch(lib, owner, entry, *args):
     if err != 0:
         raise MXNetError("%s launch failed: %s (%d)" % (
             owner.__name__, lib.mxtt_sparse_error_string(err).decode(), err))
+    return launched.value
 
 
 def _check(what, t, dtype, dev, ndim=None):
@@ -185,19 +186,20 @@ def csr_dot(data, indptr, indices, rhs, shape, transpose_a=False):
     _check("csr_dot indices", indices, torch.int64, dev, 1)
     _check("csr_dot rhs", rhs, torch.float32, dev, 2)
     kdim = rhs.shape[1]
-    if transpose_a:
-        out = torch.zeros((n, kdim), dtype=torch.float32, device=dev)
-    else:
-        out = torch.empty((m, kdim), dtype=torch.float32, device=dev)
-    if m and kdim:
+    # transposed, the library zeroes the output before its kernel
+    out = torch.empty((n if transpose_a else m, kdim), dtype=torch.float32,
+                      device=dev)
+    if out.numel():
         lib = _load()
         with torch.cuda.device(dev):
-            _launch(lib, csr_dot, lib.mxtt_csr_dot, data.data_ptr(),
-                    indptr.data_ptr(), indices.data_ptr(), rhs.data_ptr(),
-                    out.data_ptr(), m, n, kdim, int(bool(transpose_a)),
-                    torch.cuda.current_stream(dev).cuda_stream)
+            launched = _launch(
+                lib, csr_dot, lib.mxtt_csr_dot, data.data_ptr(),
+                indptr.data_ptr(), indices.data_ptr(), rhs.data_ptr(),
+                out.data_ptr(), m, n, kdim, data.shape[0],
+                int(bool(transpose_a)),
+                torch.cuda.current_stream(dev).cuda_stream)
         if transpose_a:
-            _graph_cache.count(csr_dot, "transposed_launches")
+            _graph_cache.count(csr_dot, "transposed_launches", launched)
     return out
 
 

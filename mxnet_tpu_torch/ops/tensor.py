@@ -630,11 +630,18 @@ def _slice_like(data, shape_like, axes=()):
 
 
 def _pad_index(n, lo, hi, mode, device):
-    """Source index of each padded position along one axis."""
+    """Source index of each padded position along one axis: ``edge``,
+    ``reflect`` (the edge not repeated), and for ``mx.np.pad`` numpy's
+    ``wrap`` and ``symmetric`` (the edge repeated)."""
     pos = torch.arange(-lo, n + hi, device=device)
     if mode == "edge":
         return pos.clamp(0, n - 1)
-    period = 2 * (n - 1)                       # reflect, edge not repeated
+    if mode == "wrap":
+        return pos % n
+    if mode == "symmetric":
+        pos = pos % (2 * n)
+        return torch.where(pos >= n, 2 * n - 1 - pos, pos)
+    period = 2 * (n - 1)
     pos = pos.abs() % period if period else torch.zeros_like(pos)
     return torch.where(pos >= n, period - pos, pos)
 

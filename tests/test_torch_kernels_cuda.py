@@ -1853,12 +1853,13 @@ def _csr(rng, m, n, per_row, empty_rows=()):
 @pytest.mark.parametrize("transpose_a", [False, True])
 @pytest.mark.parametrize("kdim", [1, 128])
 @pytest.mark.parametrize("m,n,per_row", [(300, 1000, 22), (64, 50, 0),
-                                         (33, 7, 7)])
+                                         (33, 7, 7), (0, 3, 0)])
 def test_csr_dot_matches_plain_on_card(card, transpose_a, kdim, m, n,
                                        per_row):
     """O7 in both modes against its plain version: K 1 and 128, rows with
-    no nonzeros, nnz 0 and full rows; within 1e-5 of the largest value
-    (the sums run in another order, transposed by atomics)."""
+    no nonzeros, nnz 0, full rows and no rows (no kernel launched; the
+    transposed output zeroed); within 1e-5 of the largest value (the sums
+    run in another order, transposed by atomics)."""
     from mxnet_tpu_torch.ops import sparse_ops as sops
 
     rng = np.random.default_rng(m + kdim)
@@ -1868,12 +1869,130 @@ def test_csr_dot_matches_plain_on_card(card, transpose_a, kdim, m, n,
         (m if transpose_a else n, kdim)).astype(np.float32)).to(card)
     before = sops.csr_dot.launches
     got = sops.csr_dot(data, indptr, cols, rhs, (m, n), transpose_a)
-    assert sops.csr_dot.launches == before + 1
+    assert sops.csr_dot.launches == before + (1 if m else 0)
     want = sops.csr_dot_ref(data, indptr, cols, rhs, (m, n), transpose_a)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    if want.numel():
+        scale = max(float(want.abs().max()), 1.0)
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+def _csr_case(case):
+    """(m, n, indptr, cols) of a named O7 case on the host, its values
+    and rhs to be drawn by the caller:
+    - ``hot``: 22 columns a row from 4,000, column 7 in every row (the
+      worst hot id of a skewed batch);
+    - ``tile_edge``: 1,001 rows (no tile size divides it), 5 a row;
+    - ``wide_tiles``: 40 rows of 3,000 columns each out of 100,000, so
+      that a warp step meets many distinct columns and a row is long;
+    - ``out_of_range``: 9 a row with -1, n and n + 5 planted;
+    - ``empty``: every third row empty, and the first and last;
+    - ``no_nonzeros``: 50 rows, nnz 0."""
+    rng = np.random.default_rng(len(case))
+    m, n, per_row = {"hot": (2000, 4000, 22), "tile_edge": (1001, 300, 5),
+                     "wide_tiles": (40, 100000, 3000),
+                     "out_of_range": (200, 90, 9), "empty": (300, 500, 12),
+                     "no_nonzeros": (50, 60, 0)}[case]
+    indptr, cols = [0], []
+    for r in range(m):
+        k = per_row
+        if case == "empty" and (r % 3 == 0 or r == m - 1):
+            k = 0
+        row = rng.choice(n, size=k, replace=False)
+        if case == "hot" and 7 not in row:
+            row[0] = 7
+        if case == "out_of_range":
+            row[rng.choice(k, 3, replace=False)] = [-1, n, n + 5]
+        cols.extend(sorted(row.tolist()))
+        indptr.append(len(cols))
+    return m, n, torch.tensor(indptr, dtype=torch.int64), \
+        torch.tensor(cols, dtype=torch.int64)
+
+
+def _csr_operands(card, case, kdim, transpose_a, misaligned=False):
+    """A case's operands on the card; ``misaligned`` puts rhs one float
+    past a 16-byte boundary (the kernels' scalar column path)."""
+    m, n, indptr, cols = _csr_case(case)
+    rng = np.random.default_rng(kdim)
+    data = torch.from_numpy(rng.standard_normal(cols.shape[0]).astype(
+        np.float32))
+    rows = m if transpose_a else n
+    rhs = torch.from_numpy(rng.standard_normal((rows, kdim)).astype(
+        np.float32)).to(card)
+    if misaligned:
+        flat = torch.empty(rows * kdim + 1, device=card)
+        flat[1:] = rhs.reshape(-1)
+        rhs = flat[1:].view(rows, kdim)
+        assert rhs.data_ptr() % 16 and rhs.is_contiguous()
+    return (m, n), data.to(card), indptr.to(card), cols.to(card), rhs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose_a", [False, True])
+@pytest.mark.parametrize("kdim", [1, 4, 128])
+@pytest.mark.parametrize("case", ["hot", "tile_edge", "wide_tiles",
+                                  "out_of_range", "empty", "no_nonzeros"])
+def test_csr_dot_tile_cases_match_plain_on_card(card, case, kdim,
+                                                transpose_a):
+    """O7's tile design against its plain version: a column in every row,
+    rows across a tile's edge, many distinct columns a warp step and
+    long rows, columns outside [0, n) (skipped; the plain
+    version is given the same matrix without them), empty rows and nnz
+    0; K 1, 4 and 128.  One launch a call; within 1e-5 of the largest
+    value (the sums run in another order)."""
+    from mxnet_tpu_torch.ops import sparse_ops as sops
+
+    shape, data, indptr, cols, rhs = _csr_operands(card, case, kdim,
+                                                   transpose_a)
+    keep = (cols >= 0) & (cols < shape[1])
+    rows = sops.csr_rows(indptr, shape[0], cols.shape[0])
+    ref_indptr = torch.zeros_like(indptr)
+    ref_indptr[1:] = torch.bincount(rows[keep], minlength=shape[0]).cumsum(0)
+    before = sops.csr_dot.launches
+    got = sops.csr_dot(data, indptr, cols, rhs, shape, transpose_a)
+    assert sops.csr_dot.launches == before + 1
+    want = sops.csr_dot_ref(data[keep], ref_indptr, cols[keep], rhs, shape,
+                            transpose_a)
     torch.cuda.synchronize()
     assert got.shape == want.shape
     scale = max(float(want.abs().max()) if want.numel() else 0.0, 1.0)
     assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose_a", [False, True])
+@pytest.mark.parametrize("kdim", [3, 4, 128])
+def test_csr_dot_scalar_columns_match_plain_on_card(card, kdim,
+                                                    transpose_a):
+    """K not a multiple of 4, or rhs off a 16-byte boundary, takes the
+    kernels' scalar column path; within 1e-5 of the largest value."""
+    from mxnet_tpu_torch.ops import sparse_ops as sops
+
+    shape, data, indptr, cols, rhs = _csr_operands(
+        card, "hot", kdim, transpose_a, misaligned=kdim != 3)
+    got = sops.csr_dot(data, indptr, cols, rhs, shape, transpose_a)
+    want = sops.csr_dot_ref(data, indptr, cols, rhs.contiguous(), shape,
+                            transpose_a)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= \
+        1e-5 * max(float(want.abs().max()), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kdim", [1, 128])
+def test_csr_dot_forward_is_bitwise_repeatable_on_card(card, kdim):
+    """The forward has no atomics: two runs are bitwise equal, at the hot
+    case and at a Zipf-skewed CTR batch's shape (22 a row)."""
+    from mxnet_tpu_torch.ops import sparse_ops as sops
+
+    for case in ("hot", "wide_tiles"):
+        shape, data, indptr, cols, rhs = _csr_operands(card, case, kdim,
+                                                       False)
+        a = sops.csr_dot(data, indptr, cols, rhs, shape)
+        b = sops.csr_dot(data, indptr, cols, rhs, shape)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
