@@ -373,7 +373,33 @@ Phases, each fatal on failure:
              at path A's rows (within 1e-6 of the largest value; an
              empty gradient a no-op), each queued behind a sleep beside
              its bound, its plain version and a library yardstick
-             (``torch.sparse.mm``, ``torch.optim``'s sparse steps).
+             (``torch.sparse.mm``, ``torch.optim``'s sparse steps);
+22. rnn    — the recurrent layers (``gluon.rnn``, the ``RNN`` op) over
+             cuDNN's fused RNN through torch: no hand-written kernel.
+             (a) upstream ``example/gluon/word_language_model``'s
+             ``RNNModel`` at its large configuration (embedding = hidden
+             = 1,500, 2 LSTM layers, dropout 0.65, the decoder tied to
+             the embedding) over WikiText-2's vocabulary of 33,278, a
+             seeded Zipf token stream, batch 32, bptt 35, f32 with
+             torch's TF32 defaults, sgd lr 1.0 and the script's clip
+             (O3, then O2): 33 steps eager, then 33 with the LSTM
+             hybridized (3 of each untimed), the hidden state carried and
+             detached; step ms, tokens/s, MFU, one profiled step's idle
+             share and kernels by kind, peak memory, the LSTM's graph
+             counters (every hybridized step a graph pair, no call
+             eager) and the loss falling; then ``train_ctc.py``'s CTCNet
+             and ``sort_io.py``'s bidirectional SortNet, 20 adam steps
+             each, losses falling (O1-O3 counted from 0 just before (a)
+             and read after it); (b) the fused route against the plain
+             loop (``ops.nn._rnn_plain``) in every mode, uni- and
+             bidirectional, 2 layers, forward and the gradients of data,
+             parameters and states, and the LSTM at the model's shape,
+             f32 with TF32 off (RNN_FWD_TOL, RNN_GRAD_TOL); each mode
+             under AMP bf16 (its dtype, cuDNN's kernels by name); the
+             LSTM layer's forward + backward at the model's shape queued
+             behind a sleep, TF32 off and on, beside its operation bound
+             and the plain loop; a hybridized ``LSTMCell`` unrolled under
+             ``record()`` against eager (its busy graph pair).
 
 Each phase logs the card's SM clock and its maximum when it starts.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -10468,6 +10494,569 @@ def sparse_phase(dev):
     return {"O7": lc["O7"], "O8": mf["O8"]}, o7, o8
 
 
+# -- phase 22: rnn, the recurrent layers (cuDNN's fused RNN) ---------------
+
+# upstream example/gluon/word_language_model's large configuration
+# (README: emsize = nhid = 1500, 2 LSTM layers, dropout 0.65, tied) at
+# WikiText-2's vocabulary, trained in f32 with sgd lr 1.0 and the
+# script's clip of 0.2 x bptt x batch
+RNN_LM = dict(vocab=33278, units=1500, layers=2, dropout=0.65, batch=32,
+              bptt=35, lr=1.0, clip=0.2)
+RNN_LM_STEPS = 30       # timed steps, eager and then hybridized
+RNN_LM_WARM = 3         # untimed steps before each
+RNN_MODES = ("rnn_tanh", "rnn_relu", "lstm", "gru")
+RNN_SMALL = dict(t=9, b=4, i=12, h=16, layers=2)
+# the fused route against the plain loop, f32 with TF32 off: forward
+# (out, h_n, c_n) and gradients (data, parameters, states)
+RNN_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
+RNN_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
+F32_FLOPS = 67e12      # H100 SXM data sheet, float32 outside the tensor cores
+TF32_FLOPS = 495e12    # same sheet, TF32 tensor cores, dense
+RNN_KINDS = (("cuDNN RNN", ("rnn", "lstm", "gru", "persist")),
+             ("sgd (O2)", ("multi_sgd",)), ("sum_sq (O3)", ("multi_sum_sq",)),
+             ("GEMMs", ("gemm", "nvjet", "cutlass", "sm90_", "xmma")),
+             ("softmax and loss", ("softmax", "nll", "gather", "scatter")),
+             ("embedding", ("embedding", "index")),
+             ("dropout and RNG", ("bernoulli", "dropout", "uniform",
+                                  "distribution")),
+             ("copies", ("copy",)), ("reductions", ("reduce_kernel",)),
+             ("elementwise", ("elementwise",)))
+
+
+def rnn_flops(t, b, i, h, layers, bidirectional=False):
+    """Forward operations of a stacked LSTM: 2 T B 4H (I + H) a layer and
+    direction (its products; the gates' elementwise work aside)."""
+    dirs = 2 if bidirectional else 1
+    total, ins = 0, i
+    for _ in range(layers):
+        total += dirs * 2 * t * b * 4 * h * (ins + h)
+        ins = h * dirs
+    return total
+
+
+@contextlib.contextmanager
+def tf32(on):
+    """cuDNN's and cuBLAS's TF32 switches for the block (both ``on``)."""
+    import torch
+
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 \
+        = on
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+def rnn_case(dev, mode, bidirectional, t, b, i, h, layers, seed):
+    """Seeded leaves for one recurrence: data (T, B, I), the per-layer
+    weights ``[(wx, wh, bx, bh), ...]`` (uniform in +-1/sqrt(H)), h0 and,
+    for the LSTM, c0, every one requiring grad."""
+    import torch
+
+    from mxnet_tpu_torch.ops.nn import _gates
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    dirs = 2 if bidirectional else 1
+    k = h ** -0.5
+
+    def leaf(*shape, scale=1.0):
+        x = (torch.rand(shape, generator=g) * 2 - 1) * scale
+        return x.to(dev).requires_grad_()
+
+    layer_w, ins = [], i
+    for _ in range(layers):
+        for _ in range(dirs):
+            gh = _gates(mode) * h
+            layer_w.append((leaf(gh, ins, scale=k), leaf(gh, h, scale=k),
+                            leaf(gh, scale=k), leaf(gh, scale=k)))
+        ins = h * dirs
+    return {"data": leaf(t, b, i), "layers": layer_w,
+            "h0": leaf(layers * dirs, b, h),
+            "c0": leaf(layers * dirs, b, h) if mode == "lstm" else None}
+
+
+def rnn_run(fn, case, mode, bidirectional, heads=None, params_only=False):
+    """``fn``'s (out, h_n, c_n) on ``case`` and, with ``heads``, the
+    gradients of (data, every weight, h0[, c0]) for those head
+    gradients."""
+    import torch
+
+    for t in rnn_leaves(case):
+        t.grad = None
+    out = fn(case["data"], case["layers"], case["h0"], case["c0"],
+             num_layers=len(case["layers"]) // (2 if bidirectional else 1),
+             mode=mode, bidirectional=bidirectional)
+    if heads is None:
+        return [o.detach() for o in out], None
+    used = [(o, g) for o, g in zip(out, heads)
+            if g is not None and o.requires_grad]
+    torch.autograd.backward([o for o, _ in used], [g for _, g in used])
+    leaves = rnn_leaves(case)
+    if params_only:
+        leaves = [w for layer in case["layers"] for w in layer]
+    return [o.detach() for o in out], [t.grad for t in leaves]
+
+
+def rnn_leaves(case):
+    return [case["data"]] + [w for layer in case["layers"] for w in layer] \
+        + [case["h0"]] + ([case["c0"]] if case["c0"] is not None else [])
+
+
+def rnn_compare(case, mode, bidirectional, params_only=False, seed=5):
+    """The fused route (``ops.nn.rnn_fused``) against the plain loop
+    (``_rnn_plain``) on ``case``, with seeded head gradients on every
+    output: returns the worst abs errors of the forward and of the
+    gradients, and raises on a miss of RNN_FWD_TOL / RNN_GRAD_TOL."""
+    import torch
+
+    from mxnet_tpu_torch.ops.nn import _rnn_plain, rnn_fused
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    out, _ = rnn_run(rnn_fused, case, mode, bidirectional)
+    heads = [torch.randn(o.shape, generator=g).to(o.device) for o in out]
+    if mode != "lstm":
+        heads[2] = None         # c_n is the given (or zero) state
+    got, got_g = rnn_run(rnn_fused, case, mode, bidirectional, heads,
+                         params_only)
+    want, want_g = rnn_run(_rnn_plain, case, mode, bidirectional, heads,
+                           params_only)
+    fwd_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    grad_err = max(float((a - b).abs().max())
+                   for a, b in zip(got_g, want_g) if b is not None)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **RNN_FWD_TOL)
+    for a, b in zip(got_g, want_g):
+        if b is not None:
+            torch.testing.assert_close(a, b, **RNN_GRAD_TOL)
+    return fwd_err, grad_err
+
+
+def rnn_checks(dev):
+    """(b): every mode, uni- and bidirectional, 2 layers at RNN_SMALL,
+    then the LSTM at the language model's shape, f32 with TF32 off; then
+    each mode under AMP bf16 (the op's dtype and the kernels cuDNN ran)."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.ops.nn import rnn_param_size
+
+    s = RNN_SMALL
+    with tf32(False):
+        for mode in RNN_MODES:
+            for bi in (False, True):
+                case = rnn_case(dev, mode, bi, s["t"], s["b"], s["i"],
+                                s["h"], s["layers"], seed=len(mode) + bi)
+                fe, ge = rnn_compare(case, mode, bi)
+                log("rnn check: %-8s %s T %d B %d I %d H %d, 2 layers: fused "
+                    "vs plain loop, forward max abs err %.3g, gradients %.3g"
+                    % (mode, "bidirectional " if bi else "unidirectional",
+                       s["t"], s["b"], s["i"], s["h"], fe, ge))
+        lm = RNN_LM
+        case = rnn_case(dev, "lstm", False, lm["bptt"], lm["batch"],
+                        lm["units"], lm["units"], lm["layers"], seed=11)
+        fe, ge = rnn_compare(case, "lstm", False, params_only=True)
+        log("rnn check: lstm at the language model's shape (T %d, B %d, "
+            "I = H %d, 2 layers): forward max abs err %.3g, parameter "
+            "gradients %.3g (tolerances: forward %s, gradients %s)"
+            % (lm["bptt"], lm["batch"], lm["units"], fe, ge, RNN_FWD_TOL,
+               RNN_GRAD_TOL))
+    ctx = mx.Context.from_device(dev)
+    rng = np.random.default_rng(3)
+    t, b, i, h = s["t"], s["b"], s["i"], s["h"]
+    for mode in RNN_MODES:
+        n = rnn_param_size(mode, 2, i, h, True)
+        arrays = [rng.standard_normal(shape).astype(np.float32) * 0.3
+                  for shape in ((t, b, i), (n,), (4, b, h), (4, b, h))]
+        ins = [mx.nd.array(a, ctx=ctx)
+               for a in arrays[:4 if mode == "lstm" else 3]]
+        attrs = dict(state_size=h, num_layers=2, mode=mode,
+                     bidirectional=True)
+        want = mx.nd.RNN(*ins, **attrs)[0].asnumpy()
+        amp.init("bfloat16")
+        try:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                got = mx.nd.RNN(*ins, **attrs)[0]
+                torch.cuda.synchronize()
+        finally:
+            amp.turn_off()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.self_device_time_total > 0
+                        and not e.key.startswith(("Memcpy", "Memset"))})
+        cudnn = [k for k in names if any(p in k.lower() for p in (
+            "rnn", "lstm", "gru", "persist", "cudnn"))]
+        if got.data().dtype != torch.bfloat16:
+            fail("rnn amp: %s gave %s, not bf16" % (mode, got.data().dtype))
+        err = float(np.abs(got.asnumpy() - want).max())
+        log("rnn amp: %-8s bf16 out, max abs err %.3g against f32 "
+            "(values up to %.3g); cuDNN's kernels: %s; all: %s"
+            % (mode, err, float(np.abs(want).max()),
+               ", ".join(k[:60] for k in cudnn) or "none",
+               "; ".join(k[:50] for k in names[:8])))
+        # a gross-error bound: bf16 recurrences differ from f32 by up to
+        # 3.3e-2 on the host at these inputs (rounding, not the route);
+        # the bf16 parity with the JAX package is held on the host
+        if not cudnn or err > 1e-1 * max(1.0, float(np.abs(want).max())):
+            fail("rnn amp: %s in bf16 is %.3g off the f32 result (cuDNN's "
+                 "kernels: %s)" % (mode, err, cudnn))
+
+
+def rnn_lstm_timing(dev, smi):
+    """The LSTM at the language model's shape: forward + backward of the
+    fused route queued behind a sleep, TF32 off and on, and the plain
+    loop (TF32 off), beside the operation bound over the f32 and TF32
+    peaks."""
+    from mxnet_tpu_torch.ops.nn import _rnn_plain, rnn_fused
+
+    lm = RNN_LM
+    case = rnn_case(dev, "lstm", False, lm["bptt"], lm["batch"],
+                    lm["units"], lm["units"], lm["layers"], seed=13)
+    import torch
+
+    g = torch.randn(lm["bptt"], lm["batch"], lm["units"], device=dev)
+    flops = 3 * rnn_flops(lm["bptt"], lm["batch"], lm["units"], lm["units"],
+                          lm["layers"])
+
+    def step(fn):
+        def call(_):
+            out, _h, _c = fn(case["data"], case["layers"], case["h0"],
+                             case["c0"], num_layers=lm["layers"],
+                             mode="lstm")
+            out.backward(g)
+        return call
+
+    out = {"flops": flops, "bound_f32_ms": flops / F32_FLOPS * 1e3,
+           "bound_tf32_ms": flops / TF32_FLOPS * 1e3}
+    with tf32(False):
+        out["ms_tf32_off"] = queued_ms(step(rnn_fused), 10)
+        out["plain_ms"] = queued_ms(step(_rnn_plain), 3, warmup=1)
+    with tf32(True):
+        out["ms_tf32_on"] = queued_ms(step(rnn_fused), 10)
+    log("rnn timing: LSTM layer at T %d, B %d, I = H %d, 2 layers, forward "
+        "+ backward (%.1f GFLOP), queued: cuDNN %.3f ms with TF32 off (%.1f%% "
+        "of the f32 bound %.3f), %.3f ms with TF32 on (%.1f%% of the TF32 "
+        "bound %.3f); the plain loop %.3f ms (TF32 off) [%s]"
+        % (lm["bptt"], lm["batch"], lm["units"], flops / 1e9,
+           out["ms_tf32_off"], 100 * out["bound_f32_ms"] / out["ms_tf32_off"],
+           out["bound_f32_ms"], out["ms_tf32_on"],
+           100 * out["bound_tf32_ms"] / out["ms_tf32_on"],
+           out["bound_tf32_ms"], out["plain_ms"], smi))
+    return out
+
+
+def rnn_model_class(mx):
+    """``RNNModel`` as upstream's ``word_language_model/model.py``
+    defines it (a user's ``gluon.Block``), LSTM only."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn, rnn
+
+    class RNNModel(gluon.Block):
+        def __init__(self, vocab_size, num_embed, num_hidden, num_layers,
+                     dropout=0.5, tie_weights=False, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.drop = nn.Dropout(dropout)
+                self.encoder = nn.Embedding(
+                    vocab_size, num_embed,
+                    weight_initializer=mx.init.Uniform(0.1))
+                self.rnn = rnn.LSTM(num_hidden, num_layers, dropout=dropout,
+                                    input_size=num_embed)
+                if tie_weights:
+                    self.decoder = nn.Dense(vocab_size, in_units=num_hidden,
+                                            params=self.encoder.params)
+                else:
+                    self.decoder = nn.Dense(vocab_size, in_units=num_hidden)
+                self.num_hidden = num_hidden
+
+        def forward(self, inputs, hidden):
+            emb = self.drop(self.encoder(inputs))
+            output, hidden = self.rnn(emb, hidden)
+            output = self.drop(output)
+            decoded = self.decoder(output.reshape((-1, self.num_hidden)))
+            return decoded, hidden
+
+        def begin_state(self, *args, **kwargs):
+            return self.rnn.begin_state(*args, **kwargs)
+
+    return RNNModel
+
+
+def zipf_stream(n, vocab, seed, a=1.2):
+    """``n`` seeded token ids over ``vocab``, Zipf-distributed by rank."""
+    rng = np.random.default_rng(seed)
+    return (np.minimum(rng.zipf(a, n), vocab) - 1).astype(np.float32)
+
+
+def rnn_lm_run(dev, smi):
+    """(a): the language model at full width, trained as upstream's
+    ``train()`` does, eager then with the LSTM hybridized."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    lm = RNN_LM
+    ctx = mx.Context.from_device(dev)
+    mx.random.seed(0)
+    model = rnn_model_class(mx)(lm["vocab"], lm["units"], lm["units"],
+                                lm["layers"], lm["dropout"],
+                                tie_weights=True)
+    model.collect_params().initialize(mx.init.Xavier(), ctx=ctx)
+    trainer = gluon.Trainer(model.collect_params(), "sgd",
+                            {"learning_rate": lm["lr"], "momentum": 0,
+                             "wd": 0})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    n_steps = 2 * (RNN_LM_WARM + RNN_LM_STEPS + 1)     # + the profiled
+    t, b = lm["bptt"], lm["batch"]
+    stream = zipf_stream(n_steps * t * b + b, lm["vocab"], seed=1)
+    source = mx.nd.array(stream.reshape(b, -1).T, ctx=ctx)   # batchify
+    hidden = [model.begin_state(func=mx.nd.zeros, batch_size=b, ctx=ctx)]
+    params = list(model.collect_params().values())
+    losses, i = [], [0]
+
+    def step():
+        k = i[0] * t
+        i[0] += 1
+        data, target = source[k:k + t], source[k + 1:k + 1 + t]
+        # upstream's ``hidden = detach(hidden)``: the last step's graph is
+        # dropped before this step's forward (a graph held from an eager
+        # step keeps its parameters' AccumulateGrad nodes, made on the
+        # default stream, and the LSTM's capture would then raise)
+        hidden[0] = [h.detach() for h in hidden[0]]
+        with autograd.record():
+            output, hidden[0] = model(data, hidden[0])
+            L = loss_fn(output, target.reshape((-1,)))
+            L.backward()
+        grads = [p.grad(ctx) for p in params]
+        gluon.utils.clip_global_norm(grads, lm["clip"] * t * b)
+        trainer.step(b)
+        return L.detach()       # read after the steps; no graph held
+
+    flops = 3 * (rnn_flops(t, b, lm["units"], lm["units"], lm["layers"])
+                 + 2 * t * b * lm["units"] * lm["vocab"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = {}
+    for mode in ("eager", "hybridized"):
+        if mode == "hybridized":
+            model.rnn.hybridize()
+        times, outs = timed_steps(step, RNN_LM_WARM, RNN_LM_STEPS)
+        losses += [float(L.mean().asscalar()) for L in outs]
+        ms = [x * 1e3 for x in times]
+        _, wall, busy, averages = profiled_step(step)
+        kinds = kernel_kinds(averages, RNN_KINDS)
+        runs[mode] = {"p50": p50(ms), "min": ms[0], "max": ms[-1],
+                      "wall": wall * 1e3, "busy": busy}
+        log("rnn lm %s: step %.3f ms p50 (%.3f, %.3f), %.0f tokens/s; MFU "
+            "%.1f%% of the f32 peak (67 TFLOP/s), %.1f%% of TF32's (495), "
+            "%.1f GFLOP a step (cuDNN TF32 %s, cuBLAS TF32 %s) [%s]"
+            % (mode, p50(ms), ms[0], ms[-1], t * b / (p50(ms) / 1e3),
+               100 * flops / (p50(ms) / 1e3) / F32_FLOPS,
+               100 * flops / (p50(ms) / 1e3) / TF32_FLOPS, flops / 1e9,
+               "on" if torch.backends.cudnn.allow_tf32 else "off",
+               "on" if torch.backends.cuda.matmul.allow_tf32 else "off",
+               smi))
+        log("rnn lm %s: profiled step wall %.3f ms, kernels busy %.3f ms, "
+            "idle %.1f%% of it (%.1f%% of the unprofiled p50 step), %d "
+            "launches; by kind (ms): %s"
+            % (mode, wall * 1e3, busy, 100 * (1 - busy / (wall * 1e3)),
+               100 * (1 - busy / p50(ms)),
+               sum(e.count for e in averages if e.self_device_time_total > 0),
+               ", ".join("%s %.3f" % kv for kv in kinds.items() if kv[1])))
+        for ms_k, count, key in kernel_rows(averages, top=40)[0]:
+            if any(p in key.lower() for p in RNN_KINDS[0][1]):
+                log("rnn lm %s:   cuDNN RNN kernel %8.3f ms x%-3d %s"
+                    % (mode, ms_k, count, key[:90]))
+    st = model.rnn.stats()
+    log("rnn lm: peak memory %.2f GB; the hybridized LSTM's graphs: %s"
+        % (torch.cuda.max_memory_allocated(dev) / 1e9,
+           {k: st[k] for k in ("captures", "replays", "backward_replays",
+                               "busy_calls")}))
+    if st["replays"] < RNN_LM_STEPS or st["backward_replays"] < RNN_LM_STEPS \
+            or st["busy_calls"]:
+        fail("rnn lm: the hybridized LSTM did not run its steps as graph "
+             "pairs: %s" % st)
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        fail("rnn lm: the loss did not fall: %s" % losses)
+    log("rnn lm: loss %.4f at the first step, %.4f at the last (%d steps)"
+        % (losses[0], losses[-1], len(losses)))
+    return runs
+
+
+def rnn_examples(dev):
+    """(c): ``examples/ctc/train_ctc.py``'s CTCNet and
+    ``examples/bi-lstm-sort/sort_io.py``'s SortNet at their own widths,
+    as the scripts build them, 20 adam steps each on the card."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon import nn, rnn
+
+    class CTCNet(gluon.Block):
+        def __init__(self, hidden=48, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.lstm = rnn.LSTM(hidden, num_layers=1, layout="NTC")
+                self.proj = nn.Dense(5, flatten=False)
+
+        def forward(self, x):
+            return self.proj(self.lstm(x))
+
+    class SortNet(gluon.Block):
+        def __init__(self, hidden=64, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.embed = nn.Embedding(10, 32)
+                self.lstm = rnn.LSTM(hidden, num_layers=1, layout="NTC",
+                                     bidirectional=True)
+                self.proj = nn.Dense(10, flatten=False)
+
+        def forward(self, x):
+            return self.proj(self.lstm(self.embed(x)))
+
+    def ctc_batch(rs, n):           # train_ctc.render
+        imgs = np.zeros((n, 24, 8), np.float32)
+        labels = np.zeros((n, 3), np.float32)
+        for k in range(n):
+            col = 1
+            for j in range(3):
+                g = rs.randint(1, 5)
+                labels[k, j] = g - 1
+                w = rs.randint(3, 6)
+                imgs[k, col:col + w, 0:2 * g] = 1.0
+                col += w + rs.randint(1, 3)
+        imgs += rs.randn(n, 24, 8).astype(np.float32) * 0.05
+        return imgs, labels
+
+    def sort_batch(rs, n):          # sort_io.batch
+        x = rs.randint(0, 10, (n, 6))
+        return x.astype(np.float32), np.sort(x, axis=1).astype(np.float32)
+
+    ctx = mx.Context.from_device(dev)
+    out = {}
+    for name, net, loss_fn, lr, batch, make, flat in (
+            ("ctc", CTCNet(), gluon.loss.CTCLoss(layout="NTC",
+                                                 label_layout="NT"),
+             5e-3, 32, ctc_batch, False),
+            ("sort", SortNet(), gluon.loss.SoftmaxCrossEntropyLoss(), 3e-3,
+             64, sort_batch, True)):
+        mx.random.seed(0)
+        rs = np.random.RandomState(0)
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        tr = gluon.Trainer(net.collect_params(), "adam",
+                           {"learning_rate": lr})
+        losses = []
+        for _ in range(20):
+            x, y = make(rs, batch)
+            with autograd.record():
+                logits = net(mx.nd.array(x, ctx=ctx))
+                if flat:
+                    loss = loss_fn(logits.reshape((-3, 0)),
+                                   mx.nd.array(y.reshape(-1), ctx=ctx))
+                else:
+                    loss = loss_fn(logits, mx.nd.array(y, ctx=ctx))
+                loss = loss.mean()
+            loss.backward()
+            tr.step(batch)
+            losses.append(float(loss.asscalar()))
+        first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+        log("rnn %s example: 20 adam steps at batch %d on the card, loss "
+            "%.4f (mean of the first 3) -> %.4f (the last 3)"
+            % (name, batch, first, last))
+        if not np.isfinite(losses).all() or not last < first:
+            fail("rnn %s example: the loss did not fall: %s" % (name, losses))
+        out[name] = losses
+    return out
+
+
+def rnn_cell_unroll(dev, smi, units=256, t=35, b=32, iters=5):
+    """A hybridized ``LSTMCell`` unrolled ``t`` steps under ``record()``
+    against the same cell eager, with a backward each: the gradients
+    agree, and the counters show the pair busy from the second step of
+    every unroll on (the first step's backward is pending), so those
+    steps run eagerly; the step ms of each beside the other."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import rnn
+
+    ctx = mx.Context.from_device(dev)
+    cells = []
+    for _ in range(2):
+        cell = rnn.LSTMCell(units, input_size=units)
+        cell.initialize(mx.init.Xavier(), ctx=ctx)
+        cells.append(cell)
+    with torch.no_grad():
+        for a, c in zip(cells[0].parameters(), cells[1].parameters()):
+            c.copy_(a)
+    cells[1].hybridize()
+    x = mx.nd.array(np.random.default_rng(2).standard_normal(
+        (b, t, units)).astype(np.float32), ctx=ctx)
+    ms, grads = [], []
+    for cell in cells:
+        def one():
+            with autograd.record():
+                out, _ = cell.unroll(t, x, merge_outputs=True)
+                loss = (out * out).sum()
+            loss.backward()
+        times, _ = timed_steps(one, 2, iters)
+        ms.append(p50([x_ * 1e3 for x_ in times]))
+        grads.append([p.grad.detach().clone() for p in cell.parameters()])
+    for a, c in zip(*grads):
+        torch.testing.assert_close(c, a, rtol=1e-5, atol=1e-6)
+    st = cells[1].stats()
+    log("rnn cells: LSTMCell(%d) unrolled %d steps at batch %d under "
+        "record() with a backward: eager %.3f ms, hybridized %.3f ms p50, "
+        "gradients equal; the hybridized cell's pair: %s (the steps after "
+        "the first of each unroll find it busy and run eagerly) [%s]"
+        % (units, t, b, ms[0], ms[1],
+           {k: st[k] for k in ("captures", "replays", "backward_replays",
+                               "busy_calls")}, smi))
+    # two keys: the first step's (its begin states take no gradient) and
+    # the later steps'; the later key's pair is busy from its replayed
+    # step to the unroll's backward: t - 3 calls in the first unroll
+    # (after its eager first call and its capture), t - 2 in each other
+    busy = (t - 3) + (iters + 1) * (t - 2)
+    if st["busy_calls"] != busy:
+        fail("rnn cells: expected %d busy calls: %s" % (busy, st))
+    return ms
+
+
+def rnn_phase(dev, oo):
+    """(a) the word language model trained at full width, eager and
+    hybridized, and the two examples' nets, with O1-O3's launches counted
+    from 0 just before and read just after; then (b) the fused route
+    against the plain loop and the LSTM layer's timing.  Returns the
+    launches."""
+    import torch
+
+    smi = nvidia_smi_line()
+    start_profiler(dev)
+    torch.backends.cudnn.allow_tf32 = True          # torch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_opt_counts(oo)
+    rnn_lm_run(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rnn_examples(dev)
+    launches = opt_counts(oo)
+    log("rnn: O1-O3 launches on the main path: %s" % launches)
+    if not launches["O2"] or not launches["O3"]:
+        fail("rnn: sgd (O2) or the clip's sum of squares (O3) never "
+             "launched: %s" % launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rnn_checks(dev)
+    rnn_lstm_timing(dev, smi)
+    rnn_cell_unroll(dev, smi)
+    return launches
+
+
 def clocks_line():
     """The card's SM clock and its maximum now (nvidia-smi)."""
     r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
@@ -10490,13 +11079,13 @@ def nvidia_smi_line():
 PHASES = ("kernel", "flash", "optimizer", "serve", "parity", "fleet",
           "train", "train_parity", "hybridize", "rtc", "imperative",
           "imperative_parity", "resnet", "bert", "gluon", "np", "vision",
-          "gan", "ssd", "quant", "ops", "sparse")
+          "gan", "ssd", "quant", "ops", "sparse", "rnn")
 # the phases that launch K1-K4 and O1-O8, whose libraries the smoke
 # builds first
 NVCC_PHASES = {"kernel", "flash", "optimizer", "serve", "parity", "fleet",
                "train", "train_parity", "hybridize", "resnet", "bert",
                "gluon", "np", "vision", "gan", "ssd", "quant", "ops",
-               "sparse"}
+               "sparse", "rnn"}
 
 
 def kernel_entry(name, source, replaces, launches, timing, extra=None):
@@ -10620,6 +11209,7 @@ def main(argv):
     timed("ops", ops_phase, mx, dev)
     sparse_launches, o7, o8 = timed("sparse", sparse_phase, dev) \
         or (None, None, None)
+    rnn_launches = timed("rnn", rnn_phase, dev, oo)
     log("total: %.1f s" % (time.perf_counter() - t_all))
     if list(phases) != list(PHASES):
         log("ran phases %s only: no result lines" % ",".join(phases))
@@ -10657,15 +11247,16 @@ def main(argv):
         # the counterpart of a registered op of the JAX package
         kernel_entry("O1 multi_adamw (port-only)", opt_src,
                      "mxnet_tpu/ops/optimizer_ops.py:479",
-                     sum(p["O1"] for p in paths) + gan_o1 + ssd_o1,
+                     sum(p["O1"] for p in paths) + gan_o1 + ssd_o1
+                     + rnn_launches["O1"],
                      opt["O1"], {"bert_max_abs_err": bert_o1_err}),
         kernel_entry("O2 multi_sgd (port-only)", opt_src,
                      "mxnet_tpu/ops/optimizer_ops.py:314",
-                     resnet_o2 + vision_o2, opt["O2"]),
+                     resnet_o2 + vision_o2 + rnn_launches["O2"], opt["O2"]),
         kernel_entry("O3 multi_sum_sq (port-only)", opt_src,
                      "mxnet_tpu/ops/optimizer_ops.py:174",
                      flash_launches["O3"] + gluon_launches["O3"]
-                     + np_launches["O3"],
+                     + np_launches["O3"] + rnn_launches["O3"],
                      opt["O3"]),
         kernel_entry("O4 box_nms (port-only)",
                      "mxnet_tpu_torch/csrc/box_nms.cu",

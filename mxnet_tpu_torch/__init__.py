@@ -37,7 +37,7 @@ Ported so far:
 * DCGAN's layers and the op tail: ``Deconvolution`` and the transposed
   convolution layers, ``ReflectionPad2D``, ``mx.random`` and
   ``nd.random`` over the samplers of ``ops.random_ops``, and the rest of
-  the JAX package's ``ops/nn.py`` and ``ops/tensor.py`` (``RNN`` aside);
+  the JAX package's ``ops/nn.py`` and ``ops/tensor.py``;
 * the detection, contrib and misc op tail (``ops.vision``, ``ops.contrib``
   with O4, the NMS kernel, ``ops.misc``), control flow
   (``nd.contrib.foreach``/``while_loop``/``cond``), ``mx.operator``'s

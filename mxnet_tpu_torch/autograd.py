@@ -50,16 +50,25 @@ import torch
 from .base import MXNetError
 
 _state = threading.local()
-# every NDArray marked with attach_grad/mark_variables, by id (NDArrays
-# are unhashable): backward looks here for the leaf views in a graph
-_marked = weakref.WeakValueDictionary()
 
 
 def _st():
     if not hasattr(_state, "recording"):
         _state.recording = False
         _state.training = False
+        # the marked NDArrays whose leaf views this thread fed to recorded
+        # ops, by id (NDArrays are unhashable): this thread's backward
+        # looks here for the leaf views in its graph, and never at
+        # another thread's, whose gradient it would take or clear
+        _state.leaves = weakref.WeakValueDictionary()
     return _state
+
+
+def _fed_leaf(arr):
+    """Note that ``arr``'s leaf view went into a graph on this thread."""
+    leaves = _st().leaves
+    if leaves.get(id(arr)) is not arr:
+        leaves[id(arr)] = arr
 
 
 def is_recording():
@@ -221,7 +230,7 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     ``train_mode`` is accepted for parity."""
     heads, grads = _heads_and_grads(heads, head_grads)
     (outs, ograds), bare = _split_heads(heads, grads)
-    leaves = [a for a in list(_marked.values()) if a._leaf is not None]
+    leaves = [a for a in list(_st().leaves.values()) if a._leaf is not None]
     found = {}
     if outs:
         for a in leaves:

@@ -1,14 +1,14 @@
 """``gluon.contrib`` (the port's counterpart of
 ``mxnet_tpu/gluon/contrib/``; parity: python/mxnet/gluon/contrib/).
 
-``nn`` is here.  The JAX package's other names here, ``estimator``,
-``rnn``, ``cnn`` and ``data``, come with slice S9 (ROADMAP.md §1): each
-raises ``MXNetError`` naming S9 where it is reached.
+``nn`` and ``rnn`` are here.  The JAX package's other names here,
+``estimator``, ``cnn`` and ``data``, come with slice S9 (ROADMAP.md §1):
+each raises ``MXNetError`` naming S9 where it is reached.
 """
 from ...base import MXNetError
-from . import nn  # noqa: F401
+from . import nn, rnn  # noqa: F401
 
-_S9 = ("estimator", "rnn", "cnn", "data")
+_S9 = ("estimator", "cnn", "data")
 
 
 def __getattr__(name):

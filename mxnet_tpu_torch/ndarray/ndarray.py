@@ -168,6 +168,7 @@ class NDArray:
     def _leaf_view(self):
         if self._leaf is None:
             self._leaf = self._data.detach().requires_grad_()
+        autograd._fed_leaf(self)
         return self._leaf
 
     def _graph_input(self):
@@ -297,7 +298,6 @@ class NDArray:
         self._grad_req = grad_req
         self._grad = None if grad_req == "null" else grad_buf
         self._leaf = None
-        autograd._marked[id(self)] = self
 
     def _write_grad(self, g):
         """One backward's gradient, written by ``grad_req``: a torch sparse

@@ -10,7 +10,8 @@ first input, so they give ``mx.np.ndarray``s when fed them.
 ``set_np`` is a switch kept for the API: zero-dim and zero-size shapes
 are always legal in the port, so the flags only record what the user
 asked for (``is_np_shape``/``is_np_array`` report it).  The flags are
-per thread.  ``rnn`` comes with the ``RNN`` op (ROADMAP.md §1).
+per thread.  ``rnn`` is the ``RNN`` op (cuDNN's fused recurrence on
+the card).
 """
 from __future__ import annotations
 
@@ -112,6 +113,7 @@ deconvolution = _nd.Deconvolution
 fully_connected = _nd.FullyConnected
 pooling = _nd.Pooling
 dropout = _nd.Dropout
+rnn = _nd.RNN
 embedding = _nd.Embedding
 layer_norm = _nd.LayerNorm
 group_norm = _nd.GroupNorm

@@ -1,17 +1,17 @@
 """Neural-network operators: ``FullyConnected``, ``Convolution``,
 ``Deconvolution``, ``Pooling``, the norms, the activations and softmaxes,
 ``SoftmaxOutput``, ``Dropout``, ``Embedding``, the loss ops, the
-``_contrib_*`` attention helpers, ``UpSampling`` and
-``BilinearSampler``: every op of the JAX package's ``ops/nn.py`` but
-``RNN`` (it comes with ``gluon/rnn/``).
+``_contrib_*`` attention helpers, ``UpSampling``, ``BilinearSampler``
+and ``RNN``: every op of the JAX package's ``ops/nn.py``.
 
 The port's counterpart of the JAX package's ``ops/nn.py``, with the same
 names, attrs and semantics; the Gluon layers call these functions, so
 each op's rules live here once.  The JAX package runs these as plain
-XLA (``lax.conv_general_dilated``, ``lax.reduce_window``, ``jnp``): no
-Pallas kernel lies on this path, and the port's convolutions, transposed
-ones included, run through cuDNN (``torch.nn.functional.conv*d`` and
-``conv_transpose*d``).
+XLA (``lax.conv_general_dilated``, ``lax.reduce_window``, ``jnp``,
+``lax.scan``): no Pallas kernel lies on this path, and the port's
+convolutions, transposed ones included, and its recurrences run through
+cuDNN (``torch.nn.functional.conv*d`` and ``conv_transpose*d``; torch's
+fused ``_VF.lstm``/``gru``/``rnn_tanh``/``rnn_relu``).
 
 Layout: every spatial op takes ``layout``.  A channel-first layout
 (``NCW``/``NCHW``/``NCDHW``) takes OIHW-style weights; a channels-last
@@ -839,6 +839,189 @@ def _ctc_loss(data, label, data_lengths=None, label_lengths=None,
     loss = F.ctc_loss(logp, labels.clamp(0, c - 1), dat_len, lab_len,
                       blank=blank, reduction="none")
     return loss.to(data.dtype), torch.zeros_like(data)
+
+
+# ----------------------------------------------------------------------------
+# RNN (vanilla/LSTM/GRU) — parity: src/operator/rnn.cc:299
+# ----------------------------------------------------------------------------
+
+
+def _gates(mode):
+    return {"rnn_tanh": 1, "rnn_relu": 1, "lstm": 4, "gru": 3}[mode]
+
+
+def _unpack_rnn_params(params, mode, num_layers, input_size, state_size,
+                       bidirectional):
+    """Views into the reference's packed parameter vector (rnn-inl.h
+    layout): for each layer and direction ``W_x`` (G*H, in) then ``W_h``
+    (G*H, H); then, in the same order, every ``b_x`` and ``b_h``.  Returns
+    ``[(wx, wh, bx, bh), ...]`` a layer and direction, the forward
+    direction first."""
+    G = _gates(mode)
+    dirs = 2 if bidirectional else 1
+    offset = 0
+
+    def take(n, shape):
+        nonlocal offset
+        out = params[offset:offset + n].view(shape)
+        offset += n
+        return out
+
+    weights = []
+    for layer in range(num_layers):
+        in_size = input_size if layer == 0 else state_size * dirs
+        for _ in range(dirs):
+            weights.append((take(G * state_size * in_size,
+                                 (G * state_size, in_size)),
+                            take(G * state_size * state_size,
+                                 (G * state_size, state_size))))
+    biases = [(take(G * state_size, (G * state_size,)),
+               take(G * state_size, (G * state_size,)))
+              for _ in range(num_layers * dirs)]
+    return [w + b for w, b in zip(weights, biases)]
+
+
+def rnn_param_size(mode, num_layers, input_size, state_size,
+                   bidirectional=False):
+    """Length of the packed parameter vector (parity: rnn-inl.h)."""
+    G = _gates(mode)
+    dirs = 2 if bidirectional else 1
+    total = 0
+    for layer in range(num_layers):
+        in_size = input_size if layer == 0 else state_size * dirs
+        total += dirs * G * state_size * (in_size + state_size + 2)
+    return total
+
+
+_FUSED = {"rnn_tanh": torch._VF.rnn_tanh, "rnn_relu": torch._VF.rnn_relu,
+          "lstm": torch._VF.lstm, "gru": torch._VF.gru}
+
+
+def _fused_stack(mode, x, layers, h0, c0, bidirectional, train):
+    """One call of torch's fused recurrence over ``layers`` (each
+    ``(wx, wh, bx, bh)``, directions innermost): cuDNN's RNN on the
+    card, ATen's loop on the host.  Its own dropout is never used (it
+    ignores the port's generators and is a hazard under capture)."""
+    flat = [t for layer in layers for t in layer]
+    dirs = 2 if bidirectional else 1
+    n = len(layers) // dirs
+    if mode == "lstm":
+        out, h, c = _FUSED[mode](x, (h0, c0), flat, True, n, 0.0, train,
+                                 bidirectional, False)
+        return out, h, c
+    out, h = _FUSED[mode](x, h0, flat, True, n, 0.0, train, bidirectional,
+                          False)
+    return out, h, c0
+
+
+def rnn_fused(data, layers, state, state_cell=None, num_layers=1,
+              mode="lstm", bidirectional=False, p=0.0, training=False,
+              generator=None):
+    """The recurrence of the ``RNN`` op on a list of per-layer weights
+    (``[(wx, wh, bx, bh), ...]``, a layer and direction each, as
+    :func:`_unpack_rnn_params` gives them): the Gluon layers hand their
+    parameters here as they are.  ``data`` (T, B, I), ``state`` (and for
+    the LSTM ``state_cell``) (L*dirs, B, H).  Returns ``(out (T, B,
+    H*dirs), h_n, c_n)``; ``c_n`` of a mode other than the LSTM is
+    ``state_cell``, zeros where none was given, as in the JAX package.
+
+    With ``p > 0`` in train mode the output of every layer but the last
+    goes through the port's ``Dropout`` (``generator``), so the fused
+    function runs once a layer; otherwise once for the stack.  The gate
+    orders are torch's and the JAX package's alike (i, f, g, o; r, z, n
+    with the reset gate on ``W_h h + b_h``)."""
+    c0 = state_cell if state_cell is not None else torch.zeros_like(state)
+    dirs = 2 if bidirectional else 1
+    train = torch.is_grad_enabled() and any(
+        t.requires_grad for t in [data, state, c0]
+        + [w for layer in layers for w in layer])
+    if not (p > 0.0 and training) or num_layers == 1:
+        return _fused_stack(mode, data, layers, state, c0, bidirectional,
+                            train)
+    x, hs, cs = data, [], []
+    for layer in range(num_layers):
+        sl = slice(layer * dirs, (layer + 1) * dirs)
+        x, h, c = _fused_stack(mode, x, layers[sl], state[sl], c0[sl],
+                               bidirectional, train)
+        hs.append(h)
+        cs.append(c)
+        if layer < num_layers - 1:
+            x = _dropout(x, p=p, _mode="train", generator=generator)
+    return x, torch.cat(hs), torch.cat(cs)
+
+
+def _rnn_cell_step(mode, x, h, c, wx, wh, bx, bh):
+    if mode == "rnn_tanh":
+        return torch.tanh(x @ wx.T + bx + h @ wh.T + bh), c
+    if mode == "rnn_relu":
+        return torch.relu(x @ wx.T + bx + h @ wh.T + bh), c
+    if mode == "lstm":
+        gates = x @ wx.T + bx + h @ wh.T + bh
+        i, f, g, o = torch.chunk(gates, 4, dim=-1)
+        c2 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return torch.sigmoid(o) * torch.tanh(c2), c2
+    if mode == "gru":
+        rx, zx, nx = torch.chunk(x @ wx.T + bx, 3, dim=-1)
+        rh, zh, nh = torch.chunk(h @ wh.T + bh, 3, dim=-1)
+        r = torch.sigmoid(rx + rh)
+        z = torch.sigmoid(zx + zh)
+        n = torch.tanh(nx + r * nh)
+        return (1 - z) * n + z * h, c
+    raise ValueError(mode)
+
+
+def _rnn_plain(data, layers, state, state_cell=None, num_layers=1,
+               mode="lstm", bidirectional=False, p=0.0, training=False,
+               generator=None):
+    """:func:`rnn_fused`'s plain version: the JAX package's
+    ``_rnn_cell_step`` loop over time, a layer and direction at a time.
+    The tests and ``chip_smoke.py`` hold the fused route to it; nothing
+    on the main path calls it."""
+    c0 = state_cell if state_cell is not None else torch.zeros_like(state)
+    dirs = 2 if bidirectional else 1
+    x, h_out, c_out = data, [], []
+    for layer in range(num_layers):
+        outs = []
+        for d in range(dirs):
+            wx, wh, bx, bh = layers[layer * dirs + d]
+            h, c = state[layer * dirs + d], c0[layer * dirs + d]
+            seq = x if d == 0 else torch.flip(x, (0,))
+            ys = []
+            for xt in seq:
+                h, c = _rnn_cell_step(mode, xt, h, c, wx, wh, bx, bh)
+                ys.append(h)
+            ys = torch.stack(ys)
+            outs.append(ys if d == 0 else torch.flip(ys, (0,)))
+            h_out.append(h)
+            c_out.append(c)
+        x = outs[0] if dirs == 1 else torch.cat(outs, dim=-1)
+        if p > 0.0 and training and layer < num_layers - 1:
+            x = _dropout(x, p=p, _mode="train", generator=generator)
+    return x, torch.stack(h_out), torch.stack(c_out)
+
+
+@register("RNN", aliases=("rnn",), needs_rng=True, needs_mode=True,
+          inputs=("data", "parameters", "state", "state_cell"))
+def _rnn(data, parameters, state, state_cell=None, state_size=0,
+         num_layers=1, mode="lstm", bidirectional=False, p=0.0,
+         state_outputs=True, projection_size=None, use_sequence_length=False,
+         _mode="predict", generator=None):
+    """Parity: src/operator/rnn.cc:299, as the JAX package registers it:
+    ``data`` (T, B, I), the packed ``parameters`` (:func:`rnn_param_size`
+    long), ``state`` and, for the LSTM, ``state_cell`` (L*dirs, B, H).
+    Returns ``(out (T, B, H*dirs), h_n, c_n)`` whatever
+    ``state_outputs`` says.  ``projection_size`` and
+    ``use_sequence_length`` are accepted and ignored, as the JAX op
+    ignores them.  Dropout ``p`` between layers applies in train mode
+    only.  The recurrence is :func:`rnn_fused` (cuDNN on the card) on
+    views into ``parameters``; under AMP it runs in the target dtype."""
+    data, parameters, state, state_cell = _amp.transform_inputs(
+        "RNN", (data, parameters, state, state_cell))
+    layers = _unpack_rnn_params(parameters, mode, num_layers, data.shape[2],
+                                state_size, bidirectional)
+    return rnn_fused(data, layers, state, state_cell, num_layers=num_layers,
+                     mode=mode, bidirectional=bidirectional, p=p,
+                     training=_mode == "train", generator=generator)
 
 
 # ----------------------------------------------------------------------------

@@ -797,6 +797,58 @@ def test_bulked_segments_bitwise_equal_eager_on_two_threads_on_card(card):
         assert st["graphs"]["replays"] > 0, "segments replayed on the card"
 
 
+@pytest.mark.cuda
+def test_two_thread_gradients_equal_eager_in_forty_repeats_on_card(card):
+    """F19: the two-thread check above, 40 times eager (``bulk(0)`` in
+    each thread) and 40 times bulked.  Before the repair one thread's
+    backward cleared the other's leaf gradient now and then, and its
+    ``w.grad`` kept the zeros of ``attach_grad`` at the first step (the
+    probe, ``tools/torch_f19_probe.py``, saw it in 2 of 30 eager and 2
+    to 4 of 30 bulked repeats)."""
+    import contextlib
+    import threading
+
+    import mxnet_tpu_torch as mx
+
+    def work(seed, out, size):
+        rng = np.random.default_rng(seed)
+        ctx = mx.gpu(0)
+        with mx.engine.bulk(0) if size == 0 else contextlib.nullcontext():
+            w = mx.nd.array(rng.standard_normal((64, 64))
+                            .astype(np.float32), ctx=ctx)
+            x = mx.nd.array(rng.standard_normal((32, 64))
+                            .astype(np.float32), ctx=ctx)
+            w.attach_grad()
+            res = []
+            for _ in range(4):
+                with mx.autograd.record():
+                    h = mx.nd.tanh(mx.nd.dot(x, w)) * 1.5 + 0.25
+                    loss = (h * h).mean()
+                loss.backward()
+                res.append((loss.asnumpy(), w.grad.asnumpy()))
+        out[seed] = res
+
+    want = {}
+    for seed in (1, 2):
+        work(seed, want, 0)
+    failed = []
+    for rep in range(40):
+        for size in (0, None):
+            got = {}
+            threads = [threading.Thread(target=work, args=(s, got, size))
+                       for s in (1, 2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+                assert not t.is_alive()
+            for seed in (1, 2):
+                for step, (a, b) in enumerate(zip(got[seed], want[seed])):
+                    if not all(np.array_equal(p, q) for p, q in zip(a, b)):
+                        failed.append((rep, size, seed, step))
+    assert failed == [], failed
+
+
 # -- S6a: ResNet's graphs, with BatchNorm writing its running statistics ---
 # (chip_smoke's checks at a small size: f32, TF32 off, deterministic
 # cuDNN; each raises where the graphed path differs from eager by a bit)
@@ -2139,3 +2191,109 @@ def test_to_dlpack_for_write_aliases_a_card_array(card):
     r = torch.utils.dlpack.from_dlpack(a.to_dlpack_for_read())
     assert r.data_ptr() == a.data().data_ptr()
     np.testing.assert_array_equal((a + 1).asnumpy(), np.arange(6) + 11.0)
+
+
+# -- the recurrent layers: cuDNN's fused RNN (no hand-written kernel) -------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bidirectional", [False, True],
+                         ids=["uni", "bi"])
+@pytest.mark.parametrize("mode", chip_smoke.RNN_MODES)
+def test_rnn_fused_route_matches_plain_loop_on_card(card, mode,
+                                                    bidirectional):
+    """``ops.nn.rnn_fused`` (cuDNN) against ``_rnn_plain`` on the card, 2
+    layers, f32 with TF32 off: outputs, h_n, c_n and the gradients of
+    data, parameters and states, within chip_smoke's RNN_FWD_TOL and
+    RNN_GRAD_TOL (``rnn_compare`` raises on a miss)."""
+    s = chip_smoke.RNN_SMALL
+    with chip_smoke.tf32(False):
+        case = chip_smoke.rnn_case(card, mode, bidirectional, s["t"],
+                                   s["b"], s["i"], s["h"], s["layers"],
+                                   seed=7)
+        chip_smoke.rnn_compare(case, mode, bidirectional)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bidirectional", [False, True],
+                         ids=["uni", "bi"])
+def test_hybridized_lstm_layer_matches_eager_on_card(card, bidirectional):
+    """A hybridized ``rnn.LSTM`` (2 layers, dropout 0.3 between them in
+    train mode) replays its recorded calls as graph pairs, cuDNN's
+    kernels inside: outputs, states and gradients equal an eager twin's
+    from the same weights and the same generator state, and the counters
+    show captured graphs replayed, no call run eagerly."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import rnn
+
+    ctx = mx.gpu(0)
+    nets = []
+    for _ in range(2):
+        net = rnn.LSTM(32, num_layers=2, dropout=0.3, input_size=16,
+                       bidirectional=bidirectional)
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        nets.append(net)
+    with torch.no_grad():
+        for a, b in zip(nets[0].parameters(), nets[1].parameters()):
+            b.copy_(a)
+    nets[1].hybridize()
+    rng = np.random.default_rng(4)
+    dirs = 2 if bidirectional else 1
+    for step in range(4):
+        x = rng.standard_normal((7, 5, 16)).astype(np.float32)
+        h0 = rng.standard_normal((2 * dirs, 5, 32)).astype(np.float32)
+        res = []
+        for net in nets:
+            torch.cuda.manual_seed(step)
+            states = [mx.nd.array(h0, ctx=ctx), mx.nd.zeros_like(
+                mx.nd.array(h0, ctx=ctx))]
+            with autograd.record():
+                out, new = net(mx.nd.array(x, ctx=ctx), states)
+                loss = (out * out).sum() + (new[0] * new[1]).sum()
+            loss.backward()
+            res.append([out.asnumpy(), new[0].asnumpy(), new[1].asnumpy()]
+                       + [p.grad.cpu().numpy() for p in net.parameters()])
+        for a, b in zip(*res):
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-6)
+    st = nets[1].stats()
+    # the first call runs eagerly, the second captures; three replays
+    assert st["captures"] == 1 and st["replays"] == 3 \
+        and st["backward_replays"] == 3 and st["busy_calls"] == 0, st
+    # calls under no_grad in predict mode: one captured forward graph
+    x = mx.nd.array(rng.standard_normal((7, 5, 16)).astype(np.float32),
+                    ctx=ctx)
+    with autograd.predict_mode(), torch.no_grad():
+        want = nets[0](x).asnumpy()
+        for _ in range(3):
+            np.testing.assert_allclose(nets[1](x).asnumpy(), want,
+                                       rtol=1e-5, atol=1e-6)
+    st = nets[1].stats()
+    assert st["captures"] == 2 and st["replays"] == 5, st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", chip_smoke.RNN_MODES)
+def test_rnn_op_runs_in_bf16_under_amp_on_card(card, mode):
+    """Under AMP bf16 ``nd.RNN`` takes bf16 on the card (it is on the
+    target-dtype list) and stays within 2e-2 of its f32 result."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.ops.nn import rnn_param_size
+
+    ctx = mx.gpu(0)
+    rng = np.random.default_rng(9)
+    n = rnn_param_size(mode, 2, 12, 16, True)
+    arrays = [rng.standard_normal(s).astype(np.float32) * 0.3
+              for s in ((9, 4, 12), (n,), (4, 4, 16), (4, 4, 16))]
+    ins = [mx.nd.array(a, ctx=ctx)
+           for a in arrays[:4 if mode == "lstm" else 3]]
+    attrs = dict(state_size=16, num_layers=2, mode=mode, bidirectional=True)
+    want = [o.asnumpy() for o in mx.nd.RNN(*ins, **attrs)]
+    amp.init("bfloat16")
+    try:
+        got = mx.nd.RNN(*ins, **attrs)
+    finally:
+        amp.turn_off()
+    for g, w in zip(got, want):
+        assert g.data().dtype == torch.bfloat16
+        np.testing.assert_allclose(g.asnumpy(), w, rtol=2e-2, atol=2e-2)

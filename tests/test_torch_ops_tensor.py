@@ -84,10 +84,7 @@ def _f32(*shape, seed=0):
 
 # registered by the JAX package's ported op modules and not (yet) in the
 # port, each with its reason
-EXCLUDED = {
-    "RNN": "S9: comes with gluon/rnn/ (ROADMAP.md §1)",
-    "rnn": "alias of RNN (S9)",
-}
+EXCLUDED = {}
 THREE_MODULES = ("nn", "tensor", "random_ops")
 JAX_MODULES = THREE_MODULES + ("vision", "contrib", "misc", "control_flow",
                                "pallas_kernels", "paged_attention",

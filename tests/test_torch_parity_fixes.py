@@ -553,15 +553,13 @@ _DONE = ["", "autograd", "context", "engine", "gluon", "gluon.nn",
          "rtc", "operator", "telemetry", "name", "registry", "parallel",
          "sharding", "contrib", "numpy", "numpy.linalg", "numpy.random",
          "numpy_extension", "util", "nd.sparse", "io", "gluon.contrib",
-         "gluon.contrib.nn"]
+         "gluon.contrib.nn", "gluon.rnn", "gluon.contrib.rnn"]
 # mx.contrib's names that come with S9: each raises MXNetError naming it
 _CONTRIB_S9 = ["onnx", "text", "tensorboard", "svrg_optimization", "io",
                "autograd", "DataLoaderIter", "TrainingStateScope"]
 # Each public name of those modules that the port still lacks, with the
 # slice that brings it (ROADMAP.md §1), or why it has no counterpart.
 _MISSING = {
-    "RNN (ROADMAP.md §1 item 4)": ["gluon.rnn", "nd.RNN", "nd.rnn",
-                                   "numpy_extension.rnn"],
     "S8": ["kvstore", "gluon.nn.SyncBatchNorm", "Trainer.kvstore",
            "NDArray.sharding", "parallel.HostPipeline", "parallel.Mesh",
            "parallel.MeshScope", "parallel.as_jax_mesh",
@@ -592,7 +590,7 @@ _MISSING = {
            "model", "module", "monitor", "profiler", "recordio", "rnn",
            "runtime", "sym", "symbol", "test_utils", "visualization"]
     + ["contrib." + n for n in _CONTRIB_S9]
-    + ["gluon.contrib." + n for n in ("estimator", "rnn", "cnn", "data")],
+    + ["gluon.contrib." + n for n in ("estimator", "cnn", "data")],
     "none: no TPU in the port": ["tpu", "num_tpus", "context.tpu",
                                  "context.num_tpus", "Context.jax_device"],
     "none: JAX's tape and keys, not torch's": [
