@@ -10513,7 +10513,7 @@ RNN_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 F32_FLOPS = 67e12      # H100 SXM data sheet, float32 outside the tensor cores
 TF32_FLOPS = 495e12    # same sheet, TF32 tensor cores, dense
 RNN_KINDS = (("cuDNN RNN", ("rnn", "lstm", "gru", "persist")),
-             ("sgd (O2)", ("multi_sgd",)), ("sum_sq (O3)", ("multi_sum_sq",)),
+             ("sgd (O2)", ("multi_sgd",)), ("sum_sq (O3)", ("sum_sq_",)),
              ("GEMMs", ("gemm", "nvjet", "cutlass", "sm90_", "xmma")),
              ("softmax and loss", ("softmax", "nll", "gather", "scatter")),
              ("embedding", ("embedding", "index")),
